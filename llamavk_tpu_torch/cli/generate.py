@@ -1,0 +1,134 @@
+"""Generation CLI (twin of `llamavk_tpu/cli/generate.py`, one-shot mode).
+
+Prompt eval + streaming decode with the sampling flags of examples/main
+(top-k/top-p/temp/repeat-penalty/repeat-last-n), --ignore-eos, and --n-keep
+with the infinite-generation context swap (keep n_keep prompt tokens, re-feed
+half of the recent window on overflow, main.cpp:246-266). Interactive,
+instruct, draft, ring and int8 modes are not ported yet; argparse rejects
+their flags.
+
+    python -m llamavk_tpu_torch.cli.generate -m model.bin -p "text" --device cuda
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+from ..models.loader import load_model
+from ..runtime.engine import Engine, EngineConfig
+from ..runtime.sampling import SamplerParams
+from ..tokenizer import EOS_ID
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("-m", "--model", required=True)
+    ap.add_argument("-p", "--prompt", default="")
+    ap.add_argument("-f", "--file", help="read prompt from file")
+    ap.add_argument("-n", "--n-predict", type=int, default=128)
+    ap.add_argument("-c", "--ctx-size", type=int, default=512)
+    ap.add_argument("-s", "--seed", type=int, default=-1)
+    ap.add_argument("--top-k", type=int, default=40)
+    ap.add_argument("--top-p", type=float, default=0.95)
+    ap.add_argument("--temp", type=float, default=0.8)
+    ap.add_argument("--repeat-penalty", type=float, default=1.10)
+    ap.add_argument("--repeat-last-n", type=int, default=64)
+    ap.add_argument("--ignore-eos", action="store_true")
+    ap.add_argument("--n-keep", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the hand-written kernels) or cpu (their plain versions)")
+    return ap
+
+
+class ContextManager:
+    """Infinite generation: when the context fills, keep the first n_keep
+    tokens and re-feed the last half of the remaining window."""
+
+    def __init__(self, engine: Engine, n_ctx: int, n_keep: int):
+        self.engine = engine
+        self.n_ctx = n_ctx
+        self.n_keep = n_keep
+
+    def ensure_room(self, needed: int) -> None:
+        e = self.engine
+        if e.n_past + needed <= self.n_ctx:
+            return
+        # the last sampled token is not in the cache yet: it stays pending, so
+        # the next generate() evaluates it and samples from its logits
+        backlog = e.tokens[e.n_past :]
+        n_left = e.n_past - self.n_keep
+        keep_tokens = e.tokens[: self.n_keep]
+        refeed = e.tokens[max(self.n_keep, e.n_past - n_left // 2) : e.n_past]
+        e.reset()
+        if keep_tokens:
+            e.eval(keep_tokens)
+        if refeed:
+            e.eval(refeed)
+        e.tokens = list(keep_tokens) + list(refeed) + list(backlog)
+
+
+def run(args, stdout=sys.stdout) -> int:
+    t_load0 = time.perf_counter()
+    cfg, params, tok = load_model(args.model, device=args.device)
+
+    prompt = args.prompt
+    if args.file:
+        with open(args.file) as f:
+            prompt = f.read()
+    # reference behavior: prepend a space to the prompt (main.cpp:138-141)
+    prompt_tokens = tok.encode(" " + prompt, bos=True)
+    # --n-keep -1 = keep the whole prompt (main.cpp:151-153)
+    n_keep = args.n_keep if args.n_keep > 0 else len(prompt_tokens)
+
+    engine = Engine(
+        cfg, params,
+        EngineConfig(n_ctx=args.ctx_size, seed=args.seed if args.seed >= 0 else 0),
+        device=args.device,
+    )
+    engine.timings.t_load_us = (time.perf_counter() - t_load0) * 1e6
+    sp = SamplerParams(
+        top_k=args.top_k,
+        top_p=args.top_p,
+        temp=args.temp,
+        repeat_penalty=args.repeat_penalty,
+        repeat_last_n=args.repeat_last_n,
+    )
+    ctxman = ContextManager(engine, args.ctx_size, min(n_keep, args.ctx_size // 2))
+
+    def stream(t: int) -> bool:
+        stdout.write(tok.decode_token(t).decode("utf-8", errors="replace"))
+        stdout.flush()
+        return True
+
+    # echo the prompt like the reference main (input echo on by default)
+    stdout.write(b"".join(tok.decode_token(t) for t in prompt_tokens).decode(
+        "utf-8", errors="replace"))
+    stdout.flush()
+
+    pending = prompt_tokens
+    remaining = args.n_predict
+    while remaining > 0:
+        ctxman.ensure_room(len(pending) + 1)
+        n = min(remaining, args.ctx_size - engine.n_past - len(pending))
+        if n <= 0:
+            break
+        got = engine.generate(pending, n, sp, on_token=stream, ignore_eos=args.ignore_eos)
+        remaining -= len(got)
+        if not got or (not args.ignore_eos and got[-1] == EOS_ID):
+            break
+        pending = []  # the last sampled token is pending in engine.tokens
+    stdout.write("\n")
+    print(engine.timings.report(), file=sys.stderr)
+    return 0
+
+
+def main(argv=None):
+    args = build_argparser().parse_args(argv)
+    return run(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,299 @@
+"""LLaMA forward pass in PyTorch (twin of `llamavk_tpu/models/llama.py`).
+
+Mirrors the reference graph:
+
+  x = embed(tokens)
+  per layer:  h  = x + wo @ attn(rope(wq·rms(x)·attn_norm), ...)
+              x  = h + w2 @ (silu(w1·rms(h)·ffn_norm) * (w3·rms(h)·ffn_norm))
+  logits = output @ (rms(x) · norm)
+
+Layer weights are stacked over a leading n_layer dim; a layer's weights are
+views of the stacked planes, never copies. K is RoPE'd before caching. The
+KV cache `[L, B, H, S, D]` (bf16, flat) is updated IN PLACE: the JAX package
+threads it through `lax.scan` and gets the same effect by buffer aliasing.
+
+This slice ports the single-stream main path. Ring caches, the shared-prefix
+pool, paged caches, tensor/pipeline parallelism, int8 caches and the ggml
+numerics oracle raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..formats.ggml_io import Hparams
+from ..ops.flash_attn import (
+    attention_ref,
+    flash_attention,
+    flash_attention_ref,
+    flash_attention_update,
+    flash_attention_update_ref,
+    write_rows,
+)
+from ..ops.norms import rms_norm
+from ..ops.q4_matmul import q4_matmul, q4_matmul_ref
+from ..ops.qweight import QWeight
+from ..ops.rope import apply_rope, rope_cos_sin
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    n_vocab: int
+    n_embd: int
+    n_layer: int
+    n_head: int
+    n_rot: int
+    n_ff: int
+    norm_eps: float = 1e-6
+    rope_theta: float = 10000.0
+
+    @property
+    def head_dim(self) -> int:
+        return self.n_embd // self.n_head
+
+    @classmethod
+    def from_hparams(cls, hp: Hparams) -> "ModelConfig":
+        return cls(
+            n_vocab=hp.n_vocab,
+            n_embd=hp.n_embd,
+            n_layer=hp.n_layer,
+            n_head=hp.n_head,
+            n_rot=hp.n_rot,
+            n_ff=hp.n_ff,
+        )
+
+    # model-size names from n_layer, llama.cpp:773-779
+    @property
+    def type_name(self) -> str:
+        return {32: "7B", 40: "13B", 60: "30B", 80: "65B"}.get(self.n_layer, "custom")
+
+
+Weight = QWeight | torch.Tensor  # a linear layer's weight: packed q4 or dense [(L,) K, N]
+
+
+@dataclass
+class QEmbedding:
+    """Q4-quantized embedding table: per-token-row nibbles + scales.
+
+    packed: int8 [V, K//2] (split-half along the embedding dim, linear order),
+    scales: [V, G]; bias: optional [V, G] (Q4_1)."""
+
+    packed: torch.Tensor
+    scales: torch.Tensor
+    bias: torch.Tensor | None
+    k: int = 0
+
+
+Embedding = QEmbedding | torch.Tensor  # dense [V, K] or quantized
+
+
+@dataclass
+class LayerParams:
+    attn_norm: torch.Tensor  # [L, n_embd]
+    wq: Weight
+    wk: Weight
+    wv: Weight
+    wo: Weight
+    ffn_norm: torch.Tensor  # [L, n_embd]
+    w1: Weight  # gate  [n_embd, n_ff]
+    w2: Weight  # down  [n_ff, n_embd]
+    w3: Weight  # up    [n_embd, n_ff]
+
+
+@dataclass
+class FusedLayerParams:
+    """wq/wk/wv concatenated into one [K, 3E] weight and w1/w3 into [K, 2F]:
+    two matmul launches fewer per layer."""
+
+    attn_norm: torch.Tensor
+    wqkv: Weight  # [n_embd, 3*n_embd]
+    wo: Weight
+    ffn_norm: torch.Tensor
+    w13: Weight  # [n_embd, 2*n_ff] (gate | up)
+    w2: Weight
+
+
+@dataclass
+class LlamaParams:
+    tok_embeddings: Embedding
+    layers: LayerParams | FusedLayerParams  # every tensor has a leading n_layer dim
+    norm: torch.Tensor
+    output: Weight
+
+
+@dataclass
+class KVCache:
+    """Dense per-layer KV slabs [L, B, H, S, D], bf16, heads-major. Updated in
+    place by `llama_forward`."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+    def clone(self) -> "KVCache":
+        return KVCache(k=self.k.clone(), v=self.v.clone())
+
+
+def init_kv_cache(
+    cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16, device="cuda"
+) -> KVCache:
+    if dtype != torch.bfloat16:
+        raise NotImplementedError(f"KV cache dtype {dtype}: int8 caches are not ported yet")
+    shape = (cfg.n_layer, batch, cfg.n_head, max_len, cfg.head_dim)
+    return KVCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+    )
+
+
+def _linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Dense weight [K, N]: product in f32 of x cast to w's dtype, back to x's."""
+    xw = x.to(w.dtype).to(torch.float32)
+    return (xw @ w.to(torch.float32)).to(x.dtype)
+
+
+def embed_tokens(emb: Embedding, tokens: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """tokens [B, T] → activations [B, T, n_embd]."""
+    if isinstance(emb, QEmbedding):
+        p = emb.packed[tokens].to(torch.int32)  # [B, T, K//2]
+        lo = (p << 28) >> 28
+        hi = p >> 4
+        qs = torch.cat([lo, hi], dim=-1).to(torch.float32)  # [B, T, K]
+        s = torch.repeat_interleave(emb.scales[tokens].to(torch.float32), 32, dim=-1)
+        # linear layout: element order after concat is [0..K/2) ++ [K/2..K)
+        x = qs * s
+        if emb.bias is not None:
+            x = x + torch.repeat_interleave(emb.bias[tokens].to(torch.float32), 32, dim=-1)
+        return x.to(dtype)
+    return emb[tokens].to(dtype)
+
+
+def _attention(q, k_cache, v_cache, n_past) -> torch.Tensor:
+    """Causal attention of T new queries against the updated cache layer
+    [B, H, S, D]: the einsum numerics oracle (llama.py:266 there)."""
+    return attention_ref(q, k_cache, v_cache, n_past)
+
+
+def llama_forward(
+    params: LlamaParams,
+    tokens: torch.Tensor,  # [B, T] int
+    cache: KVCache,
+    n_past,  # int, or an int32 [B] tensor of per-row positions
+    cfg: ModelConfig,
+    logits_all: bool = False,
+    dtype=torch.bfloat16,
+    attn_impl: str = "auto",
+    last_idx: int | None = None,
+    kv_block: int | None = None,
+    use_ref: bool = False,
+    ring_keep: int = 0,
+    prefix_kv=None,
+    page_table=None,
+    tp_axis=None,
+    pp_axis=None,
+    ggml_rounding=None,
+) -> tuple[torch.Tensor, KVCache, torch.Tensor]:
+    """Evaluate T new tokens. Returns (logits, cache, embeddings); the cache
+    is the one passed in, updated in place.
+
+    logits: [B, T, n_vocab] f32 if logits_all else [B, 1, n_vocab] (the last
+    position, or `last_idx` when the caller bucket-padded T).
+    embeddings: [B, n_embd] f32 — final-norm activations of that position.
+
+    attn_impl: "auto"/"flash" = the fused attention kernels (update kernel
+    when T % min(256, T) == 0, else a plain row write and the read kernel —
+    the dispatch of llama.py:589-687 there); "einsum" = the dense oracle.
+    kv_block pins the attention's KV block (default 512 for T >= 256, else
+    256, as llama.py:499 there). use_ref runs the plain versions of every
+    kernel on any device: the kernel-vs-plain comparison on the card.
+    """
+    unsupported = {
+        "ring_keep": ring_keep, "prefix_kv": prefix_kv, "page_table": page_table,
+        "tp_axis": tp_axis, "pp_axis": pp_axis, "ggml_rounding": ggml_rounding,
+    }
+    for name, val in unsupported.items():
+        if val:
+            raise NotImplementedError(f"llama_forward: {name} is not ported yet")
+    if attn_impl not in ("auto", "flash", "einsum"):
+        raise ValueError(f"attn_impl {attn_impl!r}")
+
+    b, t = tokens.shape
+    h, d = cfg.n_head, cfg.head_dim
+    dev = tokens.device
+    matmul = q4_matmul_ref if use_ref else q4_matmul
+    attn_update = flash_attention_update_ref if use_ref else flash_attention_update
+    attn_read = flash_attention_ref if use_ref else flash_attention
+
+    def linear(xx, w, l):
+        """Layer l of a stacked weight (a packed one gives bf16, a dense one
+        x's dtype, as in the JAX package)."""
+        if isinstance(w, QWeight):
+            return matmul(xx, w, torch.bfloat16, layer_idx=l)
+        return _linear(xx, w[l])
+
+    if isinstance(n_past, torch.Tensor) and n_past.dim() == 0:
+        n_past = int(n_past)
+    if isinstance(n_past, int):
+        positions = torch.arange(n_past, n_past + t, device=dev)
+    else:
+        n_past = n_past.to(device=dev, dtype=torch.int32)
+        positions = n_past[:, None].to(torch.int64) + torch.arange(t, device=dev)
+    cos, sin = rope_cos_sin(positions, cfg.n_rot, cfg.rope_theta)  # [(B,) T, D/2]
+
+    x = embed_tokens(params.tok_embeddings, tokens, dtype=dtype)  # [B, T, E]
+    lp = params.layers
+    fused = isinstance(lp, FusedLayerParams)
+    bk = kv_block or (512 if t >= 256 else 256)
+    impl = "flash" if attn_impl == "auto" else attn_impl
+
+    for l in range(cache.k.shape[0]):
+        # --- attention block (llama.cpp:976-1070)
+        xa = rms_norm(x, lp.attn_norm[l], cfg.norm_eps)
+        if fused:
+            qkv = linear(xa, lp.wqkv, l)
+            e = qkv.shape[-1] // 3
+            q = qkv[..., :e].reshape(b, t, h, d)
+            k = qkv[..., e : 2 * e].reshape(b, t, h, d)
+            v = qkv[..., 2 * e :].reshape(b, t, h, d)
+        else:
+            q = linear(xa, lp.wq, l).reshape(b, t, h, d)
+            k = linear(xa, lp.wk, l).reshape(b, t, h, d)
+            v = linear(xa, lp.wv, l).reshape(b, t, h, d)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)  # RoPE'd K is what gets cached
+        if impl == "flash" and t % min(256, t) == 0:
+            attn, _, _ = attn_update(q, k, v, cache.k, cache.v, n_past, l, block_k=bk)
+        else:
+            write_rows(k, v, cache.k, cache.v, n_past, l)
+            if impl == "flash":
+                attn = attn_read(q, cache.k, cache.v, n_past, layer_idx=l, block_k=bk)
+            else:
+                attn = _attention(q, cache.k[l], cache.v[l], n_past)
+        attn = attn.reshape(b, t, h * d).to(dtype)
+        x = x + linear(attn, lp.wo, l)
+        # --- FFN block (llama.cpp:1073-1101)
+        xf = rms_norm(x, lp.ffn_norm[l], cfg.norm_eps)
+        if fused:
+            gu = linear(xf, lp.w13, l)
+            f = gu.shape[-1] // 2
+            gate, up = gu[..., :f], gu[..., f:]
+        else:
+            gate = linear(xf, lp.w1, l)
+            up = linear(xf, lp.w3, l)
+        act = (
+            torch.nn.functional.silu(gate.to(torch.float32)) * up.to(torch.float32)
+        ).to(dtype)
+        x = x + linear(act, lp.w2, l)
+
+    xn = rms_norm(x, params.norm, cfg.norm_eps)
+    li = t - 1 if last_idx is None else last_idx
+    last = xn[:, li : li + 1, :]
+    embeddings = last[:, 0, :].to(torch.float32)
+    if not logits_all:
+        xn = last
+    if isinstance(params.output, QWeight):
+        logits = matmul(xn, params.output, torch.float32)
+    else:  # a dense output weight multiplies in f32, as llama.py:849-853 there
+        logits = xn.to(torch.float32) @ params.output.to(torch.float32)
+    return logits, cache, embeddings

@@ -1,0 +1,250 @@
+"""Decode engine: prefill + a decode loop with on-device sampling (twin of
+`llamavk_tpu/runtime/engine.py`).
+
+The sampled token is fed straight back into the next forward step as a device
+tensor; the host receives one [n_steps] tensor of token ids per decode block,
+never a per-step `.item()`. The KV cache is updated in place. The API mirrors
+llama.h: eval / sample / get-set-kv-cache / timings.
+
+Capturing the decode step in a CUDA graph is later work; the history ring,
+int8 caches and the ggml numerics oracle are not ported yet. Activations
+are bf16.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, replace
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..device import resolve
+from ..models.llama import KVCache, LlamaParams, ModelConfig, init_kv_cache, llama_forward
+from .sampling import SamplerParams, sample_token
+
+
+@dataclass(frozen=True)
+class EngineConfig:
+    n_ctx: int = 512
+    kv_dtype: str = "bfloat16"  # the reference's f16_kv option (llama.h:56); int8 not ported yet
+    seed: int = 0
+    decode_block: int = 16  # tokens decoded per host round-trip
+    ctx_ring: bool = False  # history-ring KV (not ported yet)
+    ggml_numerics: str | None = None  # the C-reference numerics oracle (not ported yet)
+
+
+@dataclass
+class SessionState:
+    """Snapshot of inference state — llama_get_kv_cache/llama_set_kv_cache
+    parity. Holds clones: the live cache is updated in place."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    n_past: int
+    tokens: list[int]
+
+
+@dataclass
+class Timings:
+    """llama_print_timings parity (llama.cpp:1807-1827)."""
+
+    t_load_us: float = 0.0
+    t_prompt_us: float = 0.0
+    n_prompt: int = 0
+    t_eval_us: float = 0.0
+    n_eval: int = 0
+
+    def report(self) -> str:
+        lines = [f"load time   = {self.t_load_us / 1e3:9.2f} ms"]
+        if self.n_prompt:
+            lines.append(
+                f"prompt eval = {self.t_prompt_us / 1e3:9.2f} ms / {self.n_prompt} tokens"
+                f" ({self.t_prompt_us / 1e3 / max(self.n_prompt, 1):.2f} ms/tok)"
+            )
+        if self.n_eval:
+            lines.append(
+                f"eval        = {self.t_eval_us / 1e3:9.2f} ms / {self.n_eval} tokens"
+                f" ({self.t_eval_us / 1e3 / max(self.n_eval, 1):.2f} ms/tok,"
+                f" {self.n_eval / (self.t_eval_us / 1e6):.2f} tok/s)"
+            )
+        return "\n".join(lines)
+
+
+class Engine:
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        params: LlamaParams,
+        ecfg: EngineConfig = EngineConfig(),
+        device="cuda",
+    ):
+        self.device = resolve(device)
+        if ecfg.ctx_ring:
+            raise NotImplementedError("Engine: the history-ring KV (ctx_ring) is not ported yet")
+        if ecfg.kv_dtype != "bfloat16":
+            raise NotImplementedError(
+                f"Engine: kv_dtype={ecfg.kv_dtype!r} is not ported yet (bfloat16 only)"
+            )
+        if ecfg.ggml_numerics is not None:
+            raise NotImplementedError("Engine: ggml_numerics is not ported yet")
+        if ecfg.n_ctx % 8:
+            raise ValueError(f"n_ctx must be a multiple of 8 (KV tile constraint); got {ecfg.n_ctx}")
+        self.cfg = cfg
+        self.params = params
+        self.ecfg = ecfg
+        self.timings = Timings()
+        self.reset()
+
+    # --- state ---------------------------------------------------------
+
+    def reset(self) -> None:
+        self.cache = init_kv_cache(self.cfg, 1, self.ecfg.n_ctx, device=self.device)
+        self.n_past = 0
+        self.tokens: list[int] = []
+        self.set_seed(self.ecfg.seed)
+
+    def set_seed(self, seed: int) -> None:
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _forward(self, tokens: torch.Tensor, n_past: int, **kw):
+        return llama_forward(self.params, tokens, self.cache, n_past, self.cfg, **kw)
+
+    # --- eval (llama_eval parity) ---------------------------------------
+
+    def _eval(self, tokens, logits_all: bool = False) -> torch.Tensor:
+        """eval() on the device: logits [T or 1, V] f32 as a device tensor."""
+        backlog = self.tokens[self.n_past :]
+        new_toks = [int(t) for t in np.asarray(tokens)]
+        full = list(backlog) + new_toks
+        if not full:
+            raise ValueError("eval: no tokens to evaluate")
+        if self.n_past + len(full) > self.ecfg.n_ctx:
+            raise ValueError(
+                f"context overflow: n_past({self.n_past}) + n_tokens({len(full)})"
+                f" > n_ctx({self.ecfg.n_ctx})"
+            )
+        t0 = time.perf_counter()
+        # bucket-pad T to a power of two, capped by the room left (the JAX
+        # package's compile buckets; kept so both take the same kernel
+        # routes). Garbage KV rows past the real tokens sit beyond n_past and
+        # are overwritten before any query can attend to them.
+        t_real = len(full)
+        bucket = 1 << (t_real - 1).bit_length()
+        bucket = min(bucket, self.ecfg.n_ctx - self.n_past)
+        padded = full + [0] * (bucket - t_real)
+        toks = torch.tensor([padded], dtype=torch.int64, device=self.device)
+        logits, self.cache, _ = self._forward(
+            toks, self.n_past, last_idx=t_real - 1, logits_all=logits_all
+        )
+        self.n_past += t_real
+        logits = logits[0][len(backlog) : t_real] if logits_all else logits[0]
+        self._sync()
+        self.tokens.extend(new_toks)
+        self.timings.t_prompt_us += (time.perf_counter() - t0) * 1e6
+        self.timings.n_prompt += len(full)
+        return logits
+
+    def eval(self, tokens, logits_all: bool = False) -> np.ndarray:
+        """Evaluate tokens at the current position; returns host logits
+        [T or 1, V]. A final sampled token of a previous generate() is in
+        self.tokens but not yet in the cache; it is prepended here."""
+        return self._eval(tokens, logits_all).cpu().numpy()
+
+    # --- generation ------------------------------------------------------
+
+    def _decode_block(self, tok: torch.Tensor, last: torch.Tensor, sp: SamplerParams,
+                      n_steps: int):
+        """n_steps forward + sample steps; the token never leaves the device."""
+        toks = torch.empty(n_steps, dtype=torch.int64, device=self.device)
+        for i in range(n_steps):
+            logits, self.cache, _ = self._forward(tok.view(1, 1), self.n_past + i)
+            tok = sample_token(logits[0, -1], last, self.generator, sp)
+            last = torch.roll(last, -1)
+            last[-1] = tok
+            toks[i] = tok
+        return toks, last
+
+    def generate(
+        self,
+        prompt_tokens: list[int],
+        n_predict: int,
+        sp: SamplerParams = SamplerParams(),
+        on_token: Callable[[int], bool] | None = None,
+        eos_id: int = 2,
+        ignore_eos: bool = False,
+    ) -> list[int]:
+        """Prefill the prompt, then decode up to n_predict tokens, surfacing
+        tokens to the host in blocks of ecfg.decode_block. on_token returns
+        False to stop early."""
+        if self.n_past + len(prompt_tokens) + n_predict > self.ecfg.n_ctx:
+            raise ValueError("context overflow; use the CLI's ContextManager to swap context")
+        if sp.repeat_last_n <= 0:
+            # penalty disabled: a 1-slot dummy window and a neutral factor
+            sp = replace(sp, repeat_last_n=1, repeat_penalty=1.0)
+            last_np = np.full(1, -1, np.int64)
+        else:
+            w = sp.repeat_last_n
+            last_np = np.full(w, -1, np.int64)
+            hist = (self.tokens + list(prompt_tokens))[-w:]
+            if hist:
+                last_np[-len(hist):] = hist
+        last = torch.from_numpy(last_np).to(self.device)
+
+        logits = self._eval(prompt_tokens)
+        tok = sample_token(logits[-1], last, self.generator, sp)
+        last = torch.roll(last, -1)
+        last[-1] = tok
+
+        out: list[int] = []
+        t0 = time.perf_counter()
+        n_eval = 0
+        stop = False
+
+        def surface(t: int) -> bool:
+            """Append one sampled token; returns True if generation must stop."""
+            nonlocal stop
+            out.append(t)
+            self.tokens.append(t)
+            if on_token is not None and not on_token(t):
+                stop = True
+            if not ignore_eos and t == eos_id:
+                stop = True
+            return stop or len(out) >= n_predict
+
+        surface(int(tok))  # first token, sampled from the prefill logits
+        while not stop and len(out) < n_predict:
+            n = min(self.ecfg.decode_block, n_predict - len(out), self.ecfg.n_ctx - self.n_past)
+            toks, last = self._decode_block(tok, last, sp, n)
+            block = toks.tolist()  # the one host read of this block
+            consumed = 0
+            for t in block:
+                consumed += 1
+                if surface(t):
+                    break
+            n_eval += consumed
+            # feeding tok evaluated it; of the consumed samples all but the
+            # last are evaluated too -> n_past advances by `consumed`; the
+            # final sample stays pending (eval() backlogs it)
+            self.n_past += consumed
+            tok = toks[consumed - 1]
+        self.timings.t_eval_us += (time.perf_counter() - t0) * 1e6
+        self.timings.n_eval += n_eval
+        return out[:n_predict]
+
+    # --- session save/restore (llama_get/set_kv_cache parity) ------------
+
+    def save_session(self) -> SessionState:
+        """Clone the cache: the live one is updated in place."""
+        c = self.cache.clone()
+        return SessionState(k=c.k, v=c.v, n_past=self.n_past, tokens=list(self.tokens))
+
+    def restore_session(self, s: SessionState) -> None:
+        self.cache = KVCache(k=s.k.clone(), v=s.v.clone())
+        self.n_past = s.n_past
+        self.tokens = list(s.tokens)

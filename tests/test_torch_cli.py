@@ -1,0 +1,68 @@
+"""The port's generate CLI on the CPU: one-shot greedy output equals the
+port's own Engine.generate stream, and the context swap keeps generating
+past n_ctx."""
+
+import io
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from llamavk_tpu_torch.cli import generate as cli
+from llamavk_tpu_torch.models import loader as tl
+from llamavk_tpu_torch.runtime.engine import Engine, EngineConfig
+from llamavk_tpu_torch.runtime.sampling import SamplerParams
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parent.parent
+PROMPT = "<t17><t42><t99><t3>"
+
+
+@pytest.fixture(scope="module")
+def tiny(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("tiny") / "tiny-q4.bin")
+    tl.random_tiny_model(write_path=path, quantize=True)
+    return path
+
+
+def test_cli_prints_the_engine_stream(tiny):
+    n = 12
+    proc = subprocess.run(
+        [sys.executable, "-m", "llamavk_tpu_torch.cli.generate", "-m", tiny, "-p", PROMPT,
+         "-n", str(n), "--temp", "0", "-s", "42", "--device", "cpu"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+
+    cfg, params, tok = tl.load_model(tiny, device="cpu")
+    prompt_tokens = tok.encode(" " + PROMPT, bos=True)
+    eng = Engine(cfg, params, EngineConfig(n_ctx=512, seed=42), device="cpu")
+    stream = eng.generate(prompt_tokens, n, SamplerParams(temp=0.0))
+    assert stream
+    text = b"".join(tok.decode_token(t) for t in prompt_tokens + stream).decode()
+    assert proc.stdout == text + "\n"
+    assert "eval" in proc.stderr  # the timings report
+
+
+def test_cli_context_swap(tiny):
+    """-c 32 with 40 tokens to predict: the ContextManager keeps n_keep
+    tokens, re-feeds half of the window and generation goes on to the full
+    count."""
+    args = cli.build_argparser().parse_args(
+        ["-m", tiny, "-p", PROMPT, "-n", "40", "-c", "32", "--temp", "0", "--ignore-eos",
+         "--n-keep", "2", "--device", "cpu"]
+    )
+    out = io.StringIO()
+    assert cli.run(args, stdout=out) == 0
+    _, _, tok = tl.load_model(tiny, device="cpu")
+    n_prompt = len(tok.encode(" " + PROMPT, bos=True))  # every token prints as <tN>
+    assert out.getvalue().count("<t") == n_prompt + 40
+
+
+def test_cli_rejects_unported_modes(tiny):
+    for flag in (["--interactive"], ["--draft-model", tiny], ["--ctx-ring"]):
+        with pytest.raises(SystemExit):
+            cli.build_argparser().parse_args(["-m", tiny, *flag])

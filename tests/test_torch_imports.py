@@ -1,0 +1,58 @@
+"""The port stands alone: no module of `llamavk_tpu_torch` and not
+`chip_smoke.py` imports JAX or the JAX package, and the entry points run on
+CUDA unless the caller asks for the CPU."""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+from llamavk_tpu_torch.cli import generate as cli
+from llamavk_tpu_torch.models import loader as tl
+from llamavk_tpu_torch.runtime.engine import Engine
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parent.parent
+SOURCES = sorted((ROOT / "llamavk_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported(path: Path) -> set[str]:
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module)
+    return names
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    for name in _imported(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "llamavk_tpu"), f"{path.name} imports {name}"
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_default_to_cuda(no_cuda, tmp_path):
+    path = str(tmp_path / "tiny-q4.bin")
+    tl.random_tiny_model(write_path=path, quantize=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tl.load_model(path)
+    cfg, params, _ = tl.load_model(path, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine(cfg, params)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tl.synthetic_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["-m", path, "-n", "1"])
+    assert cli.build_argparser().parse_args(["-m", path]).device == "cuda"
+    # the CPU, when asked for, works
+    assert Engine(cfg, params, device="cpu").cache.k.device.type == "cpu"
+    assert tl.synthetic_params(cfg, device="cpu").norm.device.type == "cpu"
