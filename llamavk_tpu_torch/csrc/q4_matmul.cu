@@ -15,7 +15,7 @@
 // w = bf16(float(q) * float(scale)), products accumulate in f32, out is f32.
 //
 // What bounds it on an H100:
-//  * decode (M <= 8): weight bytes. 7B decode reads ~3.7 GB of packed
+//  * decode (M = 1): weight bytes. 7B decode reads ~3.7 GB of packed
 //    nibbles + scales per token against 3.35 TB/s. Design: neighbouring
 //    threads own neighbouring 4-column words of a packed row, so a warp reads
 //    128 contiguous bytes; each thread issues its 16 row loads of a group
@@ -23,7 +23,7 @@
 //    staged once per block in shared memory; K is also split across blocks
 //    (enough blocks to fill 132 SMs) and the partial sums are added by a
 //    second, deterministic pass in a fixed order.
-//  * prefill (M > 8): tensor-core operations (989 TFLOP/s bf16 dense).
+//  * prefill (M > 1): tensor-core operations (989 TFLOP/s bf16 dense).
 //    Design: 64x128 output tiles, 64-deep k steps (two quantization groups);
 //    the next step's global loads are in registers while the tensor cores
 //    (WMMA bf16 16x16x16, f32 accumulate) work on the current shared tiles;
@@ -50,16 +50,15 @@ constexpr int GV_WARPS = 8;
 constexpr int GV_COLS = 128;  // 32 lanes x 4 columns
 constexpr int GV_SMEM = 40960;
 
-template <int MR>
 __global__ void __launch_bounds__(GV_WARPS * 32)
-q4_gemv_kernel(const __nv_bfloat16* __restrict__ x,   // [MR, K]
+q4_gemv_kernel(const __nv_bfloat16* __restrict__ x,   // [K]
                const int8_t* __restrict__ packed,     // [K/2, N]
                const __nv_bfloat16* __restrict__ scales,  // [G, N]
-               float* __restrict__ out,               // [gridDim.y, MR, N]
+               float* __restrict__ out,               // [gridDim.y, N]
                int K, int N, int gps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [MR][gps*32]
-  float* red = reinterpret_cast<float*>(smem_raw);  // [GV_WARPS][MR][GV_COLS], after x
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [gps*32]
+  float* red = reinterpret_cast<float*>(smem_raw);  // [GV_WARPS][GV_COLS], after x
 
   const int G = K / 32;
   const int lane = threadIdx.x & 31;
@@ -70,19 +69,11 @@ q4_gemv_kernel(const __nv_bfloat16* __restrict__ x,   // [MR, K]
   const int n0 = blockIdx.x * GV_COLS + lane * 4;
   const bool col_ok = n0 < N;
 
-  // stage x[:, g_begin*32 : g_end*32] in shared memory
-  for (int i = threadIdx.x; i < MR * kw; i += blockDim.x) {
-    const int r = i / kw, kk = i - r * kw;
-    xs[r * gps * 32 + kk] = x[(size_t)r * K + g_begin * 32 + kk];
-  }
+  // stage x[g_begin*32 : g_end*32] in shared memory
+  for (int i = threadIdx.x; i < kw; i += blockDim.x) xs[i] = x[g_begin * 32 + i];
   __syncthreads();
 
-  float acc[MR][4];
-#pragma unroll
-  for (int r = 0; r < MR; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
   if (col_ok) {
     for (int g = g_begin + warp; g < g_end; g += GV_WARPS) {
       uint32_t words[16];
@@ -99,22 +90,15 @@ q4_gemv_kernel(const __nv_bfloat16* __restrict__ x,   // [MR, K]
       const __nv_bfloat16* xg = xs + (g - g_begin) * 32;
 #pragma unroll
       for (int m = 0; m < 16; ++m) {
-        float xlo[MR], xhi[MR];
-#pragma unroll
-        for (int r = 0; r < MR; ++r) {
-          xlo[r] = __bfloat162float(xg[r * gps * 32 + m]);
-          xhi[r] = __bfloat162float(xg[r * gps * 32 + m + 16]);
-        }
+        const float xlo = __bfloat162float(xg[m]);
+        const float xhi = __bfloat162float(xg[m + 16]);
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int b = (int)(int8_t)((words[m] >> (8 * c)) & 0xffu);
           const float wlo = bf16_round((float)((int8_t)(b << 4) >> 4) * s[c]);
           const float whi = bf16_round((float)(b >> 4) * s[c]);
-#pragma unroll
-          for (int r = 0; r < MR; ++r) {
-            acc[r][c] = fmaf(xlo[r], wlo, acc[r][c]);
-            acc[r][c] = fmaf(xhi[r], whi, acc[r][c]);
-          }
+          acc[c] = fmaf(xlo, wlo, acc[c]);
+          acc[c] = fmaf(xhi, whi, acc[c]);
         }
       }
     }
@@ -122,19 +106,15 @@ q4_gemv_kernel(const __nv_bfloat16* __restrict__ x,   // [MR, K]
 
   __syncthreads();  // x stage is dead: reuse it for the cross-warp reduction
 #pragma unroll
-  for (int r = 0; r < MR; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      red[(warp * MR + r) * GV_COLS + lane * 4 + c] = acc[r][c];
+  for (int c = 0; c < 4; ++c) red[warp * GV_COLS + lane * 4 + c] = acc[c];
   __syncthreads();
-  for (int i = threadIdx.x; i < MR * GV_COLS; i += blockDim.x) {
-    const int r = i / GV_COLS, col = i - r * GV_COLS;
+  for (int col = threadIdx.x; col < GV_COLS; col += blockDim.x) {
     const int n = blockIdx.x * GV_COLS + col;
     if (n >= N) continue;
     float sum = 0.f;
 #pragma unroll
-    for (int w = 0; w < GV_WARPS; ++w) sum += red[(w * MR + r) * GV_COLS + col];
-    out[((size_t)blockIdx.y * MR + r) * N + n] = sum;
+    for (int w = 0; w < GV_WARPS; ++w) sum += red[w * GV_COLS + col];
+    out[(size_t)blockIdx.y * N + n] = sum;
   }
 }
 
@@ -148,24 +128,21 @@ __global__ void splitk_reduce_kernel(const float* __restrict__ partial,
   out[i] = sum;
 }
 
-template <int MR>
 cudaError_t launch_gemv(const __nv_bfloat16* x, const int8_t* packed,
                         const __nv_bfloat16* scales, float* out, float* partial,
                         int K, int N, int ksplit, cudaStream_t stream) {
   const int G = K / 32;
   const int gps = (G + ksplit - 1) / ksplit;
   const int splits = (G + gps - 1) / gps;
-  const size_t smem_x = (size_t)MR * gps * 32 * sizeof(__nv_bfloat16);
-  const size_t smem_red = (size_t)GV_WARPS * MR * GV_COLS * sizeof(float);
+  const size_t smem_x = (size_t)gps * 32 * sizeof(__nv_bfloat16);
+  const size_t smem_red = (size_t)GV_WARPS * GV_COLS * sizeof(float);
   const size_t smem = smem_x > smem_red ? smem_x : smem_red;
   if (smem > GV_SMEM) return cudaErrorInvalidValue;
   dim3 grid((N + GV_COLS - 1) / GV_COLS, splits);
   float* dst = splits == 1 ? out : partial;
-  q4_gemv_kernel<MR><<<grid, GV_WARPS * 32, smem, stream>>>(x, packed, scales, dst, K, N, gps);
-  if (splits > 1) {
-    const int mn = MR * N;
-    splitk_reduce_kernel<<<(mn + 255) / 256, 256, 0, stream>>>(partial, out, splits, mn);
-  }
+  q4_gemv_kernel<<<grid, GV_WARPS * 32, smem, stream>>>(x, packed, scales, dst, K, N, gps);
+  if (splits > 1)
+    splitk_reduce_kernel<<<(N + 255) / 256, 256, 0, stream>>>(partial, out, splits, N);
   return cudaGetLastError();
 }
 
@@ -286,7 +263,7 @@ q4_gemm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ p
 }  // namespace
 
 // x bf16 [M, K], packed int8 [K/2, N] (ilv, one chunk), scales bf16 [G, N],
-// out f32 [M, N]; partial f32 [ksplit, M, N] scratch for the decode split.
+// out f32 [M, N]; partial f32 [ksplit, N] scratch for the decode split (M = 1).
 // Requires K % 32 == 0, N % 8 == 0 and 16-byte aligned pointers (checked by
 // the Python wrapper). Returns cudaGetLastError() after the launches.
 extern "C" int q4_matmul_launch(const void* x, const void* packed, const void* scales,
@@ -299,17 +276,7 @@ extern "C" int q4_matmul_launch(const void* x, const void* packed, const void* s
   auto part = static_cast<float*>(partial);
   auto st = static_cast<cudaStream_t>(stream);
   if (K % 32 != 0 || N % 8 != 0 || M < 1 || ksplit < 1) return (int)cudaErrorInvalidValue;
-  switch (M) {
-    case 1: return (int)launch_gemv<1>(xs, pk, sc, o, part, K, N, ksplit, st);
-    case 2: return (int)launch_gemv<2>(xs, pk, sc, o, part, K, N, ksplit, st);
-    case 3: return (int)launch_gemv<3>(xs, pk, sc, o, part, K, N, ksplit, st);
-    case 4: return (int)launch_gemv<4>(xs, pk, sc, o, part, K, N, ksplit, st);
-    case 5: return (int)launch_gemv<5>(xs, pk, sc, o, part, K, N, ksplit, st);
-    case 6: return (int)launch_gemv<6>(xs, pk, sc, o, part, K, N, ksplit, st);
-    case 7: return (int)launch_gemv<7>(xs, pk, sc, o, part, K, N, ksplit, st);
-    case 8: return (int)launch_gemv<8>(xs, pk, sc, o, part, K, N, ksplit, st);
-    default: break;
-  }
+  if (M == 1) return (int)launch_gemv(xs, pk, sc, o, part, K, N, ksplit, st);
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   q4_gemm_kernel<<<grid, 256, 0, st>>>(xs, pk, sc, o, M, K, N);
   return (int)cudaGetLastError();

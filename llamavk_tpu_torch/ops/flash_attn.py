@@ -13,10 +13,10 @@ or [B] int32 tensor. Outputs are [B, T, H, D] f32.
   `_attend`).
 
 On CPU tensors both compute their plain version (`*_ref`): the same cache
-write, then the dense masked softmax of `attention_ref`. The kernels use the
-online softmax over KV blocks of `block_k` rows; `_fit_block_k` picks that
-block exactly as the JAX package does, so pinning `block_k` pins the
-accumulation order.
+write, then the dense masked softmax of `attention_ref` over q scaled and
+rounded to bf16 as the kernels round it. The kernels use the online softmax
+over KV blocks of `block_k` rows; `_fit_block_k` picks that block exactly as
+the JAX package does, so pinning `block_k` pins the accumulation order.
 """
 
 from __future__ import annotations
@@ -44,12 +44,16 @@ def _fit_block_k(block_k: int, s: int, step: int = 8) -> int:
     return bk
 
 
-def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_past) -> torch.Tensor:
+def attention_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_past, scale: float | None = None
+) -> torch.Tensor:
     """Dense scores over the whole cache (parity oracle, flash_attn.py:99).
-    q [B, T, H, D]; k, v [B, H, S, D]; returns f32 [B, T, H, D]."""
+    q [B, T, H, D]; k, v [B, H, S, D]; returns f32 [B, T, H, D]. Scores are
+    scaled by `scale`, 1/sqrt(D) unless given."""
     b, t, h, d = q.shape
     s = k.shape[2]
-    scale = 1.0 / math.sqrt(d)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
     qf = q.to(k.dtype).to(torch.float32)
     scores = torch.einsum("bthd,bhsd->bhts", qf, k.to(torch.float32)) * scale
     jpos = torch.arange(s, device=q.device)
@@ -79,9 +83,12 @@ def write_rows(k_new, v_new, k, v, n_past, layer_idx: int) -> None:
 
 def flash_attention_ref(q, k, v, n_past, layer_idx: int = 0, block_k: int = 256):
     """Plain version of `flash_attention`: dense attention over layer
-    `layer_idx` of the stacked cache."""
+    `layer_idx` of the stacked cache, with the kernel's scores: q scaled by
+    1/sqrt(D) in f32 and rounded to the cache dtype before the QK product
+    (flash_attn.py:545 there)."""
     del block_k  # the dense softmax has no KV blocks
-    return attention_ref(q, k[layer_idx], v[layer_idx], n_past)
+    qs = (q.to(torch.float32) * (1.0 / math.sqrt(q.shape[-1]))).to(k.dtype)
+    return attention_ref(qs, k[layer_idx], v[layer_idx], n_past, scale=1.0)
 
 
 def flash_attention_update_ref(

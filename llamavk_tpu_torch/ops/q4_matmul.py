@@ -23,10 +23,8 @@ from ..formats.repack import LAYOUT_ILV
 from . import _build
 from .qweight import QWeight, dequantize_qweight
 
-# rows up to which the C launcher takes the decode GEMV (csrc/q4_matmul.cu)
-GEMV_MAX_M = 8
-# launches of the CUDA kernels: the decode GEMV (M <= GEMV_MAX_M) and the
-# tiled prefill GEMM, one per q4_matmul call on a CUDA tensor
+# launches of the CUDA kernels: the decode GEMV (M = 1) and the tiled GEMM
+# (every M > 1), one per q4_matmul call on a CUDA tensor
 launches = {"gemv": 0, "gemm": 0}
 
 
@@ -76,15 +74,15 @@ def _sm_count(index: int) -> int:
 
 
 def _ksplit(m: int, k: int, n: int, index: int) -> int:
-    """Decode K split: enough blocks for two per SM, at least 16 groups per
-    split, and an x slice that fits the kernel's 40 KB stage."""
-    if m > GEMV_MAX_M:
+    """Decode (M = 1) K split: enough blocks for two per SM, at least 16
+    groups per split, and an x slice that fits the kernel's 40 KB stage."""
+    if m != 1:
         return 1
     g = k // QK
     nblk = -(-n // 128)
     want = -(-2 * _sm_count(index) // nblk)
     want = max(1, min(want, g // 16))
-    gps_max = 40960 // (m * QK * 2)
+    gps_max = 40960 // (QK * 2)
     return max(want, -(-g // gps_max))
 
 
@@ -111,7 +109,7 @@ def q4_matmul_cuda(xf: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor)
     out = torch.empty((m, n), dtype=torch.float32, device=xf.device)
     ksplit = _ksplit(m, k, n, dev)
     partial = (
-        torch.empty((ksplit, m, n), dtype=torch.float32, device=xf.device)
+        torch.empty((ksplit, n), dtype=torch.float32, device=xf.device)
         if ksplit > 1 else out
     )
     rc = _lib().q4_matmul_launch(
@@ -119,7 +117,7 @@ def q4_matmul_cuda(xf: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor)
         partial.data_ptr(), m, k, n, ksplit, torch.cuda.current_stream(xf.device).cuda_stream,
     )
     _build.check(rc, "q4_matmul_launch")
-    launches["gemv" if m <= GEMV_MAX_M else "gemm"] += 1
+    launches["gemv" if m == 1 else "gemm"] += 1
     return out
 
 

@@ -25,9 +25,9 @@ LAYER = 1
 ATTN_TOL = dict(rtol=2e-2, atol=2e-2)
 
 
-def _bf16(rng, shape):
+def _bf16(rng, shape, std=1.0):
     """One bf16 array for both frameworks (rounded once, by JAX)."""
-    j = jnp.asarray(rng.standard_normal(shape), jnp.bfloat16)
+    j = jnp.asarray(std * rng.standard_normal(shape), jnp.bfloat16)
     return j, torch.from_numpy(np.array(j.astype(jnp.float32))).to(torch.bfloat16)
 
 
@@ -71,6 +71,28 @@ def test_read_matches_jax():
     )
     got = tfa.flash_attention(qt, kct, vct, n_past, layer_idx=LAYER, block_k=32)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATTN_TOL)
+
+
+def test_read_matches_jax_head_dim_128():
+    """At D = 128 the scale 1/sqrt(D) is not a power of two, so rounding the
+    scaled q to bf16, as the JAX kernel does, moves the scores; the plain
+    version rounds it the same way. What is left is each side's bf16 rounding
+    of the probabilities (2^-8 relative each), so an output element lies
+    within 2^-7 of attention(q, k, |v|); the limit takes twice that. q and K
+    have std 4, so the scores spread (std ~16) as a trained model's do and
+    an unrounded q would miss the limit."""
+    t, n_past, d = 5, 20, 128
+    rng = np.random.default_rng(9)
+    qj, qt = _bf16(rng, (B, t, H, d), std=4.0)
+    kcj, kct = _bf16(rng, (L, B, H, S, d), std=4.0)
+    vcj, vct = _bf16(rng, (L, B, H, S, d))
+    want = jfa.flash_attention(
+        qj, kcj, vcj, jnp.int32(n_past), block_k=32, layer_idx=jnp.int32(LAYER)
+    )
+    got = tfa.flash_attention(qt, kct, vct, n_past, layer_idx=LAYER, block_k=32)
+    limit = 2.0**-6 * tfa.flash_attention(qt, kct, vct.abs(), n_past, layer_idx=LAYER)
+    err = np.abs(got.numpy() - np.asarray(want))
+    assert (err <= limit.numpy()).all(), float((err / limit.numpy()).max())
 
 
 def test_vector_n_past_matches_scalar():
