@@ -9,19 +9,33 @@ Phases, each printing one JSON line (any failure exits non-zero):
   env         versions, nvcc, triton, the card's name and power limit
   build       nvcc builds `llamavk_tpu_torch/csrc/*.cu` for sm_90a
   kernels     each hand-written kernel against its plain PyTorch version on
-              the card at the LLaMA-7B shapes of the main path: error, time
+              the card at the LLaMA-7B shapes of the main paths: error, time
               (CUDA events, median, L2 flushed between launches), bound, and
               one PyTorch call computing the same function as a yardstick;
-              then correctness alone at row counts, group counts, ragged
-              widths and head sizes off those shapes
-  tiny_cli    the generate CLI on a tiny GGJT file, greedy, on the card and
-              on the CPU: the two token streams must be equal
+              the batched decode kernel's outputs bit-equal to the fused
+              update kernel's at T = 1, row by row; then correctness alone
+              at row counts, group counts, ragged widths and head sizes off
+              those shapes
+  tiny_cli    the generate CLI on a tiny GGJT file, greedy, bf16 and int8
+              KV, on the card and on the CPU: the token streams must be equal
   generate_7b synthetic LLaMA-7B Q4_0 weights, n_ctx 512, bf16 KV: kernel and
               plain forward passes agree on the main path's routes and
               shapes; then the main path (a 32-token prompt generating 128
               tokens, and a 300-token follow-up turn that reaches the
               read-only attention) with launch counts and the device's idle
               share
+  tiny_serve  the HTTP server on the tiny GGJT file on the card, bf16 and
+              int8 KV, 4 concurrent greedy requests to a LlamaServer here and
+              to the serve CLI in its own process: their streams must equal
+              the CPU's batched engine
+  serve_7b    synthetic LLaMA-7B, the production serving flags without
+              paging (32 slots, n_ctx 512, int8 KV): a B=32 decode step with
+              ragged n_past through the kernels and the plain versions (int8
+              and bf16); then 64 concurrent HTTP requests and one that
+              continues a registered prefix, with throughput, time to first
+              token, launch counts and the idle share; then every kernel
+              against its plain version at every shape that phase launched
+              it at (K1, K2/K3 int8 admission and prefix shapes, K4)
 
 The line before the last is `{"kernels": [...]}`; the last line is
 `{"ok": true, "device": {...}}`. Without CUDA the script exits 2 and prints
@@ -38,7 +52,9 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 from pathlib import Path
 
 import torch
@@ -64,12 +80,21 @@ KERNEL_META = {
     "q4_gemm": ("llamavk_tpu_torch/csrc/q4_matmul.cu", "llamavk_tpu/ops/q4_matmul.py:96"),
     "attn_update": ("llamavk_tpu_torch/csrc/flash_attn.cu", "llamavk_tpu/ops/flash_attn.py:120"),
     "attn_read": ("llamavk_tpu_torch/csrc/flash_attn.cu", "llamavk_tpu/ops/flash_attn.py:474"),
+    "attn_update_i8": ("llamavk_tpu_torch/csrc/flash_attn.cu",
+                       "llamavk_tpu/ops/flash_attn.py:120"),
+    "attn_read_i8": ("llamavk_tpu_torch/csrc/flash_attn.cu", "llamavk_tpu/ops/flash_attn.py:474"),
+    "decode": ("llamavk_tpu_torch/csrc/flash_decode.cu", "llamavk_tpu/ops/flash_decode.py:67"),
+    "decode_i8": ("llamavk_tpu_torch/csrc/flash_decode.cu", "llamavk_tpu/ops/flash_decode.py:67"),
 }
 
 # the tiny model's prompt for the CLI phase: its greedy stream keeps every
-# top-2 logit gap above 0.19 for 16 steps (on the CPU), far above the
-# kernels' drift from the plain versions
+# top-2 logit gap above 0.19 for 16 steps (on the CPU, bf16 and int8 KV),
+# far above the kernels' drift from the plain versions
 TINY_PROMPT = "<t148><t159><t106><t66><t132><t104>"
+# the tiny_serve prompts (token ids): each greedy stream keeps every top-2
+# logit gap above 0.15 for 6 steps on the CPU, with bf16 and int8 caches
+TINY_SERVE_PROMPTS = [[10, 177, 191], [95, 126, 17], [60, 51, 246, 212, 166],
+                      [250, 68, 150, 8, 250, 173]]
 
 
 def emit(obj) -> None:
@@ -83,7 +108,11 @@ class Timer:
     """Median device time of a call: CUDA events around each launch, and a
     write of 2x the L2 cache between launches so every call finds its
     inputs in device memory, as the main path does (each layer's weights
-    and cache rows are read once per step)."""
+    and cache rows are read once per step). A spin of ~1 ms on the device
+    before the first event keeps the device busy while the host enqueues
+    the call, so the time is the device's, not the host's launch latency."""
+
+    SPIN_CYCLES = 2_000_000  # ~1 ms at the H100's 1.98 GHz boost clock
 
     def __init__(self, reps: int):
         self.reps = reps
@@ -96,6 +125,7 @@ class Timer:
             self.flush.zero_()
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(self.SPIN_CYCLES)
             a.record()
             fn()
             b.record()
@@ -161,7 +191,8 @@ def _q4_case(gen, m: int, k: int, n: int):
     return x, QWeight(packed=packed, scales=scales.to(torch.bfloat16))
 
 
-def kernel_q4(timer: Timer, gen, name: str, m: int, main_path: bool) -> dict:
+def kernel_q4(timer: Timer, gen, name: str, m: int, main_path: bool, reps: int | None = None,
+              plain_reps: int = 5) -> dict:
     from llamavk_tpu_torch.ops import q4_matmul as q4
     from llamavk_tpu_torch.ops.qweight import dequantize_qweight
 
@@ -176,9 +207,9 @@ def kernel_q4(timer: Timer, gen, name: str, m: int, main_path: bool) -> dict:
     w_bf16 = dequantize_qweight(qw).to(torch.bfloat16)
     mag = float((x.float().abs() @ w_bf16.float().abs()).max())
     limit = 2 * k * 2.0**-24 * mag
-    ms = timer(lambda: q4.q4_matmul_cuda(x, qw.packed, qw.scales))
-    plain_ms = timer(lambda: q4.q4_matmul_ref(x, qw, out_dtype=torch.float32), reps=5)
-    library_ms = timer(lambda: torch.matmul(x, w_bf16))
+    ms = timer(lambda: q4.q4_matmul_cuda(x, qw.packed, qw.scales), reps)
+    plain_ms = timer(lambda: q4.q4_matmul_ref(x, qw, out_dtype=torch.float32), reps=plain_reps)
+    library_ms = timer(lambda: torch.matmul(x, w_bf16), reps)
     n_bytes = m * k * 2 + k // 2 * n + k // 32 * n * 2 + m * n * 4
     b_ms, b_by = bound(n_bytes, 2.0 * m * k * n)
     return {
@@ -190,90 +221,132 @@ def kernel_q4(timer: Timer, gen, name: str, m: int, main_path: bool) -> dict:
     }
 
 
-def _sdpa(q, k, v, n_past: int, layer: int):
-    """One PyTorch call for the same attention: the cache's visible rows,
-    an explicit causal mask offset by n_past."""
-    t = q.shape[1]
-    kv = n_past + t
+def _sdpa_call(q, k, v, n_past, layer: int, k_scale=None, v_scale=None):
+    """One PyTorch call for the same attention, as a closure: the cache's
+    visible rows (an int8 cache dequantized to a bf16 copy first), and an
+    explicit causal mask offset by each row's n_past, both made before the
+    call."""
+    from llamavk_tpu_torch.ops.kv_quant import dequantize_rows
+
+    b, t = q.shape[:2]
+    npv = torch.as_tensor(n_past, device=q.device).to(torch.int64).expand(b)
+    kv = int(npv.max()) + t
+    kl, vl = k[layer, :, :, :kv], v[layer, :, :, :kv]
+    if k_scale is not None:
+        kl = dequantize_rows(kl, k_scale[layer, :, :kv].transpose(1, 2)).to(torch.bfloat16)
+        vl = dequantize_rows(vl, v_scale[layer, :, :kv].transpose(1, 2)).to(torch.bfloat16)
+    mask = (torch.arange(kv, device=q.device)[None, None, :]
+            <= npv[:, None, None] + torch.arange(t, device=q.device)[None, :, None])
     qh = q.transpose(1, 2)  # [B, H, T, D]
-    mask = (torch.arange(kv, device=q.device)[None, :]
-            <= n_past + torch.arange(t, device=q.device)[:, None])
-    return torch.nn.functional.scaled_dot_product_attention(
-        qh, k[layer, :, :, :kv], v[layer, :, :, :kv], attn_mask=mask
-    )
+    return lambda: torch.nn.functional.scaled_dot_product_attention(qh, kl, vl,
+                                                                    attn_mask=mask[:, None])
 
 
-def _attn_sizes(t: int, n_past: int, update: bool) -> tuple[float, float]:
+def _attn_sizes(b: int, t: int, n_past, update: bool, quant: bool) -> tuple[float, float]:
     """Bytes and operations one call needs: q read, the f32 output written,
-    QK and PV over each query's visible keys. The update function reads the
-    n_past earlier K/V rows from the cache and the T new ones from
-    k_new/v_new, and writes the new ones to the cache; the read function
-    reads all n_past + T rows from the cache."""
-    visible = sum(n_past + i + 1 for i in range(t))
-    n_bytes = t * H * D * 2 + t * H * D * 4
+    QK and PV over each query's visible keys. A cached position of K or V
+    is H * D elements (1 byte for int8, plus H f32 scales; 2 for bf16). The
+    update functions read the n_past earlier positions from the cache and
+    the T new ones from k_new/v_new (bf16), and write the new ones to the
+    cache; the read function reads all n_past + T positions from the cache.
+    n_past is one int for every row or a list, one per row."""
+    pasts = n_past if isinstance(n_past, list) else [n_past] * b
+    pos = H * D * (1 if quant else 2) + (H * 4 if quant else 0)
+    visible = sum(p + i + 1 for p in pasts for i in range(t))
+    n_bytes = b * t * H * D * (2 + 4)
     if update:
-        n_bytes += 2 * n_past * H * D * 2 + 2 * (2 * t * H * D * 2)
+        n_bytes += sum(2 * p * pos for p in pasts) + 2 * b * t * (H * D * 2 + pos)
     else:
-        n_bytes += 2 * (n_past + t) * H * D * 2
+        n_bytes += sum(2 * (p + t) * pos for p in pasts)
     return n_bytes, 4.0 * H * D * visible
 
 
 # online softmax (kernel) against a dense softmax (plain version), both on
-# the same bf16-rounded scaled q: each side rounds every probability to bf16
-# (relative error <= 2^-8, an 8-bit significand), at different scales,
-# before the PV product, so an output element may differ by 2^-7 of
-# sum_j p_j |v_j| / l. The f32 differences in the scores and sums are orders
-# of magnitude smaller; the limit is twice the bound, element by element.
+# the same bf16-rounded scaled q: each side rounds every probability (times
+# its value scale, int8) to bf16 (relative error <= 2^-8, an 8-bit
+# significand), at different scales, before the PV product, so an output
+# element may differ by 2^-7 of sum_j p_j |v_j| / l. The f32 differences in
+# the scores and sums are orders of magnitude smaller; the limit is twice the
+# bound, element by element.
 ATTN_REL = 2.0**-6
-ATTN_LIMIT_RULE = "2^-6 * attention(q, k, |v|) per element"
+ATTN_LIMIT_RULE = "2^-6 * attention(q, k, |v|) per element (v dequantized for int8)"
 
 
-def _attn_err(got, want, q, k, v, n_past, layer: int) -> tuple[float, float]:
+def _attn_err(got, want, q, k, v, n_past, layer: int, k_scale=None,
+              v_scale=None) -> tuple[float, float]:
     """(max |got - want|, the largest ratio of an element's error to its own
     limit) for attention outputs over layer `layer` of the cache k, v."""
     from llamavk_tpu_torch.ops import flash_attn as fa
 
-    lim = ATTN_REL * fa.flash_attention_ref(q, k, v.abs(), n_past, layer_idx=layer)
+    lim = ATTN_REL * fa.flash_attention_ref(q, k, v.abs(), n_past, layer_idx=layer,
+                                            k_scale=k_scale, v_scale=v_scale)
     err = (got - want).abs()
     return float(err.max()), float((err / lim.clamp_min(1e-30)).max())
 
 
-def kernel_attn(timer: Timer, gen, t: int, n_past: int, update: bool, main_path: bool) -> dict:
+def _kv_cache(gen, shape, quant: bool) -> list:
+    """Random cache planes for `shape` [L, B, H, S, D]: bf16 N(0, 1) values,
+    or the int8 rows and [L, B, S, H] scales of such values."""
+    from llamavk_tpu_torch.ops.kv_quant import quantize_rows
+
+    planes = [torch.empty(shape, dtype=torch.bfloat16, device="cuda").normal_(generator=gen)
+              for _ in range(2)]
+    if not quant:
+        return planes
+    qs = [quantize_rows(x) for x in planes]
+    return [q for q, _ in qs] + [s.transpose(2, 3).contiguous() for _, s in qs]
+
+
+def _scales(planes) -> dict:
+    return dict(k_scale=planes[2], v_scale=planes[3]) if len(planes) == 4 else {}
+
+
+def kernel_attn(timer: Timer, gen, t: int, n_past, update: bool, main_path: bool,
+                b: int = 1, quant: bool = False, s: int = N_CTX, bk: int | None = None) -> dict:
+    """K2 (update) or K3 (read) against its plain version on a random cache
+    of S rows at block_k `bk` (llama_forward's default when None). n_past is
+    one int, or a list of one per row (passed as an int32 vector)."""
     from llamavk_tpu_torch.ops import flash_attn as fa
 
     layers = 2
     layer = 1  # a layer past the first: the wrapper offsets into the stack
-    shape = (layers, 1, H, N_CTX, D)
-    k = torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
-    v = torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
-    q = torch.randn((1, t, H, D), device="cuda", generator=gen).to(torch.bfloat16)
-    kn = torch.randn((1, t, H, D), device="cuda", generator=gen).to(torch.bfloat16)
-    vn = torch.randn((1, t, H, D), device="cuda", generator=gen).to(torch.bfloat16)
-    bk = 512 if t >= 256 else 256  # llama_forward's default KV block
+    planes = _kv_cache(gen, (layers, b, H, s, D), quant)
+    q, kn, vn = (torch.randn((b, t, H, D), device="cuda", generator=gen).to(torch.bfloat16)
+                 for _ in range(3))
+    bk = bk or (512 if t >= 256 else 256)  # llama_forward's default KV block
+    npast = (torch.tensor(n_past, dtype=torch.int32, device="cuda")
+             if isinstance(n_past, list) else n_past)
+    k, v, sc = planes[0], planes[1], _scales(planes)
     if update:
-        k2, v2 = k.clone(), v.clone()
-        got, _, _ = fa.flash_attention_update(q, kn, vn, k, v, n_past, layer, block_k=bk)
-        want, _, _ = fa.flash_attention_update_ref(q, kn, vn, k2, v2, n_past, layer)
+        p2 = [x.clone() for x in planes]
+        got = fa.flash_attention_update(q, kn, vn, k, v, npast, layer, block_k=bk, **sc)[0]
+        want = fa.flash_attention_update_ref(q, kn, vn, p2[0], p2[1], npast, layer,
+                                             **_scales(p2))[0]
         torch.cuda.synchronize()
-        cache_equal = bool(torch.equal(k, k2) and torch.equal(v, v2))
-        run = lambda: fa.flash_attention_update(q, kn, vn, k, v, n_past, layer, block_k=bk)  # noqa: E731
-        plain = lambda: fa.flash_attention_update_ref(q, kn, vn, k2, v2, n_past, layer)  # noqa: E731
+        cache_equal = all(torch.equal(x, y) for x, y in zip(planes, p2))
+        run = lambda: fa.flash_attention_update(q, kn, vn, k, v, npast, layer,  # noqa: E731
+                                                block_k=bk, **sc)
+        plain = lambda: fa.flash_attention_update_ref(q, kn, vn, p2[0], p2[1],  # noqa: E731
+                                                      npast, layer, **_scales(p2))
     else:
-        fa.write_rows(kn, vn, k, v, n_past, layer)
-        got = fa.flash_attention(q, k, v, n_past, layer_idx=layer, block_k=bk)
-        want = fa.flash_attention_ref(q, k, v, n_past, layer_idx=layer)
+        fa.write_rows(kn, vn, k, v, npast, layer, *planes[2:])
+        got = fa.flash_attention(q, k, v, npast, layer_idx=layer, block_k=bk, **sc)
+        want = fa.flash_attention_ref(q, k, v, npast, layer_idx=layer, **sc)
         torch.cuda.synchronize()
         cache_equal = True
-        run = lambda: fa.flash_attention(q, k, v, n_past, layer_idx=layer, block_k=bk)  # noqa: E731
-        plain = lambda: fa.flash_attention_ref(q, k, v, n_past, layer_idx=layer)  # noqa: E731
-    err, ratio = _attn_err(got, want, q, k, v, n_past, layer)
+        run = lambda: fa.flash_attention(q, k, v, npast, layer_idx=layer,  # noqa: E731
+                                         block_k=bk, **sc)
+        plain = lambda: fa.flash_attention_ref(q, k, v, npast, layer_idx=layer,  # noqa: E731
+                                               **sc)
+    err, ratio = _attn_err(got, want, q, k, v, npast, layer, *planes[2:])
     ms = timer(run)
     plain_ms = timer(plain, reps=5)
-    library_ms = timer(lambda: _sdpa(q, k, v, n_past, layer))
-    b_ms, b_by = bound(*_attn_sizes(t, n_past, update))
+    library_ms = timer(_sdpa_call(q, k, v, npast, layer, *planes[2:]))
+    b_ms, b_by = bound(*_attn_sizes(b, t, n_past, update, quant))
     return {
-        "kernel": "attn_update" if update else "attn_read",
-        "shape": f"T={t} n_past={n_past} H={H} D={D} S={N_CTX} block_k={bk}",
+        "kernel": ("attn_update" if update else "attn_read") + ("_i8" if quant else ""),
+        "shape": f"B={b} T={t} n_past={n_past} H={H} D={D} S={s} block_k={bk}"
+                 + (" int8" if quant else ""),
         "main_path": main_path,
         "max_abs_err": err, "limit": ATTN_LIMIT_RULE, "err_over_limit": ratio,
         "cache_bytes_equal": cache_equal, "ok": ratio <= 1.0 and cache_equal,
@@ -282,11 +355,67 @@ def kernel_attn(timer: Timer, gen, t: int, n_past: int, update: bool, main_path:
     }
 
 
-def kernel_edges(gen) -> dict:
+def _decode_npast(b: int, s: int, gen_cpu) -> list[int]:
+    """Per-row n_past, seeded in [0, s - 1], with 0, s/2 - 1, s/2 and s - 1."""
+    npl = torch.randint(0, s, (b,), generator=gen_cpu).tolist()
+    npl[:4] = [0, s // 2 - 1, s // 2, s - 1][: min(4, b)]
+    return npl
+
+
+def kernel_decode(timer: Timer, gen, gen_cpu, b: int, quant: bool, main_path: bool,
+                  h: int = H, d: int = D, s: int = N_CTX, bk: int = 256) -> dict:
+    """K4 against its plain version, and against K2 at T = 1 row by row at
+    the same block_k: outputs and every cache plane bit-equal."""
+    from llamavk_tpu_torch.ops import flash_attn as fa
+    from llamavk_tpu_torch.ops import flash_decode as fd
+
+    layer = 1
+    npl = _decode_npast(b, s, gen_cpu)
+    npast = torch.tensor(npl, dtype=torch.int32, device="cuda")
+    planes = _kv_cache(gen, (2, b, h, s, d), quant)
+    q, kn, vn = (torch.randn((b, 1, h, d), device="cuda", generator=gen).to(torch.bfloat16)
+                 for _ in range(3))
+    p1, p2 = [x.clone() for x in planes], [x.clone() for x in planes]
+    got = fd.flash_decode_update(q, kn, vn, p1[0], p1[1], npast, layer, block_k=bk,
+                                 **_scales(p1))[0]
+    want = fd.flash_decode_update_ref(q, kn, vn, p2[0], p2[1], npast, layer, block_k=bk,
+                                      **_scales(p2))[0]
+    torch.cuda.synchronize()
+    cache_equal = all(torch.equal(x, y) for x, y in zip(p1, p2))
+    k2_equal = True
+    for r in range(b):
+        pr = [x[:, r : r + 1].contiguous() for x in planes]
+        out_r = fa.flash_attention_update(q[r : r + 1], kn[r : r + 1], vn[r : r + 1], pr[0],
+                                          pr[1], npl[r], layer, block_k=bk, **_scales(pr))[0]
+        k2_equal &= bool(torch.equal(out_r[0], got[r])) and all(
+            torch.equal(x[:, 0], y[:, r]) for x, y in zip(pr, p1))
+    err, ratio = _attn_err(got, want, q, p1[0], p1[1], npast, layer, *p1[2:])
+    row = {
+        "kernel": "decode_i8" if quant else "decode",
+        "shape": f"B={b} n_past={min(npl)}..{max(npl)} H={h} D={d} S={s} block_k={bk}"
+                 + (" int8" if quant else ""),
+        "main_path": main_path,
+        "max_abs_err": err, "limit": ATTN_LIMIT_RULE, "err_over_limit": ratio,
+        "cache_bytes_equal": cache_equal, "bit_equal_to_update_kernel": k2_equal,
+        "ok": ratio <= 1.0 and cache_equal and k2_equal,
+    }
+    if timer is None:
+        return row
+    row["ms"] = timer(lambda: fd.flash_decode_update(q, kn, vn, p1[0], p1[1], npast, layer,
+                                                     block_k=bk, **_scales(p1)))
+    row["plain_ms"] = timer(lambda: fd.flash_decode_update_ref(
+        q, kn, vn, p2[0], p2[1], npast, layer, block_k=bk, **_scales(p2)), reps=5)
+    row["library_ms"] = timer(_sdpa_call(q, p1[0], p1[1], npast, layer, *p1[2:]))
+    row["bound_ms"], row["bound_by"] = bound(*_attn_sizes(b, 1, npl, True, quant))
+    return row
+
+
+def kernel_edges(gen, gen_cpu) -> dict:
     """Correctness only, off the 7B shapes: the GEMM at the row counts of
     short prompts' buckets (M = 2..9), an odd group count and a ragged N,
-    the GEMV on a ragged N, and the attention at D = 64 with a small KV
-    block, T = 8 and a vector n_past."""
+    the GEMV on a ragged N, the attention at D = 64 (the tiny model's) with
+    a small KV block, T = 8 and a vector n_past, bf16 and int8, and the
+    batched decode kernel at D = 64."""
     from llamavk_tpu_torch.ops import flash_attn as fa
     from llamavk_tpu_torch.ops import q4_matmul as q4
     from llamavk_tpu_torch.ops.qweight import dequantize_qweight
@@ -302,25 +431,34 @@ def kernel_edges(gen) -> dict:
         limit = 2 * k * 2.0**-24 * float((x.float().abs() @ w.abs()).max())
         worst[f"q4 M={m} K={k} N={n}"] = (err, limit, err / limit)
     h, d, s = 2, 64, 64
-    for b, t, n_past, update in ((1, 8, 13, True), (1, 5, 20, False), (2, 1, None, True)):
-        k = torch.randn((2, b, h, s, d), device="cuda", generator=gen).to(torch.bfloat16)
-        v = torch.randn((2, b, h, s, d), device="cuda", generator=gen).to(torch.bfloat16)
-        q, kn, vn = (torch.randn((b, t, h, d), device="cuda", generator=gen).to(torch.bfloat16)
-                     for _ in range(3))
-        np_ = torch.tensor([3, 40], dtype=torch.int32, device="cuda") if n_past is None else n_past
-        if update:
-            k2, v2 = k.clone(), v.clone()
-            got, _, _ = fa.flash_attention_update(q, kn, vn, k, v, np_, 1, block_k=32)
-            want, _, _ = fa.flash_attention_update_ref(q, kn, vn, k2, v2, np_, 1)
-            if not (torch.equal(k, k2) and torch.equal(v, v2)):
-                raise SystemExit(f"kernel edges: cache rows differ (B={b} T={t})")
-        else:
-            fa.write_rows(kn, vn, k, v, np_, 1)
-            got = fa.flash_attention(q, k, v, np_, layer_idx=1, block_k=32)
-            want = fa.flash_attention_ref(q, k, v, np_, layer_idx=1)
-        name = f"attn {'update' if update else 'read'} B={b} T={t} D={d} n_past={n_past or [3, 40]}"
-        err, ratio = _attn_err(got, want, q, k, v, np_, 1)
-        worst[name] = (err, ATTN_LIMIT_RULE, ratio)
+    for quant in (False, True):
+        for b, t, n_past, update in ((1, 8, 13, True), (1, 5, 20, False), (2, 1, None, True)):
+            planes = _kv_cache(gen, (2, b, h, s, d), quant)
+            q, kn, vn = (torch.randn((b, t, h, d), device="cuda", generator=gen)
+                         .to(torch.bfloat16) for _ in range(3))
+            np_ = (torch.tensor([3, 40], dtype=torch.int32, device="cuda")
+                   if n_past is None else n_past)
+            k, v = planes[0], planes[1]
+            if update:
+                p2 = [x.clone() for x in planes]
+                got = fa.flash_attention_update(q, kn, vn, k, v, np_, 1, block_k=32,
+                                                **_scales(planes))[0]
+                want = fa.flash_attention_update_ref(q, kn, vn, p2[0], p2[1], np_, 1,
+                                                     **_scales(p2))[0]
+                if not all(torch.equal(x, y) for x, y in zip(planes, p2)):
+                    raise SystemExit(f"kernel edges: cache rows differ (B={b} T={t})")
+            else:
+                fa.write_rows(kn, vn, k, v, np_, 1, *planes[2:])
+                got = fa.flash_attention(q, k, v, np_, layer_idx=1, block_k=32, **_scales(planes))
+                want = fa.flash_attention_ref(q, k, v, np_, layer_idx=1, **_scales(planes))
+            name = (f"attn {'update' if update else 'read'} B={b} T={t} D={d} "
+                    f"n_past={n_past or [3, 40]}{' int8' if quant else ''}")
+            err, ratio = _attn_err(got, want, q, k, v, np_, 1, *planes[2:])
+            worst[name] = (err, ATTN_LIMIT_RULE, ratio)
+        r = kernel_decode(None, gen, gen_cpu, 4, quant, False, h=h, d=d, s=s, bk=32)
+        if not r["ok"]:
+            raise SystemExit(f"kernel edges: batched decode at D={d} disagrees: {r}")
+        worst[f"decode {r['shape']}"] = (r["max_abs_err"], ATTN_LIMIT_RULE, r["err_over_limit"])
     torch.cuda.synchronize()
     bad = {name: e for name, e in worst.items() if not e[2] <= 1.0}
     if bad:
@@ -332,26 +470,44 @@ def kernel_edges(gen) -> dict:
 def phase_kernels(reps: int) -> list[dict]:
     timer = Timer(reps)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    gen_cpu = torch.Generator().manual_seed(0)
     rows = []
     # (M, on the main path of generate_7b): decode and the output matmul at
     # M = 1, the layers' matmuls in the 32-token prefill and the second
-    # turn's 353-row bucket; M = 512 is a full-context prefill
+    # turn's 353-row bucket; M = 512 is a full-context prefill. Every shape
+    # serve_7b launches K1, K2, K3 or K4 at is checked after it, from the
+    # wrappers' shape counters (`phase_serve_shapes`).
     for m, main in ((1, True), (32, True), (353, True), (512, False)):
         for name in K1_SHAPES:
             if m > 1 and main and name == "output":
                 continue  # the main path takes logits of the last row only
             rows.append(kernel_q4(timer, gen, name, m, main))
             emit({"phase": "kernel", **rows[-1]})
-    # (T, n_past, update kernel, on the main path): decode steps, the first
-    # prompt, the second turn (301 tokens at n_past 159 in a 353-row bucket,
-    # which takes the read route), and a full-context and odd-length prefill
-    for t, n_past, update, main in ((1, 0, True, False), (1, 37, True, True),
-                                    (1, 480, True, True), (1, 511, True, False),
-                                    (32, 0, True, True), (512, 0, True, False),
-                                    (353, 159, False, True), (412, 100, False, False)):
-        rows.append(kernel_attn(timer, gen, t, n_past, update, main))
+    # (T, n_past, update kernel, on a main path, B, int8): bf16 decode steps,
+    # the first prompt, the second turn (301 tokens at n_past 159 in a
+    # 353-row bucket, which takes the read route), a full-context and an
+    # odd-length prefill; int8 single-stream decode at n_past 480, chunks of
+    # four prompts (buckets 32, 64, 256) in the full 512-row cache (serving
+    # admits them into a smaller scratch cache), a full-context prefill, the
+    # second-turn shape, and the serving path's prefixed request (a 300-token
+    # suffix at n_past 100 in a 412-row bucket, the read route)
+    for t, n_past, update, main, b, quant in (
+            (1, 0, True, False, 1, False), (1, 37, True, True, 1, False),
+            (1, 480, True, True, 1, False), (1, 511, True, False, 1, False),
+            (32, 0, True, True, 1, False), (512, 0, True, False, 1, False),
+            (353, 159, False, True, 1, False), (412, 100, False, False, 1, False),
+            (1, 480, True, False, 1, True), (32, 0, True, False, 4, True),
+            (64, 0, True, False, 4, True), (256, 0, True, False, 4, True),
+            (512, 0, True, False, 1, True), (353, 159, False, False, 1, True),
+            (412, 100, False, True, 1, True)):
+        rows.append(kernel_attn(timer, gen, t, n_past, update, main, b, quant))
         emit({"phase": "kernel", **rows[-1]})
-    emit({"phase": "kernel_edges", **kernel_edges(gen)})
+    # batched decode at the serving path's 32 slots (int8 there) and at 8
+    for b in (32, 8):
+        for quant in (False, True):
+            rows.append(kernel_decode(timer, gen, gen_cpu, b, quant, b == 32 and quant))
+            emit({"phase": "kernel", **rows[-1]})
+    emit({"phase": "kernel_edges", **kernel_edges(gen, gen_cpu)})
     bad = [r["shape"] for r in rows if not r["ok"]]
     if bad:
         raise SystemExit(f"kernels disagree with their plain versions: {bad}")
@@ -364,36 +520,75 @@ def phase_tiny_cli(work: Path) -> dict:
 
     path = str(work / "tiny-q4.bin")
     random_tiny_model(write_path=path, quantize=True)
-    outs = {}
-    for device in ("cuda", "cpu"):
-        args = cli.build_argparser().parse_args(
-            ["-m", path, "-p", TINY_PROMPT, "-n", "16", "--temp", "0", "-s", "42",
-             "--device", device]
-        )
-        buf = io.StringIO()
-        if cli.run(args, stdout=buf) != 0:
-            raise SystemExit(f"tiny_cli: run on {device} failed")
-        outs[device] = buf.getvalue()
-    if outs["cuda"] != outs["cpu"]:
-        raise SystemExit(f"tiny_cli: card and CPU streams differ:\n{outs['cuda']!r}\n{outs['cpu']!r}")
-    return {"tokens_text": outs["cuda"].strip(), "equal_to_cpu": True}
+    result = {}
+    for kv in ("bfloat16", "int8"):
+        outs = {}
+        for device in ("cuda", "cpu"):
+            args = cli.build_argparser().parse_args(
+                ["-m", path, "-p", TINY_PROMPT, "-n", "16", "--temp", "0", "-s", "42",
+                 "--kv-dtype", kv, "--device", device]
+            )
+            buf = io.StringIO()
+            if cli.run(args, stdout=buf) != 0:
+                raise SystemExit(f"tiny_cli: run on {device} ({kv}) failed")
+            outs[device] = buf.getvalue()
+        if outs["cuda"] != outs["cpu"]:
+            raise SystemExit(f"tiny_cli ({kv}): card and CPU streams differ:\n"
+                             f"{outs['cuda']!r}\n{outs['cpu']!r}")
+        result[kv] = {"tokens_text": outs["cuda"].strip(), "equal_to_cpu": True}
+    return result
 
 
 def _reset_counts() -> None:
+    """Every launch counter to 0."""
     from llamavk_tpu_torch.ops import flash_attn as fa
+    from llamavk_tpu_torch.ops import flash_decode as fd
     from llamavk_tpu_torch.ops import q4_matmul as q4
 
-    for d in (q4.launches, fa.launches):
+    for d in (q4.launches, fa.launches, fd.launches):
         for key in d:
             d[key] = 0
 
 
-def _counts() -> dict:
+def _reset_shapes() -> None:
+    """Every kernel's shape counter emptied."""
     from llamavk_tpu_torch.ops import flash_attn as fa
+    from llamavk_tpu_torch.ops import flash_decode as fd
     from llamavk_tpu_torch.ops import q4_matmul as q4
 
-    return {"q4_gemv": q4.launches["gemv"], "q4_gemm": q4.launches["gemm"],
-            "attn_update": fa.launches["update"], "attn_read": fa.launches["read"]}
+    for c in (q4.shapes, fa.shapes, fd.shapes):
+        c.clear()
+
+
+def _shapes() -> dict:
+    """The shapes every kernel was launched at since the last
+    `_reset_shapes`, with their launch counts: {"q4": {(M, K, N): n},
+    "attn": {(path, B, T, H, S, D, block_k, int8, n_past): n}, "decode":
+    {(B, H, S, D, block_k, int8): n}}."""
+    from llamavk_tpu_torch.ops import flash_attn as fa
+    from llamavk_tpu_torch.ops import flash_decode as fd
+    from llamavk_tpu_torch.ops import q4_matmul as q4
+
+    return {"q4": dict(q4.shapes), "attn": dict(fa.shapes), "decode": dict(fd.shapes)}
+
+
+def _counts() -> dict:
+    """Launches by kernel name (KERNEL_META's keys) since the last reset."""
+    from llamavk_tpu_torch.ops import flash_attn as fa
+    from llamavk_tpu_torch.ops import flash_decode as fd
+    from llamavk_tpu_torch.ops import q4_matmul as q4
+
+    counts = {"q4_gemv": q4.launches["gemv"], "q4_gemm": q4.launches["gemm"]}
+    counts.update({f"attn_{k}": n for k, n in fa.launches.items()})
+    counts.update(fd.launches)
+    return counts
+
+
+def _require(phase: str, counts: dict, kernels) -> None:
+    """Fail unless each of `kernels` was launched on the path just driven."""
+    missing = [k for k in kernels if counts[k] == 0]
+    if missing:
+        raise SystemExit(f"{phase}: kernels never launched on the main path: {missing}")
 
 
 # kernel against plain forward passes on the 7B synthetic model: both keep
@@ -404,10 +599,11 @@ def _counts() -> dict:
 LOGIT_REL_LIMIT = 2.0**-8
 
 
-def _device_busy(fn) -> tuple[float, float | None, int]:
+def _device_busy(fn) -> tuple[float, float | None, int, dict]:
     """Host wall time (ms) of fn, the device time inside it from
-    torch.profiler (None when the profiler sees no device activity), and
-    the number of device activities (kernels and copies)."""
+    torch.profiler (None when the profiler sees no device activity), the
+    number of device activities (kernels and copies), and the device ms of
+    the 8 activities that took most, by name."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -418,10 +614,15 @@ def _device_busy(fn) -> tuple[float, float | None, int]:
         wall = (time.perf_counter() - t0) * 1e3
     from torch.autograd import DeviceType
 
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    dev_us = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
-                 for e in dev)
-    return wall, (dev_us / 1e3 if dev_us > 0 else None), sum(e.count for e in dev)
+    def dev_ms(e) -> float:
+        us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+        return us / 1e3
+
+    dev = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                 key=dev_ms, reverse=True)
+    busy = sum(map(dev_ms, dev))
+    top = {e.key[:80]: dev_ms(e) for e in dev[:8]}
+    return wall, (busy if busy > 0 else None), sum(e.count for e in dev), top
 
 
 def phase_generate_7b(seed: int) -> tuple[dict, dict]:
@@ -507,7 +708,8 @@ def phase_generate_7b(seed: int) -> tuple[dict, dict]:
     eng.generate([], 8, greedy, ignore_eos=True)
     torch.cuda.synchronize()
     plain_wall_ms = (time.perf_counter() - t0) * 1e3
-    wall_ms, busy_ms, n_dev = _device_busy(lambda: eng.generate([], 8, greedy, ignore_eos=True))
+    wall_ms, busy_ms, n_dev, _ = _device_busy(
+        lambda: eng.generate([], 8, greedy, ignore_eos=True))
     if len(out1) != 128 or len(out2) != 16:
         raise SystemExit("generate_7b: short generation")
     # K1: 4 matmuls per layer + the output matmul, per forward pass
@@ -515,9 +717,7 @@ def phase_generate_7b(seed: int) -> tuple[dict, dict]:
     k1_1 = counts1["q4_gemv"] + counts1["q4_gemm"]
     if k1_1 != (4 * cfg.n_layer + 1) * forwards1:
         raise SystemExit(f"generate_7b: {k1_1} K1 launches for {forwards1} forward passes")
-    missing = [k for k, n in counts.items() if n == 0]
-    if missing:
-        raise SystemExit(f"generate_7b: kernels never launched on the main path: {missing}")
+    _require("generate_7b", counts, ("q4_gemv", "q4_gemm", "attn_update", "attn_read"))
     result = {
         "params_s": round(t_params, 3), "kernel_vs_plain": cmp, "limit_rel": LOGIT_REL_LIMIT,
         "prefill_tokens": len(prompt1), "prefill_ms": prefill_ms,
@@ -533,13 +733,315 @@ def phase_generate_7b(seed: int) -> tuple[dict, dict]:
     return result, counts
 
 
+def _post(base: str, path: str, body: dict) -> tuple[int, bytes]:
+    req = urllib.request.Request(base + path, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"}, method="POST")
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return r.status, r.read()
+
+
+def _complete(base: str, body: dict) -> dict:
+    """POST one completion; returns its text, status, finish reason and, for
+    a streamed one, the seconds to its first text chunk."""
+    t0 = time.perf_counter()
+    if not body.get("stream"):
+        status, data = _post(base, "/v1/completions", body)
+        choice = json.loads(data)["choices"][0]
+        return {"status": status, "text": choice["text"], "finish": choice["finish_reason"],
+                "seconds": time.perf_counter() - t0}
+    req = urllib.request.Request(base + "/v1/completions", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"}, method="POST")
+    parts, finish, first = [], None, None
+    with urllib.request.urlopen(req, timeout=600) as r:
+        status = r.status
+        for raw in r:
+            line = raw.decode().strip()
+            if not line.startswith("data: ") or line == "data: [DONE]":
+                continue
+            choice = json.loads(line[len("data: "):])["choices"][0]
+            if first is None and choice["text"]:
+                first = time.perf_counter() - t0
+            parts.append(choice["text"])
+            finish = choice["finish_reason"] or finish
+    return {"status": status, "text": "".join(parts), "finish": finish,
+            "seconds": time.perf_counter() - t0, "first_chunk_s": first}
+
+
+def _serve(srv) -> tuple[str, threading.Thread]:
+    """Start srv's HTTP front door on a free port of 127.0.0.1."""
+    httpd = srv.start("127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    return f"http://127.0.0.1:{httpd.server_address[1]}", thread
+
+
+def _concurrently(base: str, bodies: list[dict]) -> list[dict]:
+    """Post every body at once, one client thread each."""
+    out: list = [None] * len(bodies)
+
+    def run(i):
+        out[i] = _complete(base, bodies[i])
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    if any(o is None for o in out):
+        raise SystemExit("serve: a client got no answer")
+    return out
+
+
+def _serve_cli(path: str, kv: str, bodies: list[dict]) -> list[dict]:
+    """Answers to `bodies` from the serve CLI run in its own process on the
+    card, which is stopped before returning."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "llamavk_tpu_torch.cli.serve", "-m", path, "--port", "0",
+         "--max-batch", "4", "-c", "64", "--block", "4", "--kv-dtype", kv, "--device", "cuda"],
+        cwd=ROOT, stderr=subprocess.PIPE, text=True)
+    try:
+        for line in proc.stderr:  # the loader's line, then "llamavk serving ... on <url>"
+            if " serving " in line:
+                return _concurrently(line.split(" on ")[-1].strip(), bodies)
+        raise SystemExit(f"tiny_serve: the serve CLI exited with {proc.wait()}")
+    finally:
+        proc.terminate()
+        proc.wait(timeout=60)
+
+
+def phase_tiny_serve(work: Path) -> tuple[dict, dict]:
+    """The server on the card, bf16 and int8 KV: 4 concurrent greedy
+    requests, to a LlamaServer in this process and to the serve CLI in its
+    own, whose streams must equal the CPU batched engine's."""
+    from llamavk_tpu_torch.models.loader import load_model, random_tiny_model
+    from llamavk_tpu_torch.runtime.batching import BatchConfig, BatchedEngine
+    from llamavk_tpu_torch.runtime.sampling import SamplerParams
+    from llamavk_tpu_torch.runtime.server import LlamaServer
+
+    path = str(work / "tiny-q4.bin")
+    random_tiny_model(write_path=path, quantize=True)
+    n_tokens = 6
+    result, counts = {}, dict.fromkeys(KERNEL_META, 0)
+    for kv in ("bfloat16", "int8"):
+        bcfg = BatchConfig(max_batch=4, n_ctx=64, block=4, kv_dtype=kv)
+        cfg, params, tok = load_model(path, device="cpu")
+        be = BatchedEngine(cfg, params, bcfg, device="cpu")
+        reqs = [be.submit(p, n_tokens, SamplerParams(temp=0.0), ignore_eos=True)
+                for p in TINY_SERVE_PROMPTS]
+        be.run()
+        want = [b"".join(tok.decode_token(t) for t in r.generated).decode() for r in reqs]
+        cfg, params, tok = load_model(path, device="cuda")
+        srv = LlamaServer(cfg, params, tok, bcfg, device="cuda")
+        base, thread = _serve(srv)
+        bodies = [dict(prompt=p, max_tokens=n_tokens, temperature=0.0, ignore_eos=True)
+                  for p in TINY_SERVE_PROMPTS]
+        _reset_counts()
+        got = _concurrently(base, bodies)
+        for key, n in _counts().items():
+            counts[key] += n
+        srv.shutdown()
+        thread.join(timeout=30)
+        for name, answers in (("server", got), ("serve CLI", _serve_cli(path, kv, bodies))):
+            texts = [a["text"] for a in answers]
+            if texts != want:
+                raise SystemExit(f"tiny_serve ({kv}, {name}): card streams {texts} differ "
+                                 f"from the CPU's {want}")
+        result[kv] = {"streams": want, "server_and_cli_equal_to_cpu": True}
+    _require("tiny_serve", counts, ("decode", "decode_i8", "attn_update", "attn_update_i8"))
+    return result, counts
+
+
+def _decode_step_check(params, cfg, seed: int) -> dict:
+    """One decode step at B=32 with ragged n_past (the batched decode
+    kernel's route) through the kernels and through the plain versions,
+    over a seeded int8 cache and a seeded bf16 cache: logits within 2^-8 of
+    the largest, and equal argmax wherever the top-2 gap is wider."""
+    from llamavk_tpu_torch.models.llama import KVCache, llama_forward
+
+    b, out = 32, {}
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    gen_cpu = torch.Generator().manual_seed(seed + 1)
+    npast = torch.tensor(_decode_npast(b, N_CTX, gen_cpu), dtype=torch.int32, device="cuda")
+    toks = torch.randint(3, cfg.n_vocab, (b, 1), generator=gen_cpu).cuda()
+    for kv, quant in (("int8", True), ("bfloat16", False)):
+        shape = (cfg.n_layer, b, cfg.n_head, N_CTX, cfg.head_dim)
+        planes = [torch.randint(-127, 128, shape, dtype=torch.int8, device="cuda", generator=gen)
+                  for _ in range(2)] if quant else [
+            torch.empty(shape, dtype=torch.bfloat16, device="cuda").normal_(generator=gen)
+            for _ in range(2)]
+        if quant:
+            sshape = (cfg.n_layer, b, N_CTX, cfg.n_head)
+            planes += [torch.empty(sshape, device="cuda").uniform_(0.005, 0.03, generator=gen)
+                       for _ in range(2)]
+        logits = {}
+        for ref in (False, True):
+            cache = KVCache(*(p.clone() for p in planes))
+            logits[ref] = llama_forward(params, toks, cache, npast, cfg, use_ref=ref)[0][:, -1]
+            del cache
+        del planes
+        a, w = logits[False], logits[True]
+        scale = float(w.abs().max())
+        rel = float((a - w).abs().max()) / scale
+        top2 = torch.topk(w, 2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) / scale > LOGIT_REL_LIMIT
+        argmax_ok = bool(((a.argmax(-1) == w.argmax(-1)) | ~clear).all())
+        if not (math.isfinite(rel) and rel <= LOGIT_REL_LIMIT and argmax_ok):
+            raise SystemExit(f"serve_7b: B=32 decode step ({kv}) kernel vs plain: rel {rel:.3g}, "
+                             f"argmax on clear gaps equal: {argmax_ok}")
+        out[kv] = {"rel": rel, "limit_rel": LOGIT_REL_LIMIT, "argmax_equal_on_clear_gaps": True,
+                   "rows_with_clear_gap": int(clear.sum())}
+    return out
+
+
+def phase_serve_7b(seed: int) -> tuple[dict, dict, dict]:
+    """Synthetic LLaMA-7B behind the HTTP server with the production flags
+    without paging. Returns (result, launches, the shapes every kernel was
+    launched at in the phase, from the warm-up request to the last step)."""
+    from llamavk_tpu_torch.formats.ggml_io import TokenEntry
+    from llamavk_tpu_torch.models.llama import ModelConfig
+    from llamavk_tpu_torch.models.loader import LLAMA_CONFIGS, synthetic_params
+    from llamavk_tpu_torch.runtime.batching import BatchConfig
+    from llamavk_tpu_torch.runtime.sampling import SamplerParams
+    from llamavk_tpu_torch.runtime.server import LlamaServer
+    from llamavk_tpu_torch.tokenizer import Tokenizer
+
+    cfg = ModelConfig(**LLAMA_CONFIGS["7B"])
+    params = synthetic_params(cfg, seed=seed, device="cuda")
+    check = _decode_step_check(params, cfg, seed)
+
+    # token-id prompts; the vocabulary only names the ids (<tN>)
+    tok = Tokenizer([TokenEntry(f"<t{i}>".encode(), 0.0) for i in range(cfg.n_vocab)])
+    bcfg = BatchConfig(max_batch=32, n_ctx=N_CTX, block=8, admit_chunk=4, kv_dtype="int8")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    srv = LlamaServer(cfg, params, tok, bcfg, model_name="llama-7B-synthetic", device="cuda")
+    base, thread = _serve(srv)
+    _reset_shapes()
+    _complete(base, dict(prompt=[5, 6, 7], max_tokens=2, temperature=0.0, ignore_eos=True))
+    srv.ttft_s.clear()
+    stats0 = dict(srv.engine.stats)
+    gen = torch.Generator().manual_seed(seed)
+    n_req, n_tokens = 64, 64
+    bodies = []
+    for i in range(n_req):
+        plen = int(torch.randint(16, 257, (1,), generator=gen))
+        sampling = dict(temperature=0.8, top_k=40, top_p=0.95) if i % 2 else dict(temperature=0.0)
+        bodies.append(dict(prompt=torch.randint(3, cfg.n_vocab, (plen,), generator=gen).tolist(),
+                           max_tokens=n_tokens, ignore_eos=True, stream=(i // 2) % 4 == 0,
+                           seed=i, **sampling))
+    _reset_counts()
+    t0 = time.perf_counter()
+    answers = _concurrently(base, bodies)
+    wall = time.perf_counter() - t0
+    # one request continuing a registered 100-token prefix with a 300-token
+    # suffix: its bucket is capped at 412 rows (n_ctx - 100), the read route
+    status, data = _post(base, "/v1/prefixes", {
+        "tokens": torch.randint(3, cfg.n_vocab, (100,), generator=gen).tolist()})
+    prefixed = _complete(base, dict(
+        prompt=torch.randint(3, cfg.n_vocab, (300,), generator=gen).tolist(),
+        prefix_id=json.loads(data)["prefix_id"], max_tokens=n_tokens, temperature=0.0,
+        ignore_eos=True))
+    torch.cuda.synchronize()
+    counts = _counts()
+    stats = srv.stats()
+    peak = torch.cuda.max_memory_allocated()
+    ttft = sorted(srv.ttft_s[:n_req])
+    srv.shutdown()
+    thread.join(timeout=30)
+    bad = [i for i, a in enumerate(answers + [prefixed])
+           if a["status"] != 200 or a["text"].count("<t") != n_tokens or a["finish"] != "length"]
+    if status != 200 or bad:
+        raise SystemExit(f"serve_7b: requests {bad} did not answer 200 with {n_tokens} tokens")
+    _require("serve_7b", counts, ("q4_gemm", "attn_update_i8", "attn_read_i8", "decode_i8"))
+
+    # the device's idle share over decode blocks of 32 active slots, driven
+    # on the engine directly: one block on the host clock, one more under the
+    # profiler; the idle share divides busy time by the unprofiled wall time
+    eng = srv.engine
+    for i in range(32):
+        eng.submit(torch.randint(3, cfg.n_vocab, (64,), generator=gen).tolist(), 200,
+                   SamplerParams(temp=0.8 if i % 2 else 0.0), seed=i, ignore_eos=True)
+    eng.step()  # admission and a first block
+    steps0 = eng.stats["steps"]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    eng.step()
+    torch.cuda.synchronize()
+    plain_wall_ms = (time.perf_counter() - t1) * 1e3
+    n_steps = eng.stats["steps"] - steps0
+    wall_ms, busy_ms, n_dev, top = _device_busy(eng.step)
+    torch.cuda.synchronize()
+    shapes = _shapes()
+    steps = stats["steps"] - stats0["steps"]
+    t_decode = stats["t_decode"] - stats0["t_decode"]
+    result = {
+        "kernel_vs_plain_decode_step": check,
+        "requests": n_req + 1, "max_tokens": n_tokens, "streamed": sum(b["stream"] for b in bodies),
+        "prompt_tokens": sum(len(b["prompt"]) for b in bodies), "wall_s": wall,
+        "tok_per_s": n_req * n_tokens / wall, "decode_steps": steps,
+        "decode_ms_per_step": 1e3 * t_decode / steps,
+        # p99 of 64 samples is the largest
+        "ttft_ms_p50": 1e3 * ttft[len(ttft) // 2], "ttft_ms_p99": 1e3 * ttft[-1],
+        "prefill_calls": stats["prefill_calls"] - stats0["prefill_calls"],
+        "peak_mem_bytes": peak, "launches": counts,
+        "k1_shapes": {f"M={m} K={k} N={n}": c for (m, k, n), c in sorted(shapes["q4"].items())},
+        "attn_shapes": {str(key): c for key, c in sorted(shapes["attn"].items(), key=str)},
+        "decode_shapes": {str(key): c for key, c in sorted(shapes["decode"].items())},
+        "idle_window_steps": n_steps, "wall_ms_per_step": plain_wall_ms / n_steps,
+        "profiled_wall_ms_per_step": wall_ms / n_steps,
+        "device_busy_ms_per_step": None if busy_ms is None else busy_ms / n_steps,
+        "device_activities_per_step": n_dev / n_steps,
+        "device_idle_share": None if busy_ms is None else 1 - busy_ms / plain_wall_ms,
+        "device_ms_per_step_by_name": {k: v / n_steps for k, v in top.items()},
+    }
+    return result, counts, shapes
+
+
+def phase_serve_shapes(shapes: dict, seed: int, reps: int) -> list[dict]:
+    """Every kernel against its plain version at every shape serve_7b
+    launched it at (`_shapes`): K1 at each (M, K, N); K2 and K3 at each
+    (B, T, S, block_k, cache type, n_past), a vector n_past seeded per row;
+    K4 at each (B, S, block_k, cache type), n_past seeded per row."""
+    timer = Timer(reps)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    gen_cpu = torch.Generator().manual_seed(seed + 2)
+    names = {kn: name for name, kn in K1_SHAPES.items()}
+    rows = []
+    for m, k, n in sorted(shapes["q4"]):
+        rows.append(kernel_q4(timer, gen, names[(k, n)], m, True, plain_reps=2))
+        rows[-1]["launches_in_serve_7b"] = shapes["q4"][(m, k, n)]
+        emit({"phase": "serve_shape", **rows[-1]})
+    for key in sorted(shapes["attn"], key=str):
+        path, b, t, h, s, d, bk, quant, n_past = key
+        if (h, d) != (H, D):
+            raise SystemExit(f"serve_shapes: attention at H={h} D={d}, not the 7B width")
+        if n_past is None:
+            n_past = torch.randint(0, s - t + 1, (b,), generator=gen_cpu).tolist()
+        rows.append(kernel_attn(timer, gen, t, n_past, path == "update", True, b, quant, s, bk))
+        rows[-1]["launches_in_serve_7b"] = shapes["attn"][key]
+        emit({"phase": "serve_shape", **rows[-1]})
+    for key in sorted(shapes["decode"]):
+        b, h, s, d, bk, quant = key
+        if (h, d) != (H, D):
+            raise SystemExit(f"serve_shapes: batched decode at H={h} D={d}, not the 7B width")
+        rows.append(kernel_decode(timer, gen, gen_cpu, b, quant, True, h, d, s, bk))
+        rows[-1]["launches_in_serve_7b"] = shapes["decode"][key]
+        emit({"phase": "serve_shape", **rows[-1]})
+    bad = [r["shape"] for r in rows if not r["ok"]]
+    if bad:
+        raise SystemExit(f"serve_shapes: kernels disagree with their plain versions at {bad}")
+    return rows
+
+
 def summary(rows: list[dict], counts: dict) -> dict:
-    """One entry per kernel, at the main-path shape that costs it most; the
-    error is the largest over every shape it was checked at."""
+    """One entry per kernel, at the main-path shape that costs it most (any
+    shape where no main path of this run reached it at 7B width); the error
+    is the largest over every shape it was checked at. Launches are summed
+    over the main paths driven."""
     out = []
     for name, (source, replaces) in KERNEL_META.items():
         mine = [r for r in rows if r["kernel"] == name]
-        worst = max((r for r in mine if r["main_path"]), key=lambda r: r["ms"])
+        worst = max([r for r in mine if r["main_path"]] or mine, key=lambda r: r["ms"])
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": counts.get(name, 0), "max_abs_err": max(r["max_abs_err"] for r in mine),
@@ -552,7 +1054,8 @@ def summary(rows: list[dict], counts: dict) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="env,build,kernels,tiny_cli,generate_7b")
+    ap.add_argument("--phases",
+                    default="env,build,kernels,tiny_cli,generate_7b,tiny_serve,serve_7b")
     ap.add_argument("--reps", type=int, default=20, help="timed launches per kernel")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", help="also write every phase's result to this JSON file")
@@ -581,10 +1084,29 @@ def main() -> int:
         with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
             report["tiny_cli"] = phase_tiny_cli(Path(work))
         emit({"phase": "tiny_cli", **report["tiny_cli"]})
-    counts: dict = {}
+    counts = dict.fromkeys(KERNEL_META, 0)  # launches summed over the main paths
+
+    def add(path_counts: dict) -> None:
+        for key, n in path_counts.items():
+            counts[key] += n
+
     if "generate_7b" in phases:
-        report["generate_7b"], counts = phase_generate_7b(args.seed)
+        report["generate_7b"], path_counts = phase_generate_7b(args.seed)
+        add(path_counts)
         emit({"phase": "generate_7b", **report["generate_7b"]})
+    if "tiny_serve" in phases:
+        (ROOT / "build").mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+            report["tiny_serve"], path_counts = phase_tiny_serve(Path(work))
+        add(path_counts)
+        emit({"phase": "tiny_serve", **report["tiny_serve"]})
+    if "serve_7b" in phases:
+        report["serve_7b"], path_counts, shapes = phase_serve_7b(args.seed)
+        add(path_counts)
+        emit({"phase": "serve_7b", **report["serve_7b"]})
+        serve_rows = phase_serve_shapes(shapes, args.seed, max(5, args.reps // 4))
+        report["serve_shapes"] = serve_rows
+        rows += serve_rows
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))

@@ -3,9 +3,9 @@
 Prompt eval + streaming decode with the sampling flags of examples/main
 (top-k/top-p/temp/repeat-penalty/repeat-last-n), --ignore-eos, and --n-keep
 with the infinite-generation context swap (keep n_keep prompt tokens, re-feed
-half of the recent window on overflow, main.cpp:246-266). Interactive,
-instruct, draft, ring and int8 modes are not ported yet; argparse rejects
-their flags.
+half of the recent window on overflow, main.cpp:246-266), and a bf16 or
+int8 KV cache (--kv-dtype). Interactive, instruct, draft and ring modes are
+not ported yet; argparse rejects their flags.
 
     python -m llamavk_tpu_torch.cli.generate -m model.bin -p "text" --device cuda
 """
@@ -38,6 +38,8 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--repeat-last-n", type=int, default=64)
     ap.add_argument("--ignore-eos", action="store_true")
     ap.add_argument("--n-keep", type=int, default=0)
+    ap.add_argument("--kv-dtype", choices=["bfloat16", "int8"], default="bfloat16",
+                    help="KV cache type: bf16, or int8 with per-row scales")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the hand-written kernels) or cpu (their plain versions)")
     return ap
@@ -85,7 +87,8 @@ def run(args, stdout=sys.stdout) -> int:
 
     engine = Engine(
         cfg, params,
-        EngineConfig(n_ctx=args.ctx_size, seed=args.seed if args.seed >= 0 else 0),
+        EngineConfig(n_ctx=args.ctx_size, kv_dtype=args.kv_dtype,
+                     seed=args.seed if args.seed >= 0 else 0),
         device=args.device,
     )
     engine.timings.t_load_us = (time.perf_counter() - t_load0) * 1e6

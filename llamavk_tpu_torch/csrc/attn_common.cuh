@@ -1,0 +1,265 @@
+// Shared attention code of the fused KV-write attention (flash_attn.cu, K2
+// and K3) and the batched decode attention (flash_decode.cu, K4).
+//
+// Both sources call `attend_block` for the score, online-softmax and PV
+// arithmetic, and `quantize_row` for the int8 row write. Every float
+// operation whose order matters is an explicit intrinsic (`__fmul_rn`,
+// `fmaf`, ...), so the compiler cannot contract them differently in the two
+// translation units: K4 and K2 give bit-equal outputs at equal `block_k`,
+// as the JAX package's K4 and K2 do (flash_decode.py:23-26 there).
+//
+// KV element types: `__nv_bfloat16` (bf16 cache, no scales) or `int8_t`
+// (int8 cache with one f32 scale per (position, head) row, scale planes
+// [B, S, H] per layer, as ops/kv_quant.py lays them out).
+//
+// Numerics (flash_attn.py:738-808 there): q is scaled by 1/sqrt(D) in f32
+// and rounded to bf16; a score is the f32 sum of bf16(q) * bf16(k) products
+// (an int8 key converts to bf16 exactly), times the key row's k-scale for
+// int8, then -1e30 where the key is past the query's position; the online
+// max and sum run in f32 over KV blocks of exactly `block_k` rows; the sum
+// l takes p before the v-scale; p is multiplied by the v-scale (int8) and
+// rounded to bf16 for the PV product; out = acc / l.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace attn {
+
+constexpr int WARPS = 8;  // query rows per block, one per warp
+constexpr int KT = 64;    // keys per shared tile
+constexpr float NEG = -1e30f;
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Bytes per key row in a shared tile: an odd number of 4-byte words, so 32
+// lanes reading 32 consecutive rows hit 32 different banks.
+template <int D, typename KV>
+struct Row {
+  static constexpr int BYTES = D * (int)sizeof(KV) + 4;
+};
+
+// nk rows of D elements from base + j0 * D into the tile (16-byte global
+// reads through L2 only: K4 reads rows its own block wrote in this launch).
+template <int D, typename KV>
+__device__ __forceinline__ void load_tile(uint8_t* tile, const KV* base, int j0, int nk) {
+  constexpr int RB = Row<D, KV>::BYTES;
+  constexpr int CH = D * (int)sizeof(KV) / 16;  // 16-byte chunks per row
+  const uint8_t* src = reinterpret_cast<const uint8_t*>(base + (size_t)j0 * D);
+  for (int e = threadIdx.x; e < nk * CH; e += blockDim.x) {
+    const int key = e / CH, c = e - key * CH;
+    const uint4 v = __ldcg(reinterpret_cast<const uint4*>(src + (size_t)key * D * sizeof(KV)) + c);
+    uint32_t* dst = reinterpret_cast<uint32_t*>(tile + key * RB + c * 16);
+    dst[0] = v.x;
+    dst[1] = v.y;
+    dst[2] = v.z;
+    dst[3] = v.w;
+  }
+}
+
+// q_s . key row, summed in order over d
+template <int D>
+__device__ __forceinline__ float key_dot(const float* q_s, const uint8_t* row, __nv_bfloat16) {
+  const __nv_bfloat162* kr = reinterpret_cast<const __nv_bfloat162*>(row);
+  float s = 0.f;
+#pragma unroll 16
+  for (int d2 = 0; d2 < D / 2; ++d2) {
+    const float2 kf = __bfloat1622float2(kr[d2]);
+    s = fmaf(q_s[2 * d2], kf.x, s);
+    s = fmaf(q_s[2 * d2 + 1], kf.y, s);
+  }
+  return s;
+}
+
+template <int D>
+__device__ __forceinline__ float key_dot(const float* q_s, const uint8_t* row, int8_t) {
+  const char4* kr = reinterpret_cast<const char4*>(row);
+  float s = 0.f;
+#pragma unroll 8
+  for (int d4 = 0; d4 < D / 4; ++d4) {
+    const char4 c = kr[d4];
+    s = fmaf(q_s[4 * d4], (float)c.x, s);
+    s = fmaf(q_s[4 * d4 + 1], (float)c.y, s);
+    s = fmaf(q_s[4 * d4 + 2], (float)c.z, s);
+    s = fmaf(q_s[4 * d4 + 3], (float)c.w, s);
+  }
+  return s;
+}
+
+// acc[e] += p * v[lane * DPL + e] for this lane's DPL = D / 32 output dims
+template <int D>
+__device__ __forceinline__ void v_accum(float* acc, float p, const uint8_t* row, int lane,
+                                        __nv_bfloat16) {
+  constexpr int DPL = D / 32;
+  const __nv_bfloat162* vr = reinterpret_cast<const __nv_bfloat162*>(row) + lane * (DPL / 2);
+#pragma unroll
+  for (int e2 = 0; e2 < DPL / 2; ++e2) {
+    const float2 vf = __bfloat1622float2(vr[e2]);
+    acc[2 * e2] = fmaf(p, vf.x, acc[2 * e2]);
+    acc[2 * e2 + 1] = fmaf(p, vf.y, acc[2 * e2 + 1]);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void v_accum(float* acc, float p, const uint8_t* row, int lane, int8_t) {
+  constexpr int DPL = D / 32;
+  const int8_t* vr = reinterpret_cast<const int8_t*>(row) + lane * DPL;
+#pragma unroll
+  for (int e = 0; e < DPL; ++e) acc[e] = fmaf(p, (float)vr[e], acc[e]);
+}
+
+inline size_t dyn_smem(int block_k) { return (size_t)WARPS * block_k * sizeof(float); }
+
+// Attention of query rows [t0, t0 + WARPS) of (b, h) over one cache layer.
+// Every thread of the block calls it (it synchronises the block); warp w
+// owns row t0 + w when that row is < T.
+//   q    [B, T, H, D] bf16          out [B, T, H, D] f32
+//   kc/vc layer [B, H, S, D]         ks/vs layer [B, S, H] f32 (int8 only)
+//   np   the row's n_past: query t sits at position np + t
+template <int D, typename KV>
+__device__ __forceinline__ void attend_block(const __nv_bfloat16* q, const KV* kc, const KV* vc,
+                                             const float* ks, const float* vs, float* out,
+                                             int b, int h, int t0, int np, int T, int H, int S,
+                                             int block_k, float scale) {
+  constexpr bool QUANT = sizeof(KV) == 1;
+  constexpr int DPL = D / 32;
+  constexpr int RB = Row<D, KV>::BYTES;
+  __shared__ __align__(16) uint8_t tile[KT * RB];
+  __shared__ float q_s[WARPS][D];
+  extern __shared__ float sc_all[];  // [WARPS][block_k]: scores, then bf16(p)
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = t0 + warp;
+  const bool active = t < T;
+  const int row_pos = np + t;
+  const int t_last = min(T, t0 + WARPS) - 1;
+  const int limit = min(np + t_last + 1, S);  // columns any row of the block sees
+  float* sc = sc_all + warp * block_k;
+
+  if (active)
+    for (int d = lane; d < D; d += 32)
+      q_s[warp][d] = bf16_round(
+          __fmul_rn(__bfloat162float(q[(((size_t)b * T + t) * H + h) * D + d]), scale));
+
+  const KV* kbase = kc + ((size_t)b * H + h) * S * D;
+  const KV* vbase = vc + ((size_t)b * H + h) * S * D;
+  const float* ksb = QUANT ? ks + (size_t)b * S * H + h : nullptr;  // row j at ksb[j * H]
+  const float* vsb = QUANT ? vs + (size_t)b * S * H + h : nullptr;
+  float m = NEG, l = 0.f;
+  float acc[DPL];
+#pragma unroll
+  for (int e = 0; e < DPL; ++e) acc[e] = 0.f;
+
+  const int nblocks = (limit + block_k - 1) / block_k;
+  for (int i = 0; i < nblocks; ++i) {
+    const int kb0 = i * block_k;
+    const int kb1 = min(kb0 + block_k, limit);
+    // scores of this KV block: lane j scores keys j, j + 32, ... of a tile
+    for (int j0 = kb0; j0 < kb1; j0 += KT) {
+      const int nk = min(KT, kb1 - j0);
+      __syncthreads();
+      load_tile<D, KV>(tile, kbase, j0, nk);
+      __syncthreads();
+      if (active) {
+        for (int kk = lane; kk < nk; kk += 32) {
+          float s = key_dot<D>(q_s[warp], tile + kk * RB, KV());
+          const int col = j0 + kk;
+          if constexpr (QUANT) s = __fmul_rn(s, __ldcg(ksb + (size_t)col * H));
+          sc[col - kb0] = col <= row_pos ? s : NEG;
+        }
+      }
+    }
+    // online softmax update over the whole block
+    if (active) {
+      __syncwarp();
+      const int nkb = kb1 - kb0;
+      float bm = NEG;
+      for (int j = lane; j < nkb; j += 32) bm = fmaxf(bm, sc[j]);
+      const float m_new = fmaxf(m, warp_max(bm));
+      const float alpha = expf(__fsub_rn(m, m_new));
+      float ps = 0.f;
+      for (int j = lane; j < nkb; j += 32) {
+        float p = expf(__fsub_rn(sc[j], m_new));
+        ps = __fadd_rn(ps, p);
+        if constexpr (QUANT) p = __fmul_rn(p, __ldcg(vsb + (size_t)(kb0 + j) * H));
+        sc[j] = bf16_round(p);
+      }
+      l = fmaf(l, alpha, warp_sum(ps));
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) acc[e] = __fmul_rn(acc[e], alpha);
+      m = m_new;
+      __syncwarp();
+    }
+    // PV over the block, keys in order
+    for (int j0 = kb0; j0 < kb1; j0 += KT) {
+      const int nk = min(KT, kb1 - j0);
+      __syncthreads();
+      load_tile<D, KV>(tile, vbase, j0, nk);
+      __syncthreads();
+      if (active) {
+        const float* pj = sc + (j0 - kb0);
+        for (int kk = 0; kk < nk; ++kk) v_accum<D>(acc, pj[kk], tile + kk * RB, lane, KV());
+      }
+    }
+  }
+
+  if (active) {
+    float* o = out + (((size_t)b * T + t) * H + h) * D + lane * DPL;
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) o[e] = __fdiv_rn(acc[e], l);
+  }
+}
+
+// One warp quantizes one row of D bf16 values (ops/kv_quant.py): scale =
+// amax * f32(1/127), as XLA compiles the JAX package's amax / 127 (1 for an
+// all-zero row), q = rint(x / scale) with a true division, clipped to
+// +-127; rintf rounds half to even, as jnp.round does.
+template <int D>
+__device__ __forceinline__ void quantize_row(const __nv_bfloat16* src, int8_t* dst, float* sdst,
+                                             int lane) {
+  constexpr int E = D / 32;
+  float x[E];
+  float amax = 0.f;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    x[e] = __bfloat162float(src[lane * E + e]);
+    amax = fmaxf(amax, fabsf(x[e]));
+  }
+  amax = warp_max(amax);
+  const float s = amax > 0.f ? __fmul_rn(amax, 1.0f / 127.0f) : 1.f;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const float r = fminf(fmaxf(rintf(__fdiv_rn(x[e], s)), -127.f), 127.f);
+    dst[lane * E + e] = (int8_t)r;
+  }
+  if (lane == 0) *sdst = s;
+}
+
+// Allows `dyn` bytes of dynamic shared memory for `kernel` (needed above
+// 48 KB in all); `done` remembers the largest size already allowed.
+template <typename K>
+inline cudaError_t allow_dyn_smem(K kernel, size_t dyn, size_t& done) {
+  if (dyn <= done) return cudaSuccess;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+  if (e == cudaSuccess) done = dyn;
+  return e;
+}
+
+}  // namespace attn

@@ -1,0 +1,113 @@
+// Batched single-token decode attention for Hopper (sm_90a): insert each
+// row's new K/V row into the cache, then attend, in one launch per layer;
+// bf16 caches and int8 caches with per-row scales.
+//
+// Replaces the TPU kernel `_flat_kernel` of llamavk_tpu/ops/flash_decode.py
+// (:67, entry `flash_decode_update` :380), flat mode. The TPU kernel runs one
+// program over a flat (row, KV block) work list so that its DMA queue stays
+// full across rows; row r owns ceil((n_past[r] + 1) / block_k) blocks. Here
+// the grid itself is that list: block (h, b) inserts row b's new K/V row of
+// head h at position n_past[b] (int8: quantized by one warp each for K and
+// V, amax by warp reduction, and its scale written), synchronises, and
+// attends over rows [0, n_past[b]] in KV blocks of block_k, reading only
+// those rows. At T = 1 a block reads back only the row it wrote itself, so
+// the write-then-read race of the fused update kernel (flash_attn.cu) does
+// not arise and no second launch is needed.
+//
+// The attention is `attn::attend_block` of attn_common.cuh, the code of the
+// fused update kernel, so K4 and K2 at T = 1 give bit-equal outputs and
+// caches at equal block_k: batched and single-stream decode streams stay
+// comparable, as in the JAX package (flash_decode.py:23-26 there).
+//
+// What bounds it on an H100: the bytes of every row's valid cache prefix,
+// sum_b (n_past[b] + 1) * H * D * 2 (K and V) times 2 bytes for bf16 or 1
+// for int8 (plus 8 bytes of scales per row and head), and the new rows
+// written. Blocks of 256 threads load 64-row tiles with 16-byte reads; one
+// warp computes (T = 1), the other seven help load. Split-KV decode is later
+// work.
+
+#include "attn_common.cuh"
+
+namespace {
+
+using attn::WARPS;
+
+template <int D, typename KV>
+__global__ void __launch_bounds__(WARPS * 32)
+decode_kernel(const __nv_bfloat16* __restrict__ q,     // [B, 1, H, D]
+              const __nv_bfloat16* __restrict__ knew,  // [B, 1, H, D]
+              const __nv_bfloat16* __restrict__ vnew, KV* kc, KV* vc, float* ks, float* vs,
+              float* __restrict__ out, const int* __restrict__ npast_vec, int npast_scalar,
+              int H, int S, int block_k, float scale) {
+  constexpr bool QUANT = sizeof(KV) == 1;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int np = npast_vec ? npast_vec[b] : npast_scalar;
+  const size_t src = ((size_t)b * H + h) * D;
+  const size_t dst = (((size_t)b * H + h) * S + np) * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool in_cache = np >= 0 && np < S;
+  if constexpr (QUANT) {
+    const size_t sdst = ((size_t)b * S + np) * H + h;
+    if (in_cache && warp == 0) attn::quantize_row<D>(knew + src, kc + dst, ks + sdst, lane);
+    if (in_cache && warp == 1) attn::quantize_row<D>(vnew + src, vc + dst, vs + sdst, lane);
+  } else if (in_cache) {
+    constexpr int CH = D / 8;  // 16-byte chunks of a bf16 row
+    if (threadIdx.x < CH)
+      reinterpret_cast<uint4*>(kc + dst)[threadIdx.x] =
+          reinterpret_cast<const uint4*>(knew + src)[threadIdx.x];
+    else if (threadIdx.x < 2 * CH)
+      reinterpret_cast<uint4*>(vc + dst)[threadIdx.x - CH] =
+          reinterpret_cast<const uint4*>(vnew + src)[threadIdx.x - CH];
+  }
+  __syncthreads();  // the row is in the cache before any tile load reads it
+  attn::attend_block<D, KV>(q, kc, vc, ks, vs, out, b, h, 0, np, 1, H, S, block_k, scale);
+}
+
+template <int D, typename KV>
+cudaError_t launch(const void* q, const void* kn, const void* vn, void* kc, void* vc, void* ks,
+                   void* vs, void* out, const int* npv, int nps, int B, int H, int S,
+                   int block_k, float scale, cudaStream_t st) {
+  static size_t dyn_done = 0;
+  const size_t dyn = attn::dyn_smem(block_k);
+  cudaError_t e = attn::allow_dyn_smem(decode_kernel<D, KV>, dyn, dyn_done);
+  if (e != cudaSuccess) return e;
+  decode_kernel<D, KV><<<dim3(H, B), WARPS * 32, dyn, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kn),
+      static_cast<const __nv_bfloat16*>(vn), static_cast<KV*>(kc), static_cast<KV*>(vc),
+      static_cast<float*>(ks), static_cast<float*>(vs), static_cast<float*>(out), npv, nps, H, S,
+      block_k, scale);
+  return cudaGetLastError();
+}
+
+template <typename KV>
+cudaError_t dispatch(const void* q, const void* kn, const void* vn, void* kc, void* vc, void* ks,
+                     void* vs, void* out, const int* npv, int nps, int B, int H, int S, int D,
+                     int block_k, float scale, cudaStream_t st) {
+  if (D == 128)
+    return launch<128, KV>(q, kn, vn, kc, vc, ks, vs, out, npv, nps, B, H, S, block_k, scale, st);
+  if (D == 64)
+    return launch<64, KV>(q, kn, vn, kc, vc, ks, vs, out, npv, nps, B, H, S, block_k, scale, st);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// q, k_new, v_new bf16 [B, 1, H, D]; k_cache/v_cache one layer [B, H, S, D],
+// bf16, or int8 when kv_int8 != 0 with k_scale/v_scale that layer's f32
+// [B, S, H] scale planes (else null); out f32 [B, 1, H, D]; n_past from
+// npast_vec[B] (device) when it is not null, else npast_scalar; every
+// n_past < S. D in {64, 128}.
+extern "C" int flash_decode_launch(const void* q, const void* k_new, const void* v_new,
+                                   void* k_cache, void* v_cache, void* k_scale, void* v_scale,
+                                   void* out, const void* npast_vec, int npast_scalar, int B,
+                                   int H, int S, int D, int block_k, float scale, int kv_int8,
+                                   void* stream) {
+  if (block_k < 1 || S % block_k != 0) return (int)cudaErrorInvalidValue;
+  auto npv = static_cast<const int*>(npast_vec);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (kv_int8)
+    return (int)dispatch<int8_t>(q, k_new, v_new, k_cache, v_cache, k_scale, v_scale, out, npv,
+                                 npast_scalar, B, H, S, D, block_k, scale, st);
+  return (int)dispatch<__nv_bfloat16>(q, k_new, v_new, k_cache, v_cache, nullptr, nullptr, out,
+                                      npv, npast_scalar, B, H, S, D, block_k, scale, st);
+}

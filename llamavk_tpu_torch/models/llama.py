@@ -9,12 +9,13 @@ Mirrors the reference graph:
 
 Layer weights are stacked over a leading n_layer dim; a layer's weights are
 views of the stacked planes, never copies. K is RoPE'd before caching. The
-KV cache `[L, B, H, S, D]` (bf16, flat) is updated IN PLACE: the JAX package
-threads it through `lax.scan` and gets the same effect by buffer aliasing.
+KV cache `[L, B, H, S, D]` (flat; bf16, or int8 with per-row f32 scales) is
+updated IN PLACE: the JAX package threads it through `lax.scan` and gets the
+same effect by buffer aliasing. `n_past` may be a per-row vector
+(continuous batching).
 
-This slice ports the single-stream main path. Ring caches, the shared-prefix
-pool, paged caches, tensor/pipeline parallelism, int8 caches and the ggml
-numerics oracle raise NotImplementedError.
+Ring caches, the shared-prefix pool, paged caches, tensor/pipeline
+parallelism and the ggml numerics oracle raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ from ..ops.flash_attn import (
     flash_attention_update_ref,
     write_rows,
 )
+from ..ops.flash_decode import flash_decode_update, flash_decode_update_ref
+from ..ops.kv_quant import dequantize_rows
 from ..ops.norms import rms_norm
 from ..ops.q4_matmul import q4_matmul, q4_matmul_ref
 from ..ops.qweight import QWeight
@@ -125,26 +128,42 @@ class LlamaParams:
 
 @dataclass
 class KVCache:
-    """Dense per-layer KV slabs [L, B, H, S, D], bf16, heads-major. Updated in
-    place by `llama_forward`."""
+    """Dense per-layer KV slabs [L, B, H, S, D], heads-major, bf16 or int8.
+    An int8 cache carries one f32 scale per (layer, batch, position, head)
+    row in k_scale/v_scale [L, B, S, H] (`ops/kv_quant.py`). Updated in place
+    by `llama_forward`."""
 
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+    def planes(self) -> list[torch.Tensor]:
+        """Every tensor of the cache: k, v, and the scale planes if int8."""
+        return [self.k, self.v] + ([self.k_scale, self.v_scale] if self.quantized else [])
 
     def clone(self) -> "KVCache":
-        return KVCache(k=self.k.clone(), v=self.v.clone())
+        return KVCache(*(p.clone() for p in self.planes()))
 
 
 def init_kv_cache(
     cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16, device="cuda"
 ) -> KVCache:
-    if dtype != torch.bfloat16:
-        raise NotImplementedError(f"KV cache dtype {dtype}: int8 caches are not ported yet")
+    """A zeroed bf16 or int8 cache. The JAX package pads an int8 cache's
+    scale planes to 128 head lanes (llama.py:161-168 there), a TPU DMA rule;
+    here they keep H."""
+    if dtype not in (torch.bfloat16, torch.int8):
+        raise NotImplementedError(f"KV cache dtype {dtype}: bf16 or int8")
     shape = (cfg.n_layer, batch, cfg.n_head, max_len, cfg.head_dim)
-    return KVCache(
-        k=torch.zeros(shape, dtype=dtype, device=device),
-        v=torch.zeros(shape, dtype=dtype, device=device),
-    )
+    planes = [torch.zeros(shape, dtype=dtype, device=device) for _ in range(2)]
+    if dtype == torch.int8:
+        sshape = (cfg.n_layer, batch, max_len, cfg.n_head)
+        planes += [torch.zeros(sshape, dtype=torch.float32, device=device) for _ in range(2)]
+    return KVCache(*planes)
 
 
 def _linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -169,9 +188,13 @@ def embed_tokens(emb: Embedding, tokens: torch.Tensor, dtype=torch.bfloat16) -> 
     return emb[tokens].to(dtype)
 
 
-def _attention(q, k_cache, v_cache, n_past) -> torch.Tensor:
+def _attention(q, k_cache, v_cache, n_past, k_scale=None, v_scale=None) -> torch.Tensor:
     """Causal attention of T new queries against the updated cache layer
-    [B, H, S, D]: the einsum numerics oracle (llama.py:266 there)."""
+    [B, H, S, D]: the einsum numerics oracle (llama.py:266 there). An int8
+    layer is dequantized to f32 with its [B, S, H] scales first."""
+    if k_scale is not None:
+        k_cache = dequantize_rows(k_cache, k_scale.transpose(1, 2))
+        v_cache = dequantize_rows(v_cache, v_scale.transpose(1, 2))
     return attention_ref(q, k_cache, v_cache, n_past)
 
 
@@ -184,7 +207,7 @@ def llama_forward(
     logits_all: bool = False,
     dtype=torch.bfloat16,
     attn_impl: str = "auto",
-    last_idx: int | None = None,
+    last_idx=None,
     kv_block: int | None = None,
     use_ref: bool = False,
     ring_keep: int = 0,
@@ -198,12 +221,15 @@ def llama_forward(
     is the one passed in, updated in place.
 
     logits: [B, T, n_vocab] f32 if logits_all else [B, 1, n_vocab] (the last
-    position, or `last_idx` when the caller bucket-padded T).
+    position, or `last_idx` when the caller bucket-padded T: an int, or a [B]
+    vector of per-row positions for a batched admission prefill).
     embeddings: [B, n_embd] f32 — final-norm activations of that position.
 
-    attn_impl: "auto"/"flash" = the fused attention kernels (update kernel
-    when T % min(256, T) == 0, else a plain row write and the read kernel —
-    the dispatch of llama.py:589-687 there); "einsum" = the dense oracle.
+    attn_impl: "auto"/"flash" = the fused attention kernels, with the
+    dispatch of llama.py:571-687 there: the batched decode kernel when
+    T == 1 and B > 1; else the update kernel when T % min(256, T) == 0; else
+    a plain row write (int8: quantized) and the read kernel. "einsum" = the
+    dense oracle.
     kv_block pins the attention's KV block (default 512 for T >= 256, else
     256, as llama.py:499 there). use_ref runs the plain versions of every
     kernel on any device: the kernel-vs-plain comparison on the card.
@@ -224,6 +250,7 @@ def llama_forward(
     matmul = q4_matmul_ref if use_ref else q4_matmul
     attn_update = flash_attention_update_ref if use_ref else flash_attention_update
     attn_read = flash_attention_ref if use_ref else flash_attention
+    attn_decode = flash_decode_update_ref if use_ref else flash_decode_update
 
     def linear(xx, w, l):
         """Layer l of a stacked weight (a packed one gives bf16, a dense one
@@ -262,14 +289,20 @@ def llama_forward(
             v = linear(xa, lp.wv, l).reshape(b, t, h, d)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)  # RoPE'd K is what gets cached
-        if impl == "flash" and t % min(256, t) == 0:
-            attn, _, _ = attn_update(q, k, v, cache.k, cache.v, n_past, l, block_k=bk)
+        if impl == "flash" and t == 1 and b > 1:
+            attn = attn_decode(q, k, v, cache.k, cache.v, n_past, l, block_k=bk,
+                               k_scale=cache.k_scale, v_scale=cache.v_scale)[0]
+        elif impl == "flash" and t % min(256, t) == 0:
+            attn = attn_update(q, k, v, cache.k, cache.v, n_past, l, block_k=bk,
+                               k_scale=cache.k_scale, v_scale=cache.v_scale)[0]
         else:
-            write_rows(k, v, cache.k, cache.v, n_past, l)
+            write_rows(k, v, cache.k, cache.v, n_past, l, cache.k_scale, cache.v_scale)
             if impl == "flash":
-                attn = attn_read(q, cache.k, cache.v, n_past, layer_idx=l, block_k=bk)
+                attn = attn_read(q, cache.k, cache.v, n_past, layer_idx=l, block_k=bk,
+                                 k_scale=cache.k_scale, v_scale=cache.v_scale)
             else:
-                attn = _attention(q, cache.k[l], cache.v[l], n_past)
+                ks, vs = (cache.k_scale[l], cache.v_scale[l]) if cache.quantized else (None, None)
+                attn = _attention(q, cache.k[l], cache.v[l], n_past, ks, vs)
         attn = attn.reshape(b, t, h * d).to(dtype)
         x = x + linear(attn, lp.wo, l)
         # --- FFN block (llama.cpp:1073-1101)
@@ -287,8 +320,11 @@ def llama_forward(
         x = x + linear(act, lp.w2, l)
 
     xn = rms_norm(x, params.norm, cfg.norm_eps)
-    li = t - 1 if last_idx is None else last_idx
-    last = xn[:, li : li + 1, :]
+    if last_idx is None or isinstance(last_idx, int):
+        li = t - 1 if last_idx is None else last_idx
+        last = xn[:, li : li + 1, :]
+    else:  # per-row positions
+        last = xn[torch.arange(b, device=dev), last_idx.to(dev).long()][:, None, :]
     embeddings = last[:, 0, :].to(torch.float32)
     if not logits_all:
         xn = last

@@ -1,26 +1,31 @@
-"""Attention over the bf16 KV cache (twin of `llamavk_tpu/ops/flash_attn.py`,
-bf16 flat-cache mode).
+"""Attention over the KV cache (twin of `llamavk_tpu/ops/flash_attn.py`, flat
+cache mode, bf16 and int8).
 
-q: [B, T, H, D] (new queries), cache: STACKED [L, B, H, S, D] bf16, n_past: int
-or [B] int32 tensor. Outputs are [B, T, H, D] f32.
+q: [B, T, H, D] (new queries), cache: STACKED [L, B, H, S, D] bf16 or int8,
+n_past: int or [B] int32 tensor. An int8 cache comes with f32 scale planes
+k_scale/v_scale [L, B, S, H] (`ops/kv_quant.py`). Outputs are [B, T, H, D] f32.
 
 * `flash_attention_update` writes T new K/V rows at [n_past, n_past + T) of
-  layer `layer_idx` IN PLACE (the JAX kernel got the same effect through
-  buffer aliasing), then attends. On CUDA tensors it launches
-  `attn_update_launch` of `csrc/flash_attn.cu` (replaces `_update_kernel`).
+  layer `layer_idx` IN PLACE (int8: quantized, with their scale rows; the JAX
+  kernel got the same effect through buffer aliasing), then attends. On CUDA
+  tensors it launches `attn_update_launch` of `csrc/flash_attn.cu` (replaces
+  `_update_kernel`).
 * `flash_attention` attends over a cache that already holds the rows. On
   CUDA tensors it launches `attn_read_launch` (replaces `_read_kernel` /
   `_attend`).
 
 On CPU tensors both compute their plain version (`*_ref`): the same cache
-write, then the dense masked softmax of `attention_ref` over q scaled and
-rounded to bf16 as the kernels round it. The kernels use the online softmax
-over KV blocks of `block_k` rows; `_fit_block_k` picks that block exactly as
-the JAX package does, so pinning `block_k` pins the accumulation order.
+write, then the dense masked softmax of `attend_ref` with the kernels'
+rounding points (q scaled and rounded to bf16; int8 scores times the key
+scale; probabilities times the value scale, rounded to bf16). The kernels
+use the online softmax over KV blocks of `block_k` rows; `_fit_block_k` picks
+that block exactly as the JAX package does, so pinning `block_k` pins the
+accumulation order.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -28,20 +33,30 @@ import math
 import torch
 
 from . import _build
+from .kv_quant import quantize_rows
 
-# launches of the CUDA kernels (one per wrapper call on CUDA tensors)
-launches = {"update": 0, "read": 0}
+# launches of the CUDA kernels (one per wrapper call on CUDA tensors), by
+# path and cache type
+launches = {"update": 0, "read": 0, "update_i8": 0, "read_i8": 0}
+# launches by shape (path, B, T, H, S, D, block_k, int8, n_past: the int, or
+# None for a per-row vector), so a caller can check every shape a run reached
+shapes: collections.Counter = collections.Counter()
 
 
 def _fit_block_k(block_k: int, s: int, step: int = 8) -> int:
-    """Largest KV block <= block_k that divides s (8-row steps), as
-    flash_attn.py:76 of the JAX package."""
+    """Largest KV block <= block_k that divides s (in steps of 8 rows, 32 for
+    an int8 cache), as flash_attn.py:76 of the JAX package."""
     bk = min(block_k, s)
     while bk > step and s % bk:
         bk -= step
     if s % bk:
         raise ValueError(f"KV cache length {s} must be a multiple of {step}")
     return bk
+
+
+def kv_step(cache_dtype: torch.dtype) -> int:
+    """The KV block step of a cache type: 32 rows for int8, else 8."""
+    return 32 if cache_dtype == torch.int8 else 8
 
 
 def attention_ref(
@@ -56,67 +71,113 @@ def attention_ref(
         scale = 1.0 / math.sqrt(d)
     qf = q.to(k.dtype).to(torch.float32)
     scores = torch.einsum("bthd,bhsd->bhts", qf, k.to(torch.float32)) * scale
-    jpos = torch.arange(s, device=q.device)
-    npast_b = torch.as_tensor(n_past, device=q.device).to(torch.int64).expand(b)
-    tpos = npast_b[:, None] + torch.arange(t, device=q.device)[None, :]
-    mask = jpos[None, None, :] <= tpos[:, :, None]  # [B, T, S]
-    scores = scores.masked_fill(~mask[:, None], float("-inf"))
+    scores = scores.masked_fill(~visible_mask(n_past, b, t, s, q.device)[:, None], float("-inf"))
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum(
         "bhts,bhsd->bthd", probs.to(v.dtype).to(torch.float32), v.to(torch.float32)
     )
 
 
-def write_rows(k_new, v_new, k, v, n_past, layer_idx: int) -> None:
-    """cache[layer_idx, b, :, n_past[b] + t] = bf16(new[b, t]) (in place)."""
+def visible_mask(n_past, b: int, t: int, s: int, device) -> torch.Tensor:
+    """[B, T, S] bool: column j is visible to query t of row b iff
+    j <= n_past[b] + t."""
+    jpos = torch.arange(s, device=device)
+    npast_b = torch.as_tensor(n_past, device=device).to(torch.int64).expand(b)
+    tpos = npast_b[:, None] + torch.arange(t, device=device)[None, :]
+    return jpos[None, None, :] <= tpos[:, :, None]
+
+
+def attend_ref(q, k_l, v_l, visible, k_scale_l=None, v_scale_l=None) -> torch.Tensor:
+    """Dense attention with the kernels' rounding points. q [B, T, H, D];
+    k_l/v_l one cache layer [B, H, S, D] (bf16 or int8); visible [B, T, S];
+    k_scale_l/v_scale_l that layer's [B, S, H] scale planes for int8. q is
+    scaled by 1/sqrt(D) in f32 and rounded to bf16 before the QK product
+    (flash_attn.py:545 there); an int8 score is multiplied by its key's
+    scale; the probabilities are multiplied by the value scales and rounded
+    to bf16 before the PV product. Returns f32 [B, T, H, D]."""
+    d = q.shape[-1]
+    qs = (q.to(torch.float32) * (1.0 / math.sqrt(d))).to(torch.bfloat16).to(torch.float32)
+    scores = torch.einsum("bthd,bhsd->bhts", qs, k_l.to(torch.float32))
+    if k_scale_l is not None:
+        scores = scores * k_scale_l.transpose(1, 2)[:, :, None, :]
+    probs = torch.softmax(scores.masked_fill(~visible[:, None], float("-inf")), dim=-1)
+    if v_scale_l is not None:
+        probs = probs * v_scale_l.transpose(1, 2)[:, :, None, :]
+    return torch.einsum(
+        "bhts,bhsd->bthd", probs.to(torch.bfloat16).to(torch.float32), v_l.to(torch.float32)
+    )
+
+
+def write_rows(k_new, v_new, k, v, n_past, layer_idx: int, k_scale=None, v_scale=None) -> None:
+    """cache[layer_idx, b, :, n_past[b] + t] = new[b, t] (in place): bf16
+    rows for a bf16 cache; for an int8 cache the rows of bf16(new) quantized
+    by `quantize_rows`, and their scales into k_scale/v_scale."""
     b, t = k_new.shape[:2]
-    kn = k_new.transpose(1, 2).to(k.dtype)  # [B, H, T, D]
-    vn = v_new.transpose(1, 2).to(v.dtype)
-    if isinstance(n_past, int):
-        k[layer_idx, :, :, n_past : n_past + t] = kn
-        v[layer_idx, :, :, n_past : n_past + t] = vn
-        return
-    for bi, p in enumerate(n_past.tolist()):
+    if k.dtype == torch.int8:
+        kq, ks = quantize_rows(k_new.to(torch.bfloat16))  # [B, T, H, D], [B, T, H]
+        vq, vs = quantize_rows(v_new.to(torch.bfloat16))
+        kn, vn = kq.transpose(1, 2), vq.transpose(1, 2)  # [B, H, T, D]
+    else:
+        kn = k_new.transpose(1, 2).to(k.dtype)
+        vn = v_new.transpose(1, 2).to(v.dtype)
+    starts = [n_past] * b if isinstance(n_past, int) else n_past.tolist()
+    for bi, p in enumerate(starts):
         k[layer_idx, bi, :, p : p + t] = kn[bi]
         v[layer_idx, bi, :, p : p + t] = vn[bi]
+        if k.dtype == torch.int8:
+            k_scale[layer_idx, bi, p : p + t] = ks[bi]
+            v_scale[layer_idx, bi, p : p + t] = vs[bi]
 
 
-def flash_attention_ref(q, k, v, n_past, layer_idx: int = 0, block_k: int = 256):
+def _layer_scales(k_scale, v_scale, layer_idx):
+    """(k_scale, v_scale) of one layer, or (None, None) for a bf16 cache."""
+    if k_scale is None:
+        return None, None
+    return k_scale[layer_idx], v_scale[layer_idx]
+
+
+def flash_attention_ref(q, k, v, n_past, layer_idx: int = 0, block_k: int = 256,
+                        k_scale=None, v_scale=None):
     """Plain version of `flash_attention`: dense attention over layer
-    `layer_idx` of the stacked cache, with the kernel's scores: q scaled by
-    1/sqrt(D) in f32 and rounded to the cache dtype before the QK product
-    (flash_attn.py:545 there)."""
+    `layer_idx` of the stacked cache (`attend_ref`)."""
     del block_k  # the dense softmax has no KV blocks
-    qs = (q.to(torch.float32) * (1.0 / math.sqrt(q.shape[-1]))).to(k.dtype)
-    return attention_ref(qs, k[layer_idx], v[layer_idx], n_past, scale=1.0)
+    b, t = q.shape[:2]
+    visible = visible_mask(n_past, b, t, k.shape[3], q.device)
+    return attend_ref(q, k[layer_idx], v[layer_idx], visible,
+                      *_layer_scales(k_scale, v_scale, layer_idx))
 
 
 def flash_attention_update_ref(
-    q, k_new, v_new, k, v, n_past, layer_idx: int, block_t: int = 256, block_k: int = 256
+    q, k_new, v_new, k, v, n_past, layer_idx: int, block_t: int = 256, block_k: int = 256,
+    k_scale=None, v_scale=None,
 ):
     """Plain version of `flash_attention_update`: the cache write, then the
-    dense attention. Returns (out, k, v), k/v updated in place."""
+    dense attention. Returns (out, k, v), plus (k_scale, v_scale) for an int8
+    cache, every cache plane updated in place."""
     t = q.shape[1]
     bt = min(block_t, t)
     if t % bt:
         raise ValueError(f"flash_attention_update needs T % block_t == 0 (T={t}, bt={bt})")
-    write_rows(k_new, v_new, k, v, n_past, layer_idx)
-    return flash_attention_ref(q, k, v, n_past, layer_idx, block_k), k, v
+    write_rows(k_new, v_new, k, v, n_past, layer_idx, k_scale, v_scale)
+    out = flash_attention_ref(q, k, v, n_past, layer_idx, block_k, k_scale, v_scale)
+    return (out, k, v) if k_scale is None else (out, k, v, k_scale, v_scale)
 
 
 @functools.cache
 def _lib():
     lib = _build.load("flash_attn")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.attn_read_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f, p]
+    lib.attn_read_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, p]
     lib.attn_read_launch.restype = ctypes.c_int
-    lib.attn_update_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, p]
+    lib.attn_update_launch.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, p]
     lib.attn_update_launch.restype = ctypes.c_int
     return lib
 
 
-def _check_cuda(q, k, v, n_past, layer_idx, tensors=()):
-    """Validate kernel operands; returns (npast_ptr, npast_scalar)."""
+def check_cuda(q, k, v, n_past, layer_idx, k_scale=None, v_scale=None, tensors=()):
+    """Validate kernel operands (bf16 q and new rows; a bf16 cache, or an
+    int8 cache with f32 [L, B, S, H] scale planes). Returns (npast_ptr,
+    npast_scalar, int8 flag, k_scale_ptr, v_scale_ptr) for layer_idx."""
     b, t, h, d = q.shape
     if k.dim() != 5 or k.shape != v.shape or k.shape[1:3] != (b, h) or k.shape[4] != d:
         raise ValueError(f"attention: cache {tuple(k.shape)} does not fit q {tuple(q.shape)}")
@@ -124,47 +185,63 @@ def _check_cuda(q, k, v, n_past, layer_idx, tensors=()):
         raise ValueError(f"attention kernel: head_dim must be 64 or 128, got {d}")
     if not 0 <= layer_idx < k.shape[0]:
         raise ValueError(f"attention: layer {layer_idx} out of range")
-    for x in (q, k, v, *tensors):
+    if k.dtype not in (torch.bfloat16, torch.int8) or v.dtype != k.dtype:
+        raise ValueError(f"attention kernel: cache must be bf16 or int8, got {k.dtype}/{v.dtype}")
+    quant = k.dtype == torch.int8
+    scales = (k_scale, v_scale) if quant else ()
+    if quant:
+        want = (k.shape[0], b, k.shape[3], h)
+        for sc in scales:
+            if sc is None or sc.dtype != torch.float32 or tuple(sc.shape) != want:
+                raise ValueError(f"attention kernel: an int8 cache needs f32 scales {want}")
+    elif k_scale is not None or v_scale is not None:
+        raise ValueError("attention kernel: scale planes belong to an int8 cache")
+    for x in (q, *tensors):
+        if x.dtype != torch.bfloat16:
+            raise ValueError(f"attention kernel: q and new rows must be bf16, got {x.dtype}")
+    for x in (q, k, v, *scales, *tensors):
         if not x.is_cuda:
             raise ValueError("attention kernel: every operand must be a CUDA tensor")
-        if x.dtype != torch.bfloat16:
-            raise ValueError(f"attention kernel: operands must be bf16, got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError("attention kernel: operands must be contiguous")
     s = k.shape[3]
+    sptr = (k_scale[layer_idx].data_ptr(), v_scale[layer_idx].data_ptr()) if quant else (None, None)
     if isinstance(n_past, int):
         if not 0 <= n_past <= s - t:
             raise ValueError(f"attention: n_past {n_past} + T {t} exceeds the cache ({s})")
-        return None, n_past
+        return None, n_past, quant, *sptr
     if n_past.shape != (b,) or n_past.dtype != torch.int32 or n_past.device != q.device:
         raise ValueError("attention kernel: vector n_past must be int32 [B] on q's device")
-    return n_past.data_ptr(), 0
+    return n_past.data_ptr(), 0, quant, *sptr
 
 
 def flash_attention(
     q: torch.Tensor,  # [B, T, H, D]
-    k: torch.Tensor,  # STACKED cache [L, B, H, S, D]
+    k: torch.Tensor,  # STACKED cache [L, B, H, S, D], bf16 or int8
     v: torch.Tensor,
     n_past,  # int or [B] int32
     layer_idx: int = 0,
     block_k: int = 256,
+    k_scale: torch.Tensor | None = None,  # [L, B, S, H] f32: int8 cache
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Causal attention of T queries over layer `layer_idx` of a cache that
     already holds their rows (K3). Returns f32 [B, T, H, D]."""
     if not q.is_cuda:
-        return flash_attention_ref(q, k, v, n_past, layer_idx, block_k)
-    npv, nps = _check_cuda(q, k, v, n_past, layer_idx)
+        return flash_attention_ref(q, k, v, n_past, layer_idx, block_k, k_scale, v_scale)
+    npv, nps, quant, ksp, vsp = check_cuda(q, k, v, n_past, layer_idx, k_scale, v_scale)
     b, t, h, d = q.shape
     s = k.shape[3]
-    bk = _fit_block_k(block_k, s)
+    bk = _fit_block_k(block_k, s, kv_step(k.dtype))
     out = torch.empty((b, t, h, d), dtype=torch.float32, device=q.device)
     rc = _lib().attn_read_launch(
-        q.data_ptr(), k[layer_idx].data_ptr(), v[layer_idx].data_ptr(), out.data_ptr(),
-        npv, nps, b, t, h, s, d, bk, 1.0 / math.sqrt(d),
+        q.data_ptr(), k[layer_idx].data_ptr(), v[layer_idx].data_ptr(), ksp, vsp,
+        out.data_ptr(), npv, nps, b, t, h, s, d, bk, 1.0 / math.sqrt(d), int(quant),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, "attn_read_launch")
-    launches["read"] += 1
+    launches["read_i8" if quant else "read"] += 1
+    shapes[("read", b, t, h, s, d, bk, quant, n_past if npv is None else None)] += 1
     return out
 
 
@@ -172,37 +249,44 @@ def flash_attention_update(
     q: torch.Tensor,  # [B, T, H, D]
     k_new: torch.Tensor,  # [B, T, H, D] (RoPE'd K rows to cache)
     v_new: torch.Tensor,  # [B, T, H, D]
-    k: torch.Tensor,  # STACKED cache [L, B, H, S, D], updated in place
+    k: torch.Tensor,  # STACKED cache [L, B, H, S, D], bf16 or int8, updated in place
     v: torch.Tensor,
     n_past,  # int or [B] int32
     layer_idx: int,
     block_t: int = 256,
     block_k: int = 256,
+    k_scale: torch.Tensor | None = None,  # [L, B, S, H] f32, updated in place
+    v_scale: torch.Tensor | None = None,
 ):
     """Writes the T new K/V rows at [n_past[b], n_past[b] + T) of layer
-    `layer_idx` IN PLACE, then attends (K2). Returns (out [B, T, H, D] f32,
-    k, v). Requires T % min(block_t, T) == 0, as the JAX kernel does."""
+    `layer_idx` IN PLACE (int8: the rows of bf16(k_new) quantized, and their
+    scales), then attends (K2). Returns (out [B, T, H, D] f32, k, v), plus
+    (k_scale, v_scale) for an int8 cache. Requires T % min(block_t, T) == 0,
+    as the JAX kernel does."""
     if not q.is_cuda:
         return flash_attention_update_ref(q, k_new, v_new, k, v, n_past, layer_idx,
-                                          block_t, block_k)
+                                          block_t, block_k, k_scale, v_scale)
     t = q.shape[1]
     bt = min(block_t, t)
     if t % bt:
         raise ValueError(f"flash_attention_update needs T % block_t == 0 (T={t}, bt={bt})")
-    kn = k_new.to(k.dtype).contiguous()  # the cast flash_attn.py:1101-1103 makes
-    vn = v_new.to(v.dtype).contiguous()
+    # the cast flash_attn.py:1101-1103 makes; an int8 cache quantizes bf16 rows
+    kn = k_new.to(torch.bfloat16).contiguous()
+    vn = v_new.to(torch.bfloat16).contiguous()
     if kn.shape != q.shape or vn.shape != q.shape:
         raise ValueError("flash_attention_update: k_new/v_new must match q's shape")
-    npv, nps = _check_cuda(q, k, v, n_past, layer_idx, (kn, vn))
+    npv, nps, quant, ksp, vsp = check_cuda(q, k, v, n_past, layer_idx, k_scale, v_scale,
+                                           (kn, vn))
     b, t, h, d = q.shape
     s = k.shape[3]
-    bk = _fit_block_k(block_k, s)
+    bk = _fit_block_k(block_k, s, kv_step(k.dtype))
     out = torch.empty((b, t, h, d), dtype=torch.float32, device=q.device)
     rc = _lib().attn_update_launch(
         q.data_ptr(), kn.data_ptr(), vn.data_ptr(), k[layer_idx].data_ptr(),
-        v[layer_idx].data_ptr(), out.data_ptr(), npv, nps, b, t, h, s, d, bk,
-        1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream,
+        v[layer_idx].data_ptr(), ksp, vsp, out.data_ptr(), npv, nps, b, t, h, s, d, bk,
+        1.0 / math.sqrt(d), int(quant), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, "attn_update_launch")
-    launches["update"] += 1
-    return out, k, v
+    launches["update_i8" if quant else "update"] += 1
+    shapes[("update", b, t, h, s, d, bk, quant, n_past if npv is None else None)] += 1
+    return (out, k, v) if k_scale is None else (out, k, v, k_scale, v_scale)

@@ -1,0 +1,119 @@
+"""Batched single-token decode attention (twin of
+`llamavk_tpu/ops/flash_decode.py`, flat cache mode, bf16 and int8).
+
+`flash_decode_update` inserts each row's new K/V row at n_past[b] of layer
+`layer_idx` IN PLACE (int8: quantized, with its scale rows) and attends, for
+every batch row of a t == 1 step. On CUDA tensors it launches
+`flash_decode_launch` of `csrc/flash_decode.cu`, which replaces the TPU kernel
+`_flat_kernel`: one launch per layer for the insert and the attention of
+every row, each row reading only its ceil((n_past[b] + 1) / block_k) KV
+blocks. On CPU tensors it computes the plain version,
+`flash_decode_update_ref`, which is the fused update's plain version at
+T = 1: the row write, then the dense causal attention.
+
+Block partitioning and accumulation order equal the fused update kernel's
+(`ops/flash_attn.py`) at the same block_k: the CUDA K4 and K2 share their
+attention code, and their outputs and caches are bit-equal at T = 1.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+import math
+
+import torch
+
+from . import _build
+from .flash_attn import _fit_block_k, check_cuda, flash_attention_update_ref, kv_step
+
+# launches of the CUDA kernel (one per wrapper call on CUDA tensors), by
+# cache type
+launches = {"decode": 0, "decode_i8": 0}
+# launches by shape (B, H, S, D, block_k, int8), so a caller can check every
+# shape a run reached
+shapes: collections.Counter = collections.Counter()
+
+
+def decode_work_list(n_past: torch.Tensor, b: int, cap: int, bk: int):
+    """Flatten per-row ragged block counts into (row_of, blk_of, total)
+    (flash_decode.py:50 there).
+
+    Row r owns ceil(min(n_past[r] + 1, cap) / bk) consecutive items (its KV
+    blocks in ascending order, the grid kernel's accumulation order).
+    Arrays are padded to MAXJ = b * cap / bk with the last row. Nothing at
+    run time calls it: the CUDA kernel's (head, row) grid takes the list's
+    place. It is kept as the twin of the JAX function, tested against it."""
+    maxj = b * (cap // bk)
+    nb = -(-torch.clamp(n_past.to(torch.int64) + 1, max=cap) // bk)  # [B] >= 1
+    ends = torch.cumsum(nb, 0)
+    j = torch.arange(maxj, device=n_past.device)
+    row_of = torch.searchsorted(ends, j, right=True).clamp(max=b - 1)
+    blk_of = j - (ends - nb)[row_of]
+    return row_of.to(torch.int32), blk_of.to(torch.int32), int(ends[-1])
+
+
+def flash_decode_update_ref(q, k_new, v_new, k, v, n_past, layer_idx: int, block_k: int = 256,
+                            k_scale=None, v_scale=None):
+    """Plain version of `flash_decode_update`: the plain fused update
+    (`flash_attention_update_ref`) at T = 1. Every row a query sees lies in
+    one of the blocks its work list assigns, so the causal mask alone
+    selects them. Returns (out [B, 1, H, D] f32, k, v), plus (k_scale,
+    v_scale) for an int8 cache, every cache plane updated in place."""
+    if q.shape[1] != 1:
+        raise ValueError("flash_decode_update is the single-token decode path")
+    _fit_block_k(block_k, k.shape[3], kv_step(k.dtype))  # the kernel's block must fit
+    return flash_attention_update_ref(q, k_new, v_new, k, v, n_past, layer_idx,
+                                      block_k=block_k, k_scale=k_scale, v_scale=v_scale)
+
+
+@functools.cache
+def _lib():
+    lib = _build.load("flash_decode")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_decode_launch.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, i, p]
+    lib.flash_decode_launch.restype = ctypes.c_int
+    return lib
+
+
+def flash_decode_update(
+    q: torch.Tensor,  # [B, 1, H, D]
+    k_new: torch.Tensor,  # [B, 1, H, D]
+    v_new: torch.Tensor,
+    k: torch.Tensor,  # STACKED cache [L, B, H, S, D], bf16 or int8, updated in place
+    v: torch.Tensor,
+    n_past,  # int or [B] int32
+    layer_idx: int,
+    block_k: int = 256,
+    k_scale: torch.Tensor | None = None,  # [L, B, S, H] f32, updated in place
+    v_scale: torch.Tensor | None = None,
+):
+    """Single-token fused cache insert + attention for every batch row (K4).
+    Drop-in for `flash_attention_update` at t == 1, with the same
+    accumulation order at equal block_k. Returns (out [B, 1, H, D] f32, k,
+    v), plus (k_scale, v_scale) for an int8 cache."""
+    if not q.is_cuda:
+        return flash_decode_update_ref(q, k_new, v_new, k, v, n_past, layer_idx, block_k,
+                                       k_scale, v_scale)
+    b, t, h, d = q.shape
+    if t != 1:
+        raise ValueError("flash_decode_update is the single-token decode path")
+    kn = k_new.to(torch.bfloat16).contiguous()  # the cast flash_decode.py:413-418 makes
+    vn = v_new.to(torch.bfloat16).contiguous()
+    if kn.shape != q.shape or vn.shape != q.shape:
+        raise ValueError("flash_decode_update: k_new/v_new must match q's shape")
+    npv, nps, quant, ksp, vsp = check_cuda(q, k, v, n_past, layer_idx, k_scale, v_scale,
+                                           (kn, vn))
+    s = k.shape[3]
+    bk = _fit_block_k(block_k, s, kv_step(k.dtype))
+    out = torch.empty((b, 1, h, d), dtype=torch.float32, device=q.device)
+    rc = _lib().flash_decode_launch(
+        q.data_ptr(), kn.data_ptr(), vn.data_ptr(), k[layer_idx].data_ptr(),
+        v[layer_idx].data_ptr(), ksp, vsp, out.data_ptr(), npv, nps, b, h, s, d, bk,
+        1.0 / math.sqrt(d), int(quant), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(rc, "flash_decode_launch")
+    launches["decode_i8" if quant else "decode"] += 1
+    shapes[(b, h, s, d, bk, quant)] += 1
+    return (out, k, v) if k_scale is None else (out, k, v, k_scale, v_scale)

@@ -13,6 +13,7 @@ outside the kernel as a plain group-sum product (as q4_matmul.py:790-794 does).
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -26,6 +27,8 @@ from .qweight import QWeight, dequantize_qweight
 # launches of the CUDA kernels: the decode GEMV (M = 1) and the tiled GEMM
 # (every M > 1), one per q4_matmul call on a CUDA tensor
 launches = {"gemv": 0, "gemm": 0}
+# launches by shape (M, K, N), so a caller can check every shape a run reached
+shapes: collections.Counter = collections.Counter()
 
 
 def _group_sums(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -118,6 +121,7 @@ def q4_matmul_cuda(xf: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor)
     )
     _build.check(rc, "q4_matmul_launch")
     launches["gemv" if m == 1 else "gemm"] += 1
+    shapes[(m, k, n)] += 1
     return out
 
 

@@ -1,0 +1,366 @@
+"""Continuous batching scheduler, the serving layer (twin of
+`llamavk_tpu/runtime/batching.py`, flat caches, one device, no mesh).
+
+B request slots decode in lockstep through one batched forward pass per
+step; requests join and leave between decode blocks, and each slot owns a
+region of the KV cache addressed by its own n_past (a per-row position
+vector). A decode block of `block` steps is a Python loop of `llama_forward`
+and `sample_tokens_batched` whose sampled tokens stay on the device; the
+host receives one [B, n_steps] tensor per block. Admission prefills the
+queued prompts in power-of-two chunks of one bucket length into a scratch
+cache, copies each row into its slot (in place), and samples the first
+tokens on the device; those stay device tensors until the decode block that
+consumes them is queued (`_block_inputs`), and reach the host after it
+(`_finish_admits`). Finished slots keep computing garbage until the block
+ends.
+
+Each slot keeps its own `torch.Generator`, seeded from the request's `seed`
+at admission, and draws one row of noise per sampled token: a request's
+draws depend on its seed and its step, never on its slot or its neighbours.
+
+Paged caches, the shared-prefix pool, lookup speculation and meshes raise
+NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..device import resolve
+from ..models.llama import KVCache, LlamaParams, ModelConfig, init_kv_cache, llama_forward
+from .engine import kv_dtype
+from .sampling import SamplerParams, sample_tokens_batched
+
+
+@dataclass
+class Request:
+    prompt: list[int]
+    n_predict: int
+    sp: SamplerParams = SamplerParams()
+    seed: int = 0
+    ignore_eos: bool = False
+    prefix: int = -1  # id from register_prefix: prompt continues that prefix
+    # filled by the scheduler:
+    rid: int = -1
+    slot: int = -1
+    generated: list[int] = field(default_factory=list)
+    done: bool = False
+    on_token: Callable[[int], None] | None = None
+
+    @property
+    def output(self) -> list[int]:
+        return self.generated
+
+
+@dataclass(frozen=True)
+class BatchConfig:
+    max_batch: int = 8
+    n_ctx: int = 512  # per-slot KV region length
+    block: int = 8  # decode steps per host round-trip
+    top_k: int = 64  # shared sampler pool (the per-request top_k is not read)
+    repeat_last_n: int = 64
+    kv_dtype: str = "bfloat16"  # or "int8"
+    admit_chunk: int = 4  # max requests per batched admission prefill
+    # modes of the JAX package's BatchConfig not ported yet (they raise)
+    shared_prefix: bool = False
+    lookup_gamma: int = 0
+    paged: bool = False
+
+
+def _rows(plane: torch.Tensor, batch, n: int) -> torch.Tensor:
+    """View of cache positions [0, n) of batch row(s) `batch` of one cache
+    plane: data [L, B, H, S, D] keeps positions on axis 3, scales
+    [L, B, S, H] on axis 2."""
+    if plane.dim() == 5:
+        return plane[:, batch, :, :n]
+    return plane[:, batch, :n]
+
+
+def _bucket(n: int, cap: int, floor: int = 8) -> int:
+    """The power of two >= n (at least `floor`), capped at `cap`."""
+    b = floor
+    while b < n:
+        b *= 2
+    return min(b, cap)
+
+
+class BatchedEngine:
+    """Continuous-batching decode engine over one model replica on one
+    device. The cache is updated in place."""
+
+    def __init__(self, cfg: ModelConfig, params: LlamaParams,
+                 bcfg: BatchConfig = BatchConfig(), mesh=None, device="cuda"):
+        self.device = resolve(device)
+        unported = {"mesh": mesh is not None, "paged": bcfg.paged,
+                    "shared_prefix": bcfg.shared_prefix, "lookup_gamma": bcfg.lookup_gamma > 0}
+        for name, on in unported.items():
+            if on:
+                raise NotImplementedError(f"BatchedEngine: {name} is not ported yet")
+        self.cfg = cfg
+        self.params = params
+        self.bcfg = bcfg
+        self.kv_dtype = kv_dtype(bcfg.kv_dtype, bcfg.n_ctx)
+        b, w = bcfg.max_batch, bcfg.repeat_last_n
+        self.cache = init_kv_cache(cfg, b, bcfg.n_ctx, self.kv_dtype, self.device)
+        self.n_past = np.zeros(b, np.int32)
+        self.cur_tok = np.zeros(b, np.int64)
+        self.last_window = np.full((b, w), -1, np.int64)
+        self.top_p = np.ones(b, np.float32)
+        self.temp = np.zeros(b, np.float32)
+        self.penalty = np.ones(b, np.float32)
+        self.gens: list[torch.Generator | None] = [None] * b  # sampled slots only
+        self.slots: list[Request | None] = [None] * b
+        self.queue: list[Request] = []
+        self._rid = 0
+        self.prefixes: dict[int, tuple] = {}  # id -> (cache1, length, tokens)
+        self._pid = 0
+        self._pending_admits: list[tuple] = []  # (chunk requests, device ids [n])
+        self.stats = {
+            "tokens": 0, "steps": 0, "t_decode": 0.0, "prefills": 0, "prefill_calls": 0,
+        }
+
+    # --- helpers -------------------------------------------------------------
+
+    def _fwd(self, tokens, cache, n_past, **kw):
+        return llama_forward(self.params, tokens, cache, n_past, self.cfg, **kw)
+
+    def _dev(self, a, dtype=None) -> torch.Tensor:
+        return torch.as_tensor(a, dtype=dtype).to(self.device)
+
+    def _noise(self, slots) -> torch.Tensor:
+        """[len(slots), k] Exp(1) draws: one row from each sampled slot's own
+        generator, ones for greedy and free slots (their rows are unused)."""
+        k = min(self.bcfg.top_k, self.cfg.n_vocab) if self.bcfg.top_k > 0 else self.cfg.n_vocab
+        noise = torch.ones((len(slots), k), dtype=torch.float32, device=self.device)
+        for i, s in enumerate(slots):
+            if self.gens[s] is not None:
+                noise[i].exponential_(generator=self.gens[s])
+        return noise
+
+    def _sample(self, logits, last, slots) -> torch.Tensor:
+        rows = np.asarray(slots)
+        return sample_tokens_batched(
+            logits, last, self._noise(slots), self.bcfg.top_k,
+            self._dev(self.top_p[rows]), self._dev(self.temp[rows]),
+            self._dev(self.penalty[rows]),
+        )
+
+    # --- public API ----------------------------------------------------------
+
+    def register_prefix(self, tokens: list[int]) -> int:
+        """Prefill a shared prompt prefix (e.g. a system prompt) ONCE and
+        return its id. Requests submitted with prefix=id prefill only their
+        suffix: the prefix K/V rows are copied into the slot at admission
+        (prefix caching, batching.py:988-1012 there)."""
+        plen = len(tokens)
+        if not 0 < plen < self.bcfg.n_ctx:
+            raise ValueError("prefix length out of range")
+        bucket = _bucket(plen, self.bcfg.n_ctx)
+        padded = np.zeros((1, bucket), np.int64)
+        padded[0, :plen] = tokens
+        cache1 = init_kv_cache(self.cfg, 1, self.bcfg.n_ctx, self.kv_dtype, self.device)
+        self._fwd(self._dev(padded), cache1, 0, last_idx=self._dev([plen - 1]))
+        pid = self._pid
+        self._pid += 1
+        self.prefixes[pid] = (cache1, plen, list(tokens))
+        return pid
+
+    def submit(self, prompt: list[int], n_predict: int,
+               sp: SamplerParams = SamplerParams(), seed: int = 0,
+               ignore_eos: bool = False,
+               on_token: Callable[[int], None] | None = None,
+               prefix: int = -1) -> Request:
+        if prefix >= 0 and prefix not in self.prefixes:
+            raise ValueError(f"unknown prefix id {prefix}")
+        total = len(prompt) + (self.prefixes[prefix][1] if prefix >= 0 else 0)
+        if total + n_predict > self.bcfg.n_ctx:
+            raise ValueError("request exceeds n_ctx")
+        if len(prompt) < 1:
+            raise ValueError("prompt suffix must be non-empty")
+        req = Request(prompt=list(prompt), n_predict=n_predict, sp=sp, seed=seed,
+                      ignore_eos=ignore_eos, rid=self._rid, on_token=on_token,
+                      prefix=prefix)
+        self._rid += 1
+        self.queue.append(req)
+        return req
+
+    def _admit(self) -> None:
+        """Fill free slots from the queue, batching prefills.
+
+        Admissions group by prompt bucket length and prefix, and run in
+        power-of-two chunks capped by bcfg.admit_chunk: one batched prefill
+        into a scratch cache of `scratch_len` rows, one in-place copy of each
+        row into its slot, one batched first-token sample per chunk
+        (batching.py:1174-1307 there). The sampled ids stay on the device."""
+        free = [s for s in range(self.bcfg.max_batch) if self.slots[s] is None]
+        admitted = []
+        while free and self.queue:
+            req = self.queue.pop(0)
+            req.slot = free.pop(0)
+            self.slots[req.slot] = req
+            admitted.append(req)
+        if not admitted:
+            return
+        groups: dict[tuple, list[Request]] = {}
+        for req in admitted:
+            key = (_bucket(len(req.prompt), self.bcfg.n_ctx), req.prefix)
+            groups.setdefault(key, []).append(req)
+
+        w = self.bcfg.repeat_last_n
+        for (bucket, pfx), items in groups.items():
+            pfx_cache, pfx_len, pfx_tokens = self.prefixes[pfx] if pfx >= 0 else (None, 0, [])
+            # suffix writes live at [pfx_len, pfx_len + bucket): clamp the
+            # padding so they cannot run past the slot region
+            bucket = min(bucket, self.bcfg.n_ctx - pfx_len)
+            # every admission copy is bounded to the rows the chunk touches:
+            # the power of two >= pfx_len + bucket (64 at least), not n_ctx.
+            # Slot rows past it keep the previous occupant's stale K/V, which
+            # no query reads before decode overwrites them.
+            scratch_len = _bucket(pfx_len + bucket, self.bcfg.n_ctx, floor=64)
+            i = 0
+            while i < len(items):
+                n = 1 << max(0, (len(items) - i).bit_length() - 1)
+                n = min(n, max(1, self.bcfg.admit_chunk))
+                chunk = items[i : i + n]
+                i += n
+                toks = np.zeros((n, bucket), np.int64)
+                last_idx = np.zeros(n, np.int64)
+                for j, req in enumerate(chunk):
+                    plen = len(req.prompt)
+                    toks[j, :plen] = req.prompt
+                    last_idx[j] = plen - 1
+                    slot = req.slot
+                    hist = (pfx_tokens + req.prompt)[-w:]
+                    self.last_window[slot] = -1
+                    if hist:
+                        self.last_window[slot, -len(hist):] = hist
+                    self.top_p[slot] = req.sp.top_p
+                    self.temp[slot] = req.sp.temp
+                    self.penalty[slot] = req.sp.repeat_penalty
+                    self.n_past[slot] = pfx_len + plen
+                    self.gens[slot] = (
+                        torch.Generator(device=self.device).manual_seed(req.seed)
+                        if req.sp.temp > 0 else None
+                    )
+                if pfx >= 0:  # the prefix rows, copied into every chunk row
+                    scratch = KVCache(*(
+                        _rows(p, slice(None), scratch_len).expand(-1, n, *[-1] * (p.dim() - 2))
+                        .clone() for p in pfx_cache.planes()))
+                else:
+                    scratch = init_kv_cache(self.cfg, n, scratch_len, self.kv_dtype, self.device)
+                logits, _, _ = self._fwd(self._dev(toks), scratch, pfx_len,
+                                         last_idx=self._dev(last_idx))
+                for j, req in enumerate(chunk):
+                    for dst, src in zip(self.cache.planes(), scratch.planes()):
+                        _rows(dst, req.slot, scratch_len).copy_(src[:, j])
+                slots = [r.slot for r in chunk]
+                ids = self._sample(logits[:, 0, :], self._dev(self.last_window[slots]), slots)
+                self.stats["prefills"] += n
+                self.stats["prefill_calls"] += 1
+                self._pending_admits.append((chunk, ids))
+
+    def _finish_admits(self) -> None:
+        """Bring the deferred admission first tokens to the host (emitting them
+        to streams) and mirror the device-side cur_tok/last_window updates
+        into the host arrays. Called after the decode block is queued."""
+        pending, self._pending_admits = self._pending_admits, []
+        for chunk, ids in pending:
+            ids = ids.cpu().numpy()
+            for j, req in enumerate(chunk):
+                tok = int(ids[j])
+                slot = req.slot
+                self._emit(req, tok)
+                self.cur_tok[slot] = tok
+                self.last_window[slot] = np.roll(self.last_window[slot], -1)
+                self.last_window[slot, -1] = tok
+
+    def _block_inputs(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(cur_tok [B], last_window [B, W]) decode-block operands on the
+        device: the host arrays with the pending admission chunks' first
+        tokens scattered in on the device (no host sync; _admit_merge of
+        batching.py:649-660 there)."""
+        cur = self._dev(self.cur_tok)
+        last = self._dev(self.last_window)
+        for chunk, ids in self._pending_admits:
+            rows = self._dev([r.slot for r in chunk])
+            cur[rows] = ids
+            last[rows] = torch.cat([last[rows, 1:], ids[:, None]], dim=1)
+        return cur, last
+
+    def _emit(self, req: Request, tok: int) -> None:
+        req.generated.append(tok)
+        if req.on_token is not None:
+            req.on_token(tok)
+        if len(req.generated) >= req.n_predict or (not req.ignore_eos and tok == 2):
+            req.done = True
+
+    def _decode_block(self, cur, last, n_steps: int):
+        """n_steps batched forward + sample steps; tokens stay on the device.
+        Returns ([B, n_steps] tokens, the final [B, W] windows)."""
+        b = self.bcfg.max_batch
+        slots = list(range(b))
+        npast = self._dev(self.n_past, torch.int32)
+        toks = torch.empty((b, n_steps), dtype=torch.int64, device=self.device)
+        for i in range(n_steps):
+            logits, _, _ = self._fwd(cur[:, None], self.cache, npast)
+            cur = self._sample(logits[:, -1, :], last, slots)
+            last = torch.cat([last[:, 1:], cur[:, None]], dim=1)
+            toks[:, i] = cur
+            npast = npast + 1
+        return toks, last
+
+    def step(self) -> list[Request]:
+        """Admit queued requests, run one decode block, return finished ones.
+
+        Power-of-two blocks, clamped by the room left in the fullest slot's
+        context (batching.py:1363-1456 there). A request that finishes
+        mid-block frees its slot; its extra KV writes sit beyond the slot's
+        n_past and are never attended."""
+        self._admit()
+        if not any(s is not None for s in self.slots):
+            return []
+        room = self.bcfg.n_ctx - 1 - int(self.n_past.max())
+        n_steps = min(self.bcfg.block, max(1, room))
+        n_steps = 1 << (n_steps.bit_length() - 1)  # snap down to a power of 2
+        t0 = time.perf_counter()
+        cur, last = self._block_inputs()
+        toks, last = self._decode_block(cur, last, n_steps)
+        self._finish_admits()  # the block is queued on the device already
+        toks = toks.cpu().numpy()  # [B, n_steps]: the block's one host read
+        self.last_window = last.cpu().numpy()
+        self.stats["t_decode"] += time.perf_counter() - t0
+        self.stats["steps"] += n_steps
+
+        finished = []
+        for slot, req in enumerate(self.slots):
+            if req is None:
+                continue
+            consumed = 0
+            for t in toks[slot]:
+                consumed += 1
+                if req.done:
+                    break
+                self._emit(req, int(t))
+                self.stats["tokens"] += 1
+                if req.done:
+                    break
+            self.n_past[slot] += consumed
+            self.cur_tok[slot] = toks[slot][consumed - 1]
+            if req.done:
+                finished.append(req)
+                self.slots[slot] = None
+                self.n_past[slot] = 0
+                self.gens[slot] = None
+        return finished
+
+    def run(self) -> list[Request]:
+        """Drain the queue; returns all finished requests."""
+        done: list[Request] = []
+        while self.queue or any(s is not None for s in self.slots):
+            done.extend(self.step())
+        return done

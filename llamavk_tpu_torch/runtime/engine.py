@@ -6,9 +6,9 @@ tensor; the host receives one [n_steps] tensor of token ids per decode block,
 never a per-step `.item()`. The KV cache is updated in place. The API mirrors
 llama.h: eval / sample / get-set-kv-cache / timings.
 
-Capturing the decode step in a CUDA graph is later work; the history ring,
-int8 caches and the ggml numerics oracle are not ported yet. Activations
-are bf16.
+The KV cache is bf16 or int8 (`EngineConfig.kv_dtype`). Capturing the
+decode step in a CUDA graph is later work; the history ring and the ggml
+numerics oracle are not ported yet. Activations are bf16.
 """
 
 from __future__ import annotations
@@ -22,13 +22,14 @@ import torch
 
 from ..device import resolve
 from ..models.llama import KVCache, LlamaParams, ModelConfig, init_kv_cache, llama_forward
+from ..ops.flash_attn import kv_step
 from .sampling import SamplerParams, sample_token
 
 
 @dataclass(frozen=True)
 class EngineConfig:
     n_ctx: int = 512
-    kv_dtype: str = "bfloat16"  # the reference's f16_kv option (llama.h:56); int8 not ported yet
+    kv_dtype: str = "bfloat16"  # the reference's f16_kv option (llama.h:56), or "int8"
     seed: int = 0
     decode_block: int = 16  # tokens decoded per host round-trip
     ctx_ring: bool = False  # history-ring KV (not ported yet)
@@ -44,6 +45,8 @@ class SessionState:
     v: torch.Tensor
     n_past: int
     tokens: list[int]
+    k_scale: torch.Tensor | None = None  # int8 caches (ops/kv_quant.py)
+    v_scale: torch.Tensor | None = None
 
 
 @dataclass
@@ -72,6 +75,21 @@ class Timings:
         return "\n".join(lines)
 
 
+def kv_dtype(name: str, n_ctx: int) -> torch.dtype:
+    """The cache type of a `kv_dtype` option ("bfloat16" or "int8"), after
+    checking that n_ctx is a multiple of its KV block step (32 rows for
+    int8, 8 for bf16, as engine.py:137-138 there)."""
+    types = {"bfloat16": torch.bfloat16, "int8": torch.int8}
+    if name not in types:
+        raise NotImplementedError(f"kv_dtype={name!r}: bfloat16 or int8")
+    step = kv_step(types[name])
+    if n_ctx % step:
+        raise ValueError(
+            f"n_ctx must be a multiple of {step} ({name} KV tile constraint); got {n_ctx}"
+        )
+    return types[name]
+
+
 class Engine:
     def __init__(
         self,
@@ -83,14 +101,9 @@ class Engine:
         self.device = resolve(device)
         if ecfg.ctx_ring:
             raise NotImplementedError("Engine: the history-ring KV (ctx_ring) is not ported yet")
-        if ecfg.kv_dtype != "bfloat16":
-            raise NotImplementedError(
-                f"Engine: kv_dtype={ecfg.kv_dtype!r} is not ported yet (bfloat16 only)"
-            )
+        self.kv_dtype = kv_dtype(ecfg.kv_dtype, ecfg.n_ctx)
         if ecfg.ggml_numerics is not None:
             raise NotImplementedError("Engine: ggml_numerics is not ported yet")
-        if ecfg.n_ctx % 8:
-            raise ValueError(f"n_ctx must be a multiple of 8 (KV tile constraint); got {ecfg.n_ctx}")
         self.cfg = cfg
         self.params = params
         self.ecfg = ecfg
@@ -100,7 +113,7 @@ class Engine:
     # --- state ---------------------------------------------------------
 
     def reset(self) -> None:
-        self.cache = init_kv_cache(self.cfg, 1, self.ecfg.n_ctx, device=self.device)
+        self.cache = init_kv_cache(self.cfg, 1, self.ecfg.n_ctx, self.kv_dtype, self.device)
         self.n_past = 0
         self.tokens: list[int] = []
         self.set_seed(self.ecfg.seed)
@@ -240,11 +253,13 @@ class Engine:
     # --- session save/restore (llama_get/set_kv_cache parity) ------------
 
     def save_session(self) -> SessionState:
-        """Clone the cache: the live one is updated in place."""
+        """Clone the cache, scale planes included: the live one is updated in
+        place."""
         c = self.cache.clone()
-        return SessionState(k=c.k, v=c.v, n_past=self.n_past, tokens=list(self.tokens))
+        return SessionState(k=c.k, v=c.v, n_past=self.n_past, tokens=list(self.tokens),
+                            k_scale=c.k_scale, v_scale=c.v_scale)
 
     def restore_session(self, s: SessionState) -> None:
-        self.cache = KVCache(k=s.k.clone(), v=s.v.clone())
+        self.cache = KVCache(s.k, s.v, s.k_scale, s.v_scale).clone()
         self.n_past = s.n_past
         self.tokens = list(s.tokens)

@@ -127,3 +127,92 @@ def sample_logits_host(logits, last_tokens, sp: SamplerParams, rng: np.random.Ge
         order = order[:cut]
         probs = probs / probs.sum()
     return int(order[rng.choice(len(probs), p=probs)])
+
+
+# --- vectorized sampler (continuous batching: per-slot parameters) ----------
+
+
+def _penalize_batched(logits, last_tokens, scale, repeat_penalty):
+    """_apply_repeat_penalty over [B, V] logits with [B, W] windows and [B]
+    scales and penalties."""
+    b, v = logits.shape
+    idx = torch.where(last_tokens >= 0, last_tokens, v).to(torch.int64)
+    seen = torch.zeros((b, v + 1), dtype=torch.bool, device=logits.device)
+    seen.scatter_(1, idx, True)
+    seen = seen[:, :v]
+    scaled = logits * scale[:, None]
+    pen = repeat_penalty[:, None]
+    return torch.where(seen, torch.where(logits < 0.0, scaled * pen, scaled / pen), scaled)
+
+
+def _kept_probs_batched(logits, last_tokens, top_k, top_p, temp, repeat_penalty):
+    """(probs over each row's descending top-k set with top-p applied, ids):
+    repeat penalty, temperature (1 for greedy rows), top-k, softmax, top-p
+    (sampling.py:120-143 there)."""
+    v = logits.shape[-1]
+    scale = torch.where(temp > 0, 1.0 / torch.clamp(temp, min=1e-6), torch.ones_like(temp))
+    scaled = _penalize_batched(logits, last_tokens, scale, repeat_penalty)
+    k = v if top_k <= 0 else min(top_k, v)
+    top_vals, top_idx = torch.topk(scaled, k, dim=-1)
+    probs = torch.softmax(top_vals, dim=-1)
+    csum = torch.cumsum(probs, dim=-1)
+    first = torch.ones_like(csum[:, :1], dtype=torch.bool)
+    keep = torch.cat([first, csum[:, :-1] < top_p[:, None]], dim=1)
+    return torch.where(keep, probs, torch.zeros_like(probs)), top_idx
+
+
+def sample_tokens_batched(
+    logits: torch.Tensor,  # [B, V] f32
+    last_tokens: torch.Tensor,  # [B, W] int, -1 padded
+    noise: torch.Tensor,  # [B, min(top_k, V)] Exp(1) draws, one row per slot
+    top_k: int,  # shared pool size (BatchConfig.top_k)
+    top_p: torch.Tensor,  # [B] per-row parameters
+    temp: torch.Tensor,
+    repeat_penalty: torch.Tensor,
+) -> torch.Tensor:
+    """One token per row, [B] int64 on the logits' device (no host sync).
+    A row with temp <= 0 takes the argmax of its RAW logits, as
+    sampling.py:142 there does; the others draw from their kept set by the
+    exponential race argmax p_i / E_i, with E the row's noise. The caller
+    draws each row's noise from that row's own generator."""
+    probs, top_idx = _kept_probs_batched(logits, last_tokens, top_k, top_p, temp,
+                                         repeat_penalty)
+    choice = torch.argmax(probs / noise.clamp_min(1e-30), dim=-1, keepdim=True)
+    sampled = top_idx.gather(1, choice)[:, 0]
+    return torch.where(temp > 0, sampled, torch.argmax(logits, dim=-1))
+
+
+def sample_token_dyn(logits, last_tokens, noise, top_k, top_p, temp, repeat_penalty):
+    """sample_tokens_batched for one row: logits [V], last_tokens [W],
+    noise [k], tensor scalars for the parameters."""
+    params = (torch.as_tensor(x, dtype=torch.float32, device=logits.device).reshape(1)
+              for x in (top_p, temp, repeat_penalty))
+    return sample_tokens_batched(logits[None], last_tokens[None], noise[None], top_k,
+                                 *params)[0]
+
+
+def probs_batched_dyn(
+    logits: torch.Tensor,  # [B, V] f32
+    last_tokens: torch.Tensor,  # [B, W] int, -1 padded
+    top_k: int,
+    top_p: torch.Tensor,  # [B]
+    temp: torch.Tensor,
+    repeat_penalty: torch.Tensor,
+) -> torch.Tensor:
+    """The full-vocab distributions sample_tokens_batched draws from,
+    [B, V] (renormalized; zero outside the kept set). A greedy row is a
+    point mass on the argmax of its raw logits (sampling.py:178-202 there)."""
+    b, v = logits.shape
+    probs, top_idx = _kept_probs_batched(logits, last_tokens, top_k, top_p, temp,
+                                         repeat_penalty)
+    probs = probs / probs.sum(dim=-1, keepdim=True)
+    full = torch.zeros((b, v), dtype=probs.dtype, device=logits.device).scatter(1, top_idx, probs)
+    greedy = torch.zeros_like(full).scatter(1, torch.argmax(logits, dim=-1, keepdim=True), 1.0)
+    return torch.where(temp[:, None] > 0, full, greedy)
+
+
+def probs_from_logits_dyn(logits, last_tokens, top_k, top_p, temp, repeat_penalty):
+    """probs_batched_dyn for one row: logits [V], last_tokens [W]."""
+    params = (torch.as_tensor(x, dtype=torch.float32, device=logits.device).reshape(1)
+              for x in (top_p, temp, repeat_penalty))
+    return probs_batched_dyn(logits[None], last_tokens[None], top_k, *params)[0]

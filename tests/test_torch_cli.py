@@ -1,6 +1,7 @@
-"""The port's generate CLI on the CPU: one-shot greedy output equals the
-port's own Engine.generate stream, and the context swap keeps generating
-past n_ctx."""
+"""The port's CLIs on the CPU: one-shot greedy output of `generate` equals the
+port's own Engine.generate stream (bf16 and int8 caches), the context swap
+keeps generating past n_ctx, and `serve` rejects the flags it does not port
+yet."""
 
 import io
 import subprocess
@@ -11,6 +12,7 @@ import pytest
 import torch
 
 from llamavk_tpu_torch.cli import generate as cli
+from llamavk_tpu_torch.cli import serve
 from llamavk_tpu_torch.models import loader as tl
 from llamavk_tpu_torch.runtime.engine import Engine, EngineConfig
 from llamavk_tpu_torch.runtime.sampling import SamplerParams
@@ -66,3 +68,29 @@ def test_cli_rejects_unported_modes(tiny):
     for flag in (["--interactive"], ["--draft-model", tiny], ["--ctx-ring"]):
         with pytest.raises(SystemExit):
             cli.build_argparser().parse_args(["-m", tiny, *flag])
+
+
+@pytest.mark.parametrize("kv_dtype", ["bfloat16", "int8"])
+def test_cli_kv_dtype(tiny, kv_dtype):
+    """--kv-dtype: the printed stream equals the Engine's with that cache."""
+    args = cli.build_argparser().parse_args(
+        ["-m", tiny, "-p", PROMPT, "-n", "8", "--temp", "0", "--kv-dtype", kv_dtype,
+         "--device", "cpu"])
+    out = io.StringIO()
+    assert cli.run(args, stdout=out) == 0
+    cfg, params, tok = tl.load_model(tiny, device="cpu")
+    prompt_tokens = tok.encode(" " + PROMPT, bos=True)
+    eng = Engine(cfg, params, EngineConfig(n_ctx=512, kv_dtype=kv_dtype), device="cpu")
+    stream = eng.generate(prompt_tokens, 8, SamplerParams(temp=0.0))
+    assert out.getvalue() == b"".join(tok.decode_token(t) for t in prompt_tokens + stream).decode() + "\n"
+
+
+@pytest.mark.parametrize("flag", [f for f, _ in serve.UNPORTED])
+def test_serve_rejects_unported_flags(tiny, flag, capsys):
+    argv = ["-m", tiny, flag] + ([] if flag in ("--paged", "--shared-prefix") else ["2"])
+    with pytest.raises(SystemExit) as e:
+        serve.build_argparser().parse_args(argv)
+    assert e.value.code == 2
+    assert f"{flag} is not ported yet" in capsys.readouterr().err
+    args = serve.build_argparser().parse_args(["-m", tiny, "--kv-dtype", "int8", "--port", "0"])
+    assert (args.kv_dtype, args.port, args.device) == ("int8", 0, "cuda")

@@ -9,8 +9,11 @@ import pytest
 import torch
 
 from llamavk_tpu_torch.cli import generate as cli
+from llamavk_tpu_torch.cli import serve
 from llamavk_tpu_torch.models import loader as tl
+from llamavk_tpu_torch.runtime.batching import BatchedEngine
 from llamavk_tpu_torch.runtime.engine import Engine
+from llamavk_tpu_torch.runtime.server import LlamaServer
 
 torch.set_num_threads(2)
 
@@ -45,14 +48,23 @@ def test_entry_points_default_to_cuda(no_cuda, tmp_path):
     tl.random_tiny_model(write_path=path, quantize=True)
     with pytest.raises(RuntimeError, match="CUDA"):
         tl.load_model(path)
-    cfg, params, _ = tl.load_model(path, device="cpu")
+    cfg, params, tok = tl.load_model(path, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         Engine(cfg, params)
     with pytest.raises(RuntimeError, match="CUDA"):
         tl.synthetic_params(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["-m", path, "-n", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BatchedEngine(cfg, params)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LlamaServer(cfg, params, tok)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["-m", path])
     assert cli.build_argparser().parse_args(["-m", path]).device == "cuda"
+    assert serve.build_argparser().parse_args(["-m", path]).device == "cuda"
     # the CPU, when asked for, works
     assert Engine(cfg, params, device="cpu").cache.k.device.type == "cpu"
+    assert BatchedEngine(cfg, params, device="cpu").cache.k.device.type == "cpu"
+    assert LlamaServer(cfg, params, tok, device="cpu").engine.cache.k.device.type == "cpu"
     assert tl.synthetic_params(cfg, device="cpu").norm.device.type == "cpu"

@@ -163,3 +163,50 @@ def test_attention_route(tiny, monkeypatch, t, route):
     assert bool((cache.k[:, :, :, :t] != 0).any(dim=-1).all())
     assert not bool(cache.k[:, :, :, t:].any())
     assert torch.isfinite(logits).all()
+
+
+# int8 caches: the K/V rows each side quantizes come from activations that
+# may sit a bf16 ulp apart, so a quantized value can differ by one step
+# (scale/127 of a row whose amax is < 4 here, i.e. < 0.032) and a scale by
+# a few f32 ulps; the logits stay within the bf16 tolerance above. The B > 1
+# decode route is held against JAX in tests/test_torch_flash_decode.py.
+INT8_CACHE_TOL = dict(rtol=0, atol=0.032)
+
+
+def dequant(k, ks, lanes):
+    """f32 [L, B, H, S, D] values of an int8 cache plane and its scales (the
+    first `lanes` head lanes of the scale plane)."""
+    ks = np.asarray(ks, np.float32)[..., :lanes]
+    return np.asarray(k, np.float32) * ks.transpose(0, 1, 3, 2)[..., None]
+
+
+def check_int8_cache(cache, want, cfg):
+    """The port's int8 cache against a JAX one, dequantized."""
+    assert cache.k.dtype == torch.int8 and cache.k_scale.shape == (
+        cfg.n_layer, cache.k.shape[1], cache.k.shape[3], cfg.n_head)
+    for plane, scale, wp, ws in ((cache.k, cache.k_scale, want.k, want.k_scale),
+                                 (cache.v, cache.v_scale, want.v, want.v_scale)):
+        np.testing.assert_allclose(dequant(plane.numpy(), scale.numpy(), cfg.n_head),
+                                   dequant(wp, ws, cfg.n_head), **INT8_CACHE_TOL)
+
+
+def test_forward_int8_matches_jax(tiny):
+    """int8 cache: a prefill of 8 tokens and 2 greedy decode steps (the
+    fused update kernel's int8 route) against JAX llama_forward."""
+    _, cfg, params = tiny
+    fwd = jax.jit(jm.llama_forward, static_argnames=("cfg", "logits_all", "attn_impl"))
+    jcache = jm.init_kv_cache(cfg, 1, N_CTX, dtype=jnp.int8)
+    tcfg = port_cfg(cfg)
+    tparams = tl.params_from_arrays(jax_arrays(params), tcfg, device="cpu")
+    cache = tm.init_kv_cache(tcfg, 1, N_CTX, dtype=torch.int8, device="cpu")
+    toks, n_past = [PROMPT], 0
+    for i in range(3):
+        want, jcache, _ = fwd(params, jnp.asarray(toks, jnp.int32), jcache, jnp.int32(n_past),
+                              cfg, logits_all=i == 0, attn_impl="flash")
+        got, _, _ = tm.llama_forward(tparams, torch.tensor(toks), cache, n_past, tcfg,
+                                     logits_all=i == 0, attn_impl="flash")
+        assert got.shape == want.shape and torch.isfinite(got).all()
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGIT_TOL)
+        n_past += len(toks[0])
+        toks = [[int(np.asarray(want)[0, -1].argmax())]]  # the JAX stream's token
+    check_int8_cache(cache, jcache, tcfg)
