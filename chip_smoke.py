@@ -36,6 +36,19 @@ Phases, each printing one JSON line (any failure exits non-zero):
               token, launch counts and the idle share; then every kernel
               against its plain version at every shape that phase launched
               it at (K1, K2/K3 int8 admission and prefix shapes, K4)
+  serve_7b_paged
+              the same with --paged (page_size 128, the default pool of 129
+              pages): 8 greedy requests through a paged and a flat engine at
+              kv_block 128 with equal streams; the 64 requests; a registered
+              300-token prefix (2 shared pages) continued by 4 concurrent
+              suffixes; the 64 requests again on a quarter pool (33 pages),
+              which preempts; then every kernel at every shape it launched
+
+The kernels phase also holds the page-table modes of K2, K3 and K4 (bf16
+and int8, scrambled tables of 128-row pages) against their plain versions,
+with written pages byte-equal and the others unchanged, and bit for bit
+against the flat kernels on the gathered view at block_k = 128; tiny_serve
+also serves the tiny file paged (page_size 8 bf16, 32 int8).
 
 The line before the last is `{"kernels": [...]}`; the last line is
 `{"ok": true, "device": {...}}`. Without CUDA the script exits 2 and prints
@@ -45,9 +58,13 @@ no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import functools
+import gc
 import io
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -74,6 +91,7 @@ K1_SHAPES = {
 }
 N_CTX = 512
 H, D = 32, 128
+PAGE = 128  # the serving page size (BatchConfig.page_size)
 
 KERNEL_META = {
     "q4_gemv": ("llamavk_tpu_torch/csrc/q4_matmul.cu", "llamavk_tpu/ops/q4_matmul.py:96"),
@@ -85,6 +103,19 @@ KERNEL_META = {
     "attn_read_i8": ("llamavk_tpu_torch/csrc/flash_attn.cu", "llamavk_tpu/ops/flash_attn.py:474"),
     "decode": ("llamavk_tpu_torch/csrc/flash_decode.cu", "llamavk_tpu/ops/flash_decode.py:67"),
     "decode_i8": ("llamavk_tpu_torch/csrc/flash_decode.cu", "llamavk_tpu/ops/flash_decode.py:67"),
+    # page-table modes (the TPU kernels' `page_table` operand)
+    "attn_update_paged": ("llamavk_tpu_torch/csrc/flash_attn.cu",
+                          "llamavk_tpu/ops/flash_attn.py:120"),
+    "attn_update_paged_i8": ("llamavk_tpu_torch/csrc/flash_attn.cu",
+                             "llamavk_tpu/ops/flash_attn.py:120"),
+    "attn_read_paged": ("llamavk_tpu_torch/csrc/flash_attn.cu",
+                        "llamavk_tpu/ops/flash_attn.py:474"),
+    "attn_read_paged_i8": ("llamavk_tpu_torch/csrc/flash_attn.cu",
+                           "llamavk_tpu/ops/flash_attn.py:474"),
+    "decode_paged": ("llamavk_tpu_torch/csrc/flash_decode.cu",
+                     "llamavk_tpu/ops/flash_decode.py:67"),
+    "decode_paged_i8": ("llamavk_tpu_torch/csrc/flash_decode.cu",
+                        "llamavk_tpu/ops/flash_decode.py:67"),
 }
 
 # the tiny model's prompt for the CLI phase: its greedy stream keeps every
@@ -273,13 +304,15 @@ ATTN_LIMIT_RULE = "2^-6 * attention(q, k, |v|) per element (v dequantized for in
 
 
 def _attn_err(got, want, q, k, v, n_past, layer: int, k_scale=None,
-              v_scale=None) -> tuple[float, float]:
+              v_scale=None, page_table=None) -> tuple[float, float]:
     """(max |got - want|, the largest ratio of an element's error to its own
-    limit) for attention outputs over layer `layer` of the cache k, v."""
+    limit) for attention outputs over layer `layer` of the cache (or pool)
+    k, v."""
     from llamavk_tpu_torch.ops import flash_attn as fa
 
     lim = ATTN_REL * fa.flash_attention_ref(q, k, v.abs(), n_past, layer_idx=layer,
-                                            k_scale=k_scale, v_scale=v_scale)
+                                            k_scale=k_scale, v_scale=v_scale,
+                                            page_table=page_table)
     err = (got - want).abs()
     return float(err.max()), float((err / lim.clamp_min(1e-30)).max())
 
@@ -410,6 +443,162 @@ def kernel_decode(timer: Timer, gen, gen_cpu, b: int, quant: bool, main_path: bo
     return row
 
 
+def _paged_case(gen, gen_cpu, b: int, quant: bool, s: int, ps: int, h: int = H,
+                d: int = D) -> tuple[list, torch.Tensor]:
+    """Random two-layer pool planes of b * s/ps pages and 3 more, and a
+    scrambled [B, s/ps] table that maps no page twice and never page 0 (the
+    serving engine's trash page)."""
+    maxlb = s // ps
+    n_pages = b * maxlb + 3
+    planes = _kv_cache(gen, (2, n_pages, h, ps, d), quant)
+    pages = torch.randperm(n_pages - 1, generator=gen_cpu)[: b * maxlb] + 1
+    return planes, pages.reshape(b, maxlb).to(torch.int32).cuda()
+
+
+def _gathered(planes, table) -> list:
+    """The flat cache [L, B, H, S, D] (scales [L, B, S, H]) that the table's
+    rows see in pool planes: the kernels' logical view, as a copy."""
+    from llamavk_tpu_torch.ops import flash_attn as fa
+
+    return [torch.stack([fa.gather_pages(p[l], table) for l in range(p.shape[0])])
+            for p in planes]
+
+
+def _untouched_equal(planes, before, table, n_past, t: int, ps: int) -> bool:
+    """Every page but those rows [n_past, n_past + t) of each table row fall
+    in keeps its bytes."""
+    pasts = n_past if isinstance(n_past, list) else [n_past] * table.shape[0]
+    tab = table.cpu()
+    touched = {int(tab[r, (p + i) // ps]) for r, p in enumerate(pasts) for i in range(t)}
+    keep = [p for p in range(planes[0].shape[1]) if p not in touched]
+    return all(torch.equal(x[:, keep], y[:, keep]) for x, y in zip(planes, before))
+
+
+def kernel_attn_paged(timer, gen, gen_cpu, t: int, n_past, update: bool, b: int = 1,
+                      quant: bool = False, s: int = N_CTX, ps: int = PAGE, bk: int | None = None,
+                      h: int = H, d: int = D, main_path: bool = False) -> dict:
+    """K2 (update) or K3 (read) in page-table mode, on a random pool through
+    a scrambled table, against its plain version (pool bytes equal, pages it
+    does not write unchanged), and bit for bit against the flat kernel on
+    the gathered view at the same KV block (llama_forward's default fitted
+    to the page: block_k = PS at 7B). Timed unless `timer` is None."""
+    from llamavk_tpu_torch.ops import flash_attn as fa
+
+    layer = 1
+    planes, table = _paged_case(gen, gen_cpu, b, quant, s, ps, h, d)
+    q, kn, vn = (torch.randn((b, t, h, d), device="cuda", generator=gen).to(torch.bfloat16)
+                 for _ in range(3))
+    bk = fa._fit_block_k(bk or (512 if t >= 256 else 256), ps, fa.kv_step(planes[0].dtype))
+    npast = (torch.tensor(n_past, dtype=torch.int32, device="cuda")
+             if isinstance(n_past, list) else n_past)
+    k, v, sc = planes[0], planes[1], _scales(planes)
+    bt = min(256, ps)  # llama_forward's query block on a pool
+    if update:
+        flat = _gathered(planes, table)
+        p2, before = [x.clone() for x in planes], [x.clone() for x in planes]
+        got = fa.flash_attention_update(q, kn, vn, k, v, npast, layer, block_t=bt, block_k=bk,
+                                        page_table=table, **sc)[0]
+        want = fa.flash_attention_update_ref(q, kn, vn, p2[0], p2[1], npast, layer,
+                                             block_t=bt, page_table=table, **_scales(p2))[0]
+        flat_out = fa.flash_attention_update(q, kn, vn, flat[0], flat[1], npast, layer,
+                                             block_k=bk, **_scales(flat))[0]
+        torch.cuda.synchronize()
+        pool_equal = (all(torch.equal(x, y) for x, y in zip(planes, p2))
+                      and _untouched_equal(planes, before, table, n_past, t, ps))
+        flat_equal = torch.equal(flat_out, got) and all(
+            torch.equal(x, y) for x, y in zip(flat, _gathered(planes, table)))
+        del before
+        run = lambda: fa.flash_attention_update(q, kn, vn, k, v, npast, layer,  # noqa: E731
+                                                block_t=bt, block_k=bk, page_table=table, **sc)
+        plain = lambda: fa.flash_attention_update_ref(  # noqa: E731
+            q, kn, vn, p2[0], p2[1], npast, layer, block_t=bt, page_table=table, **_scales(p2))
+    else:
+        fa.write_rows(kn, vn, k, v, npast, layer, *planes[2:], page_table=table)
+        flat = _gathered(planes, table)
+        got = fa.flash_attention(q, k, v, npast, layer_idx=layer, block_k=bk, page_table=table,
+                                 **sc)
+        want = fa.flash_attention_ref(q, k, v, npast, layer_idx=layer, page_table=table, **sc)
+        flat_out = fa.flash_attention(q, flat[0], flat[1], npast, layer_idx=layer, block_k=bk,
+                                      **_scales(flat))
+        torch.cuda.synchronize()
+        pool_equal, flat_equal = True, torch.equal(flat_out, got)
+        run = lambda: fa.flash_attention(q, k, v, npast, layer_idx=layer,  # noqa: E731
+                                         block_k=bk, page_table=table, **sc)
+        plain = lambda: fa.flash_attention_ref(q, k, v, npast, layer_idx=layer,  # noqa: E731
+                                               page_table=table, **sc)
+    err, ratio = _attn_err(got, want, q, k, v, npast, layer, *planes[2:], page_table=table)
+    row = {
+        "kernel": ("attn_update_paged" if update else "attn_read_paged") + ("_i8" if quant else ""),
+        "shape": f"B={b} T={t} n_past={n_past} H={h} D={d} PS={ps} MAXLB={s // ps} "
+                 f"block_k={bk}" + (" int8" if quant else ""),
+        "main_path": main_path,
+        "max_abs_err": err, "limit": ATTN_LIMIT_RULE, "err_over_limit": ratio,
+        "cache_bytes_equal": pool_equal, "bit_equal_to_flat_kernel": flat_equal,
+        "ok": ratio <= 1.0 and pool_equal and flat_equal,
+    }
+    if timer is not None:
+        row["ms"] = timer(run)
+        row["plain_ms"] = timer(plain, reps=5)
+        row["library_ms"] = timer(_sdpa_call(q, flat[0], flat[1], npast, layer, *flat[2:]))
+        row["bound_ms"], row["bound_by"] = bound(*_attn_sizes(b, t, n_past, update, quant))
+    return row
+
+
+def kernel_decode_paged(timer, gen, gen_cpu, b: int, quant: bool, s: int = N_CTX,
+                        ps: int = PAGE, bk: int = 256, h: int = H, d: int = D,
+                        main_path: bool = False) -> dict:
+    """K4 in page-table mode at n_past seeded over [0, s), against its plain
+    version (pool bytes equal, pages it does not write unchanged), and bit
+    for bit against the flat K4 on the gathered view at the KV block fitted
+    to the page. Timed unless `timer` is None."""
+    from llamavk_tpu_torch.ops import flash_attn as fa
+    from llamavk_tpu_torch.ops import flash_decode as fd
+
+    layer = 1
+    npl = _decode_npast(b, s, gen_cpu)
+    npast = torch.tensor(npl, dtype=torch.int32, device="cuda")
+    planes, table = _paged_case(gen, gen_cpu, b, quant, s, ps, h, d)
+    q, kn, vn = (torch.randn((b, 1, h, d), device="cuda", generator=gen).to(torch.bfloat16)
+                 for _ in range(3))
+    bkf = fa._fit_block_k(bk, ps, fa.kv_step(planes[0].dtype))
+    flat = _gathered(planes, table)
+    p2, before = [x.clone() for x in planes], [x.clone() for x in planes]
+    got = fd.flash_decode_update(q, kn, vn, planes[0], planes[1], npast, layer, block_k=bk,
+                                 page_table=table, **_scales(planes))[0]
+    want = fd.flash_decode_update_ref(q, kn, vn, p2[0], p2[1], npast, layer, block_k=bk,
+                                      page_table=table, **_scales(p2))[0]
+    flat_out = fd.flash_decode_update(q, kn, vn, flat[0], flat[1], npast, layer, block_k=bkf,
+                                      **_scales(flat))[0]
+    torch.cuda.synchronize()
+    pool_equal = (all(torch.equal(x, y) for x, y in zip(planes, p2))
+                  and _untouched_equal(planes, before, table, npl, 1, ps))
+    flat_equal = torch.equal(flat_out, got) and all(
+        torch.equal(x, y) for x, y in zip(flat, _gathered(planes, table)))
+    del before
+    err, ratio = _attn_err(got, want, q, planes[0], planes[1], npast, layer, *planes[2:],
+                           page_table=table)
+    row = {
+        "kernel": "decode_paged_i8" if quant else "decode_paged",
+        "shape": f"B={b} n_past={min(npl)}..{max(npl)} H={h} D={d} PS={ps} MAXLB={s // ps} "
+                 f"block_k={bkf}" + (" int8" if quant else ""),
+        "main_path": main_path,
+        "max_abs_err": err, "limit": ATTN_LIMIT_RULE, "err_over_limit": ratio,
+        "cache_bytes_equal": pool_equal, "bit_equal_to_flat_kernel": flat_equal,
+        "ok": ratio <= 1.0 and pool_equal and flat_equal,
+    }
+    if timer is None:
+        return row
+    sc = _scales(planes)
+    row["ms"] = timer(lambda: fd.flash_decode_update(q, kn, vn, planes[0], planes[1], npast, layer,
+                                                     block_k=bk, page_table=table, **sc))
+    row["plain_ms"] = timer(lambda: fd.flash_decode_update_ref(
+        q, kn, vn, p2[0], p2[1], npast, layer, block_k=bk, page_table=table, **_scales(p2)),
+        reps=5)
+    row["library_ms"] = timer(_sdpa_call(q, flat[0], flat[1], npast, layer, *flat[2:]))
+    row["bound_ms"], row["bound_by"] = bound(*_attn_sizes(b, 1, npl, True, quant))
+    return row
+
+
 def kernel_edges(gen, gen_cpu) -> dict:
     """Correctness only, off the 7B shapes: the GEMM at the row counts of
     short prompts' buckets (M = 2..9), an odd group count and a ragged N,
@@ -459,6 +648,17 @@ def kernel_edges(gen, gen_cpu) -> dict:
         if not r["ok"]:
             raise SystemExit(f"kernel edges: batched decode at D={d} disagrees: {r}")
         worst[f"decode {r['shape']}"] = (r["max_abs_err"], ATTN_LIMIT_RULE, r["err_over_limit"])
+        # page-table modes at the tiny server's pages (8 rows bf16, 32 int8):
+        # a 64-row tile spans several 8-row pages
+        ps = 32 if quant else 8
+        for r in (kernel_attn_paged(None, gen, gen_cpu, 8, [ps, 16], True, 2, quant, s, ps, 32,
+                                    h, d),
+                  kernel_attn_paged(None, gen, gen_cpu, 5, 20, False, 1, quant, s, ps, 32, h, d),
+                  kernel_decode_paged(None, gen, gen_cpu, 4, quant, s, ps, 32, h, d)):
+            if not r["ok"]:
+                raise SystemExit(f"kernel edges: paged kernel at D={d} disagrees: {r}")
+            worst[f"{r['kernel']} {r['shape']}"] = (r["max_abs_err"], ATTN_LIMIT_RULE,
+                                                   r["err_over_limit"])
     torch.cuda.synchronize()
     bad = {name: e for name, e in worst.items() if not e[2] <= 1.0}
     if bad:
@@ -507,6 +707,20 @@ def phase_kernels(reps: int) -> list[dict]:
         for quant in (False, True):
             rows.append(kernel_decode(timer, gen, gen_cpu, b, quant, b == 32 and quant))
             emit({"phase": "kernel", **rows[-1]})
+    # page-table modes through scrambled tables of 128-row pages: K2 at T=1
+    # and at admission chunks' T (B=4 from page 0 and 1, B=1 at n_past 256
+    # as a request continuing two shared prefix pages), K3 at the second
+    # turn's shape (no engine path reaches it: paged llama_forward refuses
+    # the read route), K4 at the serving path's 32 slots. serve_shapes
+    # checks every paged shape serve_7b_paged launches.
+    for quant in (False, True):
+        for t, n_past, b in ((1, 300, 1), (32, 0, 4), (128, 128, 4), (256, 256, 1)):
+            rows.append(kernel_attn_paged(timer, gen, gen_cpu, t, n_past, True, b, quant))
+            emit({"phase": "kernel", **rows[-1]})
+        rows.append(kernel_attn_paged(timer, gen, gen_cpu, 301, 159, False, 1, quant))
+        emit({"phase": "kernel", **rows[-1]})
+        rows.append(kernel_decode_paged(timer, gen, gen_cpu, 32, quant))
+        emit({"phase": "kernel", **rows[-1]})
     emit({"phase": "kernel_edges", **kernel_edges(gen, gen_cpu)})
     bad = [r["shape"] for r in rows if not r["ok"]]
     if bad:
@@ -792,12 +1006,13 @@ def _concurrently(base: str, bodies: list[dict]) -> list[dict]:
     return out
 
 
-def _serve_cli(path: str, kv: str, bodies: list[dict]) -> list[dict]:
+def _serve_cli(path: str, kv: str, bodies: list[dict], extra: list[str]) -> list[dict]:
     """Answers to `bodies` from the serve CLI run in its own process on the
-    card, which is stopped before returning."""
+    card (with the flags `extra`), which is stopped before returning."""
     proc = subprocess.Popen(
         [sys.executable, "-m", "llamavk_tpu_torch.cli.serve", "-m", path, "--port", "0",
-         "--max-batch", "4", "-c", "64", "--block", "4", "--kv-dtype", kv, "--device", "cuda"],
+         "--max-batch", "4", "-c", "64", "--block", "4", "--kv-dtype", kv, "--device", "cuda",
+         *extra],
         cwd=ROOT, stderr=subprocess.PIPE, text=True)
     try:
         for line in proc.stderr:  # the loader's line, then "llamavk serving ... on <url>"
@@ -809,27 +1024,42 @@ def _serve_cli(path: str, kv: str, bodies: list[dict]) -> list[dict]:
         proc.wait(timeout=60)
 
 
-def phase_tiny_serve(work: Path) -> tuple[dict, dict]:
-    """The server on the card, bf16 and int8 KV: 4 concurrent greedy
-    requests, to a LlamaServer in this process and to the serve CLI in its
-    own, whose streams must equal the CPU batched engine's."""
-    from llamavk_tpu_torch.models.loader import load_model, random_tiny_model
-    from llamavk_tpu_torch.runtime.batching import BatchConfig, BatchedEngine
+def _cpu_streams(path: str, bcfg, n_tokens: int) -> list[str]:
+    """The CPU batched engine's greedy texts for TINY_SERVE_PROMPTS."""
+    from llamavk_tpu_torch.models.loader import load_model
+    from llamavk_tpu_torch.runtime.batching import BatchedEngine
     from llamavk_tpu_torch.runtime.sampling import SamplerParams
+
+    cfg, params, tok = load_model(path, device="cpu")
+    be = BatchedEngine(cfg, params, bcfg, device="cpu")
+    reqs = [be.submit(p, n_tokens, SamplerParams(temp=0.0), ignore_eos=True)
+            for p in TINY_SERVE_PROMPTS]
+    be.run()
+    return [b"".join(tok.decode_token(t) for t in r.generated).decode() for r in reqs]
+
+
+def phase_tiny_serve(work: Path) -> tuple[dict, dict]:
+    """The server on the card, bf16 and int8 KV, flat and paged (pages of 8
+    rows bf16, 32 int8): 4 concurrent greedy requests, to a LlamaServer in
+    this process and to the serve CLI in its own, whose streams must equal
+    the CPU batched engine's; paged, the CPU's paged streams must also equal
+    its flat engine's at kv_block = page_size."""
+    from llamavk_tpu_torch.models.loader import load_model, random_tiny_model
+    from llamavk_tpu_torch.runtime.batching import BatchConfig
     from llamavk_tpu_torch.runtime.server import LlamaServer
 
     path = str(work / "tiny-q4.bin")
     random_tiny_model(write_path=path, quantize=True)
     n_tokens = 6
     result, counts = {}, dict.fromkeys(KERNEL_META, 0)
-    for kv in ("bfloat16", "int8"):
-        bcfg = BatchConfig(max_batch=4, n_ctx=64, block=4, kv_dtype=kv)
-        cfg, params, tok = load_model(path, device="cpu")
-        be = BatchedEngine(cfg, params, bcfg, device="cpu")
-        reqs = [be.submit(p, n_tokens, SamplerParams(temp=0.0), ignore_eos=True)
-                for p in TINY_SERVE_PROMPTS]
-        be.run()
-        want = [b"".join(tok.decode_token(t) for t in r.generated).decode() for r in reqs]
+    for kv, ps in (("bfloat16", 0), ("int8", 0), ("bfloat16", 8), ("int8", 32)):
+        bcfg = BatchConfig(max_batch=4, n_ctx=64, block=4, kv_dtype=kv, paged=ps > 0,
+                           page_size=ps or 128)
+        want = _cpu_streams(path, bcfg, n_tokens)
+        name = f"{kv} paged {ps}" if ps else kv
+        if ps and want != _cpu_streams(path, dataclasses.replace(bcfg, paged=False, kv_block=ps),
+                                       n_tokens):
+            raise SystemExit(f"tiny_serve ({name}): CPU paged and flat streams differ")
         cfg, params, tok = load_model(path, device="cuda")
         srv = LlamaServer(cfg, params, tok, bcfg, device="cuda")
         base, thread = _serve(srv)
@@ -841,13 +1071,18 @@ def phase_tiny_serve(work: Path) -> tuple[dict, dict]:
             counts[key] += n
         srv.shutdown()
         thread.join(timeout=30)
-        for name, answers in (("server", got), ("serve CLI", _serve_cli(path, kv, bodies))):
+        extra = ["--paged", "--page-size", str(ps)] if ps else []
+        for who, answers in (("server", got), ("serve CLI", _serve_cli(path, kv, bodies, extra))):
             texts = [a["text"] for a in answers]
             if texts != want:
-                raise SystemExit(f"tiny_serve ({kv}, {name}): card streams {texts} differ "
+                raise SystemExit(f"tiny_serve ({name}, {who}): card streams {texts} differ "
                                  f"from the CPU's {want}")
-        result[kv] = {"streams": want, "server_and_cli_equal_to_cpu": True}
-    _require("tiny_serve", counts, ("decode", "decode_i8", "attn_update", "attn_update_i8"))
+        result[name] = {"streams": want, "server_and_cli_equal_to_cpu": True}
+        if ps:
+            result[name]["cpu_equal_to_flat_at_kv_block"] = ps
+    _require("tiny_serve", counts, ("decode", "decode_i8", "attn_update", "attn_update_i8",
+                                    "decode_paged", "decode_paged_i8", "attn_update_paged",
+                                    "attn_update_paged_i8"))
     return result, counts
 
 
@@ -893,73 +1128,90 @@ def _decode_step_check(params, cfg, seed: int) -> dict:
     return out
 
 
-def phase_serve_7b(seed: int) -> tuple[dict, dict, dict]:
-    """Synthetic LLaMA-7B behind the HTTP server with the production flags
-    without paging. Returns (result, launches, the shapes every kernel was
-    launched at in the phase, from the warm-up request to the last step)."""
-    from llamavk_tpu_torch.formats.ggml_io import TokenEntry
+@functools.cache
+def _model_7b(seed: int):
+    """(cfg, params) of synthetic LLaMA-7B Q4_0 on the card, made once for
+    the serving phases."""
     from llamavk_tpu_torch.models.llama import ModelConfig
     from llamavk_tpu_torch.models.loader import LLAMA_CONFIGS, synthetic_params
-    from llamavk_tpu_torch.runtime.batching import BatchConfig
-    from llamavk_tpu_torch.runtime.sampling import SamplerParams
-    from llamavk_tpu_torch.runtime.server import LlamaServer
-    from llamavk_tpu_torch.tokenizer import Tokenizer
 
     cfg = ModelConfig(**LLAMA_CONFIGS["7B"])
-    params = synthetic_params(cfg, seed=seed, device="cuda")
-    check = _decode_step_check(params, cfg, seed)
+    return cfg, synthetic_params(cfg, seed=seed, device="cuda")
 
-    # token-id prompts; the vocabulary only names the ids (<tN>)
-    tok = Tokenizer([TokenEntry(f"<t{i}>".encode(), 0.0) for i in range(cfg.n_vocab)])
-    bcfg = BatchConfig(max_batch=32, n_ctx=N_CTX, block=8, admit_chunk=4, kv_dtype="int8")
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    srv = LlamaServer(cfg, params, tok, bcfg, model_name="llama-7B-synthetic", device="cuda")
-    base, thread = _serve(srv)
-    _reset_shapes()
-    _complete(base, dict(prompt=[5, 6, 7], max_tokens=2, temperature=0.0, ignore_eos=True))
-    srv.ttft_s.clear()
-    stats0 = dict(srv.engine.stats)
-    gen = torch.Generator().manual_seed(seed)
-    n_req, n_tokens = 64, 64
+
+def _id_tokenizer(n_vocab: int):
+    """A vocabulary that only names the token ids (<tN>): the 7B phases send
+    token-id prompts."""
+    from llamavk_tpu_torch.formats.ggml_io import TokenEntry
+    from llamavk_tpu_torch.tokenizer import Tokenizer
+
+    return Tokenizer([TokenEntry(f"<t{i}>".encode(), 0.0) for i in range(n_vocab)])
+
+
+SMOKE_REQUESTS, SMOKE_TOKENS = 64, 64
+
+
+def _smoke_bodies(n_vocab: int, gen) -> list[dict]:
+    """The smoke load: 64 requests of 16-256 prompt tokens and 64 tokens
+    out, half greedy and half sampled, a quarter streamed."""
     bodies = []
-    for i in range(n_req):
+    for i in range(SMOKE_REQUESTS):
         plen = int(torch.randint(16, 257, (1,), generator=gen))
         sampling = dict(temperature=0.8, top_k=40, top_p=0.95) if i % 2 else dict(temperature=0.0)
-        bodies.append(dict(prompt=torch.randint(3, cfg.n_vocab, (plen,), generator=gen).tolist(),
-                           max_tokens=n_tokens, ignore_eos=True, stream=(i // 2) % 4 == 0,
+        bodies.append(dict(prompt=torch.randint(3, n_vocab, (plen,), generator=gen).tolist(),
+                           max_tokens=SMOKE_TOKENS, ignore_eos=True, stream=(i // 2) % 4 == 0,
                            seed=i, **sampling))
-    _reset_counts()
+    return bodies
+
+
+def _check_answers(phase: str, answers: list[dict], n_tokens: int = SMOKE_TOKENS) -> None:
+    bad = [i for i, a in enumerate(answers)
+           if a["status"] != 200 or a["text"].count("<t") != n_tokens or a["finish"] != "length"]
+    if bad:
+        raise SystemExit(f"{phase}: requests {bad} did not answer 200 with {n_tokens} tokens")
+
+
+def _load(srv, base: str, bodies: list[dict]) -> dict:
+    """Post `bodies` at once and measure: throughput, decode ms per step,
+    TTFT p50 and p99 (the largest of 64), prefill calls and preemptions, from
+    the engine's counters around the load."""
+    stats0 = dict(srv.engine.stats)
+    n_ttft = len(srv.ttft_s)
     t0 = time.perf_counter()
     answers = _concurrently(base, bodies)
     wall = time.perf_counter() - t0
-    # one request continuing a registered 100-token prefix with a 300-token
-    # suffix: its bucket is capped at 412 rows (n_ctx - 100), the read route
-    status, data = _post(base, "/v1/prefixes", {
-        "tokens": torch.randint(3, cfg.n_vocab, (100,), generator=gen).tolist()})
-    prefixed = _complete(base, dict(
-        prompt=torch.randint(3, cfg.n_vocab, (300,), generator=gen).tolist(),
-        prefix_id=json.loads(data)["prefix_id"], max_tokens=n_tokens, temperature=0.0,
-        ignore_eos=True))
-    torch.cuda.synchronize()
-    counts = _counts()
-    stats = srv.stats()
-    peak = torch.cuda.max_memory_allocated()
-    ttft = sorted(srv.ttft_s[:n_req])
-    srv.shutdown()
-    thread.join(timeout=30)
-    bad = [i for i, a in enumerate(answers + [prefixed])
-           if a["status"] != 200 or a["text"].count("<t") != n_tokens or a["finish"] != "length"]
-    if status != 200 or bad:
-        raise SystemExit(f"serve_7b: requests {bad} did not answer 200 with {n_tokens} tokens")
-    _require("serve_7b", counts, ("q4_gemm", "attn_update_i8", "attn_read_i8", "decode_i8"))
+    ttft = sorted(srv.ttft_s[n_ttft:])
+    return {
+        "answers": answers, "requests": len(bodies),
+        "streamed": sum(bool(b.get("stream")) for b in bodies),
+        "prompt_tokens": sum(len(b["prompt"]) for b in bodies), "wall_s": wall,
+        "tok_per_s": len(bodies) * bodies[0]["max_tokens"] / wall,
+        "ttft_ms_p50": 1e3 * ttft[len(ttft) // 2], "ttft_ms_p99": 1e3 * ttft[-1],
+        **_step_stats(stats0, srv.stats()),
+    }
 
-    # the device's idle share over decode blocks of 32 active slots, driven
-    # on the engine directly: one block on the host clock, one more under the
-    # profiler; the idle share divides busy time by the unprofiled wall time
-    eng = srv.engine
+
+def _step_stats(stats0: dict, stats: dict) -> dict:
+    """Decode steps, decode ms per step, prefill calls and preemptions
+    between two snapshots of the engine's counters."""
+    steps = stats["steps"] - stats0["steps"]
+    return {
+        "decode_steps": steps,
+        "decode_ms_per_step": 1e3 * (stats["t_decode"] - stats0["t_decode"]) / steps,
+        "prefill_calls": stats["prefill_calls"] - stats0["prefill_calls"],
+        "preempted": stats["preempted"] - stats0["preempted"],
+    }
+
+
+def _idle_window(eng, n_vocab: int, gen) -> dict:
+    """The device's idle share over decode blocks of 32 active slots,
+    driven on the engine directly: one block on the host clock, one more
+    under the profiler; the idle share divides busy time by the unprofiled
+    wall time."""
+    from llamavk_tpu_torch.runtime.sampling import SamplerParams
+
     for i in range(32):
-        eng.submit(torch.randint(3, cfg.n_vocab, (64,), generator=gen).tolist(), 200,
+        eng.submit(torch.randint(3, n_vocab, (64,), generator=gen).tolist(), 200,
                    SamplerParams(temp=0.8 if i % 2 else 0.0), seed=i, ignore_eos=True)
     eng.step()  # admission and a first block
     steps0 = eng.stats["steps"]
@@ -971,22 +1223,7 @@ def phase_serve_7b(seed: int) -> tuple[dict, dict, dict]:
     n_steps = eng.stats["steps"] - steps0
     wall_ms, busy_ms, n_dev, top = _device_busy(eng.step)
     torch.cuda.synchronize()
-    shapes = _shapes()
-    steps = stats["steps"] - stats0["steps"]
-    t_decode = stats["t_decode"] - stats0["t_decode"]
-    result = {
-        "kernel_vs_plain_decode_step": check,
-        "requests": n_req + 1, "max_tokens": n_tokens, "streamed": sum(b["stream"] for b in bodies),
-        "prompt_tokens": sum(len(b["prompt"]) for b in bodies), "wall_s": wall,
-        "tok_per_s": n_req * n_tokens / wall, "decode_steps": steps,
-        "decode_ms_per_step": 1e3 * t_decode / steps,
-        # p99 of 64 samples is the largest
-        "ttft_ms_p50": 1e3 * ttft[len(ttft) // 2], "ttft_ms_p99": 1e3 * ttft[-1],
-        "prefill_calls": stats["prefill_calls"] - stats0["prefill_calls"],
-        "peak_mem_bytes": peak, "launches": counts,
-        "k1_shapes": {f"M={m} K={k} N={n}": c for (m, k, n), c in sorted(shapes["q4"].items())},
-        "attn_shapes": {str(key): c for key, c in sorted(shapes["attn"].items(), key=str)},
-        "decode_shapes": {str(key): c for key, c in sorted(shapes["decode"].items())},
+    return {
         "idle_window_steps": n_steps, "wall_ms_per_step": plain_wall_ms / n_steps,
         "profiled_wall_ms_per_step": wall_ms / n_steps,
         "device_busy_ms_per_step": None if busy_ms is None else busy_ms / n_steps,
@@ -994,39 +1231,256 @@ def phase_serve_7b(seed: int) -> tuple[dict, dict, dict]:
         "device_idle_share": None if busy_ms is None else 1 - busy_ms / plain_wall_ms,
         "device_ms_per_step_by_name": {k: v / n_steps for k, v in top.items()},
     }
+
+
+def _shape_report(shapes: dict) -> dict:
+    return {
+        "k1_shapes": {f"M={m} K={k} N={n}": c for (m, k, n), c in sorted(shapes["q4"].items())},
+        "attn_shapes": {str(key): c for key, c in sorted(shapes["attn"].items(), key=str)},
+        "decode_shapes": {str(key): c for key, c in sorted(shapes["decode"].items(), key=str)},
+    }
+
+
+def phase_serve_7b(seed: int) -> tuple[dict, dict, dict]:
+    """Synthetic LLaMA-7B behind the HTTP server with the production flags
+    without paging. Returns (result, launches, the shapes every kernel was
+    launched at in the phase, from the warm-up request to the last step)."""
+    from llamavk_tpu_torch.runtime.batching import BatchConfig
+    from llamavk_tpu_torch.runtime.server import LlamaServer
+
+    cfg, params = _model_7b(seed)
+    check = _decode_step_check(params, cfg, seed)
+    tok = _id_tokenizer(cfg.n_vocab)
+    bcfg = BatchConfig(max_batch=32, n_ctx=N_CTX, block=8, admit_chunk=4, kv_dtype="int8")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    srv = LlamaServer(cfg, params, tok, bcfg, model_name="llama-7B-synthetic", device="cuda")
+    base, thread = _serve(srv)
+    _reset_shapes()
+    _complete(base, dict(prompt=[5, 6, 7], max_tokens=2, temperature=0.0, ignore_eos=True))
+    gen = torch.Generator().manual_seed(seed)
+    bodies = _smoke_bodies(cfg.n_vocab, gen)
+    _reset_counts()
+    stats0 = dict(srv.engine.stats)
+    load = _load(srv, base, bodies)
+    # one request continuing a registered 100-token prefix with a 300-token
+    # suffix: its bucket is capped at 412 rows (n_ctx - 100), the read route
+    status, data = _post(base, "/v1/prefixes", {
+        "tokens": torch.randint(3, cfg.n_vocab, (100,), generator=gen).tolist()})
+    prefixed = _complete(base, dict(
+        prompt=torch.randint(3, cfg.n_vocab, (300,), generator=gen).tolist(),
+        prefix_id=json.loads(data)["prefix_id"], max_tokens=SMOKE_TOKENS, temperature=0.0,
+        ignore_eos=True))
+    torch.cuda.synchronize()
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    # the decode steps and prefill calls of the 64 requests and the prefixed one
+    load.update(_step_stats(stats0, srv.stats()))
+    srv.shutdown()
+    thread.join(timeout=30)
+    if status != 200:
+        raise SystemExit("serve_7b: the prefix was not registered")
+    _check_answers("serve_7b", load.pop("answers") + [prefixed])
+    _require("serve_7b", counts, ("q4_gemm", "attn_update_i8", "attn_read_i8", "decode_i8"))
+    idle = _idle_window(srv.engine, cfg.n_vocab, gen)
+    shapes = _shapes()
+    load["requests"] += 1  # the prefixed one
+    result = {"kernel_vs_plain_decode_step": check, "max_tokens": SMOKE_TOKENS, **load,
+              "peak_mem_bytes": peak, "launches": counts, **_shape_report(shapes), **idle}
     return result, counts, shapes
 
 
-def phase_serve_shapes(shapes: dict, seed: int, reps: int) -> list[dict]:
-    """Every kernel against its plain version at every shape serve_7b
-    launched it at (`_shapes`): K1 at each (M, K, N); K2 and K3 at each
-    (B, T, S, block_k, cache type, n_past), a vector n_past seeded per row;
-    K4 at each (B, S, block_k, cache type), n_past seeded per row."""
+def _greedy_streams(cfg, params, bcfg, prompts: list[list[int]], n: int) -> list[list[int]]:
+    """Greedy streams of an engine on the card, driven directly."""
+    from llamavk_tpu_torch.runtime.batching import BatchedEngine
+    from llamavk_tpu_torch.runtime.sampling import SamplerParams
+
+    be = BatchedEngine(cfg, params, bcfg, device="cuda")
+    reqs = [be.submit(p, n, SamplerParams(temp=0.0), ignore_eos=True) for p in prompts]
+    be.run()
+    out = [r.generated for r in reqs]
+    del be
+    torch.cuda.empty_cache()
+    return out
+
+
+def _stream_split(cfg, params, prompt: list[int], text_a: str, text_b: str, what: str):
+    """None when two answers of one greedy request are equal. Otherwise they
+    may part only at a near tie: the logits of the prompt and the common
+    tokens (one flat forward, KV block pinned to the page) put both next
+    tokens within 2^-8 of the largest logit of the top one. Returns where
+    they part and the tokens' gap to the top; fails on a wider one."""
+    from llamavk_tpu_torch.models.llama import init_kv_cache, llama_forward
+
+    a, b = ([int(t) for t in re.findall(r"<t(\d+)>", x)] for x in (text_a, text_b))
+    if a == b:
+        return None
+    i = next(j for j in range(min(len(a), len(b))) if a[j] != b[j])
+    ctx = prompt + a[:i]
+    toks = torch.zeros((1, max(8, 1 << (len(ctx) - 1).bit_length())), dtype=torch.int64)
+    toks[0, : len(ctx)] = torch.tensor(ctx)
+    cache = init_kv_cache(cfg, 1, N_CTX, torch.int8, "cuda")
+    logits = llama_forward(params, toks.cuda(), cache, 0, cfg, kv_block=PAGE,
+                           last_idx=torch.tensor([len(ctx) - 1], device="cuda"))[0][0, -1]
+    del cache
+    top, scale = float(logits.max()), float(logits.abs().max())
+    gaps = [(top - float(logits[t])) / scale for t in (a[i], b[i])]
+    if max(gaps) > LOGIT_REL_LIMIT:
+        raise SystemExit(f"serve_7b_paged: {what} streams part at token {i} ({a[i]} against "
+                         f"{b[i]}), {max(gaps):.3g} below the top logit (limit {LOGIT_REL_LIMIT})")
+    return {"request": what, "token": i, "gap_rel": gaps}
+
+
+def phase_serve_7b_paged(seed: int) -> tuple[dict, dict, dict]:
+    """Synthetic LLaMA-7B behind the HTTP server with the production flags
+    (`serve --max-batch 32 --kv-dtype int8 --paged`, page_size 128, the
+    default pool of 129 pages). Returns (result, launches from the 64
+    requests to the end of the quarter-pool load, the shapes every kernel
+    was launched at in the phase)."""
+    from llamavk_tpu_torch.runtime.batching import BatchConfig
+    from llamavk_tpu_torch.runtime.server import LlamaServer
+
+    cfg, params = _model_7b(seed)
+    tok = _id_tokenizer(cfg.n_vocab)
+    bcfg = BatchConfig(max_batch=32, n_ctx=N_CTX, block=8, admit_chunk=4, kv_dtype="int8",
+                       paged=True, page_size=PAGE)
+    gen = torch.Generator().manual_seed(seed + 3)
+    gc.collect()  # the servers of earlier phases hold reference cycles
+    torch.cuda.empty_cache()
+    _reset_shapes()
+    # 8 greedy requests through a paged engine and a flat one whose KV block
+    # is pinned to the page: K2 and K4 sum in the same order on both, so the
+    # streams must be equal
+    prompts = [torch.randint(3, cfg.n_vocab, (int(torch.randint(16, 257, (1,), generator=gen)),),
+                             generator=gen).tolist() for _ in range(8)]
+    paged_streams = _greedy_streams(cfg, params, bcfg, prompts, 32)
+    flat_streams = _greedy_streams(cfg, params, dataclasses.replace(bcfg, paged=False,
+                                                                    kv_block=PAGE), prompts, 32)
+    if paged_streams != flat_streams:
+        raise SystemExit("serve_7b_paged: paged and flat (kv_block 128) greedy streams differ")
+
+    torch.cuda.reset_peak_memory_stats()
+    srv = LlamaServer(cfg, params, tok, bcfg, model_name="llama-7B-synthetic", device="cuda")
+    pool_bytes = sum(p.numel() * p.element_size() for p in srv.engine.cache.planes())
+    base, thread = _serve(srv)
+    _complete(base, dict(prompt=[5, 6, 7], max_tokens=2, temperature=0.0, ignore_eos=True))
+    bodies = _smoke_bodies(cfg.n_vocab, torch.Generator().manual_seed(seed))  # serve_7b's
+    _reset_counts()
+    load = _load(srv, base, bodies)
+    answers = load.pop("answers")
+    _check_answers("serve_7b_paged", answers)
+    pages_peak = srv.stats()["pages_peak"]
+    # a registered 300-token prefix, 2 full pages shared by every slot that
+    # continues it and a 44-token remainder re-evaluated with each suffix,
+    # continued by 4 concurrent 100-token suffixes (buckets of 256 rows at
+    # n_past 256)
+    status, data = _post(base, "/v1/prefixes", {
+        "tokens": torch.randint(3, cfg.n_vocab, (300,), generator=gen).tolist()})
+    pid = json.loads(data)["prefix_id"]
+    pfx_pages = list(srv.engine.prefixes[pid][0])
+    suffixes = [dict(prompt=torch.randint(3, cfg.n_vocab, (100,), generator=gen).tolist(),
+                     prefix_id=pid, max_tokens=SMOKE_TOKENS, temperature=0.0, ignore_eos=True)
+                for _ in range(4)]
+    prefixed = _concurrently(base, suffixes)
+    torch.cuda.synchronize()
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    stats = srv.stats()
+    srv.shutdown()
+    thread.join(timeout=30)
+    if status != 200 or len(pfx_pages) != 2:
+        raise SystemExit(f"serve_7b_paged: prefix registered with {len(pfx_pages)} pages")
+    _check_answers("serve_7b_paged (prefix)", prefixed)
+    if stats["pages_free"] != stats["pages_total"] - 1 - len(pfx_pages):
+        raise SystemExit(f"serve_7b_paged: pages not returned: {stats}")
+    idle = _idle_window(srv.engine, cfg.n_vocab, gen)
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same 64 requests against a quarter pool (33 pages: 32 usable of
+    # 128 rows, for 32 slots that each need up to 3): the youngest request
+    # is preempted when the pool runs dry and recomputes on re-admission
+    quarter_cfg = dataclasses.replace(bcfg, n_pages=33)
+    srv = LlamaServer(cfg, params, tok, quarter_cfg, model_name="llama-7B-synthetic",
+                      device="cuda")
+    base, thread = _serve(srv)
+    _reset_counts()
+    quarter = _load(srv, base, bodies)
+    for key, n in _counts().items():
+        counts[key] += n
+    qstats = srv.stats()
+    srv.shutdown()
+    thread.join(timeout=30)
+    qanswers = quarter.pop("answers")
+    _check_answers("serve_7b_paged (quarter pool)", qanswers)
+    if quarter["preempted"] == 0:
+        raise SystemExit("serve_7b_paged: the quarter pool preempted no request")
+    # preemption recomputes a request's rows and must not change a greedy
+    # stream, its own or another slot's: the greedy half of the quarter
+    # pool's answers equals the default pool's, up to a near tie
+    greedy = [i for i, b in enumerate(bodies) if b["temperature"] == 0.0]
+    ties = [_stream_split(cfg, params, bodies[i]["prompt"], answers[i]["text"],
+                          qanswers[i]["text"], f"greedy request {i}") for i in greedy]
+    ties = [t for t in ties if t is not None]
+    _require("serve_7b_paged", counts, ("q4_gemm", "attn_update_paged_i8", "decode_paged_i8"))
+    shapes = _shapes()
+    result = {
+        "paged_equal_to_flat_kv_block_128": {"requests": len(prompts), "tokens": 32},
+        "max_tokens": SMOKE_TOKENS, **load, "pages_total": stats["pages_total"],
+        "pages_peak": pages_peak, "pool_bytes": pool_bytes, "peak_mem_bytes": peak,
+        "prefix": {"pages": len(pfx_pages), "requests": len(suffixes)},
+        "quarter_pool": {"pages_total": qstats["pages_total"], "pages_peak": qstats["pages_peak"],
+                         "greedy_streams": len(greedy), "greedy_split_at_near_tie": ties,
+                         **quarter},
+        "launches": counts, **_shape_report(shapes), **idle,
+    }
+    return result, counts, shapes
+
+
+def phase_serve_shapes(shapes: dict, seed: int, reps: int, phase: str = "serve_7b") -> list[dict]:
+    """Every kernel against its plain version at every shape a serving
+    phase launched it at (`_shapes`): K1 at each (M, K, N); K2 and K3 at each
+    (B, T, S, block_k, cache type, n_past, page table width), a vector
+    n_past seeded per row; K4 at each (B, S, block_k, cache type, page table
+    width), n_past seeded per row. Paged shapes run through scrambled
+    tables and are also held bit for bit against the flat kernels."""
     timer = Timer(reps)
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
     gen_cpu = torch.Generator().manual_seed(seed + 2)
     names = {kn: name for name, kn in K1_SHAPES.items()}
     rows = []
+
+    def add(row, launches):
+        row["launches_in_" + phase] = launches
+        rows.append(row)
+        emit({"phase": "serve_shape", **row})
+
     for m, k, n in sorted(shapes["q4"]):
-        rows.append(kernel_q4(timer, gen, names[(k, n)], m, True, plain_reps=2))
-        rows[-1]["launches_in_serve_7b"] = shapes["q4"][(m, k, n)]
-        emit({"phase": "serve_shape", **rows[-1]})
+        add(kernel_q4(timer, gen, names[(k, n)], m, True, plain_reps=2), shapes["q4"][(m, k, n)])
     for key in sorted(shapes["attn"], key=str):
-        path, b, t, h, s, d, bk, quant, n_past = key
+        path, b, t, h, s, d, bk, quant, n_past, maxlb = key
         if (h, d) != (H, D):
             raise SystemExit(f"serve_shapes: attention at H={h} D={d}, not the 7B width")
+        cap = s * (maxlb or 1)
         if n_past is None:
-            n_past = torch.randint(0, s - t + 1, (b,), generator=gen_cpu).tolist()
-        rows.append(kernel_attn(timer, gen, t, n_past, path == "update", True, b, quant, s, bk))
-        rows[-1]["launches_in_serve_7b"] = shapes["attn"][key]
-        emit({"phase": "serve_shape", **rows[-1]})
-    for key in sorted(shapes["decode"]):
-        b, h, s, d, bk, quant = key
+            n_past = torch.randint(0, cap - t + 1, (b,), generator=gen_cpu).tolist()
+        if maxlb is None:
+            row = kernel_attn(timer, gen, t, n_past, path == "update", True, b, quant, s, bk)
+        else:
+            row = kernel_attn_paged(timer, gen, gen_cpu, t, n_past, path == "update", b, quant,
+                                    cap, s, bk, main_path=True)
+        add(row, shapes["attn"][key])
+    for key in sorted(shapes["decode"], key=str):
+        b, h, s, d, bk, quant, maxlb = key
         if (h, d) != (H, D):
             raise SystemExit(f"serve_shapes: batched decode at H={h} D={d}, not the 7B width")
-        rows.append(kernel_decode(timer, gen, gen_cpu, b, quant, True, h, d, s, bk))
-        rows[-1]["launches_in_serve_7b"] = shapes["decode"][key]
-        emit({"phase": "serve_shape", **rows[-1]})
+        if maxlb is None:
+            row = kernel_decode(timer, gen, gen_cpu, b, quant, True, h, d, s, bk)
+        else:
+            row = kernel_decode_paged(timer, gen, gen_cpu, b, quant, s * maxlb, s, bk,
+                                      main_path=True)
+        add(row, shapes["decode"][key])
     bad = [r["shape"] for r in rows if not r["ok"]]
     if bad:
         raise SystemExit(f"serve_shapes: kernels disagree with their plain versions at {bad}")
@@ -1055,7 +1509,8 @@ def summary(rows: list[dict], counts: dict) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="env,build,kernels,tiny_cli,generate_7b,tiny_serve,serve_7b")
+                    default="env,build,kernels,tiny_cli,generate_7b,tiny_serve,serve_7b,"
+                            "serve_7b_paged")
     ap.add_argument("--reps", type=int, default=20, help="timed launches per kernel")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", help="also write every phase's result to this JSON file")
@@ -1100,13 +1555,14 @@ def main() -> int:
             report["tiny_serve"], path_counts = phase_tiny_serve(Path(work))
         add(path_counts)
         emit({"phase": "tiny_serve", **report["tiny_serve"]})
-    if "serve_7b" in phases:
-        report["serve_7b"], path_counts, shapes = phase_serve_7b(args.seed)
-        add(path_counts)
-        emit({"phase": "serve_7b", **report["serve_7b"]})
-        serve_rows = phase_serve_shapes(shapes, args.seed, max(5, args.reps // 4))
-        report["serve_shapes"] = serve_rows
-        rows += serve_rows
+    for name, phase in (("serve_7b", phase_serve_7b), ("serve_7b_paged", phase_serve_7b_paged)):
+        if name in phases:
+            report[name], path_counts, shapes = phase(args.seed)
+            add(path_counts)
+            emit({"phase": name, **report[name]})
+            serve_rows = phase_serve_shapes(shapes, args.seed, max(5, args.reps // 4), name)
+            report[f"{name}_shapes"] = serve_rows
+            rows += serve_rows
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))

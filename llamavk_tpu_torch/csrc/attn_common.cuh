@@ -12,6 +12,15 @@
 // (int8 cache with one f32 scale per (position, head) row, scale planes
 // [B, S, H] per layer, as ops/kv_quant.py lays them out).
 //
+// Cache modes (`KVMap`): a flat layer [B, H, S, D], or a page pool layer
+// [NP, H, PS, D] (scales [NP, PS, H]) read through a block table [B, MAXLB]
+// (llamavk_tpu/ops/flash_attn.py:565-577 there, runtime/paged.py here).
+// Paging changes only where a row is read from: the caller fits the KV
+// block to divide the page, so each KV block lies in one page, its base is
+// looked up once per block, and the rows inside it are contiguous as in a
+// flat layer. Every float operation, and its order, is the same in both
+// modes: a paged call equals a flat one with block_k = PS bit for bit.
+//
 // Numerics (flash_attn.py:738-808 there): q is scaled by 1/sqrt(D) in f32
 // and rounded to bf16; a score is the f32 sum of bf16(q) * bf16(k) products
 // (an int8 key converts to bf16 exactly), times the key row's k-scale for
@@ -53,6 +62,32 @@ __device__ __forceinline__ float warp_sum(float v) {
 template <int D, typename KV>
 struct Row {
   static constexpr int BYTES = D * (int)sizeof(KV) + 4;
+};
+
+// Where a layer keeps logical row j of batch row b. Flat (table null): block
+// b of a layer [B, H, S, D], row j. Paged: page table[b * maxlb + j / PS] of
+// a pool layer [NP, H, PS, D], row j % PS. `rows` is S or PS.
+struct KVMap {
+  const int* table;  // [B, maxlb] int32 on the device, or null for a flat layer
+  int maxlb;
+  int rows;
+
+  // logical rows a batch row can address
+  __device__ __forceinline__ int cap() const { return table ? maxlb * rows : rows; }
+  // (block, row in it) of logical row j of batch row b
+  __device__ __forceinline__ int2 locate(int b, int j) const {
+    if (!table) return make_int2(b, j);
+    const int p = j / rows;
+    return make_int2(__ldg(table + (size_t)b * maxlb + p), j - p * rows);
+  }
+  // element offset of that row of head h in a data layer [*, H, rows, D]
+  __device__ __forceinline__ size_t data(int2 at, int h, int H, int D) const {
+    return (((size_t)at.x * H + h) * rows + at.y) * D;
+  }
+  // offset of that row's scale of head h in a scale layer [*, rows, H]
+  __device__ __forceinline__ size_t scale(int2 at, int h, int H) const {
+    return ((size_t)at.x * rows + at.y) * H + h;
+  }
 };
 
 // nk rows of D elements from base + j0 * D into the tile (16-byte global
@@ -130,13 +165,14 @@ inline size_t dyn_smem(int block_k) { return (size_t)WARPS * block_k * sizeof(fl
 // Every thread of the block calls it (it synchronises the block); warp w
 // owns row t0 + w when that row is < T.
 //   q    [B, T, H, D] bf16          out [B, T, H, D] f32
-//   kc/vc layer [B, H, S, D]         ks/vs layer [B, S, H] f32 (int8 only)
+//   kc/vc one layer, ks/vs its f32 scales (int8 only), addressed by `map`
 //   np   the row's n_past: query t sits at position np + t
+// block_k divides map.rows, so no KV block crosses a page.
 template <int D, typename KV>
 __device__ __forceinline__ void attend_block(const __nv_bfloat16* q, const KV* kc, const KV* vc,
                                              const float* ks, const float* vs, float* out,
-                                             int b, int h, int t0, int np, int T, int H, int S,
-                                             int block_k, float scale) {
+                                             int b, int h, int t0, int np, int T, int H,
+                                             const KVMap& map, int block_k, float scale) {
   constexpr bool QUANT = sizeof(KV) == 1;
   constexpr int DPL = D / 32;
   constexpr int RB = Row<D, KV>::BYTES;
@@ -149,7 +185,7 @@ __device__ __forceinline__ void attend_block(const __nv_bfloat16* q, const KV* k
   const bool active = t < T;
   const int row_pos = np + t;
   const int t_last = min(T, t0 + WARPS) - 1;
-  const int limit = min(np + t_last + 1, S);  // columns any row of the block sees
+  const int limit = min(np + t_last + 1, map.cap());  // columns any row of the block sees
   float* sc = sc_all + warp * block_k;
 
   if (active)
@@ -157,10 +193,6 @@ __device__ __forceinline__ void attend_block(const __nv_bfloat16* q, const KV* k
       q_s[warp][d] = bf16_round(
           __fmul_rn(__bfloat162float(q[(((size_t)b * T + t) * H + h) * D + d]), scale));
 
-  const KV* kbase = kc + ((size_t)b * H + h) * S * D;
-  const KV* vbase = vc + ((size_t)b * H + h) * S * D;
-  const float* ksb = QUANT ? ks + (size_t)b * S * H + h : nullptr;  // row j at ksb[j * H]
-  const float* vsb = QUANT ? vs + (size_t)b * S * H + h : nullptr;
   float m = NEG, l = 0.f;
   float acc[DPL];
 #pragma unroll
@@ -170,17 +202,24 @@ __device__ __forceinline__ void attend_block(const __nv_bfloat16* q, const KV* k
   for (int i = 0; i < nblocks; ++i) {
     const int kb0 = i * block_k;
     const int kb1 = min(kb0 + block_k, limit);
+    // the block's rows are contiguous from its first: row kb0 + j of the
+    // block at kbase + j * D, its scale at ksb[j * H]
+    const int2 at = map.locate(b, kb0);
+    const KV* kbase = kc + map.data(at, h, H, D);
+    const KV* vbase = vc + map.data(at, h, H, D);
+    const float* ksb = QUANT ? ks + map.scale(at, h, H) : nullptr;
+    const float* vsb = QUANT ? vs + map.scale(at, h, H) : nullptr;
     // scores of this KV block: lane j scores keys j, j + 32, ... of a tile
     for (int j0 = kb0; j0 < kb1; j0 += KT) {
       const int nk = min(KT, kb1 - j0);
       __syncthreads();
-      load_tile<D, KV>(tile, kbase, j0, nk);
+      load_tile<D, KV>(tile, kbase, j0 - kb0, nk);
       __syncthreads();
       if (active) {
         for (int kk = lane; kk < nk; kk += 32) {
           float s = key_dot<D>(q_s[warp], tile + kk * RB, KV());
           const int col = j0 + kk;
-          if constexpr (QUANT) s = __fmul_rn(s, __ldcg(ksb + (size_t)col * H));
+          if constexpr (QUANT) s = __fmul_rn(s, __ldcg(ksb + (size_t)(col - kb0) * H));
           sc[col - kb0] = col <= row_pos ? s : NEG;
         }
       }
@@ -197,7 +236,7 @@ __device__ __forceinline__ void attend_block(const __nv_bfloat16* q, const KV* k
       for (int j = lane; j < nkb; j += 32) {
         float p = expf(__fsub_rn(sc[j], m_new));
         ps = __fadd_rn(ps, p);
-        if constexpr (QUANT) p = __fmul_rn(p, __ldcg(vsb + (size_t)(kb0 + j) * H));
+        if constexpr (QUANT) p = __fmul_rn(p, __ldcg(vsb + (size_t)j * H));
         sc[j] = bf16_round(p);
       }
       l = fmaf(l, alpha, warp_sum(ps));
@@ -210,7 +249,7 @@ __device__ __forceinline__ void attend_block(const __nv_bfloat16* q, const KV* k
     for (int j0 = kb0; j0 < kb1; j0 += KT) {
       const int nk = min(KT, kb1 - j0);
       __syncthreads();
-      load_tile<D, KV>(tile, vbase, j0, nk);
+      load_tile<D, KV>(tile, vbase, j0 - kb0, nk);
       __syncthreads();
       if (active) {
         const float* pj = sc + (j0 - kb0);

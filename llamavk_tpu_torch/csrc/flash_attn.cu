@@ -2,7 +2,7 @@
 // write that precedes it; bf16 caches and int8 caches with per-row scales.
 //
 // Replaces two TPU kernels of llamavk_tpu/ops/flash_attn.py, in their flat
-// cache mode (bf16 and int8):
+// and page-table cache modes (bf16 and int8):
 //  * `_update_kernel` (:120, entry `flash_attention_update`): write T new
 //    K/V rows at [n_past, n_past+T) of layer l (int8: quantize each row and
 //    write its scale), then attend;
@@ -17,15 +17,26 @@
 // reads is written before it starts, and int8 rows are attended as their
 // quantized values, read back from the cache.
 //
+// Page-table mode (`page_table` [B, MAXLB], the cache a pool layer
+// [NP, H, PS, D], int8 scales [NP, PS, H]; the JAX kernel's `page_table`
+// operand, flash_attn.py:1029-1039 there): each write looks up the page of
+// its own row, so it writes exactly the rows [n_past, n_past + T) it owns,
+// through the table, and nothing else; the attention reads KV block i of
+// row b from page table[b][i * block_k / PS] (attn_common.cuh, `KVMap`).
+// The table is read by every block from device memory: the TPU's scalar
+// prefetch has no counterpart here.
+//
 // The score, online-softmax and PV arithmetic is `attn::attend_block` of
 // attn_common.cuh, shared with the batched decode kernel (flash_decode.cu),
-// so both give bit-equal outputs at equal block_k. Blocks past a row's last
+// so both give bit-equal outputs at equal block_k, and a paged call equals a
+// flat one at block_k = PS. Blocks past a row's last
 // visible column contribute exactly zero, so reading only up to the tile's
 // last visible column does not change the result.
 //
 // What bounds it on an H100: decode (T = 1) reads the valid cache prefix of
-// one layer (2 * H * n_past * D bytes of int8, twice that of bf16, plus
-// 8 * n_past * H bytes of int8 scales) and is bound by those bytes; prefill
+// one layer, paged or not (2 * H * n_past * D bytes of int8, twice that of
+// bf16, plus 8 * n_past * H bytes of int8 scales), plus the new rows, and is
+// bound by those bytes; prefill
 // is bound by its operations (4 * T * S_visible * D per head). This first
 // design uses CUDA cores only: a block owns 8 query rows of one (batch,
 // head), one per warp; K and V arrive in 64-row shared tiles (rows padded so
@@ -37,14 +48,16 @@
 
 namespace {
 
+using attn::KVMap;
 using attn::WARPS;
 
-// k_new/v_new [B, T, H, D] bf16 -> bf16 cache layer [B, H, S, D] rows n_past[b] + t
+// k_new/v_new [B, T, H, D] bf16 -> bf16 cache layer rows n_past[b] + t
+// (through `map`)
 __global__ void kv_write_kernel(const __nv_bfloat16* __restrict__ knew,
                                 const __nv_bfloat16* __restrict__ vnew,
                                 __nv_bfloat16* __restrict__ kc, __nv_bfloat16* __restrict__ vc,
-                                const int* __restrict__ npast_vec, int npast_scalar,
-                                int B, int T, int H, int S, int D) {
+                                const int* __restrict__ npast_vec, int npast_scalar, KVMap map,
+                                int B, int T, int H, int D) {
   const int chunks = D / 8;
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   const size_t total = (size_t)B * T * H * chunks;
@@ -56,21 +69,21 @@ __global__ void kv_write_kernel(const __nv_bfloat16* __restrict__ knew,
   const int t = (int)(r % T);
   const int b = (int)(r / T);
   const int row = (npast_vec ? npast_vec[b] : npast_scalar) + t;
-  if (row < 0 || row >= S) return;
+  if (row < 0 || row >= map.cap()) return;
   const size_t src = (((size_t)b * T + t) * H + h) * D + c * 8;
-  const size_t dst = (((size_t)b * H + h) * S + row) * D + c * 8;
+  const size_t dst = map.data(map.locate(b, row), h, H, D) + c * 8;
   *reinterpret_cast<uint4*>(kc + dst) = *reinterpret_cast<const uint4*>(knew + src);
   *reinterpret_cast<uint4*>(vc + dst) = *reinterpret_cast<const uint4*>(vnew + src);
 }
 
-// k_new/v_new [B, T, H, D] bf16 -> int8 cache layer [B, H, S, D] rows and
-// f32 scale planes [B, S, H]; one warp per (b, t, h) row
+// k_new/v_new [B, T, H, D] bf16 -> int8 cache layer rows and their f32
+// scales (through `map`); one warp per (b, t, h) row
 template <int D>
 __global__ void __launch_bounds__(WARPS * 32)
 kv_quant_kernel(const __nv_bfloat16* __restrict__ knew, const __nv_bfloat16* __restrict__ vnew,
                 int8_t* __restrict__ kc, int8_t* __restrict__ vc, float* __restrict__ ks,
                 float* __restrict__ vs, const int* __restrict__ npast_vec, int npast_scalar,
-                int B, int T, int H, int S) {
+                KVMap map, int B, int T, int H) {
   const size_t r = (size_t)blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (r >= (size_t)B * T * H) return;
   const int lane = threadIdx.x & 31;
@@ -78,9 +91,10 @@ kv_quant_kernel(const __nv_bfloat16* __restrict__ knew, const __nv_bfloat16* __r
   const int t = (int)((r / H) % T);
   const int b = (int)(r / ((size_t)H * T));
   const int row = (npast_vec ? npast_vec[b] : npast_scalar) + t;
-  if (row < 0 || row >= S) return;
-  const size_t dst = (((size_t)b * H + h) * S + row) * D;
-  const size_t sdst = ((size_t)b * S + row) * H + h;
+  if (row < 0 || row >= map.cap()) return;
+  const int2 at = map.locate(b, row);
+  const size_t dst = map.data(at, h, H, D);
+  const size_t sdst = map.scale(at, h, H);
   attn::quantize_row<D>(knew + r * D, kc + dst, ks + sdst, lane);
   attn::quantize_row<D>(vnew + r * D, vc + dst, vs + sdst, lane);
 }
@@ -89,17 +103,18 @@ template <int D, typename KV>
 __global__ void __launch_bounds__(WARPS * 32)
 attn_kernel(const __nv_bfloat16* __restrict__ q, const KV* kc, const KV* vc, const float* ks,
             const float* vs, float* __restrict__ out, const int* __restrict__ npast_vec,
-            int npast_scalar, int T, int H, int S, int block_k, float scale) {
+            int npast_scalar, KVMap map, int T, int H, int block_k, float scale) {
   const int b = blockIdx.z;
   const int np = npast_vec ? npast_vec[b] : npast_scalar;
   attn::attend_block<D, KV>(q, kc, vc, ks, vs, out, b, blockIdx.y, blockIdx.x * WARPS, np, T, H,
-                            S, block_k, scale);
+                            map, block_k, scale);
 }
 
 template <int D, typename KV>
 cudaError_t launch_attn(const void* q, const void* kc, const void* vc, const float* ks,
-                        const float* vs, void* out, const int* npast_vec, int npast_scalar, int B,
-                        int T, int H, int S, int block_k, float scale, cudaStream_t stream) {
+                        const float* vs, void* out, const int* npast_vec, int npast_scalar,
+                        KVMap map, int B, int T, int H, int block_k, float scale,
+                        cudaStream_t stream) {
   static size_t dyn_done = 0;
   const size_t dyn = attn::dyn_smem(block_k);
   cudaError_t e = attn::allow_dyn_smem(attn_kernel<D, KV>, dyn, dyn_done);
@@ -107,58 +122,65 @@ cudaError_t launch_attn(const void* q, const void* kc, const void* vc, const flo
   dim3 grid((T + WARPS - 1) / WARPS, H, B);
   attn_kernel<D, KV><<<grid, WARPS * 32, dyn, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(kc),
-      static_cast<const KV*>(vc), ks, vs, static_cast<float*>(out), npast_vec, npast_scalar, T,
-      H, S, block_k, scale);
+      static_cast<const KV*>(vc), ks, vs, static_cast<float*>(out), npast_vec, npast_scalar, map,
+      T, H, block_k, scale);
   return cudaGetLastError();
 }
 
 template <typename KV>
 cudaError_t attend(const void* q, const void* kc, const void* vc, const void* ks, const void* vs,
-                   void* out, const int* npast_vec, int npast_scalar, int B, int T, int H, int S,
-                   int D, int block_k, float scale, cudaStream_t st) {
+                   void* out, const int* npast_vec, int npast_scalar, KVMap map, int B, int T,
+                   int H, int D, int block_k, float scale, cudaStream_t st) {
   auto kss = static_cast<const float*>(ks);
   auto vss = static_cast<const float*>(vs);
   if (D == 128)
-    return launch_attn<128, KV>(q, kc, vc, kss, vss, out, npast_vec, npast_scalar, B, T, H, S,
+    return launch_attn<128, KV>(q, kc, vc, kss, vss, out, npast_vec, npast_scalar, map, B, T, H,
                                 block_k, scale, st);
   if (D == 64)
-    return launch_attn<64, KV>(q, kc, vc, kss, vss, out, npast_vec, npast_scalar, B, T, H, S,
+    return launch_attn<64, KV>(q, kc, vc, kss, vss, out, npast_vec, npast_scalar, map, B, T, H,
                                block_k, scale, st);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Read path (K3). q bf16 [B, T, H, D]; k_cache/v_cache: one layer [B, H, S, D],
-// bf16, or int8 when kv_int8 != 0 with k_scale/v_scale that layer's f32 [B, S, H]
-// scale planes (else null); out f32 [B, T, H, D]; n_past from npast_vec[B]
-// (device) when it is not null, else npast_scalar. D in {64, 128}.
+// Read path (K3). q bf16 [B, T, H, D]; k_cache/v_cache: one layer, bf16, or
+// int8 when kv_int8 != 0 with k_scale/v_scale that layer's f32 scale planes
+// (else null): flat [B, H, S, D] with scales [B, S, H] when page_table is
+// null, else a pool [NP, H, S, D] with scales [NP, S, H] read through
+// page_table [B, maxlb] (S the page's rows); out f32 [B, T, H, D]; n_past
+// from npast_vec[B] (device) when it is not null, else npast_scalar.
+// D in {64, 128}; block_k divides S.
 extern "C" int attn_read_launch(const void* q, const void* k_cache, const void* v_cache,
                                 const void* k_scale, const void* v_scale, void* out,
-                                const void* npast_vec, int npast_scalar, int B, int T, int H,
-                                int S, int D, int block_k, float scale, int kv_int8,
-                                void* stream) {
+                                const void* npast_vec, int npast_scalar, const void* page_table,
+                                int maxlb, int B, int T, int H, int S, int D, int block_k,
+                                float scale, int kv_int8, void* stream) {
   if (block_k < 1 || S % block_k != 0) return (int)cudaErrorInvalidValue;
+  if (page_table && maxlb < 1) return (int)cudaErrorInvalidValue;
   auto npv = static_cast<const int*>(npast_vec);
   auto st = static_cast<cudaStream_t>(stream);
+  const KVMap map{static_cast<const int*>(page_table), maxlb, S};
   if (kv_int8)
-    return (int)attend<int8_t>(q, k_cache, v_cache, k_scale, v_scale, out, npv, npast_scalar, B,
-                               T, H, S, D, block_k, scale, st);
+    return (int)attend<int8_t>(q, k_cache, v_cache, k_scale, v_scale, out, npv, npast_scalar, map,
+                               B, T, H, D, block_k, scale, st);
   return (int)attend<__nv_bfloat16>(q, k_cache, v_cache, nullptr, nullptr, out, npv,
-                                    npast_scalar, B, T, H, S, D, block_k, scale, st);
+                                    npast_scalar, map, B, T, H, D, block_k, scale, st);
 }
 
 // Update path (K2): write k_new/v_new [B, T, H, D] bf16 into rows
 // [n_past, n_past + T) of the cache layer (int8: quantized, with their
-// scales), then attend (two launches).
+// scales; paged: through the table), then attend (two launches).
 extern "C" int attn_update_launch(const void* q, const void* k_new, const void* v_new,
                                   void* k_cache, void* v_cache, void* k_scale, void* v_scale,
-                                  void* out, const void* npast_vec, int npast_scalar, int B,
-                                  int T, int H, int S, int D, int block_k, float scale,
-                                  int kv_int8, void* stream) {
+                                  void* out, const void* npast_vec, int npast_scalar,
+                                  const void* page_table, int maxlb, int B, int T, int H, int S,
+                                  int D, int block_k, float scale, int kv_int8, void* stream) {
   if (block_k < 1 || S % block_k != 0 || (D != 64 && D != 128)) return (int)cudaErrorInvalidValue;
+  if (page_table && maxlb < 1) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   auto npv = static_cast<const int*>(npast_vec);
+  const KVMap map{static_cast<const int*>(page_table), maxlb, S};
   auto kn = static_cast<const __nv_bfloat16*>(k_new);
   auto vn = static_cast<const __nv_bfloat16*>(v_new);
   if (kv_int8) {
@@ -170,18 +192,18 @@ extern "C" int attn_update_launch(const void* q, const void* k_new, const void* 
     auto vsp = static_cast<float*>(v_scale);
     if (D == 128)
       kv_quant_kernel<128><<<grid, WARPS * 32, 0, st>>>(kn, vn, kq, vq, ksp, vsp, npv,
-                                                        npast_scalar, B, T, H, S);
+                                                        npast_scalar, map, B, T, H);
     else
       kv_quant_kernel<64><<<grid, WARPS * 32, 0, st>>>(kn, vn, kq, vq, ksp, vsp, npv,
-                                                       npast_scalar, B, T, H, S);
+                                                       npast_scalar, map, B, T, H);
   } else {
     const size_t total = (size_t)B * T * H * (D / 8);
     kv_write_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
         kn, vn, static_cast<__nv_bfloat16*>(k_cache), static_cast<__nv_bfloat16*>(v_cache), npv,
-        npast_scalar, B, T, H, S, D);
+        npast_scalar, map, B, T, H, D);
   }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  return attn_read_launch(q, k_cache, v_cache, k_scale, v_scale, out, npast_vec, npast_scalar, B,
-                          T, H, S, D, block_k, scale, kv_int8, stream);
+  return attn_read_launch(q, k_cache, v_cache, k_scale, v_scale, out, npast_vec, npast_scalar,
+                          page_table, maxlb, B, T, H, S, D, block_k, scale, kv_int8, stream);
 }

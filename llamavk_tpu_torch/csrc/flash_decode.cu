@@ -3,7 +3,7 @@
 // bf16 caches and int8 caches with per-row scales.
 //
 // Replaces the TPU kernel `_flat_kernel` of llamavk_tpu/ops/flash_decode.py
-// (:67, entry `flash_decode_update` :380), flat mode. The TPU kernel runs one
+// (:67, entry `flash_decode_update` :380), flat and page-table modes. The TPU kernel runs one
 // program over a flat (row, KV block) work list so that its DMA queue stays
 // full across rows; row r owns ceil((n_past[r] + 1) / block_k) blocks. Here
 // the grid itself is that list: block (h, b) inserts row b's new K/V row of
@@ -19,8 +19,16 @@
 // caches at equal block_k: batched and single-stream decode streams stay
 // comparable, as in the JAX package (flash_decode.py:23-26 there).
 //
+// Page-table mode (flash_decode.py:104-114, :261-273 there): the row of
+// batch row b goes to page table[b][n_past / PS], row n_past % PS, and KV
+// block i is read from page table[b][i * block_k / PS] (`attn::KVMap`). The
+// serving engine's free slots keep decoding into the trash page 0, all at
+// its row 0 in the same launch: those rows race and their outputs are
+// garbage, which nothing reads; no live row maps page 0.
+//
 // What bounds it on an H100: the bytes of every row's valid cache prefix,
-// sum_b (n_past[b] + 1) * H * D * 2 (K and V) times 2 bytes for bf16 or 1
+// paged or not, sum_b (n_past[b] + 1) * H * D * 2 (K and V) times 2 bytes
+// for bf16 or 1
 // for int8 (plus 8 bytes of scales per row and head), and the new rows
 // written. Blocks of 256 threads load 64-row tiles with 16-byte reads; one
 // warp computes (T = 1), the other seven help load. Split-KV decode is later
@@ -30,6 +38,7 @@
 
 namespace {
 
+using attn::KVMap;
 using attn::WARPS;
 
 template <int D, typename KV>
@@ -38,16 +47,17 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,     // [B, 1, H, D]
               const __nv_bfloat16* __restrict__ knew,  // [B, 1, H, D]
               const __nv_bfloat16* __restrict__ vnew, KV* kc, KV* vc, float* ks, float* vs,
               float* __restrict__ out, const int* __restrict__ npast_vec, int npast_scalar,
-              int H, int S, int block_k, float scale) {
+              KVMap map, int H, int block_k, float scale) {
   constexpr bool QUANT = sizeof(KV) == 1;
   const int h = blockIdx.x, b = blockIdx.y;
   const int np = npast_vec ? npast_vec[b] : npast_scalar;
   const size_t src = ((size_t)b * H + h) * D;
-  const size_t dst = (((size_t)b * H + h) * S + np) * D;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const bool in_cache = np >= 0 && np < S;
+  const bool in_cache = np >= 0 && np < map.cap();
+  const int2 at = in_cache ? map.locate(b, np) : make_int2(0, 0);
+  const size_t dst = map.data(at, h, H, D);
   if constexpr (QUANT) {
-    const size_t sdst = ((size_t)b * S + np) * H + h;
+    const size_t sdst = map.scale(at, h, H);
     if (in_cache && warp == 0) attn::quantize_row<D>(knew + src, kc + dst, ks + sdst, lane);
     if (in_cache && warp == 1) attn::quantize_row<D>(vnew + src, vc + dst, vs + sdst, lane);
   } else if (in_cache) {
@@ -60,12 +70,12 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,     // [B, 1, H, D]
           reinterpret_cast<const uint4*>(vnew + src)[threadIdx.x - CH];
   }
   __syncthreads();  // the row is in the cache before any tile load reads it
-  attn::attend_block<D, KV>(q, kc, vc, ks, vs, out, b, h, 0, np, 1, H, S, block_k, scale);
+  attn::attend_block<D, KV>(q, kc, vc, ks, vs, out, b, h, 0, np, 1, H, map, block_k, scale);
 }
 
 template <int D, typename KV>
 cudaError_t launch(const void* q, const void* kn, const void* vn, void* kc, void* vc, void* ks,
-                   void* vs, void* out, const int* npv, int nps, int B, int H, int S,
+                   void* vs, void* out, const int* npv, int nps, KVMap map, int B, int H,
                    int block_k, float scale, cudaStream_t st) {
   static size_t dyn_done = 0;
   const size_t dyn = attn::dyn_smem(block_k);
@@ -74,40 +84,45 @@ cudaError_t launch(const void* q, const void* kn, const void* vn, void* kc, void
   decode_kernel<D, KV><<<dim3(H, B), WARPS * 32, dyn, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kn),
       static_cast<const __nv_bfloat16*>(vn), static_cast<KV*>(kc), static_cast<KV*>(vc),
-      static_cast<float*>(ks), static_cast<float*>(vs), static_cast<float*>(out), npv, nps, H, S,
+      static_cast<float*>(ks), static_cast<float*>(vs), static_cast<float*>(out), npv, nps, map, H,
       block_k, scale);
   return cudaGetLastError();
 }
 
 template <typename KV>
 cudaError_t dispatch(const void* q, const void* kn, const void* vn, void* kc, void* vc, void* ks,
-                     void* vs, void* out, const int* npv, int nps, int B, int H, int S, int D,
+                     void* vs, void* out, const int* npv, int nps, KVMap map, int B, int H, int D,
                      int block_k, float scale, cudaStream_t st) {
   if (D == 128)
-    return launch<128, KV>(q, kn, vn, kc, vc, ks, vs, out, npv, nps, B, H, S, block_k, scale, st);
+    return launch<128, KV>(q, kn, vn, kc, vc, ks, vs, out, npv, nps, map, B, H, block_k, scale, st);
   if (D == 64)
-    return launch<64, KV>(q, kn, vn, kc, vc, ks, vs, out, npv, nps, B, H, S, block_k, scale, st);
+    return launch<64, KV>(q, kn, vn, kc, vc, ks, vs, out, npv, nps, map, B, H, block_k, scale, st);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q, k_new, v_new bf16 [B, 1, H, D]; k_cache/v_cache one layer [B, H, S, D],
-// bf16, or int8 when kv_int8 != 0 with k_scale/v_scale that layer's f32
-// [B, S, H] scale planes (else null); out f32 [B, 1, H, D]; n_past from
-// npast_vec[B] (device) when it is not null, else npast_scalar; every
-// n_past < S. D in {64, 128}.
+// q, k_new, v_new bf16 [B, 1, H, D]; k_cache/v_cache one layer, bf16, or
+// int8 when kv_int8 != 0 with k_scale/v_scale that layer's f32 scale planes
+// (else null): flat [B, H, S, D] with scales [B, S, H] when page_table is
+// null, else a pool [NP, H, S, D] with scales [NP, S, H] read through
+// page_table [B, maxlb] (S the page's rows); out f32 [B, 1, H, D]; n_past
+// from npast_vec[B] (device) when it is not null, else npast_scalar; every
+// n_past below the rows a batch row addresses. D in {64, 128}; block_k
+// divides S.
 extern "C" int flash_decode_launch(const void* q, const void* k_new, const void* v_new,
                                    void* k_cache, void* v_cache, void* k_scale, void* v_scale,
-                                   void* out, const void* npast_vec, int npast_scalar, int B,
-                                   int H, int S, int D, int block_k, float scale, int kv_int8,
-                                   void* stream) {
+                                   void* out, const void* npast_vec, int npast_scalar,
+                                   const void* page_table, int maxlb, int B, int H, int S, int D,
+                                   int block_k, float scale, int kv_int8, void* stream) {
   if (block_k < 1 || S % block_k != 0) return (int)cudaErrorInvalidValue;
+  if (page_table && maxlb < 1) return (int)cudaErrorInvalidValue;
   auto npv = static_cast<const int*>(npast_vec);
   auto st = static_cast<cudaStream_t>(stream);
+  const KVMap map{static_cast<const int*>(page_table), maxlb, S};
   if (kv_int8)
     return (int)dispatch<int8_t>(q, k_new, v_new, k_cache, v_cache, k_scale, v_scale, out, npv,
-                                 npast_scalar, B, H, S, D, block_k, scale, st);
+                                 npast_scalar, map, B, H, D, block_k, scale, st);
   return (int)dispatch<__nv_bfloat16>(q, k_new, v_new, k_cache, v_cache, nullptr, nullptr, out,
-                                      npv, npast_scalar, B, H, S, D, block_k, scale, st);
+                                      npv, npast_scalar, map, B, H, D, block_k, scale, st);
 }

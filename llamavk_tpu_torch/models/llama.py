@@ -12,10 +12,12 @@ views of the stacked planes, never copies. K is RoPE'd before caching. The
 KV cache `[L, B, H, S, D]` (flat; bf16, or int8 with per-row f32 scales) is
 updated IN PLACE: the JAX package threads it through `lax.scan` and gets the
 same effect by buffer aliasing. `n_past` may be a per-row vector
-(continuous batching).
+(continuous batching). A paged pool `[L, NP, H, PS, D]`
+(`init_paged_kv_cache`) is addressed through a block table (`page_table`).
 
-Ring caches, the shared-prefix pool, paged caches, tensor/pipeline
-parallelism and the ggml numerics oracle raise NotImplementedError.
+Ring caches, the shared-prefix pool, tensor/pipeline parallelism, paged
+writes that straddle pages and the ggml numerics oracle raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -130,8 +132,9 @@ class LlamaParams:
 class KVCache:
     """Dense per-layer KV slabs [L, B, H, S, D], heads-major, bf16 or int8.
     An int8 cache carries one f32 scale per (layer, batch, position, head)
-    row in k_scale/v_scale [L, B, S, H] (`ops/kv_quant.py`). Updated in place
-    by `llama_forward`."""
+    row in k_scale/v_scale [L, B, S, H] (`ops/kv_quant.py`). A page pool has
+    the same fields with pages in place of batch rows: [L, NP, H, PS, D] and
+    scales [L, NP, PS, H]. Updated in place by `llama_forward`."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -164,6 +167,21 @@ def init_kv_cache(
         sshape = (cfg.n_layer, batch, max_len, cfg.n_head)
         planes += [torch.zeros(sshape, dtype=torch.float32, device=device) for _ in range(2)]
     return KVCache(*planes)
+
+
+def init_paged_kv_cache(
+    cfg: ModelConfig, n_pages: int, page_size: int, dtype=torch.bfloat16, device="cuda"
+) -> KVCache:
+    """A zeroed page pool [L, NP, H, PS, D] (llama.py:200-229 there), bf16,
+    or int8 with scale pools [L, NP, PS, H] paged through the same tables
+    (H kept, no 128-lane pad, as `init_kv_cache`). The page's rows must be a
+    multiple of 8, and of 32 for int8 (the KV block step)."""
+    if dtype not in (torch.bfloat16, torch.int8):
+        raise NotImplementedError(f"KV pool dtype {dtype}: bf16 or int8")
+    step = 32 if dtype == torch.int8 else 8
+    if page_size % step:
+        raise ValueError(f"page_size {page_size} must be a multiple of {step} for {dtype}")
+    return init_kv_cache(cfg, n_pages, page_size, dtype, device)
 
 
 def _linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -213,6 +231,7 @@ def llama_forward(
     ring_keep: int = 0,
     prefix_kv=None,
     page_table=None,
+    page_straddle: bool = False,
     tp_axis=None,
     pp_axis=None,
     ggml_rounding=None,
@@ -233,9 +252,16 @@ def llama_forward(
     kv_block pins the attention's KV block (default 512 for T >= 256, else
     256, as llama.py:499 there). use_ref runs the plain versions of every
     kernel on any device: the kernel-vs-plain comparison on the card.
+
+    page_table (int32 [B, MAXLB] on the cache's device): the cache is a page
+    pool and row b's logical block j lives in page page_table[b, j]
+    (llama.py:440-448, 553-630 there). Flash only, and only on the fused
+    routes: K4 when T == 1 and B > 1, else K2 with its query block capped at
+    the page (every write block from a page-aligned n_past then lies in one
+    page); another T raises ValueError.
     """
     unsupported = {
-        "ring_keep": ring_keep, "prefix_kv": prefix_kv, "page_table": page_table,
+        "ring_keep": ring_keep, "prefix_kv": prefix_kv, "page_straddle": page_straddle,
         "tp_axis": tp_axis, "pp_axis": pp_axis, "ggml_rounding": ggml_rounding,
     }
     for name, val in unsupported.items():
@@ -273,6 +299,11 @@ def llama_forward(
     fused = isinstance(lp, FusedLayerParams)
     bk = kv_block or (512 if t >= 256 else 256)
     impl = "flash" if attn_impl == "auto" else attn_impl
+    paged = page_table is not None
+    if paged and (impl != "flash" or t % min(256, t)):
+        raise ValueError(f"paged KV requires the fused flash path (impl={impl}, t={t})")
+    # paged K2: the query block capped at the page (llama.py:602-608 there)
+    pkw = dict(page_table=page_table, block_t=min(256, cache.k.shape[3])) if paged else {}
 
     for l in range(cache.k.shape[0]):
         # --- attention block (llama.cpp:976-1070)
@@ -291,10 +322,11 @@ def llama_forward(
         k = apply_rope(k, cos, sin)  # RoPE'd K is what gets cached
         if impl == "flash" and t == 1 and b > 1:
             attn = attn_decode(q, k, v, cache.k, cache.v, n_past, l, block_k=bk,
-                               k_scale=cache.k_scale, v_scale=cache.v_scale)[0]
+                               k_scale=cache.k_scale, v_scale=cache.v_scale,
+                               page_table=page_table)[0]
         elif impl == "flash" and t % min(256, t) == 0:
             attn = attn_update(q, k, v, cache.k, cache.v, n_past, l, block_k=bk,
-                               k_scale=cache.k_scale, v_scale=cache.v_scale)[0]
+                               k_scale=cache.k_scale, v_scale=cache.v_scale, **pkw)[0]
         else:
             write_rows(k, v, cache.k, cache.v, n_past, l, cache.k_scale, cache.v_scale)
             if impl == "flash":

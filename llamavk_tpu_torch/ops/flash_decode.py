@@ -1,5 +1,5 @@
 """Batched single-token decode attention (twin of
-`llamavk_tpu/ops/flash_decode.py`, flat cache mode, bf16 and int8).
+`llamavk_tpu/ops/flash_decode.py`, flat and page-table modes, bf16 and int8).
 
 `flash_decode_update` inserts each row's new K/V row at n_past[b] of layer
 `layer_idx` IN PLACE (int8: quantized, with its scale rows) and attends, for
@@ -9,7 +9,9 @@ every batch row of a t == 1 step. On CUDA tensors it launches
 every row, each row reading only its ceil((n_past[b] + 1) / block_k) KV
 blocks. On CPU tensors it computes the plain version,
 `flash_decode_update_ref`, which is the fused update's plain version at
-T = 1: the row write, then the dense causal attention.
+T = 1: the row write, then the dense causal attention. With `page_table`
+the cache is a page pool [L, NP, H, PS, D] addressed through the table, as in
+`ops/flash_attn.py`.
 
 Block partitioning and accumulation order equal the fused update kernel's
 (`ops/flash_attn.py`) at the same block_k: the CUDA K4 and K2 share their
@@ -26,13 +28,21 @@ import math
 import torch
 
 from . import _build
-from .flash_attn import _fit_block_k, check_cuda, flash_attention_update_ref, kv_step
+from .flash_attn import (
+    _fit_block_k,
+    check_cuda,
+    flash_attention_update_ref,
+    kv_step,
+    launch_name,
+)
 
 # launches of the CUDA kernel (one per wrapper call on CUDA tensors), by
-# cache type
-launches = {"decode": 0, "decode_i8": 0}
-# launches by shape (B, H, S, D, block_k, int8), so a caller can check every
-# shape a run reached
+# cache mode and type
+launches = {launch_name("decode", quant, paged): 0 for paged in (False, True)
+            for quant in (False, True)}
+# launches by shape (B, H, S, D, block_k, int8, MAXLB: the page table's
+# width, or None for a flat cache; S is a page's rows when paged), so a
+# caller can check every shape a run reached
 shapes: collections.Counter = collections.Counter()
 
 
@@ -55,7 +65,7 @@ def decode_work_list(n_past: torch.Tensor, b: int, cap: int, bk: int):
 
 
 def flash_decode_update_ref(q, k_new, v_new, k, v, n_past, layer_idx: int, block_k: int = 256,
-                            k_scale=None, v_scale=None):
+                            k_scale=None, v_scale=None, page_table=None):
     """Plain version of `flash_decode_update`: the plain fused update
     (`flash_attention_update_ref`) at T = 1. Every row a query sees lies in
     one of the blocks its work list assigns, so the causal mask alone
@@ -65,14 +75,16 @@ def flash_decode_update_ref(q, k_new, v_new, k, v, n_past, layer_idx: int, block
         raise ValueError("flash_decode_update is the single-token decode path")
     _fit_block_k(block_k, k.shape[3], kv_step(k.dtype))  # the kernel's block must fit
     return flash_attention_update_ref(q, k_new, v_new, k, v, n_past, layer_idx,
-                                      block_k=block_k, k_scale=k_scale, v_scale=v_scale)
+                                      block_k=block_k, k_scale=k_scale, v_scale=v_scale,
+                                      page_table=page_table)
 
 
 @functools.cache
 def _lib():
     lib = _build.load("flash_decode")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_decode_launch.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, i, p]
+    lib.flash_decode_launch.argtypes = [p, p, p, p, p, p, p, p, p, i, p, i, i, i, i, i, i, f, i,
+                                        p]
     lib.flash_decode_launch.restype = ctypes.c_int
     return lib
 
@@ -81,13 +93,14 @@ def flash_decode_update(
     q: torch.Tensor,  # [B, 1, H, D]
     k_new: torch.Tensor,  # [B, 1, H, D]
     v_new: torch.Tensor,
-    k: torch.Tensor,  # STACKED cache [L, B, H, S, D], bf16 or int8, updated in place
+    k: torch.Tensor,  # STACKED cache [L, B, H, S, D] or pool [L, NP, H, PS, D], in place
     v: torch.Tensor,
     n_past,  # int or [B] int32
     layer_idx: int,
     block_k: int = 256,
-    k_scale: torch.Tensor | None = None,  # [L, B, S, H] f32, updated in place
+    k_scale: torch.Tensor | None = None,  # [L, B, S, H] / [L, NP, PS, H] f32, in place
     v_scale: torch.Tensor | None = None,
+    page_table: torch.Tensor | None = None,  # [B, MAXLB] int32: k/v are a page pool
 ):
     """Single-token fused cache insert + attention for every batch row (K4).
     Drop-in for `flash_attention_update` at t == 1, with the same
@@ -95,7 +108,7 @@ def flash_decode_update(
     v), plus (k_scale, v_scale) for an int8 cache."""
     if not q.is_cuda:
         return flash_decode_update_ref(q, k_new, v_new, k, v, n_past, layer_idx, block_k,
-                                       k_scale, v_scale)
+                                       k_scale, v_scale, page_table)
     b, t, h, d = q.shape
     if t != 1:
         raise ValueError("flash_decode_update is the single-token decode path")
@@ -103,17 +116,17 @@ def flash_decode_update(
     vn = v_new.to(torch.bfloat16).contiguous()
     if kn.shape != q.shape or vn.shape != q.shape:
         raise ValueError("flash_decode_update: k_new/v_new must match q's shape")
-    npv, nps, quant, ksp, vsp = check_cuda(q, k, v, n_past, layer_idx, k_scale, v_scale,
-                                           (kn, vn))
+    npv, nps, quant, ksp, vsp, tab, maxlb = check_cuda(q, k, v, n_past, layer_idx, k_scale,
+                                                       v_scale, (kn, vn), page_table)
     s = k.shape[3]
     bk = _fit_block_k(block_k, s, kv_step(k.dtype))
     out = torch.empty((b, 1, h, d), dtype=torch.float32, device=q.device)
     rc = _lib().flash_decode_launch(
         q.data_ptr(), kn.data_ptr(), vn.data_ptr(), k[layer_idx].data_ptr(),
-        v[layer_idx].data_ptr(), ksp, vsp, out.data_ptr(), npv, nps, b, h, s, d, bk,
+        v[layer_idx].data_ptr(), ksp, vsp, out.data_ptr(), npv, nps, tab, maxlb, b, h, s, d, bk,
         1.0 / math.sqrt(d), int(quant), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, "flash_decode_launch")
-    launches["decode_i8" if quant else "decode"] += 1
-    shapes[(b, h, s, d, bk, quant)] += 1
+    launches[launch_name("decode", quant, tab is not None)] += 1
+    shapes[(b, h, s, d, bk, quant, maxlb or None)] += 1
     return (out, k, v) if k_scale is None else (out, k, v, k_scale, v_scale)

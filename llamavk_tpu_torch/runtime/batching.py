@@ -1,5 +1,6 @@
 """Continuous batching scheduler, the serving layer (twin of
-`llamavk_tpu/runtime/batching.py`, flat caches, one device, no mesh).
+`llamavk_tpu/runtime/batching.py`, flat and paged caches, one device, no
+mesh).
 
 B request slots decode in lockstep through one batched forward pass per
 step; requests join and leave between decode blocks, and each slot owns a
@@ -18,7 +19,18 @@ Each slot keeps its own `torch.Generator`, seeded from the request's `seed`
 at admission, and draws one row of noise per sampled token: a request's
 draws depend on its seed and its step, never on its slot or its neighbours.
 
-Paged caches, the shared-prefix pool, lookup speculation and meshes raise
+Paged KV (`BatchConfig.paged`, batching.py:89-114 and 1039-1557 there): K/V
+live in one pool of pages (`runtime/paged.py`), so KV memory is the pages in
+use. Admission prefills each chunk straight into its slots' pages through
+their table rows (no scratch cache, no copies); a registered prefix's full
+pages are shared by every slot that continues it, its sub-page remainder
+re-evaluated with each suffix; each decode block maps its write pages up
+front and, when the pool runs dry, preempts the youngest request (highest
+rid), which goes back to the head of the queue with its generated tokens as
+prompt. Page 0 is the trash page: free slots keep decoding into it until
+their block ends, and no live slot maps it.
+
+The shared-prefix pool, lookup speculation and meshes raise
 NotImplementedError.
 """
 
@@ -32,8 +44,16 @@ import numpy as np
 import torch
 
 from ..device import resolve
-from ..models.llama import KVCache, LlamaParams, ModelConfig, init_kv_cache, llama_forward
+from ..models.llama import (
+    KVCache,
+    LlamaParams,
+    ModelConfig,
+    init_kv_cache,
+    init_paged_kv_cache,
+    llama_forward,
+)
 from .engine import kv_dtype
+from .paged import PageAllocator, SlotPages
 from .sampling import SamplerParams, sample_tokens_batched
 
 
@@ -66,10 +86,16 @@ class BatchConfig:
     repeat_last_n: int = 64
     kv_dtype: str = "bfloat16"  # or "int8"
     admit_chunk: int = 4  # max requests per batched admission prefill
+    paged: bool = False  # block-table paged KV (runtime/paged.py)
+    page_size: int = 128  # pool page rows: a power of two dividing n_ctx
+    n_pages: int = 0  # pool pages; 0 -> max_batch * n_ctx / page_size + 1
+    # cap on the attention kernels' KV block (0: the fitted default). It pins
+    # the online-softmax accumulation order: a flat engine at kv_block=c sums
+    # like a paged one at page_size=c
+    kv_block: int = 0
     # modes of the JAX package's BatchConfig not ported yet (they raise)
     shared_prefix: bool = False
     lookup_gamma: int = 0
-    paged: bool = False
 
 
 def _rows(plane: torch.Tensor, batch, n: int) -> torch.Tensor:
@@ -96,8 +122,8 @@ class BatchedEngine:
     def __init__(self, cfg: ModelConfig, params: LlamaParams,
                  bcfg: BatchConfig = BatchConfig(), mesh=None, device="cuda"):
         self.device = resolve(device)
-        unported = {"mesh": mesh is not None, "paged": bcfg.paged,
-                    "shared_prefix": bcfg.shared_prefix, "lookup_gamma": bcfg.lookup_gamma > 0}
+        unported = {"mesh": mesh is not None, "shared_prefix": bcfg.shared_prefix,
+                    "lookup_gamma": bcfg.lookup_gamma > 0}
         for name, on in unported.items():
             if on:
                 raise NotImplementedError(f"BatchedEngine: {name} is not ported yet")
@@ -106,7 +132,22 @@ class BatchedEngine:
         self.bcfg = bcfg
         self.kv_dtype = kv_dtype(bcfg.kv_dtype, bcfg.n_ctx)
         b, w = bcfg.max_batch, bcfg.repeat_last_n
-        self.cache = init_kv_cache(cfg, b, bcfg.n_ctx, self.kv_dtype, self.device)
+        self.pager: SlotPages | None = None
+        if bcfg.paged:
+            ps = bcfg.page_size
+            if ps < 8 or ps & (ps - 1) or bcfg.n_ctx % ps:
+                raise ValueError(f"page_size {ps}: a power of two >= 8 dividing n_ctx")
+            n_pages = bcfg.n_pages or b * bcfg.n_ctx // ps + 1
+            self.cache = init_paged_kv_cache(cfg, n_pages, ps, self.kv_dtype, self.device)
+            alloc = PageAllocator(n_pages)
+            # page 0 (the allocator's first) is the TRASH page: freed slots
+            # keep decoding garbage until the block ends, and their zeroed
+            # table rows must point at memory no live request owns
+            alloc.alloc(1)
+            self.pager = SlotPages(b, bcfg.n_ctx // ps, alloc)
+            self._table_dev = self._dev(self.pager.table)
+        else:
+            self.cache = init_kv_cache(cfg, b, bcfg.n_ctx, self.kv_dtype, self.device)
         self.n_past = np.zeros(b, np.int32)
         self.cur_tok = np.zeros(b, np.int64)
         self.last_window = np.full((b, w), -1, np.int64)
@@ -117,17 +158,23 @@ class BatchedEngine:
         self.slots: list[Request | None] = [None] * b
         self.queue: list[Request] = []
         self._rid = 0
-        self.prefixes: dict[int, tuple] = {}  # id -> (cache1, length, tokens)
+        # id -> (cache1, length, tokens); paged: (shared full pages, length, tokens)
+        self.prefixes: dict[int, tuple] = {}
         self._pid = 0
         self._pending_admits: list[tuple] = []  # (chunk requests, device ids [n])
+        self._done_waiting: list[Request] = []  # preempted ones that their first token finished
         self.stats = {
             "tokens": 0, "steps": 0, "t_decode": 0.0, "prefills": 0, "prefill_calls": 0,
+            "preempted": 0,
         }
+        if self.pager is not None:
+            self.stats["pages_peak"] = 1  # the most pages in use at a block's start
 
     # --- helpers -------------------------------------------------------------
 
     def _fwd(self, tokens, cache, n_past, **kw):
-        return llama_forward(self.params, tokens, cache, n_past, self.cfg, **kw)
+        return llama_forward(self.params, tokens, cache, n_past, self.cfg,
+                             kv_block=self.bcfg.kv_block or None, **kw)
 
     def _dev(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(a, dtype=dtype).to(self.device)
@@ -152,14 +199,33 @@ class BatchedEngine:
 
     # --- public API ----------------------------------------------------------
 
+    def _set_slot(self, slot: int, req: Request, hist: list[int], n_past: int) -> None:
+        """A request's per-slot sampler state at admission: its repeat
+        window, top_p, temperature, penalty, position and generator."""
+        self.last_window[slot] = -1
+        hist = hist[-self.bcfg.repeat_last_n:]
+        if hist:
+            self.last_window[slot, -len(hist):] = hist
+        self.top_p[slot] = req.sp.top_p
+        self.temp[slot] = req.sp.temp
+        self.penalty[slot] = req.sp.repeat_penalty
+        self.n_past[slot] = n_past
+        self.gens[slot] = (
+            torch.Generator(device=self.device).manual_seed(req.seed)
+            if req.sp.temp > 0 else None
+        )
+
     def register_prefix(self, tokens: list[int]) -> int:
         """Prefill a shared prompt prefix (e.g. a system prompt) ONCE and
         return its id. Requests submitted with prefix=id prefill only their
         suffix: the prefix K/V rows are copied into the slot at admission
-        (prefix caching, batching.py:988-1012 there)."""
+        (prefix caching, batching.py:988-1012 there). Paged: the prefix's
+        full pages are shared by the slots' tables instead (`_register_paged`)."""
         plen = len(tokens)
         if not 0 < plen < self.bcfg.n_ctx:
             raise ValueError("prefix length out of range")
+        if self.pager is not None:
+            return self._register_paged(tokens)
         bucket = _bucket(plen, self.bcfg.n_ctx)
         padded = np.zeros((1, bucket), np.int64)
         padded[0, :plen] = tokens
@@ -189,6 +255,31 @@ class BatchedEngine:
         self.queue.append(req)
         return req
 
+    def _register_paged(self, tokens: list[int]) -> int:
+        """Paged prefix (batching.py:930-961 there): its FULL pages are
+        prefilled straight into the pool, in decreasing power-of-two chunks
+        (each starts at a multiple of its length, so its writes stay in
+        pages), and shared read-only by every slot that continues it
+        (refcounted); the sub-page remainder rides on each suffix."""
+        ps = self.bcfg.page_size
+        full = len(tokens) // ps
+        pages = self.pager.alloc.alloc(full) if full else []
+        if full:
+            table = np.zeros((1, self.pager.table.shape[1]), np.int32)
+            table[0, :full] = pages
+            tdev = self._dev(table)
+            body = np.asarray(tokens[: full * ps], np.int64)
+            start = 0
+            while start < full * ps:
+                c = 1 << ((full * ps - start).bit_length() - 1)
+                self._fwd(self._dev(body[None, start : start + c]), self.cache, start,
+                          page_table=tdev)
+                start += c
+        pid = self._pid
+        self._pid += 1
+        self.prefixes[pid] = (pages, len(tokens), list(tokens))
+        return pid
+
     def _admit(self) -> None:
         """Fill free slots from the queue, batching prefills.
 
@@ -197,6 +288,8 @@ class BatchedEngine:
         into a scratch cache of `scratch_len` rows, one in-place copy of each
         row into its slot, one batched first-token sample per chunk
         (batching.py:1174-1307 there). The sampled ids stay on the device."""
+        if self.pager is not None:
+            return self._admit_paged()
         free = [s for s in range(self.bcfg.max_batch) if self.slots[s] is None]
         admitted = []
         while free and self.queue:
@@ -211,7 +304,6 @@ class BatchedEngine:
             key = (_bucket(len(req.prompt), self.bcfg.n_ctx), req.prefix)
             groups.setdefault(key, []).append(req)
 
-        w = self.bcfg.repeat_last_n
         for (bucket, pfx), items in groups.items():
             pfx_cache, pfx_len, pfx_tokens = self.prefixes[pfx] if pfx >= 0 else (None, 0, [])
             # suffix writes live at [pfx_len, pfx_len + bucket): clamp the
@@ -222,31 +314,15 @@ class BatchedEngine:
             # Slot rows past it keep the previous occupant's stale K/V, which
             # no query reads before decode overwrites them.
             scratch_len = _bucket(pfx_len + bucket, self.bcfg.n_ctx, floor=64)
-            i = 0
-            while i < len(items):
-                n = 1 << max(0, (len(items) - i).bit_length() - 1)
-                n = min(n, max(1, self.bcfg.admit_chunk))
-                chunk = items[i : i + n]
-                i += n
+            for chunk in self._chunks(items):
+                n = len(chunk)
                 toks = np.zeros((n, bucket), np.int64)
                 last_idx = np.zeros(n, np.int64)
                 for j, req in enumerate(chunk):
                     plen = len(req.prompt)
                     toks[j, :plen] = req.prompt
                     last_idx[j] = plen - 1
-                    slot = req.slot
-                    hist = (pfx_tokens + req.prompt)[-w:]
-                    self.last_window[slot] = -1
-                    if hist:
-                        self.last_window[slot, -len(hist):] = hist
-                    self.top_p[slot] = req.sp.top_p
-                    self.temp[slot] = req.sp.temp
-                    self.penalty[slot] = req.sp.repeat_penalty
-                    self.n_past[slot] = pfx_len + plen
-                    self.gens[slot] = (
-                        torch.Generator(device=self.device).manual_seed(req.seed)
-                        if req.sp.temp > 0 else None
-                    )
+                    self._set_slot(req.slot, req, pfx_tokens + req.prompt, pfx_len + plen)
                 if pfx >= 0:  # the prefix rows, copied into every chunk row
                     scratch = KVCache(*(
                         _rows(p, slice(None), scratch_len).expand(-1, n, *[-1] * (p.dim() - 2))
@@ -258,16 +334,94 @@ class BatchedEngine:
                 for j, req in enumerate(chunk):
                     for dst, src in zip(self.cache.planes(), scratch.planes()):
                         _rows(dst, req.slot, scratch_len).copy_(src[:, j])
-                slots = [r.slot for r in chunk]
-                ids = self._sample(logits[:, 0, :], self._dev(self.last_window[slots]), slots)
-                self.stats["prefills"] += n
-                self.stats["prefill_calls"] += 1
-                self._pending_admits.append((chunk, ids))
+                self._sample_first(chunk, logits)
+
+    def _chunks(self, items: list[Request]):
+        """Power-of-two runs of `items`, each at most bcfg.admit_chunk long."""
+        i = 0
+        while i < len(items):
+            n = 1 << max(0, (len(items) - i).bit_length() - 1)
+            n = min(n, max(1, self.bcfg.admit_chunk))
+            yield items[i : i + n]
+            i += n
+
+    def _sample_first(self, chunk: list[Request], logits) -> None:
+        """Sample a chunk's first tokens on the device and keep them pending."""
+        slots = [r.slot for r in chunk]
+        ids = self._sample(logits[:, 0, :], self._dev(self.last_window[slots]), slots)
+        self.stats["prefills"] += len(chunk)
+        self.stats["prefill_calls"] += 1
+        self._pending_admits.append((chunk, ids))
+
+    def _paged_admit_info(self, req: Request):
+        """(shared pages, page-aligned prefix rows, suffix tokens, bucket).
+        The prefix's sub-page remainder rides prepended to the suffix, so
+        admission writes start page-aligned; a preempted request's generated
+        tokens re-enter the same way (batching.py:1039-1057 there)."""
+        if req.prefix >= 0:
+            pages, _, ptoks = self.prefixes[req.prefix]
+            aligned = len(pages) * self.bcfg.page_size
+            suffix = ptoks[aligned:] + req.prompt + req.generated
+        else:
+            pages, aligned = [], 0
+            suffix = req.prompt + req.generated
+        return pages, aligned, suffix, _bucket(len(suffix), self.bcfg.n_ctx - aligned)
+
+    def _admit_paged(self) -> None:
+        """Paged admission (batching.py:1059-1149 there): map each request's
+        pages (a prefix's full pages shared by aliasing), then prefill each
+        chunk STRAIGHT into its slots' pages through their table rows. A dry
+        pool leaves the rest queued until decode frees pages."""
+        free = [s for s in range(self.bcfg.max_batch) if self.slots[s] is None]
+        admitted, infos = [], {}
+        while free and self.queue:
+            req = self.queue[0]
+            info = self._paged_admit_info(req)
+            pages, aligned, _, bucket = info
+            slot = free[0]
+            try:
+                if pages:
+                    self.pager.share(slot, pages)
+                self.pager.ensure(slot, aligned + bucket, self.bcfg.page_size)
+            except MemoryError:
+                self.pager.free_slot(slot)
+                break  # pool full: keep queueing; decode frees pages
+            free.pop(0)
+            self.queue.pop(0)
+            req.slot = slot
+            self.slots[slot] = req
+            admitted.append(req)
+            infos[req.rid] = info
+        groups: dict[tuple, list[Request]] = {}
+        for req in admitted:
+            groups.setdefault((infos[req.rid][3], req.prefix), []).append(req)
+        for (bucket, pfx), items in groups.items():
+            pfx_tokens = self.prefixes[pfx][2] if pfx >= 0 else []
+            aligned = infos[items[0].rid][1]
+            for chunk in self._chunks(items):
+                n = len(chunk)
+                toks = np.zeros((n, bucket), np.int64)
+                last_idx = np.zeros(n, np.int64)
+                table = np.zeros((n, self.pager.table.shape[1]), np.int32)
+                for j, req in enumerate(chunk):
+                    suffix = infos[req.rid][2]
+                    toks[j, : len(suffix)] = suffix
+                    last_idx[j] = len(suffix) - 1
+                    table[j] = self.pager.table[req.slot]
+                    # a re-admitted request's generator restarts from its
+                    # seed, as the JAX arm re-keys (:1124-1126 there)
+                    self._set_slot(req.slot, req, pfx_tokens + req.prompt + req.generated,
+                                   aligned + len(suffix))
+                logits, _, _ = self._fwd(self._dev(toks), self.cache, aligned,
+                                         last_idx=self._dev(last_idx), page_table=self._dev(table))
+                self._sample_first(chunk, logits)
 
     def _finish_admits(self) -> None:
         """Bring the deferred admission first tokens to the host (emitting them
         to streams) and mirror the device-side cur_tok/last_window updates
-        into the host arrays. Called after the decode block is queued."""
+        into the host arrays. Called after the decode block is queued. A
+        request preempted before its first block keeps its token, which
+        re-enters its prefill on re-admission."""
         pending, self._pending_admits = self._pending_admits, []
         for chunk, ids in pending:
             ids = ids.cpu().numpy()
@@ -275,6 +429,11 @@ class BatchedEngine:
                 tok = int(ids[j])
                 slot = req.slot
                 self._emit(req, tok)
+                if slot < 0:  # preempted: back in the queue
+                    if req.done:
+                        self.queue.remove(req)
+                        self._done_waiting.append(req)
+                    continue
                 self.cur_tok[slot] = tok
                 self.last_window[slot] = np.roll(self.last_window[slot], -1)
                 self.last_window[slot, -1] = tok
@@ -283,11 +442,15 @@ class BatchedEngine:
         """(cur_tok [B], last_window [B, W]) decode-block operands on the
         device: the host arrays with the pending admission chunks' first
         tokens scattered in on the device (no host sync; _admit_merge of
-        batching.py:649-660 there)."""
+        batching.py:649-660 there). A request preempted since its admission
+        (slot -1) is left out: index -1 would land on the last slot."""
         cur = self._dev(self.cur_tok)
         last = self._dev(self.last_window)
         for chunk, ids in self._pending_admits:
-            rows = self._dev([r.slot for r in chunk])
+            keep = [j for j, r in enumerate(chunk) if r.slot >= 0]
+            if len(keep) < len(chunk):
+                ids = ids[self._dev(keep, torch.int64)]
+            rows = self._dev([chunk[j].slot for j in keep], torch.int64)
             cur[rows] = ids
             last[rows] = torch.cat([last[rows, 1:], ids[:, None]], dim=1)
         return cur, last
@@ -305,28 +468,71 @@ class BatchedEngine:
         b = self.bcfg.max_batch
         slots = list(range(b))
         npast = self._dev(self.n_past, torch.int32)
+        kw = {} if self.pager is None else dict(page_table=self._table_dev)
         toks = torch.empty((b, n_steps), dtype=torch.int64, device=self.device)
         for i in range(n_steps):
-            logits, _, _ = self._fwd(cur[:, None], self.cache, npast)
+            logits, _, _ = self._fwd(cur[:, None], self.cache, npast, **kw)
             cur = self._sample(logits[:, -1, :], last, slots)
             last = torch.cat([last[:, 1:], cur[:, None]], dim=1)
             toks[:, i] = cur
             npast = npast + 1
         return toks, last
 
+    def _preempt(self, slot: int) -> None:
+        """Release `slot`'s pages and return its request to the queue head
+        (batching.py:1458-1469 there). Its generated tokens re-enter the
+        admission prefill as prompt suffix; emitted tokens are never
+        rolled back."""
+        req = self.slots[slot]
+        self.slots[slot] = None
+        self.pager.free_slot(slot)
+        self.n_past[slot] = 0
+        self.gens[slot] = None
+        req.slot = -1
+        self.queue.insert(0, req)
+        self.stats["preempted"] += 1
+
+    def _ensure_block_pages(self, n_steps: int) -> None:
+        """Map every live slot's write pages for the coming block up front,
+        preempting the youngest request when the pool runs dry, then copy
+        the table to the device if it changed: at most one copy per block,
+        and none inside it (batching.py:1471-1505 there)."""
+        ps = self.bcfg.page_size
+        for slot in range(self.bcfg.max_batch):
+            while self.slots[slot] is not None:
+                try:
+                    self.pager.ensure(
+                        slot, min(self.bcfg.n_ctx, int(self.n_past[slot]) + n_steps), ps)
+                    break
+                except MemoryError:
+                    victims = [s for s in range(self.bcfg.max_batch) if self.slots[s] is not None]
+                    if victims == [slot]:
+                        raise MemoryError("KV page pool too small for one request; "
+                                          "increase BatchConfig.n_pages") from None
+                    # if `slot` itself is the youngest, its zeroed table row
+                    # points at the trash page until re-admission
+                    self._preempt(max(victims, key=lambda s: self.slots[s].rid))
+        alloc = self.pager.alloc
+        self.stats["pages_peak"] = max(self.stats["pages_peak"], alloc.n_pages - alloc.n_free)
+        if self.pager.dirty:
+            self._table_dev = self._dev(self.pager.table)
+            self.pager.dirty = False
+
     def step(self) -> list[Request]:
         """Admit queued requests, run one decode block, return finished ones.
 
         Power-of-two blocks, clamped by the room left in the fullest slot's
         context (batching.py:1363-1456 there). A request that finishes
-        mid-block frees its slot; its extra KV writes sit beyond the slot's
-        n_past and are never attended."""
+        mid-block frees its slot (and its pages); its extra KV writes sit
+        beyond the slot's n_past and are never attended."""
         self._admit()
         if not any(s is not None for s in self.slots):
             return []
         room = self.bcfg.n_ctx - 1 - int(self.n_past.max())
         n_steps = min(self.bcfg.block, max(1, room))
         n_steps = 1 << (n_steps.bit_length() - 1)  # snap down to a power of 2
+        if self.pager is not None:
+            self._ensure_block_pages(n_steps)
         t0 = time.perf_counter()
         cur, last = self._block_inputs()
         toks, last = self._decode_block(cur, last, n_steps)
@@ -336,7 +542,7 @@ class BatchedEngine:
         self.stats["t_decode"] += time.perf_counter() - t0
         self.stats["steps"] += n_steps
 
-        finished = []
+        finished, self._done_waiting = self._done_waiting, []
         for slot, req in enumerate(self.slots):
             if req is None:
                 continue
@@ -356,6 +562,8 @@ class BatchedEngine:
                 self.slots[slot] = None
                 self.n_past[slot] = 0
                 self.gens[slot] = None
+                if self.pager is not None:
+                    self.pager.free_slot(slot)
         return finished
 
     def run(self) -> list[Request]:

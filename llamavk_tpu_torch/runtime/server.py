@@ -330,6 +330,8 @@ class LlamaServer:
             max_batch=self.bcfg.max_batch,
             replicas=1,
         )
+        if eng.pager is not None:  # paged KV: the pool, trash page included
+            s.update(pages_total=eng.pager.alloc.n_pages, pages_free=eng.pager.alloc.n_free)
         if s.get("t_decode"):
             s["decode_tok_s"] = round(s["tokens"] / s["t_decode"], 1)
         if self.ttft_s:
@@ -367,7 +369,7 @@ class _Handler(BaseHTTPRequestHandler):
             s = self.srv.stats()
             lines = [f"llamavk_{k} {s[k]}" for k in (
                 "tokens", "steps", "prefills", "prefill_calls", "requests", "active_slots",
-                "queued")]
+                "queued", "preempted")]
             lines.append(f"llamavk_uptime_seconds {s['uptime_s']}")
             lines.append(f"llamavk_replicas {s['replicas']}")
             if "decode_tok_s" in s:

@@ -1,11 +1,14 @@
 """The port's CLIs on the CPU: one-shot greedy output of `generate` equals the
 port's own Engine.generate stream (bf16 and int8 caches), the context swap
-keeps generating past n_ctx, and `serve` rejects the flags it does not port
-yet."""
+keeps generating past n_ctx, `serve` rejects the flags it does not port yet
+and the JAX CLI's combinations with --paged, and `serve --paged` answers
+completions."""
 
 import io
+import json
 import subprocess
 import sys
+import urllib.request
 from pathlib import Path
 
 import pytest
@@ -87,10 +90,55 @@ def test_cli_kv_dtype(tiny, kv_dtype):
 
 @pytest.mark.parametrize("flag", [f for f, _ in serve.UNPORTED])
 def test_serve_rejects_unported_flags(tiny, flag, capsys):
-    argv = ["-m", tiny, flag] + ([] if flag in ("--paged", "--shared-prefix") else ["2"])
+    argv = ["-m", tiny, flag] + ([] if flag == "--shared-prefix" else ["2"])
     with pytest.raises(SystemExit) as e:
         serve.build_argparser().parse_args(argv)
     assert e.value.code == 2
     assert f"{flag} is not ported yet" in capsys.readouterr().err
     args = serve.build_argparser().parse_args(["-m", tiny, "--kv-dtype", "int8", "--port", "0"])
     assert (args.kv_dtype, args.port, args.device) == ("int8", 0, "cuda")
+
+
+def test_serve_paged_flags(tiny):
+    args = serve.build_argparser().parse_args(["-m", tiny, "--paged", "--page-size", "32",
+                                               "--n-pages", "9", "--kv-dtype", "int8"])
+    assert (args.paged, args.page_size, args.n_pages) == (True, 32, 9)
+    args = serve.build_argparser().parse_args(["-m", tiny])
+    assert (args.paged, args.page_size, args.n_pages) == (False, 128, 0)
+
+
+@pytest.mark.parametrize("argv,msg", [(["--shared-prefix"], "exclusive"),
+                                      (["--dp", "2"], "tp-only")])
+def test_serve_paged_combination_errors(tiny, argv, msg, capsys):
+    """The JAX CLI's combination errors with --paged (serve.py:78-83 there),
+    whichever order the flags come in; the flags stay unported alone."""
+    for order in (["--paged", *argv], [*argv, "--paged"]):
+        with pytest.raises(SystemExit) as e:
+            serve.build_argparser().parse_args(["-m", tiny, *order])
+        assert e.value.code == 2 and msg in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("kv_dtype,page_size", [("bfloat16", "8"), ("int8", "32")])
+def test_serve_cli_paged_answers(tiny, kv_dtype, page_size):
+    """`serve --paged` in its own process on the CPU answers a completion
+    with the tokens it was asked for, and reports its page pool."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "llamavk_tpu_torch.cli.serve", "-m", tiny, "--device", "cpu",
+         "--port", "0", "-c", "64", "--max-batch", "2", "--paged", "--page-size", page_size,
+         "--kv-dtype", kv_dtype],
+        cwd=ROOT, stderr=subprocess.PIPE, text=True)
+    try:
+        base = next(line.split(" on ")[-1].strip() for line in proc.stderr if " serving " in line)
+        req = urllib.request.Request(
+            base + "/v1/completions", method="POST", headers={"Content-Type": "application/json"},
+            data=json.dumps(dict(prompt=[5, 9, 2], max_tokens=6, temperature=0,
+                                 ignore_eos=True)).encode())
+        with urllib.request.urlopen(req, timeout=60) as r:
+            choice = json.loads(r.read())["choices"][0]
+        with urllib.request.urlopen(base + "/stats", timeout=60) as r:
+            stats = json.loads(r.read())
+    finally:
+        proc.terminate()
+        proc.wait(timeout=60)
+    assert choice["text"].count("<t") == 6 and choice["finish_reason"] == "length"
+    assert stats["pages_total"] == 2 * 64 // int(page_size) + 1
