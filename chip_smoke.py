@@ -26,12 +26,13 @@ Phases, each printing one JSON line (any failure exits non-zero):
               share
   tiny_serve  the HTTP server on the tiny GGJT file on the card, bf16 and
               int8 KV, 4 concurrent greedy requests to a LlamaServer here and
-              to the serve CLI in its own process: their streams must equal
-              the CPU's batched engine
+              to the serve CLI in its own process, without and with
+              --lookup-gamma 4: their streams must equal the CPU's batched
+              engine
   serve_7b    synthetic LLaMA-7B, the production serving flags without
               paging (32 slots, n_ctx 512, int8 KV): a B=32 decode step with
               ragged n_past through the kernels and the plain versions (int8
-              and bf16); then 64 concurrent HTTP requests and one that
+              and bf16); then 32 of the 64 smoke requests over HTTP and one that
               continues a registered prefix, with throughput, time to first
               token, launch counts and the idle share; then every kernel
               against its plain version at every shape that phase launched
@@ -43,12 +44,30 @@ Phases, each printing one JSON line (any failure exits non-zero):
               300-token prefix (2 shared pages) continued by 4 concurrent
               suffixes; the 64 requests again on a quarter pool (33 pages),
               which preempts; then every kernel at every shape it launched
+  generate_7b_lookup
+              the generate CLI with --draft-lookup --draft-n 4 on synthetic
+              7B (a 16-token pattern repeated 3 times, 128 tokens) and plain
+              greedy, with the default dot here and LLAMAVK_Q4_DOT=i8 (K5) in
+              a process of its own: streams equal, or parting only at a near
+              tie; under i8 also a B=32 decode step against the plain path
+  spec_7b_self
+              generate --draft-model with the 7B weights as target and draft,
+              64 tokens: the plain greedy stream and full acceptance, up to a
+              near tie
+  serve_7b_lookup
+              serve --lookup-gamma 4, int8 KV: 8 repeated-pattern greedy
+              requests through flat and paged lookup engines against a plain
+              one (verify writes crossing pages: K2's page_straddle), then
+              serve_7b's 64 requests to the paged lookup server; then every
+              kernel at every shape it launched
 
 The kernels phase also holds the page-table modes of K2, K3 and K4 (bf16
-and int8, scrambled tables of 128-row pages) against their plain versions,
-with written pages byte-equal and the others unchanged, and bit for bit
-against the flat kernels on the gathered view at block_k = 128; tiny_serve
-also serves the tiny file paged (page_size 8 bf16, 32 int8).
+and int8, scrambled tables of 128-row pages; K2 also in page_straddle mode)
+against their plain versions, with written pages byte-equal and the others
+unchanged, and bit for bit against the flat kernels on the gathered view at
+block_k = 128, and K5 (the int8 dot) at M = 1, 4 and 32; tiny_serve also
+serves the tiny file paged (page_size 8 bf16, 32 int8). Each phase's wall
+time is printed on a line of its own.
 
 The line before the last is `{"kernels": [...]}`; the last line is
 `{"ok": true, "device": {...}}`. Without CUDA the script exits 2 and prints
@@ -58,12 +77,14 @@ no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import gc
 import io
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -80,6 +101,7 @@ ROOT = Path(__file__).resolve().parent
 # published peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+INT8_OP_PER_S = 1979e12
 
 # 7B matmul shapes (K, N) of the main path and their calls per forward
 K1_SHAPES = {
@@ -116,6 +138,12 @@ KERNEL_META = {
                      "llamavk_tpu/ops/flash_decode.py:67"),
     "decode_paged_i8": ("llamavk_tpu_torch/csrc/flash_decode.cu",
                         "llamavk_tpu/ops/flash_decode.py:67"),
+    # K5, the int8 dot (LLAMAVK_Q4_DOT=i8), and K2's page_straddle mode
+    "q4_i8": ("llamavk_tpu_torch/csrc/q4_matmul_i8.cu", "llamavk_tpu/ops/q4_matmul.py:226"),
+    "attn_update_paged_straddle": ("llamavk_tpu_torch/csrc/flash_attn.cu",
+                                   "llamavk_tpu/ops/flash_attn.py:120"),
+    "attn_update_paged_straddle_i8": ("llamavk_tpu_torch/csrc/flash_attn.cu",
+                                      "llamavk_tpu/ops/flash_attn.py:120"),
 }
 
 # the tiny model's prompt for the CLI phase: its greedy stream keeps every
@@ -165,10 +193,11 @@ class Timer:
         return statistics.median(times)
 
 
-def bound(n_bytes: float, n_flops: float) -> tuple[float, str]:
-    """The least time on the card (ms) and what sets it."""
+def bound(n_bytes: float, n_flops: float, peak: float = BF16_FLOP_PER_S) -> tuple[float, str]:
+    """The least time on the card (ms) and what sets it: bytes over the
+    memory rate, or operations over `peak` (bf16 unless given)."""
     tb = n_bytes / HBM_BYTES_PER_S * 1e3
-    tf = n_flops / BF16_FLOP_PER_S * 1e3
+    tf = n_flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -247,6 +276,64 @@ def kernel_q4(timer: Timer, gen, name: str, m: int, main_path: bool, reps: int |
         "kernel": "q4_gemv" if m == 1 else "q4_gemm", "shape": f"{name} M={m} K={k} N={n}",
         "main_path": main_path,
         "max_abs_err": err, "limit": limit, "err_over_limit": err / limit, "ok": err <= limit,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": library_ms,
+    }
+
+
+def kernel_q4_i8(timer: Timer, gen, name: str, m: int, main_path: bool,
+                 reps: int | None = None, plain_reps: int = 3) -> dict:
+    """K5 against its plain version at (name, M): the activation bytes and
+    scales bit-equal to the plain quantization on the card, the output within
+    the sum-order bound G 2^-24 sum_g |d sx s| per element (d is exact on
+    both sides), each row bit-equal to the same row computed alone (M = 1);
+    where the route sends the shape to K1 (w2 past 16 rows), the check is
+    that q4_matmul launched K1 and not K5."""
+    from llamavk_tpu_torch.ops import q4_matmul as q4
+    from llamavk_tpu_torch.ops.qweight import dequantize_qweight
+
+    k, n = K1_SHAPES[name]
+    x, qw = _q4_case(gen, m, k, n)
+    shape = f"{name} M={m} K={k} N={n}"
+    if not q4.i8_route("i8", m, k, n, qw):
+        before = dict(q4.launches)
+        q4.q4_matmul(x, qw, torch.float32, dot_mode="i8")
+        torch.cuda.synchronize()
+        took = {key: q4.launches[key] - before[key] for key in before}
+        for key in before:  # a check, not a main-path launch
+            q4.launches[key] = before[key]
+        ok = took["i8"] == 0 and took["gemm" if m > 1 else "gemv"] == 1
+        return {"kernel": "q4_i8_route", "shape": shape, "route": "K1", "launched": took,
+                "ok": ok}
+    got = q4.q4_matmul_i8_cuda(x, qw.packed, qw.scales)
+    want = q4.q4_matmul_i8_ref(x, qw)
+    xq, sx = q4.quantize_act_blocks_cuda(x)
+    pxq, psx = q4.quantize_act_blocks(x)
+    quant_equal = torch.equal(xq, pxq) and torch.equal(sx, psx)
+    rows_equal = all(torch.equal(q4.q4_matmul_i8_cuda(x[r : r + 1].contiguous(), qw.packed,
+                                                      qw.scales)[0], got[r])
+                     for r in sorted({0, m - 1}))
+    d = torch.einsum("mgb,mgn->gbn", pxq.double(), q4._nibbles(qw.packed, qw.g).double())
+    terms = (d * psx.double()[:, :, None] * qw.scales.double()[:, None, :]).abs().sum(0)
+    limit = qw.g * 2.0**-24 * terms
+    del d, terms
+    diff = (got.double() - want.double()).abs()
+    ratio = float(torch.where(limit > 0, diff / limit.clamp_min(1e-300),
+                              diff * float("inf")).nan_to_num(0.0).max())
+    err = float(diff.max())
+    w_bf16 = dequantize_qweight(qw).to(torch.bfloat16)
+    ms = timer(lambda: q4.q4_matmul_i8_cuda(x, qw.packed, qw.scales), reps)
+    plain_ms = timer(lambda: q4.q4_matmul_i8_ref(x, qw), reps=plain_reps)
+    library_ms = timer(lambda: torch.matmul(x, w_bf16), reps)
+    g = k // 32
+    n_bytes = k // 2 * n + g * n * 2 + m * k + 4 * g * m + 4 * m * n
+    b_ms, b_by = bound(n_bytes, 2.0 * m * k * n, INT8_OP_PER_S)
+    return {
+        "kernel": "q4_i8", "shape": shape, "main_path": main_path, "route": "K5",
+        "ksplit": q4.ksplit_i8(k, n), "max_abs_err": err,
+        "limit": "G * 2^-24 * sum_g |d * sx * s| per element", "err_over_limit": ratio,
+        "xq_sx_bit_equal": quant_equal, "rows_bit_equal_to_m1": rows_equal,
+        "ok": ratio <= 1.0 and quant_equal and rows_equal,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": library_ms,
     }
@@ -476,12 +563,14 @@ def _untouched_equal(planes, before, table, n_past, t: int, ps: int) -> bool:
 
 def kernel_attn_paged(timer, gen, gen_cpu, t: int, n_past, update: bool, b: int = 1,
                       quant: bool = False, s: int = N_CTX, ps: int = PAGE, bk: int | None = None,
-                      h: int = H, d: int = D, main_path: bool = False) -> dict:
+                      h: int = H, d: int = D, main_path: bool = False,
+                      straddle: bool = False) -> dict:
     """K2 (update) or K3 (read) in page-table mode, on a random pool through
     a scrambled table, against its plain version (pool bytes equal, pages it
     does not write unchanged), and bit for bit against the flat kernel on
     the gathered view at the same KV block (llama_forward's default fitted
-    to the page: block_k = PS at 7B). Timed unless `timer` is None."""
+    to the page: block_k = PS at 7B). `straddle`: K2's page_straddle mode,
+    whose writes may cross into the next page. Timed unless `timer` is None."""
     from llamavk_tpu_torch.ops import flash_attn as fa
 
     layer = 1
@@ -496,10 +585,11 @@ def kernel_attn_paged(timer, gen, gen_cpu, t: int, n_past, update: bool, b: int 
     if update:
         flat = _gathered(planes, table)
         p2, before = [x.clone() for x in planes], [x.clone() for x in planes]
-        got = fa.flash_attention_update(q, kn, vn, k, v, npast, layer, block_t=bt, block_k=bk,
-                                        page_table=table, **sc)[0]
-        want = fa.flash_attention_update_ref(q, kn, vn, p2[0], p2[1], npast, layer,
-                                             block_t=bt, page_table=table, **_scales(p2))[0]
+        pkw = dict(block_t=bt, page_table=table, page_straddle=straddle)
+        got = fa.flash_attention_update(q, kn, vn, k, v, npast, layer, block_k=bk, **pkw,
+                                        **sc)[0]
+        want = fa.flash_attention_update_ref(q, kn, vn, p2[0], p2[1], npast, layer, **pkw,
+                                             **_scales(p2))[0]
         flat_out = fa.flash_attention_update(q, kn, vn, flat[0], flat[1], npast, layer,
                                              block_k=bk, **_scales(flat))[0]
         torch.cuda.synchronize()
@@ -509,9 +599,9 @@ def kernel_attn_paged(timer, gen, gen_cpu, t: int, n_past, update: bool, b: int 
             torch.equal(x, y) for x, y in zip(flat, _gathered(planes, table)))
         del before
         run = lambda: fa.flash_attention_update(q, kn, vn, k, v, npast, layer,  # noqa: E731
-                                                block_t=bt, block_k=bk, page_table=table, **sc)
+                                                block_k=bk, **pkw, **sc)
         plain = lambda: fa.flash_attention_update_ref(  # noqa: E731
-            q, kn, vn, p2[0], p2[1], npast, layer, block_t=bt, page_table=table, **_scales(p2))
+            q, kn, vn, p2[0], p2[1], npast, layer, **pkw, **_scales(p2))
     else:
         fa.write_rows(kn, vn, k, v, npast, layer, *planes[2:], page_table=table)
         flat = _gathered(planes, table)
@@ -528,7 +618,7 @@ def kernel_attn_paged(timer, gen, gen_cpu, t: int, n_past, update: bool, b: int 
                                                page_table=table, **sc)
     err, ratio = _attn_err(got, want, q, k, v, npast, layer, *planes[2:], page_table=table)
     row = {
-        "kernel": ("attn_update_paged" if update else "attn_read_paged") + ("_i8" if quant else ""),
+        "kernel": fa.launch_name("attn_update" if update else "attn_read", quant, True, straddle),
         "shape": f"B={b} T={t} n_past={n_past} H={h} D={d} PS={ps} MAXLB={s // ps} "
                  f"block_k={bk}" + (" int8" if quant else ""),
         "main_path": main_path,
@@ -721,6 +811,18 @@ def phase_kernels(reps: int) -> list[dict]:
         emit({"phase": "kernel", **rows[-1]})
         rows.append(kernel_decode_paged(timer, gen, gen_cpu, 32, quant))
         emit({"phase": "kernel", **rows[-1]})
+    # K5 (LLAMAVK_Q4_DOT=i8) at decode (M = 1), the lookup verify (M = 4)
+    # and the batched decode step (M = 32, where w2 takes K1)
+    for m in (1, 4, 32):
+        for name in K1_SHAPES:
+            rows.append(kernel_q4_i8(timer, gen, name, m, m < 32))
+            emit({"phase": "kernel", **rows[-1]})
+    # K2's page_straddle mode: a 4-row verify write at n_past values that
+    # cross a 128-row page, B = 4, bf16 and int8
+    for quant in (False, True):
+        rows.append(kernel_attn_paged(timer, gen, gen_cpu, 4, [126, 253, 380, 507], True, 4,
+                                      quant, straddle=True))
+        emit({"phase": "kernel", **rows[-1]})
     emit({"phase": "kernel_edges", **kernel_edges(gen, gen_cpu)})
     bad = [r["shape"] for r in rows if not r["ok"]]
     if bad:
@@ -770,20 +872,21 @@ def _reset_shapes() -> None:
     from llamavk_tpu_torch.ops import flash_decode as fd
     from llamavk_tpu_torch.ops import q4_matmul as q4
 
-    for c in (q4.shapes, fa.shapes, fd.shapes):
+    for c in (q4.shapes, q4.shapes_i8, fa.shapes, fd.shapes):
         c.clear()
 
 
 def _shapes() -> dict:
     """The shapes every kernel was launched at since the last
-    `_reset_shapes`, with their launch counts: {"q4": {(M, K, N): n},
-    "attn": {(path, B, T, H, S, D, block_k, int8, n_past): n}, "decode":
-    {(B, H, S, D, block_k, int8): n}}."""
+    `_reset_shapes`, with their launch counts: {"q4" and "q4_i8": {(M, K,
+    N): n}, "attn": {(path, B, T, H, S, D, block_k, int8, n_past, MAXLB,
+    straddle): n}, "decode": {(B, H, S, D, block_k, int8, MAXLB): n}}."""
     from llamavk_tpu_torch.ops import flash_attn as fa
     from llamavk_tpu_torch.ops import flash_decode as fd
     from llamavk_tpu_torch.ops import q4_matmul as q4
 
-    return {"q4": dict(q4.shapes), "attn": dict(fa.shapes), "decode": dict(fd.shapes)}
+    return {"q4": dict(q4.shapes), "q4_i8": dict(q4.shapes_i8), "attn": dict(fa.shapes),
+            "decode": dict(fd.shapes)}
 
 
 def _counts() -> dict:
@@ -792,7 +895,8 @@ def _counts() -> dict:
     from llamavk_tpu_torch.ops import flash_decode as fd
     from llamavk_tpu_torch.ops import q4_matmul as q4
 
-    counts = {"q4_gemv": q4.launches["gemv"], "q4_gemm": q4.launches["gemm"]}
+    counts = {"q4_gemv": q4.launches["gemv"], "q4_gemm": q4.launches["gemm"],
+              "q4_i8": q4.launches["i8"]}
     counts.update({f"attn_{k}": n for k, n in fa.launches.items()})
     counts.update(fd.launches)
     return counts
@@ -947,6 +1051,157 @@ def phase_generate_7b(seed: int) -> tuple[dict, dict]:
     return result, counts
 
 
+GAMMA = 4  # the speculative phases' draft rows per round (--draft-n, --lookup-gamma)
+
+
+def _cli_7b(argv: list[str], cfg, params) -> tuple[str, str]:
+    """(stdout, stderr) of the generate CLI run in this process on the
+    synthetic 7B model: its loader hands back (cfg, params) and the id
+    vocabulary for any path, so --draft-model drafts with the same weights
+    (one copy in memory)."""
+    from llamavk_tpu_torch.cli import generate as cli
+
+    tok = _id_tokenizer(cfg.n_vocab)
+    load = cli.load_model
+    cli.load_model = lambda path, device="cuda": (cfg, params, tok)
+    out, err = io.StringIO(), io.StringIO()
+    try:
+        with contextlib.redirect_stderr(err):
+            rc = cli.run(cli.build_argparser().parse_args(["-m", "synthetic-7B", *argv]),
+                         stdout=out)
+    finally:
+        cli.load_model = load
+    if rc != 0:
+        raise SystemExit(f"generate CLI {argv} exited with {rc}:\n{err.getvalue()[-2000:]}")
+    return out.getvalue(), err.getvalue()
+
+
+def _lookup_prompt(seed: int) -> tuple[str, list[int]]:
+    """A seeded 16-letter pattern repeated three times, as prompt text and as
+    the CLI's token ids (the id vocabulary has no letters: each byte falls
+    back to id byte + 3, after BOS and the CLI's leading space)."""
+    gen = torch.Generator().manual_seed(seed + 7)
+    pattern = "".join(chr(ord("a") + int(i)) for i in torch.randint(0, 26, (16,), generator=gen))
+    text = pattern * 3
+    return text, [1] + [b + 3 for b in (" " + text).encode()]
+
+
+def _lookup_cli_runs(seed: int) -> tuple[dict, dict]:
+    """generate_7b_lookup under the dot mode this process was started with:
+    the generate CLI with --draft-lookup --draft-n 4 (128 tokens), then plain
+    greedy through the same CLI, counters reset before each; the two streams
+    must be equal, or part only at a near tie. Under i8 also one B=32 decode
+    step against the plain path (K5 and, for w2, K1)."""
+    from llamavk_tpu_torch.ops import q4_matmul as q4
+    from llamavk_tpu_torch.runtime.speculative import LookupEngine, SpecConfig
+
+    cfg, params = _model_7b(seed)
+    text, prompt = _lookup_prompt(seed)
+    argv = ["-p", text, "-n", "128", "-c", str(N_CTX), "--temp", "0", "--ignore-eos"]
+    _reset_shapes()
+    _cli_7b(argv + ["-n", "8", "--draft-lookup", "--draft-n", str(GAMMA)], cfg, params)  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    out, err = _cli_7b(argv + ["--draft-lookup", "--draft-n", str(GAMMA)], cfg, params)
+    counts = _counts()
+    m = re.search(r"lookup-speculative: (\d+) tokens in (\d+) rounds \(([\d.]+) tok/round, "
+                  r"([\d.]+) ms/round\)", err)
+    if m is None:
+        raise SystemExit(f"generate_7b_lookup: no lookup line in {err[-1000:]!r}")
+    emitted, rounds, ms_round = int(m[1]), int(m[2]), float(m[4])
+    lookup = _ids(out)
+    _reset_counts()
+    pout, perr = _cli_7b(argv, cfg, params)
+    plain_counts = _counts()
+    plain = _ids(pout)[len(prompt):]
+    pm = re.search(r"eval += +([\d.]+) ms / (\d+) tokens .*?([\d.]+) tok/s", perr)
+    if len(lookup) != 128 or len(plain) != 128 or pm is None:
+        raise SystemExit(f"generate_7b_lookup: {len(lookup)} lookup and {len(plain)} plain tokens")
+    # the device's share of a lookup block: 64 tokens driven on the engine,
+    # on the host clock, then again under the profiler (prefill included)
+    eng = LookupEngine(cfg, params, SpecConfig(n_ctx=N_CTX, gamma=GAMMA), device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.generate(prompt, 64, ignore_eos=True)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    n_rounds = eng.stats["rounds"]
+    _, busy_ms, _, top = _device_busy(lambda: eng.generate(prompt, 64, ignore_eos=True))
+    del eng
+    shapes = _shapes()  # of the lookup and plain runs, held to the plain versions below
+    mode = q4.resolve_dot_mode()
+    split = _split_at(cfg, params, prompt, lookup, plain, f"generate_7b_lookup ({mode})",
+                      torch.bfloat16, None)
+    result = {
+        "dot": mode, "prompt_tokens": len(prompt), "tokens": emitted, "rounds": rounds,
+        "tok_per_round": emitted / rounds, "ms_per_round": ms_round,
+        "tok_per_s": emitted / (rounds * ms_round / 1e3),
+        "plain_greedy_tok_per_s": float(pm[3]), "plain_ms_per_token": float(pm[1]) / int(pm[2]),
+        "equal_to_plain_greedy": split is None, "split_at_near_tie": split,
+        "idle_window_rounds": n_rounds, "wall_ms_per_round": wall_ms / n_rounds,
+        "device_busy_ms_per_round": None if busy_ms is None else busy_ms / n_rounds,
+        "device_idle_share": None if busy_ms is None else 1 - busy_ms / wall_ms,
+        "device_ms_per_round_by_name": {k: v / n_rounds for k, v in top.items()},
+        "launches": counts, "plain_launches": plain_counts, "plain_stream": plain,
+    }
+    if mode == "i8":
+        result["decode_step_b32"] = _decode_step_check(params, cfg, seed)
+        k5 = {"q4_i8": counts["q4_i8"] + plain_counts["q4_i8"]}
+        _require("generate_7b_lookup (i8)", k5, ("q4_i8",))
+        result.update(_shape_report(shapes))
+        result["shape_rows"] = phase_serve_shapes(shapes, seed, 5, "generate_7b_lookup_i8")
+    return result, counts
+
+
+def phase_generate_7b_lookup(seed: int) -> tuple[dict, dict]:
+    """The lookup CLI and plain greedy on synthetic 7B, with the default dot
+    here and under LLAMAVK_Q4_DOT=i8 in a process of its own (the variable
+    is read at import). Returns (result, the lookup runs' launches)."""
+    bf16, counts = _lookup_cli_runs(seed)
+    _require("generate_7b_lookup", counts, ("q4_gemm", "attn_update"))
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--phases", "lookup_i8_child",
+         "--seed", str(seed)],
+        cwd=ROOT, env=dict(os.environ, LLAMAVK_Q4_DOT="i8"), capture_output=True, text=True,
+        timeout=900)
+    if proc.returncode != 0:
+        raise SystemExit(f"generate_7b_lookup (i8) failed:\n{proc.stderr[-3000:]}")
+    i8 = json.loads(proc.stdout.strip().splitlines()[-1])
+    counts = {key: n + i8["launches"][key] for key, n in counts.items()}
+    return {"bf16": bf16, "i8": i8}, counts
+
+
+def phase_spec_7b_self(seed: int, plain: list[int] | None) -> tuple[dict, dict]:
+    """generate --draft-model with the 7B weights as target and draft (one
+    copy), greedy, 64 tokens: the stream equals plain greedy (`plain`, the
+    lookup phase's, or computed here), or parts only at a near tie; every
+    draft is accepted unless it does."""
+    cfg, params = _model_7b(seed)
+    text, prompt = _lookup_prompt(seed)
+    argv = ["-p", text, "-n", "64", "-c", str(N_CTX), "--temp", "0", "--ignore-eos",
+            "--draft-model", "synthetic-7B", "--draft-n", str(GAMMA)]
+    _reset_counts()
+    out, err = _cli_7b(argv, cfg, params)
+    counts = _counts()
+    m = re.search(r"speculative: (\d+) tokens in (\d+) rounds, acceptance \d+% \((\d+) drafts "
+                  r"accepted, ([\d.]+) ms/round\)", err)
+    if m is None:
+        raise SystemExit(f"spec_7b_self: no speculative line in {err[-1000:]!r}")
+    emitted, rounds, accepted, ms_round = int(m[1]), int(m[2]), int(m[3]), float(m[4])
+    if plain is None:
+        plain = _ids(_cli_7b(argv[:9], cfg, params)[0])[len(prompt):]
+    got = _ids(out)
+    split = _split_at(cfg, params, prompt, got, plain[:64], "spec_7b_self", torch.bfloat16, None)
+    rate = accepted / (rounds * (GAMMA - 1))
+    if split is None and rate < 1.0:
+        raise SystemExit(f"spec_7b_self: acceptance {rate:.3f} with the plain greedy stream")
+    _require("spec_7b_self", counts, ("q4_gemv", "q4_gemm", "attn_update"))
+    return {"tokens": emitted, "rounds": rounds, "accepted": accepted, "acceptance_rate": rate,
+            "ms_per_round": ms_round, "tok_per_s": emitted / (rounds * ms_round / 1e3),
+            "equal_to_plain_greedy": split is None, "split_at_near_tie": split,
+            "launches": counts}, counts
+
+
 def _post(base: str, path: str, body: dict) -> tuple[int, bytes]:
     req = urllib.request.Request(base + path, data=json.dumps(body).encode(),
                                  headers={"Content-Type": "application/json"}, method="POST")
@@ -1072,12 +1327,15 @@ def phase_tiny_serve(work: Path) -> tuple[dict, dict]:
         srv.shutdown()
         thread.join(timeout=30)
         extra = ["--paged", "--page-size", str(ps)] if ps else []
-        for who, answers in (("server", got), ("serve CLI", _serve_cli(path, kv, bodies, extra))):
+        lookup = extra + ["--lookup-gamma", str(GAMMA)]
+        for who, answers in (("server", got), ("serve CLI", _serve_cli(path, kv, bodies, extra)),
+                             ("serve CLI --lookup-gamma", _serve_cli(path, kv, bodies, lookup))):
             texts = [a["text"] for a in answers]
             if texts != want:
                 raise SystemExit(f"tiny_serve ({name}, {who}): card streams {texts} differ "
                                  f"from the CPU's {want}")
-        result[name] = {"streams": want, "server_and_cli_equal_to_cpu": True}
+        result[name] = {"streams": want, "server_and_cli_equal_to_cpu": True,
+                        "lookup_cli_equal_to_cpu": True}
         if ps:
             result[name]["cpu_equal_to_flat_at_kv_block"] = ps
     _require("tiny_serve", counts, ("decode", "decode_i8", "attn_update", "attn_update_i8",
@@ -1236,6 +1494,8 @@ def _idle_window(eng, n_vocab: int, gen) -> dict:
 def _shape_report(shapes: dict) -> dict:
     return {
         "k1_shapes": {f"M={m} K={k} N={n}": c for (m, k, n), c in sorted(shapes["q4"].items())},
+        "k5_shapes": {f"M={m} K={k} N={n}": c
+                      for (m, k, n), c in sorted(shapes["q4_i8"].items())},
         "attn_shapes": {str(key): c for key, c in sorted(shapes["attn"].items(), key=str)},
         "decode_shapes": {str(key): c for key, c in sorted(shapes["decode"].items(), key=str)},
     }
@@ -1259,7 +1519,9 @@ def phase_serve_7b(seed: int) -> tuple[dict, dict, dict]:
     _reset_shapes()
     _complete(base, dict(prompt=[5, 6, 7], max_tokens=2, temperature=0.0, ignore_eos=True))
     gen = torch.Generator().manual_seed(seed)
-    bodies = _smoke_bodies(cfg.n_vocab, gen)
+    # 32 of the 64 bodies keep the whole script's time within a third of
+    # its time before the speculation phases (serve_7b_paged posts all 64)
+    bodies = _smoke_bodies(cfg.n_vocab, gen)[:32]
     _reset_counts()
     stats0 = dict(srv.engine.stats)
     load = _load(srv, base, bodies)
@@ -1290,8 +1552,10 @@ def phase_serve_7b(seed: int) -> tuple[dict, dict, dict]:
     return result, counts, shapes
 
 
-def _greedy_streams(cfg, params, bcfg, prompts: list[list[int]], n: int) -> list[list[int]]:
-    """Greedy streams of an engine on the card, driven directly."""
+def _greedy_streams(cfg, params, bcfg, prompts: list[list[int]], n: int,
+                    stats: dict | None = None) -> list[list[int]]:
+    """Greedy streams of an engine on the card, driven directly (its
+    counters copied into `stats` when given)."""
     from llamavk_tpu_torch.runtime.batching import BatchedEngine
     from llamavk_tpu_torch.runtime.sampling import SamplerParams
 
@@ -1299,36 +1563,51 @@ def _greedy_streams(cfg, params, bcfg, prompts: list[list[int]], n: int) -> list
     reqs = [be.submit(p, n, SamplerParams(temp=0.0), ignore_eos=True) for p in prompts]
     be.run()
     out = [r.generated for r in reqs]
+    if stats is not None:
+        stats.update(be.stats)
     del be
     torch.cuda.empty_cache()
     return out
 
 
-def _stream_split(cfg, params, prompt: list[int], text_a: str, text_b: str, what: str):
-    """None when two answers of one greedy request are equal. Otherwise they
+def _ids(text: str) -> list[int]:
+    """The token ids of a text of the id vocabulary (<tN> per token)."""
+    return [int(t) for t in re.findall(r"<t(\d+)>", text)]
+
+
+def _split_at(cfg, params, prompt: list[int], a: list[int], b: list[int], what: str,
+              kv_dtype=torch.int8, kv_block: int | None = PAGE):
+    """None when two greedy streams of one prompt are equal. Otherwise they
     may part only at a near tie: the logits of the prompt and the common
-    tokens (one flat forward, KV block pinned to the page) put both next
-    tokens within 2^-8 of the largest logit of the top one. Returns where
-    they part and the tokens' gap to the top; fails on a wider one."""
+    tokens (one flat forward with the given cache type and KV block) put
+    both next tokens within 2^-8 of the largest logit of the top one.
+    Returns where they part and the tokens' gap to the top; fails on a wider
+    one."""
     from llamavk_tpu_torch.models.llama import init_kv_cache, llama_forward
 
-    a, b = ([int(t) for t in re.findall(r"<t(\d+)>", x)] for x in (text_a, text_b))
     if a == b:
         return None
-    i = next(j for j in range(min(len(a), len(b))) if a[j] != b[j])
+    i = next((j for j in range(min(len(a), len(b))) if a[j] != b[j]), None)
+    if i is None:
+        raise SystemExit(f"{what}: streams of {len(a)} and {len(b)} tokens")
     ctx = prompt + a[:i]
     toks = torch.zeros((1, max(8, 1 << (len(ctx) - 1).bit_length())), dtype=torch.int64)
     toks[0, : len(ctx)] = torch.tensor(ctx)
-    cache = init_kv_cache(cfg, 1, N_CTX, torch.int8, "cuda")
-    logits = llama_forward(params, toks.cuda(), cache, 0, cfg, kv_block=PAGE,
+    cache = init_kv_cache(cfg, 1, N_CTX, kv_dtype, "cuda")
+    logits = llama_forward(params, toks.cuda(), cache, 0, cfg, kv_block=kv_block,
                            last_idx=torch.tensor([len(ctx) - 1], device="cuda"))[0][0, -1]
     del cache
     top, scale = float(logits.max()), float(logits.abs().max())
     gaps = [(top - float(logits[t])) / scale for t in (a[i], b[i])]
     if max(gaps) > LOGIT_REL_LIMIT:
-        raise SystemExit(f"serve_7b_paged: {what} streams part at token {i} ({a[i]} against "
-                         f"{b[i]}), {max(gaps):.3g} below the top logit (limit {LOGIT_REL_LIMIT})")
+        raise SystemExit(f"{what}: streams part at token {i} ({a[i]} against {b[i]}), "
+                         f"{max(gaps):.3g} below the top logit (limit {LOGIT_REL_LIMIT})")
     return {"request": what, "token": i, "gap_rel": gaps}
+
+
+def _stream_split(cfg, params, prompt: list[int], text_a: str, text_b: str, what: str):
+    """`_split_at` for two answers of the int8 paged server, as texts."""
+    return _split_at(cfg, params, prompt, _ids(text_a), _ids(text_b), what)
 
 
 def phase_serve_7b_paged(seed: int) -> tuple[dict, dict, dict]:
@@ -1421,7 +1700,8 @@ def phase_serve_7b_paged(seed: int) -> tuple[dict, dict, dict]:
     # pool's answers equals the default pool's, up to a near tie
     greedy = [i for i, b in enumerate(bodies) if b["temperature"] == 0.0]
     ties = [_stream_split(cfg, params, bodies[i]["prompt"], answers[i]["text"],
-                          qanswers[i]["text"], f"greedy request {i}") for i in greedy]
+                          qanswers[i]["text"], f"serve_7b_paged: greedy request {i}")
+            for i in greedy]
     ties = [t for t in ties if t is not None]
     _require("serve_7b_paged", counts, ("q4_gemm", "attn_update_paged_i8", "decode_paged_i8"))
     shapes = _shapes()
@@ -1438,11 +1718,113 @@ def phase_serve_7b_paged(seed: int) -> tuple[dict, dict, dict]:
     return result, counts, shapes
 
 
+def phase_serve_7b_lookup(seed: int) -> tuple[dict, dict, dict]:
+    """serve --lookup-gamma 4 on synthetic 7B, int8 KV, flat and paged (a
+    smoke load, not a cell). First 8 greedy requests with repeated-pattern
+    prompts of 100-250 tokens, 64 tokens each, driven directly through a
+    plain flat engine and through flat and paged lookup engines (kv_block
+    and page 128): the lookup streams equal the plain ones or part at a near
+    tie, and the paged verify writes cross pages. Then serve_7b's 64 bodies
+    over HTTP to `serve --lookup-gamma 4 --paged --kv-dtype int8`. Returns
+    (result, launches, the shapes every kernel was launched at)."""
+    from llamavk_tpu_torch.runtime.batching import BatchConfig
+    from llamavk_tpu_torch.runtime.server import LlamaServer
+
+    cfg, params = _model_7b(seed)
+    tok = _id_tokenizer(cfg.n_vocab)
+    gen = torch.Generator().manual_seed(seed + 5)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _reset_shapes()
+    prompts = []
+    for _ in range(8):
+        n = int(torch.randint(100, 251, (1,), generator=gen))
+        pattern = torch.randint(3, cfg.n_vocab, (int(torch.randint(8, 33, (1,), generator=gen)),),
+                                generator=gen).tolist()
+        prompts.append((pattern * (n // len(pattern) + 1))[:n])
+    bcfg = BatchConfig(max_batch=32, n_ctx=N_CTX, block=8, admit_chunk=4, kv_dtype="int8",
+                       kv_block=PAGE)
+    plain = _greedy_streams(cfg, params, bcfg, prompts, SMOKE_TOKENS)
+    direct, ties = {}, []
+    _reset_counts()
+    for name, lcfg in (("flat", dataclasses.replace(bcfg, lookup_gamma=GAMMA)),
+                       ("paged", dataclasses.replace(bcfg, lookup_gamma=GAMMA, paged=True,
+                                                     page_size=PAGE))):
+        stats: dict = {}
+        got = _greedy_streams(cfg, params, lcfg, prompts, SMOKE_TOKENS, stats)
+        for i, (prompt, a, b) in enumerate(zip(prompts, got, plain)):
+            tie = _split_at(cfg, params, prompt, a, b, f"serve_7b_lookup: {name} request {i}")
+            if tie is not None:
+                ties.append(tie)
+        direct[name] = {"rounds": stats["rounds"], "accepted": stats["accepted"],
+                        "tok_per_round": (stats["rounds"] + stats["accepted"]) / stats["rounds"]}
+        if name == "paged":
+            direct[name].update(straddled=stats["straddled"], pages_peak=stats["pages_peak"])
+            if stats["straddled"] == 0:
+                raise SystemExit("serve_7b_lookup: no paged verify write crossed a page")
+    counts = _counts()
+
+    lcfg = dataclasses.replace(bcfg, kv_block=0, lookup_gamma=GAMMA, paged=True, page_size=PAGE)
+    srv = LlamaServer(cfg, params, tok, lcfg, model_name="llama-7B-synthetic", device="cuda")
+    base, thread = _serve(srv)
+    _complete(base, dict(prompt=[5, 6, 7], max_tokens=2, temperature=0.0, ignore_eos=True))
+    bodies = _smoke_bodies(cfg.n_vocab, torch.Generator().manual_seed(seed))  # serve_7b's
+    stats0 = dict(srv.engine.stats)
+    _reset_counts()
+    load = _load(srv, base, bodies)
+    for key, n in _counts().items():
+        counts[key] += n
+    stats = srv.stats()
+    srv.shutdown()
+    thread.join(timeout=30)
+    _check_answers("serve_7b_lookup", load.pop("answers"))
+    idle = _idle_window(srv.engine, cfg.n_vocab, gen)
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    _require("serve_7b_lookup", counts, ("q4_gemm", "attn_update_paged_straddle_i8",
+                                         "attn_update_i8"))
+    shapes = _shapes()
+    rounds = stats["rounds"] - stats0["rounds"]
+    load["ms_per_round"] = load.pop("decode_ms_per_step")
+    result = {
+        "direct": {"requests": len(prompts), "tokens": SMOKE_TOKENS,
+                   "prompt_tokens": [len(p) for p in prompts], "split_at_near_tie": ties,
+                   **direct},
+        "max_tokens": SMOKE_TOKENS, **load, "rounds": rounds,
+        "accepted": stats["accepted"] - stats0["accepted"],
+        "straddled": stats["straddled"] - stats0["straddled"], "pages_peak": stats["pages_peak"],
+        "launches": counts, **_shape_report(shapes), **idle,
+    }
+    return result, counts, shapes
+
+
+def _attn_samples(attn: dict) -> list[tuple[tuple, int]]:
+    """The attention shapes to check, with their launches: every key, except
+    that keys differing only in a host-int n_past (a decode loop's one per
+    position) are checked at their least, median and largest n_past, and
+    each sample carries a third of the group's launches."""
+    groups: dict = {}
+    for key, n in attn.items():
+        groups.setdefault(key[:8] + (isinstance(key[8], int),) + key[9:], []).append((key, n))
+    out = []
+    for members in groups.values():
+        members.sort(key=lambda kn: -1 if kn[0][8] is None else kn[0][8])
+        picks = ({0, len(members) // 2, len(members) - 1} if len(members) > 3
+                 else range(len(members)))
+        total = sum(n for _, n in members)
+        for i in sorted(picks):
+            key, n = members[i]
+            out.append((key, n if len(members) <= 3 else total // len(picks)))
+    return sorted(out, key=lambda kn: str(kn[0]))
+
+
 def phase_serve_shapes(shapes: dict, seed: int, reps: int, phase: str = "serve_7b") -> list[dict]:
-    """Every kernel against its plain version at every shape a serving
-    phase launched it at (`_shapes`): K1 at each (M, K, N); K2 and K3 at each
-    (B, T, S, block_k, cache type, n_past, page table width), a vector
-    n_past seeded per row; K4 at each (B, S, block_k, cache type, page table
+    """Every kernel against its plain version at every shape a phase
+    launched it at (`_shapes`): K1 and K5 at each (M, K, N); K2 and K3 at
+    each (B, T, S, block_k, cache type, n_past, page table width, straddle),
+    a vector n_past seeded per row, a decode loop's host-int n_past sampled
+    (`_attn_samples`); K4 at each (B, S, block_k, cache type, page table
     width), n_past seeded per row. Paged shapes run through scrambled
     tables and are also held bit for bit against the flat kernels."""
     timer = Timer(reps)
@@ -1458,8 +1840,11 @@ def phase_serve_shapes(shapes: dict, seed: int, reps: int, phase: str = "serve_7
 
     for m, k, n in sorted(shapes["q4"]):
         add(kernel_q4(timer, gen, names[(k, n)], m, True, plain_reps=2), shapes["q4"][(m, k, n)])
-    for key in sorted(shapes["attn"], key=str):
-        path, b, t, h, s, d, bk, quant, n_past, maxlb = key
+    for m, k, n in sorted(shapes["q4_i8"]):
+        add(kernel_q4_i8(timer, gen, names[(k, n)], m, True, plain_reps=2),
+            shapes["q4_i8"][(m, k, n)])
+    for key, launches in _attn_samples(shapes["attn"]):
+        path, b, t, h, s, d, bk, quant, n_past, maxlb, straddle = key
         if (h, d) != (H, D):
             raise SystemExit(f"serve_shapes: attention at H={h} D={d}, not the 7B width")
         cap = s * (maxlb or 1)
@@ -1469,8 +1854,8 @@ def phase_serve_shapes(shapes: dict, seed: int, reps: int, phase: str = "serve_7
             row = kernel_attn(timer, gen, t, n_past, path == "update", True, b, quant, s, bk)
         else:
             row = kernel_attn_paged(timer, gen, gen_cpu, t, n_past, path == "update", b, quant,
-                                    cap, s, bk, main_path=True)
-        add(row, shapes["attn"][key])
+                                    cap, s, bk, main_path=True, straddle=straddle)
+        add(row, launches)
     for key in sorted(shapes["decode"], key=str):
         b, h, s, d, bk, quant, maxlb = key
         if (h, d) != (H, D):
@@ -1495,6 +1880,8 @@ def summary(rows: list[dict], counts: dict) -> dict:
     out = []
     for name, (source, replaces) in KERNEL_META.items():
         mine = [r for r in rows if r["kernel"] == name]
+        if not mine:  # a run of some phases only
+            continue
         worst = max([r for r in mine if r["main_path"]] or mine, key=lambda r: r["ms"])
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1506,11 +1893,13 @@ def summary(rows: list[dict], counts: dict) -> dict:
     return {"kernels": out}
 
 
+PHASES = ("env,build,kernels,tiny_cli,generate_7b,generate_7b_lookup,spec_7b_self,tiny_serve,"
+          "serve_7b,serve_7b_paged,serve_7b_lookup")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases",
-                    default="env,build,kernels,tiny_cli,generate_7b,tiny_serve,serve_7b,"
-                            "serve_7b_paged")
+    ap.add_argument("--phases", default=PHASES)
     ap.add_argument("--reps", type=int, default=20, help="timed launches per kernel")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", help="also write every phase's result to this JSON file")
@@ -1523,20 +1912,37 @@ def main() -> int:
         return 2
     import llamavk_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
+    if phases == ["lookup_i8_child"]:  # generate_7b_lookup's i8 half, in its own process
+        emit(_lookup_cli_runs(args.seed)[0])
+        return 0
     report: dict = {}
-    env = phase_env()
+    t_start = time.perf_counter()
+
+    seconds = report["phase_seconds"] = {}
+
+    @contextlib.contextmanager
+    def timed(name: str):
+        t0 = time.perf_counter()
+        yield
+        seconds[name] = round(time.perf_counter() - t0, 2)
+        emit({"phase_seconds": name, "seconds": seconds[name]})
+
+    with timed("env"):
+        env = phase_env()
     report["env"] = env
     emit({"phase": "env", **env})
     if "build" in phases:
-        report["build"] = phase_build()
+        with timed("build"):
+            report["build"] = phase_build()
         emit({"phase": "build", **report["build"]})
     rows: list[dict] = []
     if "kernels" in phases:
-        rows = phase_kernels(args.reps)
+        with timed("kernels"):
+            rows = phase_kernels(args.reps)
         report["kernels"] = rows
     if "tiny_cli" in phases:
         (ROOT / "build").mkdir(exist_ok=True)
-        with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+        with timed("tiny_cli"), tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
             report["tiny_cli"] = phase_tiny_cli(Path(work))
         emit({"phase": "tiny_cli", **report["tiny_cli"]})
     counts = dict.fromkeys(KERNEL_META, 0)  # launches summed over the main paths
@@ -1546,23 +1952,55 @@ def main() -> int:
             counts[key] += n
 
     if "generate_7b" in phases:
-        report["generate_7b"], path_counts = phase_generate_7b(args.seed)
+        with timed("generate_7b"):
+            report["generate_7b"], path_counts = phase_generate_7b(args.seed)
         add(path_counts)
         emit({"phase": "generate_7b", **report["generate_7b"]})
+    plain = None
+    if "generate_7b_lookup" in phases:
+        with timed("generate_7b_lookup"):
+            report["generate_7b_lookup"], path_counts = phase_generate_7b_lookup(args.seed)
+        add(path_counts)
+        plain = report["generate_7b_lookup"]["bf16"].pop("plain_stream")
+        report["generate_7b_lookup"]["i8"].pop("plain_stream")
+        report["generate_7b_lookup_i8_shapes"] = report["generate_7b_lookup"]["i8"].pop(
+            "shape_rows")
+        rows += report["generate_7b_lookup_i8_shapes"]
+        lookup_shapes = _shapes()
+        emit({"phase": "generate_7b_lookup", **report["generate_7b_lookup"]})
+    if "spec_7b_self" in phases:
+        with timed("spec_7b_self"):
+            report["spec_7b_self"], path_counts = phase_spec_7b_self(args.seed, plain)
+        add(path_counts)
+        emit({"phase": "spec_7b_self", **report["spec_7b_self"]})
+    if "generate_7b_lookup" in phases:
+        # every kernel at every shape the lookup, plain and draft-model runs
+        # launched it at with the default dot (the i8 child checked its own)
+        shapes = _shapes() if "spec_7b_self" in phases else lookup_shapes
+        report["generate_7b_lookup"]["bf16"].update(_shape_report(shapes))
+        with timed("generate_7b_lookup_shapes"):
+            spec_rows = phase_serve_shapes(shapes, args.seed, max(5, args.reps // 4),
+                                           "generate_7b_lookup")
+        report["generate_7b_lookup_shapes"] = spec_rows
+        rows += spec_rows
     if "tiny_serve" in phases:
         (ROOT / "build").mkdir(exist_ok=True)
-        with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+        with timed("tiny_serve"), tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
             report["tiny_serve"], path_counts = phase_tiny_serve(Path(work))
         add(path_counts)
         emit({"phase": "tiny_serve", **report["tiny_serve"]})
-    for name, phase in (("serve_7b", phase_serve_7b), ("serve_7b_paged", phase_serve_7b_paged)):
+    for name, phase in (("serve_7b", phase_serve_7b), ("serve_7b_paged", phase_serve_7b_paged),
+                        ("serve_7b_lookup", phase_serve_7b_lookup)):
         if name in phases:
-            report[name], path_counts, shapes = phase(args.seed)
+            with timed(name):
+                report[name], path_counts, shapes = phase(args.seed)
             add(path_counts)
             emit({"phase": name, **report[name]})
-            serve_rows = phase_serve_shapes(shapes, args.seed, max(5, args.reps // 4), name)
+            with timed(name + "_shapes"):
+                serve_rows = phase_serve_shapes(shapes, args.seed, max(5, args.reps // 4), name)
             report[f"{name}_shapes"] = serve_rows
             rows += serve_rows
+    emit({"phase_seconds": "all", "seconds": round(time.perf_counter() - t_start, 2)})
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))

@@ -1,8 +1,9 @@
 """llamavk_tpu_torch — the PyTorch / CUDA port of llamavk_tpu for NVIDIA Hopper.
 
 The LLaMA Q4_0 engines of the JAX package beside it (single-stream
-generation, and continuous-batching serving over a flat bf16 or int8 KV
-cache), with their Pallas TPU kernels rewritten by hand in CUDA C++ for
+generation, continuous-batching serving over a flat or paged bf16 or int8 KV
+cache, and prompt-lookup and draft-model speculation), with their Pallas TPU
+kernels rewritten by hand in CUDA C++ for
 sm_90a (`csrc/`, built with nvcc on first use and bound with ctypes). Every
 kernel has a plain PyTorch version beside it, which CPU tensors take.
 
@@ -11,7 +12,8 @@ Subpackages:
   models    — LLaMA config, forward pass, loader, synthetic params
   ops       — kernel wrappers + plain versions, norms, rope, int8 KV
               quantization, the nvcc build
-  runtime   — decode engine, continuous-batching engine, HTTP server, sampling
+  runtime   — decode engine, continuous-batching engine, page allocator,
+              speculative engines, HTTP server, sampling
   cli       — generate, serve
 """
 

@@ -3,11 +3,15 @@
 Prompt eval + streaming decode with the sampling flags of examples/main
 (top-k/top-p/temp/repeat-penalty/repeat-last-n), --ignore-eos, and --n-keep
 with the infinite-generation context swap (keep n_keep prompt tokens, re-feed
-half of the recent window on overflow, main.cpp:246-266), and a bf16 or
-int8 KV cache (--kv-dtype). Interactive, instruct, draft and ring modes are
-not ported yet; argparse rejects their flags.
+half of the recent window on overflow, main.cpp:246-266), a bf16 or int8
+KV cache (--kv-dtype), and speculative decoding: --draft-lookup drafts from
+the context itself (prompt lookup), --draft-model from a second checkpoint,
+--draft-n tokens per round. Interactive, instruct and ring modes are not
+ported yet; argparse rejects their flags. LLAMAVK_Q4_DOT=i8 in the
+environment takes the int8 dot (K5) where the JAX package takes it.
 
     python -m llamavk_tpu_torch.cli.generate -m model.bin -p "text" --device cuda
+    python -m llamavk_tpu_torch.cli.generate -m model.bin -p "text" --draft-lookup --temp 0
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import time
 from ..models.loader import load_model
 from ..runtime.engine import Engine, EngineConfig
 from ..runtime.sampling import SamplerParams
+from ..runtime.speculative import LookupEngine, SpecConfig, SpeculativeEngine
 from ..tokenizer import EOS_ID
 
 
@@ -40,6 +45,15 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--n-keep", type=int, default=0)
     ap.add_argument("--kv-dtype", choices=["bfloat16", "int8"], default="bfloat16",
                     help="KV cache type: bf16, or int8 with per-row scales")
+    ap.add_argument("--draft-model", default=None,
+                    help="speculative decoding: a smaller checkpoint drafts the tokens the "
+                    "model verifies (greedy only; the output is the plain greedy stream)")
+    ap.add_argument("--draft-n", type=int, default=4,
+                    help="draft tokens proposed per verify round (gamma)")
+    ap.add_argument("--draft-lookup", action="store_true",
+                    help="speculative decoding without a draft model: draft from the most "
+                    "recent matching 2-gram of the context (prompt lookup); a round costs "
+                    "about one decode step and emits 1..draft-n tokens")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the hand-written kernels) or cpu (their plain versions)")
     return ap
@@ -100,6 +114,10 @@ def run(args, stdout=sys.stdout) -> int:
         repeat_last_n=args.repeat_last_n,
     )
     ctxman = ContextManager(engine, args.ctx_size, min(n_keep, args.ctx_size // 2))
+    if args.draft_lookup and _lookup(args, cfg, params, tok, prompt_tokens, sp, stdout):
+        return 0
+    if args.draft_model and _draft_model(args, cfg, params, tok, prompt_tokens, stdout):
+        return 0
 
     def stream(t: int) -> bool:
         stdout.write(tok.decode_token(t).decode("utf-8", errors="replace"))
@@ -126,6 +144,60 @@ def run(args, stdout=sys.stdout) -> int:
     stdout.write("\n")
     print(engine.timings.report(), file=sys.stderr)
     return 0
+
+
+def _write_tokens(tok, out: list[int], stdout) -> None:
+    stdout.write(b"".join(tok.decode_token(t) for t in out).decode("utf-8", errors="replace"))
+    stdout.write("\n")
+
+
+def _lookup(args, cfg, params, tok, prompt_tokens, sp, stdout) -> bool:
+    """--draft-lookup (generate.py:202-253 there): single-shot, the budget
+    clamped to what fits, since the speculative engines do no context swap.
+    Returns False, after a warning, where it falls back to plain decode."""
+    if not (args.temp <= 0 or args.repeat_penalty == 1.0):
+        print("warning: --draft-lookup requires repeat-penalty 1.0 when sampling; ignoring",
+              file=sys.stderr)
+        return False
+    g = max(1, args.draft_n)
+    scfg = SpecConfig(n_ctx=args.ctx_size, gamma=g, kv_dtype=args.kv_dtype)
+    budget = args.ctx_size - len(prompt_tokens) - (scfg.rounds_per_block * g + g + 1)
+    if budget < 1:
+        print("warning: prompt leaves no room for --draft-lookup decoding; falling back to "
+              "plain decode", file=sys.stderr)
+        return False
+    if budget < args.n_predict:
+        print(f"warning: --draft-lookup clamps -n to {budget} (no context shift in "
+              "speculative mode)", file=sys.stderr)
+    spec = LookupEngine(cfg, params, scfg, device=args.device)
+    out = spec.generate(prompt_tokens, min(args.n_predict, budget), ignore_eos=args.ignore_eos,
+                        sp=sp if args.temp > 0 else None,
+                        seed=args.seed if args.seed >= 0 else 0)
+    _write_tokens(tok, out, stdout)
+    st = spec.stats
+    print(f"lookup-speculative: {st['emitted']} tokens in {st['rounds']} rounds "
+          f"({st['emitted'] / max(st['rounds'], 1):.2f} tok/round, "
+          f"{1e3 * spec.t_rounds / max(st['rounds'], 1):.2f} ms/round)", file=sys.stderr)
+    return True
+
+
+def _draft_model(args, cfg, params, tok, prompt_tokens, stdout) -> bool:
+    """--draft-model (generate.py:255-290 there): greedy only, single-shot.
+    Returns False, after a warning, when sampling asks for plain decode."""
+    if args.temp > 0:
+        print("warning: --draft-model requires --temp 0; ignoring the draft", file=sys.stderr)
+        return False
+    dcfg, dparams, _ = load_model(args.draft_model, device=args.device)
+    spec = SpeculativeEngine(cfg, params, dcfg, dparams,
+                             SpecConfig(n_ctx=args.ctx_size, gamma=max(1, args.draft_n),
+                                        kv_dtype=args.kv_dtype), device=args.device)
+    out = spec.generate(prompt_tokens, args.n_predict, ignore_eos=args.ignore_eos)
+    _write_tokens(tok, out, stdout)
+    st = spec.stats
+    print(f"speculative: {st['emitted']} tokens in {st['rounds']} rounds, acceptance "
+          f"{spec.acceptance_rate:.0%} ({st['accepted']} drafts accepted, "
+          f"{1e3 * spec.t_rounds / max(st['rounds'], 1):.2f} ms/round)", file=sys.stderr)
+    return True
 
 
 def main(argv=None):

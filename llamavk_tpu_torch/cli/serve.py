@@ -1,15 +1,16 @@
 """Serving CLI (twin of `llamavk_tpu/cli/serve.py`): start the HTTP front-end
 over the continuous-batching engine (`runtime/server.py`), one replica on one
-device, bf16 or int8 KV, flat or paged.
+device, bf16 or int8 KV, flat or paged, with optional prompt-lookup
+speculation (--lookup-gamma).
 
     python -m llamavk_tpu_torch.cli.serve -m model.bin --port 8000 --max-batch 32 \
-        --kv-dtype int8 --paged
+        --kv-dtype int8 --paged --lookup-gamma 4
     curl -d '{"prompt": "Hello", "max_tokens": 32}' localhost:8000/v1/completions
 
 --device cpu runs the plain PyTorch versions of the kernels; --port 0 takes
 any free port (the server prints the one it took). The shared prefix pool,
-lookup speculation, tensor/data parallelism and replicas are not ported yet:
-the CLI rejects their flags and says so.
+tensor/data parallelism and replicas are not ported yet: the CLI rejects
+their flags and says so.
 """
 
 from __future__ import annotations
@@ -20,34 +21,23 @@ from ..models.loader import load_model
 from ..runtime.batching import BatchConfig
 from ..runtime.server import LlamaServer
 
-
 # (flag, takes a value) of the reference CLI's unported options
 UNPORTED = (
-    ("--shared-prefix", False), ("--lookup-gamma", True), ("--tp", True), ("--dp", True),
-    ("--replicas", True), ("--prefix-pool", True), ("--prefix-ctx", True),
+    ("--shared-prefix", False), ("--tp", True), ("--dp", True), ("--replicas", True),
+    ("--prefix-pool", True), ("--prefix-ctx", True),
 )
 
 
-class _Parser(argparse.ArgumentParser):
-    """Rejects, after parsing, the flag combinations the JAX CLI rejects
-    with --paged (serve.py:78-83 there), then every unported flag given."""
+class _NotPorted(argparse.Action):
+    """An option of the reference CLI that the port does not have yet."""
 
-    def parse_args(self, args=None, namespace=None):
-        ns = super().parse_args(args, namespace)
-        if ns.paged and ns.dp is not None and ns.dp > 1:
-            self.error("--paged serves tp-only meshes (the page pool is one shared "
-                       "allocator; use --tp without --dp)")
-        if ns.paged and ns.shared_prefix:
-            self.error("--shared-prefix and --paged are exclusive "
-                       "(the block table IS the sharing mechanism)")
-        for flag, _ in UNPORTED:
-            if getattr(ns, flag[2:].replace("-", "_")) is not None:
-                self.error(f"{flag} is not ported yet")
-        return ns
+    def __call__(self, parser, namespace, values, option_string=None):
+        parser.error(f"{option_string} is not ported yet")
 
 
 def build_argparser() -> argparse.ArgumentParser:
-    ap = _Parser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("-m", "--model", required=True)
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8000)
@@ -56,7 +46,7 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--max-batch", type=int, default=8,
                     help="concurrent decode slots")
     ap.add_argument("--block", type=int, default=8,
-                    help="decode steps per host round-trip")
+                    help="decode steps (lookup: rounds) per host round-trip")
     ap.add_argument("--admit-chunk", type=int, default=4)
     ap.add_argument("--kv-dtype", choices=["bfloat16", "int8"], default="bfloat16")
     ap.add_argument("--paged", action="store_true",
@@ -65,15 +55,15 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--n-pages", type=int, default=0,
                     help="pool pages (0 = flat-equivalent footprint); size it smaller to "
                     "oversubscribe slots")
+    ap.add_argument("--lookup-gamma", type=int, default=0,
+                    help=">0: prompt-lookup speculative decoding, this many rows verified "
+                    "per round")
     ap.add_argument("--model-name", default=None)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the hand-written kernels) or cpu (their plain versions)")
     for flag, takes_value in UNPORTED:
-        if takes_value:
-            ap.add_argument(flag, type=int, default=None, help=argparse.SUPPRESS)
-        else:
-            ap.add_argument(flag, action="store_const", const=True, default=None,
-                            help=argparse.SUPPRESS)
+        ap.add_argument(flag, action=_NotPorted, nargs=None if takes_value else 0,
+                        help=argparse.SUPPRESS)
     return ap
 
 
@@ -89,6 +79,7 @@ def main(argv=None):
         paged=args.paged,
         page_size=args.page_size,
         n_pages=args.n_pages,
+        lookup_gamma=args.lookup_gamma,
     )
     server = LlamaServer(cfg, params, tok, bcfg, model_name=args.model_name,
                          device=args.device)

@@ -13,15 +13,18 @@ KV cache `[L, B, H, S, D]` (flat; bf16, or int8 with per-row f32 scales) is
 updated IN PLACE: the JAX package threads it through `lax.scan` and gets the
 same effect by buffer aliasing. `n_past` may be a per-row vector
 (continuous batching). A paged pool `[L, NP, H, PS, D]`
-(`init_paged_kv_cache`) is addressed through a block table (`page_table`).
+(`init_paged_kv_cache`) is addressed through a block table (`page_table`);
+with `page_straddle` its multi-token writes may start anywhere in a page and
+run into the next (the speculative verify). Every packed matmul goes through
+`q4_matmul`, whose dot mode (LLAMAVK_Q4_DOT) picks K1 or K5.
 
-Ring caches, the shared-prefix pool, tensor/pipeline parallelism, paged
-writes that straddle pages and the ggml numerics oracle raise
-NotImplementedError.
+Ring caches, the shared-prefix pool, tensor/pipeline parallelism and the ggml
+numerics oracle raise NotImplementedError.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -38,7 +41,7 @@ from ..ops.flash_attn import (
 from ..ops.flash_decode import flash_decode_update, flash_decode_update_ref
 from ..ops.kv_quant import dequantize_rows
 from ..ops.norms import rms_norm
-from ..ops.q4_matmul import q4_matmul, q4_matmul_ref
+from ..ops.q4_matmul import q4_matmul
 from ..ops.qweight import QWeight
 from ..ops.rope import apply_rope, rope_cos_sin
 
@@ -251,18 +254,21 @@ def llama_forward(
     dense oracle.
     kv_block pins the attention's KV block (default 512 for T >= 256, else
     256, as llama.py:499 there). use_ref runs the plain versions of every
-    kernel on any device: the kernel-vs-plain comparison on the card.
+    kernel on any device, each matmul on the plain version of the route its
+    dot mode takes: the kernel-vs-plain comparison on the card.
 
     page_table (int32 [B, MAXLB] on the cache's device): the cache is a page
     pool and row b's logical block j lives in page page_table[b, j]
     (llama.py:440-448, 553-630 there). Flash only, and only on the fused
     routes: K4 when T == 1 and B > 1, else K2 with its query block capped at
     the page (every write block from a page-aligned n_past then lies in one
-    page); another T raises ValueError.
+    page); another T raises ValueError. page_straddle lifts the one-page rule
+    of K2's writes (llama.py:603-626 there): the speculative verify writes T
+    rows at any n_past, with n_past + T <= MAXLB * PS.
     """
     unsupported = {
-        "ring_keep": ring_keep, "prefix_kv": prefix_kv, "page_straddle": page_straddle,
-        "tp_axis": tp_axis, "pp_axis": pp_axis, "ggml_rounding": ggml_rounding,
+        "ring_keep": ring_keep, "prefix_kv": prefix_kv, "tp_axis": tp_axis,
+        "pp_axis": pp_axis, "ggml_rounding": ggml_rounding,
     }
     for name, val in unsupported.items():
         if val:
@@ -273,7 +279,7 @@ def llama_forward(
     b, t = tokens.shape
     h, d = cfg.n_head, cfg.head_dim
     dev = tokens.device
-    matmul = q4_matmul_ref if use_ref else q4_matmul
+    matmul = functools.partial(q4_matmul, plain=use_ref)
     attn_update = flash_attention_update_ref if use_ref else flash_attention_update
     attn_read = flash_attention_ref if use_ref else flash_attention
     attn_decode = flash_decode_update_ref if use_ref else flash_decode_update
@@ -303,7 +309,8 @@ def llama_forward(
     if paged and (impl != "flash" or t % min(256, t)):
         raise ValueError(f"paged KV requires the fused flash path (impl={impl}, t={t})")
     # paged K2: the query block capped at the page (llama.py:602-608 there)
-    pkw = dict(page_table=page_table, block_t=min(256, cache.k.shape[3])) if paged else {}
+    pkw = dict(page_table=page_table, block_t=min(256, cache.k.shape[3]),
+               page_straddle=page_straddle) if paged else {}
 
     for l in range(cache.k.shape[0]):
         # --- attention block (llama.cpp:976-1070)

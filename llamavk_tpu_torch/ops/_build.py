@@ -28,7 +28,7 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
-SOURCES = ("q4_matmul", "flash_attn", "flash_decode")
+SOURCES = ("q4_matmul", "q4_matmul_i8", "flash_attn", "flash_decode")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

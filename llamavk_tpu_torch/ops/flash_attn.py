@@ -9,7 +9,12 @@ With `page_table` (int32 [B, MAXLB]) the cache is a PAGE POOL
 [L, NP, H, PS, D] (int8 scales [L, NP, PS, H]) and logical row j of batch
 row b lives at page `page_table[b, j // PS]`, row `j % PS`
 (`runtime/paged.py`). The KV block is fitted to the page (it divides PS), so
-a paged call and a flat one with `block_k = PS` sum in the same order.
+a paged call and a flat one with `block_k = PS` sum in the same order. Paged
+writes keep each block of `block_t` rows inside one page, as the JAX
+kernel's callers do, unless `page_straddle` is set: the speculative verify
+writes T rows at any n_past, and rows past a page's end go to the next
+logical page of the table (flash_attn.py:197-215 there; the CUDA write looks
+up every row's page anyway, so the mode changes the checks, not the kernel).
 
 * `flash_attention_update` writes T new K/V rows at [n_past, n_past + T) of
   layer `layer_idx` IN PLACE (int8: quantized, with their scale rows; the JAX
@@ -44,19 +49,23 @@ from . import _build
 from .kv_quant import quantize_rows
 
 # launches of the CUDA kernels (one per wrapper call on CUDA tensors), by
-# path, cache mode and cache type
-launches = {f"{path}{mode}{kind}": 0 for path in ("update", "read")
-            for mode in ("", "_paged") for kind in ("", "_i8")}
+# path, cache mode and cache type; the update path's page_straddle mode on its
+# own
+launches = {f"{path}{mode}{kind}": 0 for path, mode in (
+    ("update", ""), ("update", "_paged"), ("update", "_paged_straddle"), ("read", ""),
+    ("read", "_paged")) for kind in ("", "_i8")}
 # launches by shape (path, B, T, H, S, D, block_k, int8, n_past: the int, or
 # None for a per-row vector, MAXLB: the page table's width, or None for a
-# flat cache; S is a page's rows when paged), so a caller can check every
-# shape a run reached
+# flat cache, page_straddle; S is a page's rows when paged), so a caller can
+# check every shape a run reached
 shapes: collections.Counter = collections.Counter()
 
 
-def launch_name(path: str, quant: bool, paged: bool) -> str:
-    """The `launches` key of one call: update/read/decode, paged, int8."""
-    return path + ("_paged" if paged else "") + ("_i8" if quant else "")
+def launch_name(path: str, quant: bool, paged: bool, straddle: bool = False) -> str:
+    """The `launches` key of one call: update/read/decode, paged (and
+    straddling), int8."""
+    return (path + ("_paged" if paged else "") + ("_straddle" if straddle else "")
+            + ("_i8" if quant else ""))
 
 
 def _fit_block_k(block_k: int, s: int, step: int = 8) -> int:
@@ -202,8 +211,8 @@ def check_paged_write(n_past: int, t: int, block_t: int, page_rows: int) -> None
     """The paged write invariant of the JAX kernel (flash_attn.py:1029-1033
     there): every block of `block_t` rows written from a host-int n_past lies
     in one page. The engine's power-of-two chunks from page-aligned starts
-    keep it; speculative writes that cross pages are `page_straddle`, not
-    ported yet."""
+    keep it; the speculative verify's writes that cross pages set
+    `page_straddle` instead."""
     for start in range(n_past, n_past + t, block_t):
         if start // page_rows != (start + block_t - 1) // page_rows:
             raise ValueError(f"paged write rows [{start}, {start + block_t}) cross a page of "
@@ -212,25 +221,36 @@ def check_paged_write(n_past: int, t: int, block_t: int, page_rows: int) -> None
 
 def flash_attention_update_ref(
     q, k_new, v_new, k, v, n_past, layer_idx: int, block_t: int = 256, block_k: int = 256,
-    k_scale=None, v_scale=None, page_table=None,
+    k_scale=None, v_scale=None, page_table=None, page_straddle: bool = False,
 ):
     """Plain version of `flash_attention_update`: the cache write, then the
     dense attention. Returns (out, k, v), plus (k_scale, v_scale) for an int8
     cache, every cache plane updated in place."""
-    _check_block_t(q.shape[1], block_t, n_past, k.shape[3], page_table)
+    _check_block_t(q.shape[1], block_t, n_past, k.shape[3], page_table, page_straddle)
     write_rows(k_new, v_new, k, v, n_past, layer_idx, k_scale, v_scale, page_table)
     out = flash_attention_ref(q, k, v, n_past, layer_idx, block_k, k_scale, v_scale, page_table)
     return (out, k, v) if k_scale is None else (out, k, v, k_scale, v_scale)
 
 
-def _check_block_t(t: int, block_t: int, n_past, rows: int, page_table) -> None:
+def _check_block_t(t: int, block_t: int, n_past, rows: int, page_table,
+                   straddle: bool = False) -> None:
     """T % min(block_t, T) == 0, as the JAX kernel requires; paged, with a
-    host-int n_past, `check_paged_write`."""
+    host-int n_past, `check_paged_write`, or with `straddle` the JAX caller
+    invariant n_past + T <= MAXLB * PS (flash_attn.py:1034-1038 there), so
+    no row runs past the table. A vector n_past is the caller's to keep in
+    bounds (the engines' headroom and submit asserts)."""
     bt = min(block_t, t)
     if t % bt:
         raise ValueError(f"flash_attention_update needs T % block_t == 0 (T={t}, bt={bt})")
+    if straddle and page_table is None:
+        raise ValueError("page_straddle needs a page table")
     if page_table is not None and isinstance(n_past, int):
-        check_paged_write(n_past, t, bt, rows)
+        if straddle:
+            if not 0 <= n_past <= page_table.shape[1] * rows - t:
+                raise ValueError(f"straddling write [{n_past}, {n_past + t}) runs past the "
+                                 f"{page_table.shape[1]} pages of the table")
+        else:
+            check_paged_write(n_past, t, bt, rows)
 
 
 @functools.cache
@@ -327,7 +347,7 @@ def flash_attention(
     _build.check(rc, "attn_read_launch")
     launches[launch_name("read", quant, tab is not None)] += 1
     shapes[("read", b, t, h, s, d, bk, quant, n_past if npv is None else None,
-            maxlb or None)] += 1
+            maxlb or None, False)] += 1
     return out
 
 
@@ -344,17 +364,21 @@ def flash_attention_update(
     k_scale: torch.Tensor | None = None,  # [L, B, S, H] / [L, NP, PS, H] f32, in place
     v_scale: torch.Tensor | None = None,
     page_table: torch.Tensor | None = None,  # [B, MAXLB] int32: k/v are a page pool
+    page_straddle: bool = False,  # paged writes at any n_past (speculative verify)
 ):
     """Writes the T new K/V rows at [n_past[b], n_past[b] + T) of layer
     `layer_idx` IN PLACE (int8: the rows of bf16(k_new) quantized, and their
     scales), then attends (K2). Returns (out [B, T, H, D] f32, k, v), plus
     (k_scale, v_scale) for an int8 cache. Requires T % min(block_t, T) == 0,
     as the JAX kernel does, and, paged, that every block of block_t rows
-    lies in one page (checked for a host-int n_past; `check_paged_write`)."""
+    lies in one page (checked for a host-int n_past; `check_paged_write`),
+    unless `page_straddle`: then rows cross into the next logical page, and
+    n_past + T <= MAXLB * PS."""
     if not q.is_cuda:
         return flash_attention_update_ref(q, k_new, v_new, k, v, n_past, layer_idx,
-                                          block_t, block_k, k_scale, v_scale, page_table)
-    _check_block_t(q.shape[1], block_t, n_past, k.shape[3], page_table)
+                                          block_t, block_k, k_scale, v_scale, page_table,
+                                          page_straddle)
+    _check_block_t(q.shape[1], block_t, n_past, k.shape[3], page_table, page_straddle)
     # the cast flash_attn.py:1101-1103 makes; an int8 cache quantizes bf16 rows
     kn = k_new.to(torch.bfloat16).contiguous()
     vn = v_new.to(torch.bfloat16).contiguous()
@@ -372,7 +396,7 @@ def flash_attention_update(
         bk, 1.0 / math.sqrt(d), int(quant), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, "attn_update_launch")
-    launches[launch_name("update", quant, tab is not None)] += 1
+    launches[launch_name("update", quant, tab is not None, page_straddle)] += 1
     shapes[("update", b, t, h, s, d, bk, quant, n_past if npv is None else None,
-            maxlb or None)] += 1
+            maxlb or None, page_straddle)] += 1
     return (out, k, v) if k_scale is None else (out, k, v, k_scale, v_scale)

@@ -30,8 +30,18 @@ rid), which goes back to the head of the queue with its generated tokens as
 prompt. Page 0 is the trash page: free slots keep decoding into it until
 their block ends, and no live slot maps it.
 
-The shared-prefix pool, lookup speculation and meshes raise
-NotImplementedError.
+Lookup speculation (`BatchConfig.lookup_gamma`, batching.py:455-640 and
+1559-1664 there): each step runs rounds instead of single decode steps. A
+round drafts up to gamma - 1 tokens per row from the row's own token history
+(`ctx_dev [B, n_ctx]`, seeded at admission), verifies gamma rows per slot in
+one forward at the rows' own n_past, and emits 1..gamma tokens per row
+(`runtime/speculative.py`). Greedy rows emit exactly the plain greedy
+stream; sampled rows use the deterministic-proposal rejection scheme with the
+repeat penalty folded in per verify position. Paged, each block maps
+n_steps * gamma rows of pages ahead and the verify writes may cross a page
+(`page_straddle`). A request needs gamma - 1 rows of slack in n_ctx.
+
+The shared-prefix pool and meshes raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -54,7 +64,8 @@ from ..models.llama import (
 )
 from .engine import kv_dtype
 from .paged import PageAllocator, SlotPages
-from .sampling import SamplerParams, sample_tokens_batched
+from .sampling import SamplerParams, probs_batched_dyn, sample_tokens_batched
+from .speculative import assemble_emitted, first_reject, lookup_draft_batched
 
 
 @dataclass
@@ -93,9 +104,10 @@ class BatchConfig:
     # the online-softmax accumulation order: a flat engine at kv_block=c sums
     # like a paged one at page_size=c
     kv_block: int = 0
-    # modes of the JAX package's BatchConfig not ported yet (they raise)
-    shared_prefix: bool = False
+    # > 0: prompt-lookup speculative decoding, gamma rows verified per round
     lookup_gamma: int = 0
+    # a mode of the JAX package's BatchConfig not ported yet (it raises)
+    shared_prefix: bool = False
 
 
 def _rows(plane: torch.Tensor, batch, n: int) -> torch.Tensor:
@@ -122,8 +134,7 @@ class BatchedEngine:
     def __init__(self, cfg: ModelConfig, params: LlamaParams,
                  bcfg: BatchConfig = BatchConfig(), mesh=None, device="cuda"):
         self.device = resolve(device)
-        unported = {"mesh": mesh is not None, "shared_prefix": bcfg.shared_prefix,
-                    "lookup_gamma": bcfg.lookup_gamma > 0}
+        unported = {"mesh": mesh is not None, "shared_prefix": bcfg.shared_prefix}
         for name, on in unported.items():
             if on:
                 raise NotImplementedError(f"BatchedEngine: {name} is not ported yet")
@@ -169,6 +180,13 @@ class BatchedEngine:
         }
         if self.pager is not None:
             self.stats["pages_peak"] = 1  # the most pages in use at a block's start
+        if bcfg.lookup_gamma > 0:
+            # each row's token history at logical positions, read by the
+            # lookup drafter on the device
+            self.ctx_dev = torch.zeros((b, bcfg.n_ctx), dtype=torch.int64, device=self.device)
+            self.stats.update(rounds=0, accepted=0)
+            if self.pager is not None:
+                self.stats["straddled"] = 0  # verify writes that crossed a page
 
     # --- helpers -------------------------------------------------------------
 
@@ -244,8 +262,10 @@ class BatchedEngine:
         if prefix >= 0 and prefix not in self.prefixes:
             raise ValueError(f"unknown prefix id {prefix}")
         total = len(prompt) + (self.prefixes[prefix][1] if prefix >= 0 else 0)
-        if total + n_predict > self.bcfg.n_ctx:
-            raise ValueError("request exceeds n_ctx")
+        # lookup rounds write gamma-row windows: gamma - 1 rows of slack
+        slack = max(self.bcfg.lookup_gamma - 1, 0)
+        if total + n_predict + slack > self.bcfg.n_ctx:
+            raise ValueError(f"request exceeds n_ctx (with {slack} rows of lookup slack)")
         if len(prompt) < 1:
             raise ValueError("prompt suffix must be non-empty")
         req = Request(prompt=list(prompt), n_predict=n_predict, sp=sp, seed=seed,
@@ -335,6 +355,21 @@ class BatchedEngine:
                     for dst, src in zip(self.cache.planes(), scratch.planes()):
                         _rows(dst, req.slot, scratch_len).copy_(src[:, j])
                 self._sample_first(chunk, logits)
+        self._seed_ctx(admitted)
+
+    def _seed_ctx(self, admitted: list[Request]) -> None:
+        """Write the admitted rows' consumed tokens (prefix, prompt and, for a
+        re-admitted request, what it generated; the pending first token is
+        not consumed yet) into the lookup history, one copy for the wave
+        (batching.py:1151-1172, 1312-1324 there)."""
+        if self.bcfg.lookup_gamma <= 0 or not admitted:
+            return
+        rows = np.zeros((len(admitted), self.bcfg.n_ctx), np.int64)
+        for j, req in enumerate(admitted):
+            pfx_tokens = self.prefixes[req.prefix][2] if req.prefix >= 0 else []
+            hist = (pfx_tokens + req.prompt + req.generated)[: self.bcfg.n_ctx]
+            rows[j, : len(hist)] = hist
+        self.ctx_dev[self._dev([r.slot for r in admitted], torch.int64)] = self._dev(rows)
 
     def _chunks(self, items: list[Request]):
         """Power-of-two runs of `items`, each at most bcfg.admit_chunk long."""
@@ -415,6 +450,7 @@ class BatchedEngine:
                 logits, _, _ = self._fwd(self._dev(toks), self.cache, aligned,
                                          last_idx=self._dev(last_idx), page_table=self._dev(table))
                 self._sample_first(chunk, logits)
+        self._seed_ctx(admitted)
 
     def _finish_admits(self) -> None:
         """Bring the deferred admission first tokens to the host (emitting them
@@ -492,17 +528,19 @@ class BatchedEngine:
         self.queue.insert(0, req)
         self.stats["preempted"] += 1
 
-    def _ensure_block_pages(self, n_steps: int) -> None:
-        """Map every live slot's write pages for the coming block up front,
-        preempting the youngest request when the pool runs dry, then copy
-        the table to the device if it changed: at most one copy per block,
-        and none inside it (batching.py:1471-1505 there)."""
+    def _ensure_block_pages(self, n_steps: int, rows_per_step: int = 1) -> None:
+        """Map every live slot's write pages for the coming block up front
+        (n_steps * rows_per_step rows past its n_past: a lookup round writes
+        gamma rows), preempting the youngest request when the pool runs dry,
+        then copy the table to the device if it changed: at most one copy
+        per block, and none inside it (batching.py:1471-1505 there)."""
         ps = self.bcfg.page_size
         for slot in range(self.bcfg.max_batch):
             while self.slots[slot] is not None:
                 try:
                     self.pager.ensure(
-                        slot, min(self.bcfg.n_ctx, int(self.n_past[slot]) + n_steps), ps)
+                        slot, min(self.bcfg.n_ctx,
+                                  int(self.n_past[slot]) + n_steps * rows_per_step), ps)
                     break
                 except MemoryError:
                     victims = [s for s in range(self.bcfg.max_batch) if self.slots[s] is not None]
@@ -529,6 +567,8 @@ class BatchedEngine:
         if not any(s is not None for s in self.slots):
             return []
         room = self.bcfg.n_ctx - 1 - int(self.n_past.max())
+        if self.bcfg.lookup_gamma > 0:
+            return self._step_lookup(room, self.bcfg.lookup_gamma)
         n_steps = min(self.bcfg.block, max(1, room))
         n_steps = 1 << (n_steps.bit_length() - 1)  # snap down to a power of 2
         if self.pager is not None:
@@ -557,6 +597,126 @@ class BatchedEngine:
                     break
             self.n_past[slot] += consumed
             self.cur_tok[slot] = toks[slot][consumed - 1]
+            if req.done:
+                finished.append(req)
+                self.slots[slot] = None
+                self.n_past[slot] = 0
+                self.gens[slot] = None
+                if self.pager is not None:
+                    self.pager.free_slot(slot)
+        return finished
+
+    # --- lookup speculation ---------------------------------------------------
+
+    def _round_draws(self, g: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """One sampled lookup round's draws: uniforms [B, g-1] for the accept
+        tests and Exp(1) noise [B, V] for the correction, each sampled row's
+        from its own generator; greedy and free rows take 0.5 and 1, which
+        their point-mass distributions make irrelevant."""
+        b, v = self.bcfg.max_batch, self.cfg.n_vocab
+        us = torch.full((b, g - 1), 0.5, dtype=torch.float32, device=self.device)
+        noise = torch.ones((b, v), dtype=torch.float32, device=self.device)
+        for s in range(b):
+            if self.gens[s] is not None:
+                us[s].uniform_(generator=self.gens[s])
+                noise[s].exponential_(generator=self.gens[s])
+        return us, noise.clamp_min(1e-30)
+
+    def _lookup_round(self, cur, last, npast, g: int, params):
+        """One batched lookup round over every slot (the body of
+        `_decode_lookup`, or with the per-slot sampler `params` (top_p, temp,
+        penalty) of `_decode_lookup_sampled`, batching.py:455-640 there).
+        Returns (emitted [B, g], count [B], next tokens, n_past, windows)."""
+        kw = {} if self.pager is None else dict(page_table=self._table_dev, page_straddle=True)
+        seq, draft, p = lookup_draft_batched(self.ctx_dev, cur, npast, g)
+        logits, _, _ = self._fwd(seq, self.cache, npast, logits_all=True, **kw)  # [B, g, V]
+        if params is None:
+            y = torch.argmax(logits, dim=-1)
+            k = first_reject(draft == y[:, : g - 1])
+            corr = y.gather(1, torch.clamp(k, max=g - 1)[:, None])[:, 0]
+        else:
+            # the penalty window of verify position i: the known inputs
+            # seq[:, 1 : i + 1] appended to the round's window
+            w = last.shape[1]
+            pt_all = torch.stack([
+                probs_batched_dyn(logits[:, i], torch.cat([last, seq[:, 1 : i + 1]], 1)[:, -w:],
+                                  self.bcfg.top_k, *params)
+                for i in range(g)], dim=1)  # [B, g, V]
+            us, noise = self._round_draws(g)
+            safe = torch.clamp(draft, min=0)
+            pt_draft = pt_all[:, : g - 1].gather(2, safe[:, :, None])[..., 0]
+            k = first_reject((us < pt_draft) & (draft >= 0))
+            pt_k = pt_all.gather(1, k[:, None, None].expand(-1, 1, pt_all.shape[2]))[:, 0]
+            # the residual: p_t with the rejected draft removed (a no-match
+            # round and the bonus keep p_t)
+            rej = torch.cat([safe, torch.zeros_like(safe[:, :1])], 1).gather(
+                1, torch.clamp(k, max=g - 1)[:, None])
+            drop = ((k < g - 1) & (p >= 0))[:, None]
+            resid = pt_k.scatter(1, rej, torch.where(drop, 0.0, pt_k.gather(1, rej)))
+            corr = torch.argmax(resid / noise, dim=-1)
+        emitted, count = assemble_emitted(k, draft, corr, g)
+        # the consumed inputs at their positions: seq[:, :count] valid, the
+        # rest junk the next round overwrites (the slack keeps it in bounds)
+        pos = npast.to(torch.int64)[:, None] + torch.arange(g, device=self.device)
+        self.ctx_dev.scatter_(1, pos, seq)
+        if params is not None:
+            w = last.shape[1]
+            last = torch.cat([last, emitted], 1).gather(
+                1, count[:, None] + torch.arange(w, device=self.device))
+        return emitted, count, corr, npast + count.to(torch.int32), last
+
+    def _step_lookup(self, room: int, g: int) -> list[Request]:
+        """One lookup block: n_steps rounds, each emitting 1..g tokens per row
+        (batching.py:1559-1657 there). The submit-time slack and the room
+        clamp keep every round's g-row write inside the slot's n_ctx; paged,
+        the block's pages are mapped up front, n_steps * g rows per slot."""
+        n_steps = min(self.bcfg.block, max(1, room // g))
+        n_steps = 1 << (n_steps.bit_length() - 1)
+        if self.pager is not None:
+            self._ensure_block_pages(n_steps, g)
+        sampled = any(req is not None and req.sp.temp > 0 for req in self.slots)
+        t0 = time.perf_counter()
+        cur, last = self._block_inputs()
+        npast = self._dev(self.n_past, torch.int32)
+        params = [self._dev(a) for a in (self.top_p, self.temp, self.penalty)] if sampled else None
+        ems, cnts = [], []
+        for _ in range(n_steps):
+            emitted, count, cur, npast, last = self._lookup_round(cur, last, npast, g, params)
+            ems.append(emitted)
+            cnts.append(count)
+        self._finish_admits()  # the rounds are queued on the device already
+        em = torch.stack(ems).cpu().numpy()  # [n_steps, B, g]: the block's host read
+        cnt = torch.stack(cnts).cpu().numpy()  # [n_steps, B]
+        toks, npast_h = cur.cpu().numpy(), npast.cpu().numpy()
+        if sampled:
+            self.last_window = last.cpu().numpy()
+        self.stats["t_decode"] += time.perf_counter() - t0
+        self.stats["steps"] += n_steps
+
+        finished, self._done_waiting = self._done_waiting, []
+        ps = self.bcfg.page_size
+        for slot, req in enumerate(self.slots):
+            if req is None:
+                continue
+            row = int(self.n_past[slot])  # the round's verify write starts here
+            for i in range(n_steps):
+                if req.done:
+                    break  # rounds past `done` count toward nothing
+                c = int(cnt[i, slot])
+                self.stats["rounds"] += 1
+                self.stats["accepted"] += c - 1
+                if self.pager is not None and row // ps != (row + g - 1) // ps:
+                    self.stats["straddled"] += 1
+                row += c
+                for t in em[i, slot, :c]:
+                    if req.done:
+                        break
+                    self._emit(req, int(t))
+                    self.stats["tokens"] += 1
+            # the device ran every round: mirror its n_past and pending token
+            # (rounds past `done` wrote rows the next occupant overwrites)
+            self.n_past[slot] = npast_h[slot]
+            self.cur_tok[slot] = toks[slot]
             if req.done:
                 finished.append(req)
                 self.slots[slot] = None

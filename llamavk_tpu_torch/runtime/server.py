@@ -369,7 +369,8 @@ class _Handler(BaseHTTPRequestHandler):
             s = self.srv.stats()
             lines = [f"llamavk_{k} {s[k]}" for k in (
                 "tokens", "steps", "prefills", "prefill_calls", "requests", "active_slots",
-                "queued", "preempted")]
+                "queued", "preempted") if k in s]
+            lines += [f"llamavk_lookup_{k} {s[k]}" for k in ("rounds", "accepted") if k in s]
             lines.append(f"llamavk_uptime_seconds {s['uptime_s']}")
             lines.append(f"llamavk_replicas {s['replicas']}")
             if "decode_tok_s" in s:

@@ -2,7 +2,8 @@
 model on the CPU: its greedy streams against the JAX package's
 `BatchedEngine` and against the port's own single-stream `Engine` (bf16 and
 int8 caches), slot reuse, mixed budgets, prefix caching, per-request seeded
-sampling, and the batched sampler's distributions against JAX."""
+sampling, the batched sampler's distributions against JAX, and prompt-lookup
+speculation (`lookup_gamma`) against the single-stream greedy streams."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -178,3 +179,76 @@ def test_probs_batched_dyn_matches_jax():
     assert int(toks[2]) == int(logits[2].argmax())
     assert ts.sample_token_dyn(args[0][1], args[1][1], noise[1], top_k, top_p[1], temp[1],
                                pen[1]) == toks[1]
+
+
+# --- prompt-lookup speculation (tests/test_batching.py:112-185) ----------------
+
+
+def test_lookup_batched_matches_single(model):
+    """lookup_gamma: repetitive and generic prompts across admission waves
+    (4 requests on 2 slots) emit exactly the single-stream greedy streams;
+    the first tokens come from admission, so decode emits 4 * 8 - 4."""
+    cfg, params = model
+    prompts = [[5, 9, 2, 30, 5, 9, 2, 30, 5, 9], [7, 3, 11], [1, 2, 3, 4, 1, 2, 3, 4], [42]]
+    be = BatchedEngine(cfg, params, BatchConfig(max_batch=2, n_ctx=128, block=4, lookup_gamma=4),
+                       device="cpu")
+    reqs = [be.submit(p, 8, GREEDY, ignore_eos=True) for p in prompts]
+    assert len(be.run()) == 4
+    for p, r in zip(prompts, reqs):
+        eng = Engine(cfg, params, EngineConfig(n_ctx=128), device="cpu")
+        assert r.generated == eng.generate(p, 8, GREEDY, ignore_eos=True), p
+    assert be.stats["rounds"] > 0 and be.stats["accepted"] > 0
+    assert be.stats["tokens"] == 4 * 8 - 4
+
+
+def test_lookup_batched_with_prefix_cache(model):
+    """Lookup over prefix caching: the history rows hold the prefix too."""
+    cfg, params = model
+    pfx = [3, 1, 4, 1, 5, 9, 2, 6]
+    be = BatchedEngine(cfg, params, BatchConfig(max_batch=2, n_ctx=128, block=4, lookup_gamma=3),
+                       device="cpu")
+    pid = be.register_prefix(pfx)
+    reqs = [be.submit(s, 6, GREEDY, ignore_eos=True, prefix=pid) for s in ([8, 2], [7])]
+    assert len(be.run()) == 2
+    for r, sfx in zip(reqs, ([8, 2], [7])):
+        eng = Engine(cfg, params, EngineConfig(n_ctx=128), device="cpu")
+        assert r.generated == eng.generate(pfx + sfx, 6, GREEDY, ignore_eos=True)
+
+
+def test_lookup_rejects_overflowing_requests(model):
+    """A lookup round writes gamma rows: a request needs gamma - 1 rows of
+    slack, so one that would fill its slot exactly is refused at submit."""
+    cfg, params = model
+    be = BatchedEngine(cfg, params, BatchConfig(max_batch=2, n_ctx=64, lookup_gamma=4),
+                       device="cpu")
+    with pytest.raises(ValueError, match="slack"):
+        be.submit([1, 2], 62, GREEDY)
+    be.submit([1, 2], 59, GREEDY)  # 2 + 59 + 3 fits
+
+
+def test_lookup_batched_sampled_mixed(model):
+    """The sampled round (any sampled row): greedy rows still emit the plain
+    greedy streams (a point-mass target accepts exactly the argmax), sampled
+    rows (one with the repeat penalty folded in per verify position) emit
+    full budgets of valid ids, and the same engine config repeats."""
+    cfg, params = model
+
+    def run():
+        be = BatchedEngine(cfg, params, BatchConfig(max_batch=4, n_ctx=128, block=4,
+                                                    lookup_gamma=3), device="cpu")
+        reqs = [be.submit([5, 9, 2, 30, 5, 9, 2, 30], 8, GREEDY, ignore_eos=True),
+                be.submit([7, 3, 11], 8, ts.SamplerParams(temp=0.8, repeat_penalty=1.1), seed=3,
+                          ignore_eos=True),
+                be.submit([1, 2, 3, 4, 1, 2, 3, 4], 8, GREEDY, ignore_eos=True),
+                be.submit([42, 17], 8, ts.SamplerParams(temp=1.0), seed=9, ignore_eos=True)]
+        be.run()
+        return [r.generated for r in reqs]
+
+    first = run()
+    assert run() == first
+    for i in (0, 2):
+        prompt = [[5, 9, 2, 30, 5, 9, 2, 30], None, [1, 2, 3, 4, 1, 2, 3, 4]][i]
+        eng = Engine(cfg, params, EngineConfig(n_ctx=128), device="cpu")
+        assert first[i] == eng.generate(prompt, 8, GREEDY, ignore_eos=True)
+    for i in (1, 3):
+        assert len(first[i]) == 8 and all(0 <= t < cfg.n_vocab for t in first[i])

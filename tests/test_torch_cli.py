@@ -1,8 +1,9 @@
 """The port's CLIs on the CPU: one-shot greedy output of `generate` equals the
 port's own Engine.generate stream (bf16 and int8 caches), the context swap
-keeps generating past n_ctx, `serve` rejects the flags it does not port yet
-and the JAX CLI's combinations with --paged, and `serve --paged` answers
-completions."""
+keeps generating past n_ctx, `generate --draft-lookup` and `--draft-model`
+print the speculative engines' streams (and fall back or clamp as the JAX
+CLI does), `serve` rejects the flags it does not port yet, and `serve
+--paged` (with and without --lookup-gamma) answers completions."""
 
 import io
 import json
@@ -19,6 +20,7 @@ from llamavk_tpu_torch.cli import serve
 from llamavk_tpu_torch.models import loader as tl
 from llamavk_tpu_torch.runtime.engine import Engine, EngineConfig
 from llamavk_tpu_torch.runtime.sampling import SamplerParams
+from llamavk_tpu_torch.runtime.speculative import LookupEngine, SpecConfig
 
 torch.set_num_threads(2)
 
@@ -68,7 +70,7 @@ def test_cli_context_swap(tiny):
 
 
 def test_cli_rejects_unported_modes(tiny):
-    for flag in (["--interactive"], ["--draft-model", tiny], ["--ctx-ring"]):
+    for flag in (["--interactive"], ["--instruct"], ["--ctx-ring"]):
         with pytest.raises(SystemExit):
             cli.build_argparser().parse_args(["-m", tiny, *flag])
 
@@ -107,25 +109,28 @@ def test_serve_paged_flags(tiny):
     assert (args.paged, args.page_size, args.n_pages) == (False, 128, 0)
 
 
-@pytest.mark.parametrize("argv,msg", [(["--shared-prefix"], "exclusive"),
-                                      (["--dp", "2"], "tp-only")])
+@pytest.mark.parametrize("argv,msg", [(["--shared-prefix"], "--shared-prefix is not ported yet"),
+                                      (["--dp", "2"], "--dp is not ported yet")])
 def test_serve_paged_combination_errors(tiny, argv, msg, capsys):
-    """The JAX CLI's combination errors with --paged (serve.py:78-83 there),
-    whichever order the flags come in; the flags stay unported alone."""
+    """With --paged, in either order, the unported flags are refused as
+    unported: the JAX CLI's combination errors (serve.py:78-83 there) need
+    those flags first."""
     for order in (["--paged", *argv], [*argv, "--paged"]):
         with pytest.raises(SystemExit) as e:
             serve.build_argparser().parse_args(["-m", tiny, *order])
         assert e.value.code == 2 and msg in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("kv_dtype,page_size", [("bfloat16", "8"), ("int8", "32")])
-def test_serve_cli_paged_answers(tiny, kv_dtype, page_size):
+@pytest.mark.parametrize("kv_dtype,page_size,gamma", [("bfloat16", "8", "0"),
+                                                      ("int8", "32", "0"), ("int8", "32", "3")])
+def test_serve_cli_paged_answers(tiny, kv_dtype, page_size, gamma):
     """`serve --paged` in its own process on the CPU answers a completion
-    with the tokens it was asked for, and reports its page pool."""
+    with the tokens it was asked for, and reports its page pool (and, with
+    --lookup-gamma, its lookup rounds)."""
     proc = subprocess.Popen(
         [sys.executable, "-m", "llamavk_tpu_torch.cli.serve", "-m", tiny, "--device", "cpu",
          "--port", "0", "-c", "64", "--max-batch", "2", "--paged", "--page-size", page_size,
-         "--kv-dtype", kv_dtype],
+         "--kv-dtype", kv_dtype, "--lookup-gamma", gamma],
         cwd=ROOT, stderr=subprocess.PIPE, text=True)
     try:
         base = next(line.split(" on ")[-1].strip() for line in proc.stderr if " serving " in line)
@@ -142,3 +147,64 @@ def test_serve_cli_paged_answers(tiny, kv_dtype, page_size):
         proc.wait(timeout=60)
     assert choice["text"].count("<t") == 6 and choice["finish_reason"] == "length"
     assert stats["pages_total"] == 2 * 64 // int(page_size) + 1
+    assert (stats.get("rounds", 0) > 0) == (gamma != "0")
+
+
+def _run(argv):
+    """(stdout, stderr) of the generate CLI run in this process."""
+    args = cli.build_argparser().parse_args(argv)
+    out, err = io.StringIO(), io.StringIO()
+    from contextlib import redirect_stderr
+
+    with redirect_stderr(err):
+        assert cli.run(args, stdout=out) == 0
+    return out.getvalue(), err.getvalue()
+
+
+LOOKUP_TEXT = "<t155><t60><t233><t155><t60><t233><t155><t60><t233>"
+
+
+def test_cli_draft_lookup(tiny):
+    """--draft-lookup --draft-n 4 prints the LookupEngine's stream (the plain
+    greedy one) and its rounds, as generate.py:202-253 there does; a prompt
+    that leaves no room falls back to plain decode, and a budget past the
+    room is clamped."""
+    out, err = _run(["-m", tiny, "-p", LOOKUP_TEXT, "-n", "16", "--temp", "0", "--draft-lookup",
+                     "--draft-n", "4", "--device", "cpu"])
+    cfg, params, tok = tl.load_model(tiny, device="cpu")
+    prompt = tok.encode(" " + LOOKUP_TEXT, bos=True)
+    eng = LookupEngine(cfg, params, SpecConfig(n_ctx=512, gamma=4), device="cpu")
+    stream = eng.generate(prompt, 16)
+    assert stream == Engine(cfg, params, EngineConfig(n_ctx=512), device="cpu").generate(
+        prompt, 16, SamplerParams(temp=0.0))
+    assert out == b"".join(tok.decode_token(t) for t in stream).decode() + "\n"
+    assert f"lookup-speculative: {eng.stats['emitted']} tokens in {eng.stats['rounds']} rounds" \
+        in err
+    # -c 160 leaves 160 - len(prompt) - (16 * 4 + 4 + 1) tokens of budget
+    out, err = _run(["-m", tiny, "-p", LOOKUP_TEXT, "-n", "40", "-c", "160", "--temp", "0",
+                     "--draft-lookup", "--device", "cpu"])
+    budget = 160 - len(prompt) - 69
+    assert 0 < budget < 40
+    assert f"clamps -n to {budget}" in err and out.count("<t") == budget
+    out, err = _run(["-m", tiny, "-p", LOOKUP_TEXT, "-n", "4", "-c", "64", "--temp", "0",
+                     "--draft-lookup", "--device", "cpu"])
+    assert "falling back to plain decode" in err and "eval" in err
+    assert out.count("<t") == len(prompt) + 4  # the plain path echoes the prompt
+
+
+def test_cli_draft_model(tiny, tmp_path):
+    """--draft-model with an unrelated draft prints the target's greedy
+    stream (generate.py:255-290 there); sampling ignores the draft."""
+    draft = str(tmp_path / "draft.bin")
+    tl.random_tiny_model(write_path=draft, quantize=True, seed=7, n_layer=1, n_ff=128)
+    out, err = _run(["-m", tiny, "-p", PROMPT, "-n", "10", "--temp", "0", "--draft-model", draft,
+                     "--draft-n", "3", "--device", "cpu"])
+    cfg, params, tok = tl.load_model(tiny, device="cpu")
+    prompt = tok.encode(" " + PROMPT, bos=True)
+    stream = Engine(cfg, params, EngineConfig(n_ctx=512), device="cpu").generate(
+        prompt, 10, SamplerParams(temp=0.0))
+    assert out == b"".join(tok.decode_token(t) for t in stream).decode() + "\n"
+    assert "speculative:" in err and "acceptance" in err
+    out, err = _run(["-m", tiny, "-p", PROMPT, "-n", "4", "--temp", "0.8", "--draft-model", draft,
+                     "--device", "cpu"])
+    assert "ignoring the draft" in err

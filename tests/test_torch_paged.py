@@ -4,8 +4,9 @@ on the port's copy and on the JAX module), paged `llama_forward` through a
 scrambled table (bf16 and int8), and the paged engine: greedy streams equal
 to the JAX paged engine's and to the port's flat engine at kv_block =
 page_size, prefix pages shared by refcount, preemption under a small pool,
-page reuse across waves, every page returned at the end, and the paged
-server's statistics."""
+page reuse across waves, every page returned at the end, the paged
+server's statistics, and prompt-lookup speculation on the paged engine
+(its verify writes crossing pages) against the flat lookup engine."""
 
 import json
 import threading
@@ -187,17 +188,26 @@ def test_paged_forward_matches_jax(tiny, quant):
 
 
 def test_paged_forward_refuses_off_path(tiny):
-    """Paged KV takes only the fused routes (llama.py:553-557 there), and
-    straddling writes are not ported yet."""
+    """Paged KV takes only the fused routes (llama.py:553-557 there), and a
+    write that crosses a page needs page_straddle (llama.py:603-626 there),
+    which then lands it row by row as the flat cache does."""
     _, _, (cfg, params, _) = tiny
     pool = tm.init_paged_kv_cache(cfg, 5, 8, device="cpu")
     table = torch.tensor([[1, 2, 3, 4]], dtype=torch.int32)
     with pytest.raises(ValueError, match="fused"):  # 300 % 256 != 0: the read route
         tm.llama_forward(params, torch.zeros((1, 300), dtype=torch.int64), pool, 0, cfg,
                          page_table=table)
-    with pytest.raises(NotImplementedError, match="page_straddle"):
-        tm.llama_forward(params, torch.zeros((1, 8), dtype=torch.int64), pool, 0, cfg,
-                         page_table=table, page_straddle=True)
+    toks = torch.tensor([[5, 9, 2, 30]])
+    with pytest.raises(ValueError, match="cross a page"):
+        tm.llama_forward(params, toks, pool, 6, cfg, page_table=table)
+    flat = tm.init_kv_cache(cfg, 1, 32, device="cpu")
+    want = tm.llama_forward(params, toks, flat, 6, cfg, logits_all=True, kv_block=8)[0]
+    got = tm.llama_forward(params, toks, pool, 6, cfg, logits_all=True, page_table=table,
+                           page_straddle=True)[0]
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    for plane, fplane in zip(pool.planes(), flat.planes()):  # rows 6, 7 | 8, 9
+        torch.testing.assert_close(plane[:, 1, :, 6:], fplane[:, 0, :, 6:8], rtol=0, atol=0)
+        torch.testing.assert_close(plane[:, 2, :, :2], fplane[:, 0, :, 8:10], rtol=0, atol=0)
 
 
 # --- the engine ----------------------------------------------------------------
@@ -383,4 +393,45 @@ def test_paged_preempted_admit_leaves_other_rows(tiny):
     be.run()
     _, want = _streams(tiny[2], [(p, n, GREEDY, 0) for p, n in subs], max_batch=3, kv_block=8)
     assert [r.generated for r in reqs] == want
+    assert _all_pages_back(be)
+
+
+# --- prompt-lookup speculation on pages (tests/test_paged.py:347-446) ----------
+
+
+LOOKUP_PROMPTS = [([5, 9, 2, 30, 5, 9], GREEDY, 0), ([7, 3, 11, 7, 3], GREEDY, 0),
+                  ([1, 2, 3, 1, 2, 3], SAMPLED, 7)]
+
+
+@pytest.mark.parametrize("kv_dtype,ps,budgets", [("bfloat16", 8, (10, 8, 6)),
+                                                 ("int8", 32, (30, 28, 12))])
+def test_paged_lookup_matches_flat(tiny, kv_dtype, ps, budgets):
+    """Greedy and seeded sampled lookup streams (gamma 3) of the paged engine
+    equal the flat lookup engine's at kv_block = page_size; the gamma-row
+    verify writes cross pages through page_straddle (bf16 data pages, and
+    int8 data and scale pages: the budgets run past row 32); every page
+    comes back."""
+    subs = [(p, n, sp, seed) for (p, sp, seed), n in zip(LOOKUP_PROMPTS, budgets)]
+    _, want = _streams(tiny[2], subs, lookup_gamma=3, kv_dtype=kv_dtype, kv_block=ps)
+    be, got = _streams(tiny[2], subs, lookup_gamma=3, kv_dtype=kv_dtype, paged=True,
+                       page_size=ps)
+    assert got == want
+    assert be.stats["straddled"] > 0 and be.stats["rounds"] > 0
+    assert _all_pages_back(be)
+
+
+@pytest.mark.parametrize("kv_dtype,ps,n,n_pages", [("bfloat16", 8, 16, 9), ("int8", 32, 24, 4)])
+def test_paged_lookup_preemption(tiny, kv_dtype, ps, n, n_pages):
+    """Lookup under a tight pool: preempt-youngest and recompute on
+    re-admission (generated tokens re-enter the prefill, the history rows
+    are re-seeded) keep the greedy streams equal to the flat lookup
+    engine's; the int8 budget pushes every slot past a 32-row page while
+    the pool holds 3 usable pages."""
+    subs = [(p, n, GREEDY, 0) for p in ([5, 9, 2, 30, 5, 9], [7, 3, 11, 7], [1, 2, 3, 1])]
+    _, want = _streams(tiny[2], subs, max_batch=3, lookup_gamma=3, kv_dtype=kv_dtype,
+                       kv_block=ps)
+    be, got = _streams(tiny[2], subs, max_batch=3, lookup_gamma=3, kv_dtype=kv_dtype,
+                       paged=True, page_size=ps, n_pages=n_pages)
+    assert be.stats["preempted"] > 0
+    assert got == want
     assert _all_pages_back(be)

@@ -1,8 +1,9 @@
 """The port's paged attention (`page_table` mode of K2 `flash_attention_update`,
-K3 `flash_attention` and K4 `flash_decode_update`; plain versions on the CPU)
-against the JAX package's Pallas kernels in interpret mode, on the cases of
-tests/test_paged_attn.py without `page_straddle`: scrambled tables, a page
-shared by two rows, stacked layers, bf16 and int8 pools. Written pages are
+with and without `page_straddle`, K3 `flash_attention` and K4
+`flash_decode_update`; plain versions on the CPU) against the JAX package's
+Pallas kernels in interpret mode, on the cases of tests/test_paged_attn.py:
+scrambled tables, a page shared by two rows, stacked layers, writes that
+cross a page, bf16 and int8 pools. Written pages are
 byte-equal to the JAX pool's, every other page keeps its bytes, int8 scales
 are bit-equal (the JAX scale pool in its first H lanes); outputs lie within
 2^-6 * attention(q, k, |v|) per element, as in tests/test_torch_kv_quant.py.
@@ -205,6 +206,69 @@ def test_paged_write_invariant():
         else:
             with pytest.raises(ValueError, match="cross a page"):
                 call()
+
+
+# (int8, n_past) of tests/test_paged_attn.py:370-527, T = 4 at PS 64
+STRADDLE_CASES = [
+    (False, [61, 10]),  # row 0 spills 3 rows into its next page
+    (False, [63, 127]),  # one spilled row; a spill at the second boundary
+    (False, [60, 59]),  # an exact fit: T = 4 ends at the boundary
+    (False, [8, 40]),  # mid-page, no spill
+    (True, [61, 10]),
+    (True, [63, 127]),
+    (True, [62, 10]),
+]
+
+
+@pytest.mark.parametrize("quant,n_past", STRADDLE_CASES,
+                         ids=[f"{'int8' if q else 'bf16'}-{n[0]}-{n[1]}"
+                              for q, n in STRADDLE_CASES])
+def test_paged_update_straddle_matches_jax(quant, n_past):
+    """page_straddle: a T = 4 verify write at any n_past lands row by row in
+    its logical page, spilling into the next mapped one, data and int8 scale
+    pools byte-equal to the JAX interpret kernel's (whose second RMW window
+    rewrites the rest of the spill page unchanged); every other page keeps
+    its bytes; the outputs agree."""
+    rng = np.random.default_rng(40 + quant)
+    b, t, h, ps, maxlb, d = 2, 4, 2, 64, 4, 32
+    n_pages = b * maxlb + 2
+    jplanes, planes = pool_planes(rng, 1, n_pages, h, ps, d, quant)
+    before = [p.clone() for p in planes]
+    table = scrambled_table(rng, n_pages, b, maxlb)
+    (qj, qt), (knj, knt), (vnj, vnt) = (_bf16(rng.standard_normal((b, t, h, d)))
+                                        for _ in range(3))
+    want = jfa.flash_attention_update(qj, knj, vnj, *jplanes[:2], jnp.asarray(n_past, jnp.int32),
+                                      jnp.int32(0), block_t=32, block_k=64, page_straddle=True,
+                                      **_jkw(jplanes, table))
+    npt = torch.tensor(n_past, dtype=torch.int32)
+    got = tfa.flash_attention_update(qt, knt, vnt, *planes[:2], npt, 0, block_t=32, block_k=64,
+                                     page_straddle=True, **_kw(planes, table))
+    touched = {int(table[r, (n_past[r] + i) // ps]) for r in range(b) for i in range(t)}
+    check_pools(planes, want[1:], before, touched, h)
+    check_output(got[0], want[0], qt, planes, npt, 0, table)
+
+
+def test_paged_straddle_invariant():
+    """With page_straddle a host-int n_past may cross a page, and the write
+    must end inside the table (n_past + T <= MAXLB * PS,
+    flash_attn.py:1034-1038 there); a flat cache has no straddle mode."""
+    rng = np.random.default_rng(5)
+    _, planes = pool_planes(rng, 1, 6, 2, 8, 64, False)
+    table = torch.from_numpy(scrambled_table(rng, 6, 1, 4))
+    q = torch.randn((1, 4, 2, 64)).to(torch.bfloat16)
+    for n_past, ok in ((6, True), (28, True), (29, False)):
+        call = lambda: tfa.flash_attention_update(q, q, q, *planes[:2], n_past, 0,  # noqa: E731
+                                                  block_t=8, page_table=table, page_straddle=True)
+        if ok:
+            call()
+        else:
+            with pytest.raises(ValueError, match="runs past"):
+                call()
+    with pytest.raises(ValueError, match="cross a page"):
+        tfa.flash_attention_update(q, q, q, *planes[:2], 6, 0, block_t=8, page_table=table)
+    flat = [torch.zeros((1, 1, 2, 32, 64), dtype=torch.bfloat16) for _ in range(2)]
+    with pytest.raises(ValueError, match="page table"):
+        tfa.flash_attention_update(q, q, q, *flat, 6, 0, page_straddle=True)
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
