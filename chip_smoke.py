@@ -61,13 +61,31 @@ Phases, each printing one JSON line (any failure exits non-zero):
               serve_7b's 64 requests to the paged lookup server; then every
               kernel at every shape it launched
 
+  generate_7b_ring
+              the generate CLI with --ctx-swap ring --n-keep 32 on synthetic
+              7B, n_ctx 512, bf16 KV: a 32-token prompt and 700 tokens (one
+              wrap and 220 more), the first 480 against the plain greedy
+              CLI's (equal, or parting only at a near tie), ms per token
+              before and after the wrap, a post-wrap forward through the
+              kernels against the plain versions, the idle share
+  serve_7b_shared
+              --shared-prefix --prefix-pool 4 --prefix-ctx 256, int8 KV, 32
+              slots: a 200-token prefix registered once, 8 greedy suffix
+              requests against the plain-version composition, then 32
+              concurrent requests continuing it over HTTP; pool and slot
+              cache bytes; then every kernel at every shape it launched
+
 The kernels phase also holds the page-table modes of K2, K3 and K4 (bf16
 and int8, scrambled tables of 128-row pages; K2 also in page_straddle mode)
 against their plain versions, with written pages byte-equal and the others
 unchanged, and bit for bit against the flat kernels on the gathered view at
-block_k = 128, and K5 (the int8 dot) at M = 1, 4 and 32; tiny_serve also
-serves the tiny file paged (page_size 8 bf16, 32 int8). Each phase's wall
-time is printed on a line of its own.
+block_k = 128, and K5 (the int8 dot) at M = 1, 4 and 32; and the history
+ring and shared-prefix modes of K2 and K3 (bf16 and int8, caches
+byte-equal, the position plane and the pool unchanged; ring K2 before a wrap
+and prefix K2 at prefix_len 0 bit-equal to flat K2). tiny_cli also runs
+--ctx-swap ring, and tiny_serve serves the tiny file paged (page_size 8
+bf16, 32 int8) and with --shared-prefix (bf16 and int8, with and without
+--lookup-gamma 4). Each phase's wall time is printed on a line of its own.
 
 The line before the last is `{"kernels": [...]}`; the last line is
 `{"ok": true, "device": {...}}`. Without CUDA the script exits 2 and prints
@@ -144,6 +162,12 @@ KERNEL_META = {
                                    "llamavk_tpu/ops/flash_attn.py:120"),
     "attn_update_paged_straddle_i8": ("llamavk_tpu_torch/csrc/flash_attn.cu",
                                       "llamavk_tpu/ops/flash_attn.py:120"),
+    # the history-ring (`kv_pos`/`write_row`) and shared-prefix pool
+    # (`prefix_k/v/id/len`) modes of K2 and K3
+    **{f"attn_{path}_{mode}{kind}": ("llamavk_tpu_torch/csrc/flash_attn.cu",
+                                      f"llamavk_tpu/ops/flash_attn.py:{line}")
+       for path, line in (("update", 120), ("read", 474)) for mode in ("ring", "prefix")
+       for kind in ("", "_i8")},
 }
 
 # the tiny model's prompt for the CLI phase: its greedy stream keeps every
@@ -391,15 +415,18 @@ ATTN_LIMIT_RULE = "2^-6 * attention(q, k, |v|) per element (v dequantized for in
 
 
 def _attn_err(got, want, q, k, v, n_past, layer: int, k_scale=None,
-              v_scale=None, page_table=None) -> tuple[float, float]:
+              v_scale=None, page_table=None, **mode) -> tuple[float, float]:
     """(max |got - want|, the largest ratio of an element's error to its own
     limit) for attention outputs over layer `layer` of the cache (or pool)
-    k, v."""
+    k, v; `mode` the ring's or the prefix pool's operands (the pool's values
+    taken as |v| too)."""
     from llamavk_tpu_torch.ops import flash_attn as fa
 
+    if "prefix_v" in mode:
+        mode = {**mode, "prefix_v": mode["prefix_v"].abs()}
     lim = ATTN_REL * fa.flash_attention_ref(q, k, v.abs(), n_past, layer_idx=layer,
                                             k_scale=k_scale, v_scale=v_scale,
-                                            page_table=page_table)
+                                            page_table=page_table, **mode)
     err = (got - want).abs()
     return float(err.max()), float((err / lim.clamp_min(1e-30)).max())
 
@@ -689,6 +716,251 @@ def kernel_decode_paged(timer, gen, gen_cpu, b: int, quant: bool, s: int = N_CTX
     return row
 
 
+RING_KEEP = 32  # generate_7b_ring's --n-keep: the ring's pinned rows
+POOL, POOL_CTX, PLEN = 4, 256, 200  # serve_7b_shared's pool and registered prefix
+
+
+def _ring_plane(n_logical: int, s: int, keep: int, holes=()) -> torch.Tensor:
+    """The position plane [S, 1] an engine leaves after logical positions
+    [0, n_logical) (pos[ring_phys(p)] = p, -1 where empty), with the rows in
+    `holes` emptied."""
+    from llamavk_tpu_torch.models.llama import ring_phys
+
+    pos = torch.full((s, 1), -1, dtype=torch.int32)
+    for p in range(n_logical):
+        pos[ring_phys(p, keep, s)] = p
+    pos[list(holes)] = -1
+    return pos.cuda()
+
+
+def _dense_rows(planes, layer: int, rows=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Layer `layer`'s K and V [B, H, S', D] in bf16 (an int8 cache
+    dequantized), at physical rows `rows` (all when None)."""
+    from llamavk_tpu_torch.ops.kv_quant import dequantize_rows
+
+    kl, vl = planes[0][layer], planes[1][layer]
+    if len(planes) == 4:
+        kl = dequantize_rows(kl, planes[2][layer].transpose(1, 2)).to(torch.bfloat16)
+        vl = dequantize_rows(vl, planes[3][layer].transpose(1, 2)).to(torch.bfloat16)
+    if rows is not None:
+        kl, vl = kl[:, :, rows], vl[:, :, rows]
+    return kl.contiguous(), vl.contiguous()
+
+
+def _masked_sdpa(q, kl, vl, visible):
+    """One PyTorch call for an attention with an explicit mask: kl/vl
+    [B, H, S', D] bf16, visible [B, T, S'] bool, both made before the call."""
+    qh = q.transpose(1, 2)
+    mask = visible[:, None]
+    return lambda: torch.nn.functional.scaled_dot_product_attention(qh, kl, vl, attn_mask=mask)
+
+
+def _row_bytes(quant: bool, h: int = H, d: int = D) -> int:
+    """Bytes of one cached position of K or V: H * D values, and H f32
+    scales for int8."""
+    return h * d * (1 if quant else 2) + (h * 4 if quant else 0)
+
+
+def kernel_attn_ring(timer, gen, t: int, n_past: int, update: bool, quant: bool,
+                     main_path: bool = False, holes=(), keep: int = RING_KEEP, s: int = N_CTX,
+                     h: int = H, d: int = D, bk: int | None = None) -> dict:
+    """K2 (update, ring_bounded as llama_forward passes it) or K3 (read,
+    the whole ring) in history-ring mode, B = 1, on a random cache and the
+    plane the engine leaves at logical n_past + T (rows in `holes` emptied),
+    against its plain version: cache bytes equal, the plane unchanged by the
+    kernel. Before the first wrap the ring kernel must equal the flat one bit
+    for bit (outputs and caches). Timed unless `timer` is None; the library
+    call attends over the visible rows, gathered."""
+    from llamavk_tpu_torch.models.llama import ring_phys
+    from llamavk_tpu_torch.ops import flash_attn as fa
+
+    layer = 1
+    planes = _kv_cache(gen, (2, 1, h, s, d), quant)
+    q, kn, vn = (torch.randn((1, t, h, d), device="cuda", generator=gen).to(torch.bfloat16)
+                 for _ in range(3))
+    bk = bk or (512 if t >= 256 else 256)
+    pos = _ring_plane(n_past + t, s, keep, holes)
+    pos0 = pos.clone()
+    wrow = ring_phys(n_past, keep, s)
+    k, v, sc = planes[0], planes[1], _scales(planes)
+    flat_planes = [x.clone() for x in planes]
+    if update:
+        rkw = dict(kv_pos=pos, write_row=wrow, ring_bounded=True)
+        p2 = [x.clone() for x in planes]
+        got = fa.flash_attention_update(q, kn, vn, k, v, n_past, layer, block_k=bk, **rkw,
+                                        **sc)[0]
+        want = fa.flash_attention_update_ref(q, kn, vn, p2[0], p2[1], n_past, layer, block_k=bk,
+                                             **rkw, **_scales(p2))[0]
+        run = lambda: fa.flash_attention_update(q, kn, vn, k, v, n_past, layer,  # noqa: E731
+                                                block_k=bk, **rkw, **sc)
+        plain = lambda: fa.flash_attention_update_ref(  # noqa: E731
+            q, kn, vn, p2[0], p2[1], n_past, layer, block_k=bk, **rkw, **_scales(p2))
+    else:
+        rkw = dict(kv_pos=pos)
+        fa.write_rows(kn, vn, k, v, wrow, layer, *planes[2:])
+        fa.write_rows(kn, vn, flat_planes[0], flat_planes[1], wrow, layer, *flat_planes[2:])
+        p2 = planes
+        got = fa.flash_attention(q, k, v, n_past, layer_idx=layer, block_k=bk, **rkw, **sc)
+        want = fa.flash_attention_ref(q, k, v, n_past, layer_idx=layer, **rkw, **sc)
+        run = lambda: fa.flash_attention(q, k, v, n_past, layer_idx=layer,  # noqa: E731
+                                         block_k=bk, **rkw, **sc)
+        plain = lambda: fa.flash_attention_ref(q, k, v, n_past, layer_idx=layer,  # noqa: E731
+                                               **rkw, **sc)
+    torch.cuda.synchronize()
+    cache_equal = all(torch.equal(x, y) for x, y in zip(planes, p2))
+    pos_equal = torch.equal(pos, pos0)
+    row = {"kernel": fa.launch_name("attn_update" if update else "attn_read", quant, False,
+                                    mode="ring")}
+    if n_past + t <= s and not holes:  # before the first wrap: the flat kernel's result
+        fsc = _scales(flat_planes)
+        if update:
+            flat_out = fa.flash_attention_update(q, kn, vn, flat_planes[0], flat_planes[1],
+                                                 n_past, layer, block_k=bk, **fsc)[0]
+        else:
+            flat_out = fa.flash_attention(q, flat_planes[0], flat_planes[1], n_past,
+                                          layer_idx=layer, block_k=bk, **fsc)
+        torch.cuda.synchronize()
+        row["bit_equal_to_flat_kernel"] = torch.equal(flat_out, got) and all(
+            torch.equal(x, y) for x, y in zip(flat_planes, planes))
+    del flat_planes
+    err, ratio = _attn_err(got, want, q, k, v, n_past, layer, *planes[2:], kv_pos=pos)
+    row.update({
+        "shape": f"B=1 T={t} n_past={n_past} write_row={wrow} keep={keep} H={h} D={d} S={s} "
+                 f"block_k={bk}" + (f" holes={len(holes)}" if holes else "")
+                 + (" int8" if quant else ""),
+        "main_path": main_path,
+        "max_abs_err": err, "limit": ATTN_LIMIT_RULE, "err_over_limit": ratio,
+        "cache_bytes_equal": cache_equal, "pos_plane_unchanged": pos_equal,
+        "ok": ratio <= 1.0 and cache_equal and pos_equal
+              and row.get("bit_equal_to_flat_kernel", True),
+    })
+    if timer is None:
+        return row
+    pc = pos[:, 0].cpu()
+    valid = (pc >= 0) & (pc <= n_past + t - 1)
+    idx = valid.nonzero()[:, 0].cuda()
+    kl, vl = _dense_rows(planes, layer, idx)
+    visible = pos[idx, 0][None, None, :] <= (n_past + torch.arange(t, device="cuda"))[None, :, None]
+    row["ms"] = timer(run)
+    row["plain_ms"] = timer(plain, reps=5)
+    row["library_ms"] = timer(_masked_sdpa(q, kl, vl, visible))
+    # bytes: q read, out written, the plane read, the visible rows read once
+    # (update: the earlier ones from the cache, the new ones read from
+    # k_new/v_new and written); operations: QK and PV over each query's
+    # visible rows
+    nv = int(valid.sum())
+    n_bytes = t * h * d * (2 + 4) + s * 4 + 2 * nv * _row_bytes(quant, h, d)
+    if update:
+        n_bytes += 2 * t * h * d * 2
+    ops = 4.0 * h * d * sum(int(((pc >= 0) & (pc <= n_past + i)).sum()) for i in range(t))
+    row["bound_ms"], row["bound_by"] = bound(n_bytes, ops)
+    return row
+
+
+def kernel_attn_prefix(timer, gen, gen_cpu, b: int, t: int, npl: list[int], update: bool,
+                       quant: bool, main_path: bool = False, plen=PLEN, sp: int = POOL_CTX,
+                       n_pool: int = POOL, s: int = N_CTX, h: int = H, d: int = D,
+                       bk: int | None = None) -> dict:
+    """K2 (update) or K3 (read) in prefix-pool mode: B rows at slot-local
+    n_past `npl`, each continuing a seeded entry of a random bf16 pool of
+    `n_pool` x `sp` rows over `plen` rows (an int, or one per row), over a
+    bf16 or int8 slot cache, against its plain version: cache bytes equal,
+    the pool unchanged; with prefix_len 0 on every row, bit-equal to the
+    flat kernel (outputs and caches). Timed unless `timer` is None; the
+    library call attends over the pool rows and the visible slot rows,
+    concatenated; the bound counts each pool entry's rows once."""
+    from llamavk_tpu_torch.ops import flash_attn as fa
+
+    layer = 1
+    planes = _kv_cache(gen, (2, b, h, s, d), quant)
+    pool = [torch.randn((2, n_pool, h, sp, d), device="cuda", generator=gen).to(torch.bfloat16)
+            for _ in range(2)]
+    pool0 = [x.clone() for x in pool]
+    q, kn, vn = (torch.randn((b, t, h, d), device="cuda", generator=gen).to(torch.bfloat16)
+                 for _ in range(3))
+    bk = bk or (512 if t >= 256 else 256)
+    pid = torch.randint(0, n_pool, (b,), generator=gen_cpu).to(torch.int32)
+    plens = torch.tensor(plen if isinstance(plen, list) else [plen] * b, dtype=torch.int32)
+    pkw = dict(prefix_k=pool[0], prefix_v=pool[1], prefix_id=pid.cuda(),
+               prefix_len=plens.cuda())
+    zkw = {**pkw, "prefix_len": torch.zeros(b, dtype=torch.int32, device="cuda")}
+    npast = torch.tensor(npl, dtype=torch.int32, device="cuda")
+    k, v, sc = planes[0], planes[1], _scales(planes)
+    za, zb = [x.clone() for x in planes], [x.clone() for x in planes]
+    if update:
+        p2 = [x.clone() for x in planes]
+        got = fa.flash_attention_update(q, kn, vn, k, v, npast, layer, block_k=bk, **pkw,
+                                        **sc)[0]
+        want = fa.flash_attention_update_ref(q, kn, vn, p2[0], p2[1], npast, layer, block_k=bk,
+                                             **pkw, **_scales(p2))[0]
+        zero_out = fa.flash_attention_update(q, kn, vn, za[0], za[1], npast, layer, block_k=bk,
+                                             **zkw, **_scales(za))[0]
+        flat_out = fa.flash_attention_update(q, kn, vn, zb[0], zb[1], npast, layer, block_k=bk,
+                                             **_scales(zb))[0]
+        run = lambda: fa.flash_attention_update(q, kn, vn, k, v, npast, layer,  # noqa: E731
+                                                block_k=bk, **pkw, **sc)
+        plain = lambda: fa.flash_attention_update_ref(  # noqa: E731
+            q, kn, vn, p2[0], p2[1], npast, layer, block_k=bk, **pkw, **_scales(p2))
+    else:
+        for x in (planes, za, zb):
+            fa.write_rows(kn, vn, x[0], x[1], npast, layer, *x[2:])
+        p2 = planes
+        got = fa.flash_attention(q, k, v, npast, layer_idx=layer, block_k=bk, **pkw, **sc)
+        want = fa.flash_attention_ref(q, k, v, npast, layer_idx=layer, **pkw, **sc)
+        zero_out = fa.flash_attention(q, za[0], za[1], npast, layer_idx=layer, block_k=bk, **zkw,
+                                      **_scales(za))
+        flat_out = fa.flash_attention(q, zb[0], zb[1], npast, layer_idx=layer, block_k=bk,
+                                      **_scales(zb))
+        run = lambda: fa.flash_attention(q, k, v, npast, layer_idx=layer,  # noqa: E731
+                                         block_k=bk, **pkw, **sc)
+        plain = lambda: fa.flash_attention_ref(q, k, v, npast, layer_idx=layer,  # noqa: E731
+                                               **pkw, **sc)
+    torch.cuda.synchronize()
+    cache_equal = all(torch.equal(x, y) for x, y in zip(planes, p2))
+    pool_equal = all(torch.equal(x, y) for x, y in zip(pool, pool0))
+    flat_equal = torch.equal(zero_out, flat_out) and all(
+        torch.equal(x, y) for x, y in zip(za, zb))
+    del za, zb, pool0
+    err, ratio = _attn_err(got, want, q, k, v, npast, layer, *planes[2:], **pkw)
+    row = {
+        "kernel": fa.launch_name("attn_update" if update else "attn_read", quant, False,
+                                 mode="prefix"),
+        "shape": f"B={b} T={t} n_past={min(npl)}..{max(npl)} prefix_len="
+                 f"{int(plens.min())}..{int(plens.max())} of Sp={sp} x {n_pool} H={h} D={d} "
+                 f"S={s} block_k={bk}" + (" int8" if quant else ""),
+        "main_path": main_path,
+        "max_abs_err": err, "limit": ATTN_LIMIT_RULE, "err_over_limit": ratio,
+        "cache_bytes_equal": cache_equal, "pool_unchanged": pool_equal,
+        "bit_equal_to_flat_kernel_at_prefix_len_0": flat_equal,
+        "ok": ratio <= 1.0 and cache_equal and pool_equal and flat_equal,
+    }
+    if timer is None:
+        return row
+    kv = int(max(npl)) + t
+    kl, vl = _dense_rows(planes, layer, slice(0, kv))
+    ids = pid.cuda().long()
+    kl = torch.cat([pool[0][layer][ids], kl], 2)
+    vl = torch.cat([pool[1][layer][ids], vl], 2)
+    pvis = torch.arange(sp, device="cuda")[None, :] < plens.cuda()[:, None]
+    svis = (torch.arange(kv, device="cuda")[None, None, :]
+            <= npast[:, None, None] + torch.arange(t, device="cuda")[None, :, None])
+    visible = torch.cat([pvis[:, None, :].expand(-1, t, -1), svis], -1)
+    row["ms"] = timer(run)
+    row["plain_ms"] = timer(plain, reps=5)
+    row["library_ms"] = timer(_masked_sdpa(q, kl, vl, visible))
+    # the slot part as `_attn_sizes`; each pool entry's rows read once (L2
+    # holds a layer's pool for every row that shares it), QK and PV over
+    # every row's prefix
+    n_bytes, ops = _attn_sizes(b, t, npl, update, quant)
+    used = {}
+    for i, pl in zip(pid.tolist(), plens.tolist()):
+        used[i] = max(used.get(i, 0), pl)
+    n_bytes += sum(used.values()) * 2 * h * d * 2
+    ops += 4.0 * h * d * t * int(plens.sum())
+    row["bound_ms"], row["bound_by"] = bound(n_bytes, ops)
+    return row
+
+
 def kernel_edges(gen, gen_cpu) -> dict:
     """Correctness only, off the 7B shapes: the GEMM at the row counts of
     short prompts' buckets (M = 2..9), an odd group count and a ragged N,
@@ -749,6 +1021,21 @@ def kernel_edges(gen, gen_cpu) -> dict:
                 raise SystemExit(f"kernel edges: paged kernel at D={d} disagrees: {r}")
             worst[f"{r['kernel']} {r['shape']}"] = (r["max_abs_err"], ATTN_LIMIT_RULE,
                                                    r["err_over_limit"])
+        # ring and prefix modes at the tiny model's width: a wrapped 64-row
+        # ring (keep 4) at T = 8 and T = 1, the read over a plane with
+        # empty rows, and the pool pre-pass with a KV block of 32
+        for r in (kernel_attn_ring(None, gen, 8, 92, True, quant, keep=4, s=s, h=h, d=d, bk=32),
+                  kernel_attn_ring(None, gen, 1, 40, True, quant, keep=4, s=s, h=h, d=d, bk=32),
+                  kernel_attn_ring(None, gen, 5, 70, False, quant, holes=range(20, 30), keep=4,
+                                   s=s, h=h, d=d, bk=32),
+                  kernel_attn_prefix(None, gen, gen_cpu, 3, 8, [3, 9, 40], True, quant,
+                                     plen=[33, 0, 256], s=s, h=h, d=d, bk=32),
+                  kernel_attn_prefix(None, gen, gen_cpu, 2, 5, [0, 20], False, quant,
+                                     plen=[100, 7], s=s, h=h, d=d, bk=32)):
+            if not r["ok"]:
+                raise SystemExit(f"kernel edges: ring/prefix kernel at D={d} disagrees: {r}")
+            worst[f"{r['kernel']} {r['shape']}"] = (r["max_abs_err"], ATTN_LIMIT_RULE,
+                                                   r["err_over_limit"])
     torch.cuda.synchronize()
     bad = {name: e for name, e in worst.items() if not e[2] <= 1.0}
     if bad:
@@ -780,10 +1067,12 @@ def phase_kernels(reps: int) -> list[dict]:
     # four prompts (buckets 32, 64, 256) in the full 512-row cache (serving
     # admits them into a smaller scratch cache), a full-context prefill, the
     # second-turn shape, and the serving path's prefixed request (a 300-token
-    # suffix at n_past 100 in a 412-row bucket, the read route)
+    # suffix at n_past 100 in a 412-row bucket, the read route); the bf16
+    # lookup verify (generate_7b_lookup: B=1, T=4, a vector n_past)
     for t, n_past, update, main, b, quant in (
-            (1, 0, True, False, 1, False), (1, 37, True, True, 1, False),
-            (1, 480, True, True, 1, False), (1, 511, True, False, 1, False),
+            (4, [100], True, True, 1, False), (1, 0, True, False, 1, False),
+            (1, 37, True, True, 1, False), (1, 480, True, True, 1, False),
+            (1, 511, True, False, 1, False),
             (32, 0, True, True, 1, False), (512, 0, True, False, 1, False),
             (353, 159, False, True, 1, False), (412, 100, False, False, 1, False),
             (1, 480, True, False, 1, True), (32, 0, True, False, 4, True),
@@ -823,6 +1112,29 @@ def phase_kernels(reps: int) -> list[dict]:
         rows.append(kernel_attn_paged(timer, gen, gen_cpu, 4, [126, 253, 380, 507], True, 4,
                                       quant, straddle=True))
         emit({"phase": "kernel", **rows[-1]})
+    # history ring (32 pinned rows of a 512-row ring, generate_7b_ring's):
+    # K2 before the wrap (bit-equal to flat K2), at n_past 700 (wrapped; the
+    # decode step), at T = 8 on a chunk that ends on the ring's last row; K3
+    # at T = 301 over a wrapped plane with 20 empty rows (no engine path: the
+    # ring engine evaluates power-of-two chunks)
+    for quant in (False, True):
+        for t, n_past, main in ((1, 300, False), (1, 700, not quant), (8, 984, False),
+                                (32, 0, not quant)):
+            rows.append(kernel_attn_ring(timer, gen, t, n_past, True, quant, main))
+            emit({"phase": "kernel", **rows[-1]})
+        rows.append(kernel_attn_ring(timer, gen, 301, 580, False, quant,
+                                     holes=range(450, 470)))
+        emit({"phase": "kernel", **rows[-1]})
+    # shared-prefix pool (4 entries of 256 rows, 200-row prefixes): K2 at the
+    # B = 32 decode step (suffix n_past seeded in 0..300) and at admission
+    # (B = 4, T = 64), int8 slots (serve_7b_shared's) and bf16; K3 at T = 301
+    for quant in (True, False):
+        npl = torch.randint(0, 301, (32,), generator=gen_cpu).tolist()
+        for b, t, pasts, update in ((32, 1, npl, True), (4, 64, [0] * 4, True),
+                                    (1, 301, [0], False)):
+            rows.append(kernel_attn_prefix(timer, gen, gen_cpu, b, t, pasts, update, quant,
+                                           quant and update))
+            emit({"phase": "kernel", **rows[-1]})
     emit({"phase": "kernel_edges", **kernel_edges(gen, gen_cpu)})
     bad = [r["shape"] for r in rows if not r["ok"]]
     if bad:
@@ -852,6 +1164,26 @@ def phase_tiny_cli(work: Path) -> dict:
             raise SystemExit(f"tiny_cli ({kv}): card and CPU streams differ:\n"
                              f"{outs['cuda']!r}\n{outs['cpu']!r}")
         result[kv] = {"tokens_text": outs["cuda"].strip(), "equal_to_cpu": True}
+    # the history ring: the 37-token prompt alone wraps a 32-row ring (keep
+    # 4), then 30 tokens. Over 30 tokens every top-2 logit gap stays above
+    # 0.013 on the CPU (bf16 and int8); by 60 every prompt tried has reached
+    # gaps of 0.001-0.009, below the kernels' drift
+    for kv in ("bfloat16", "int8"):
+        outs = {}
+        for device in ("cuda", "cpu"):
+            args = cli.build_argparser().parse_args(
+                ["-m", path, "-p", TINY_PROMPT, "-n", "30", "-c", "32", "--n-keep", "4",
+                 "--ctx-swap", "ring", "--temp", "0", "-s", "42", "--ignore-eos", "--kv-dtype",
+                 kv, "--device", device])
+            buf = io.StringIO()
+            with contextlib.redirect_stderr(io.StringIO()):
+                if cli.run(args, stdout=buf) != 0:
+                    raise SystemExit(f"tiny_cli: ring run on {device} ({kv}) failed")
+            outs[device] = buf.getvalue()
+        if outs["cuda"] != outs["cpu"]:
+            raise SystemExit(f"tiny_cli (ring, {kv}): card and CPU streams differ:\n"
+                             f"{outs['cuda']!r}\n{outs['cpu']!r}")
+        result[f"ring {kv}"] = {"tokens_text": outs["cuda"].strip(), "equal_to_cpu": True}
     return result
 
 
@@ -1054,17 +1386,17 @@ def phase_generate_7b(seed: int) -> tuple[dict, dict]:
 GAMMA = 4  # the speculative phases' draft rows per round (--draft-n, --lookup-gamma)
 
 
-def _cli_7b(argv: list[str], cfg, params) -> tuple[str, str]:
+def _cli_7b(argv: list[str], cfg, params, out: io.StringIO | None = None) -> tuple[str, str]:
     """(stdout, stderr) of the generate CLI run in this process on the
     synthetic 7B model: its loader hands back (cfg, params) and the id
     vocabulary for any path, so --draft-model drafts with the same weights
-    (one copy in memory)."""
+    (one copy in memory). `out` receives the CLI's output when given."""
     from llamavk_tpu_torch.cli import generate as cli
 
     tok = _id_tokenizer(cfg.n_vocab)
     load = cli.load_model
     cli.load_model = lambda path, device="cuda": (cfg, params, tok)
-    out, err = io.StringIO(), io.StringIO()
+    out, err = out or io.StringIO(), io.StringIO()
     try:
         with contextlib.redirect_stderr(err):
             rc = cli.run(cli.build_argparser().parse_args(["-m", "synthetic-7B", *argv]),
@@ -1338,10 +1670,62 @@ def phase_tiny_serve(work: Path) -> tuple[dict, dict]:
                         "lookup_cli_equal_to_cpu": True}
         if ps:
             result[name]["cpu_equal_to_flat_at_kv_block"] = ps
+    result.update(_tiny_shared(path, n_tokens, counts))
     _require("tiny_serve", counts, ("decode", "decode_i8", "attn_update", "attn_update_i8",
                                     "decode_paged", "decode_paged_i8", "attn_update_paged",
-                                    "attn_update_paged_i8"))
+                                    "attn_update_paged_i8", "attn_update_prefix",
+                                    "attn_update_prefix_i8"))
     return result, counts
+
+
+# the tiny shared-prefix server's registered prefix: with it, each of
+# TINY_SERVE_PROMPTS keeps every top-2 logit gap above 0.088 for 6 tokens on
+# the CPU, over bf16 and int8 slots
+TINY_PREFIX = [191, 61, 40, 167, 138, 69, 79]
+
+
+def _tiny_shared(path: str, n_tokens: int, counts: dict) -> dict:
+    """The shared-prefix server (--shared-prefix) on the card, bf16 and int8
+    slots, without and with --lookup-gamma 4: TINY_PREFIX registered through
+    POST /v1/prefixes and 4 concurrent greedy suffix requests continuing it,
+    whose streams must equal the CPU shared-prefix engine's."""
+    from llamavk_tpu_torch.models.loader import load_model
+    from llamavk_tpu_torch.runtime.batching import BatchConfig, BatchedEngine
+    from llamavk_tpu_torch.runtime.sampling import SamplerParams
+    from llamavk_tpu_torch.runtime.server import LlamaServer
+
+    result = {}
+    for kv in ("bfloat16", "int8"):
+        for gamma in (0, GAMMA):
+            bcfg = BatchConfig(max_batch=4, n_ctx=64, block=4, kv_dtype=kv, shared_prefix=True,
+                               prefix_pool=2, lookup_gamma=gamma)
+            cfg, params, tok = load_model(path, device="cpu")
+            be = BatchedEngine(cfg, params, bcfg, device="cpu")
+            pid = be.register_prefix(TINY_PREFIX)
+            reqs = [be.submit(pr, n_tokens, SamplerParams(temp=0.0), ignore_eos=True, prefix=pid)
+                    for pr in TINY_SERVE_PROMPTS]
+            be.run()
+            want = [b"".join(tok.decode_token(t) for t in r.generated).decode() for r in reqs]
+            cfg, params, tok = load_model(path, device="cuda")
+            srv = LlamaServer(cfg, params, tok, bcfg, device="cuda")
+            base, thread = _serve(srv)
+            _reset_counts()
+            status, data = _post(base, "/v1/prefixes", {"tokens": TINY_PREFIX})
+            pid = json.loads(data)["prefix_id"]
+            got = _concurrently(base, [dict(prompt=pr, max_tokens=n_tokens, temperature=0.0,
+                                            ignore_eos=True, prefix_id=pid)
+                                       for pr in TINY_SERVE_PROMPTS])
+            for key, n in _counts().items():
+                counts[key] += n
+            srv.shutdown()
+            thread.join(timeout=30)
+            texts = [a["text"] for a in got]
+            name = f"{kv} shared-prefix" + (f" lookup {gamma}" if gamma else "")
+            if status != 200 or texts != want:
+                raise SystemExit(f"tiny_serve ({name}): card streams {texts} differ from the "
+                                 f"CPU's {want}")
+            result[name] = {"streams": want, "server_equal_to_cpu": True}
+    return result
 
 
 def _decode_step_check(params, cfg, seed: int) -> dict:
@@ -1461,16 +1845,18 @@ def _step_stats(stats0: dict, stats: dict) -> dict:
     }
 
 
-def _idle_window(eng, n_vocab: int, gen) -> dict:
+def _idle_window(eng, n_vocab: int, gen, prefix: int = -1) -> dict:
     """The device's idle share over decode blocks of 32 active slots,
-    driven on the engine directly: one block on the host clock, one more
-    under the profiler; the idle share divides busy time by the unprofiled
-    wall time."""
+    driven on the engine directly (each request continuing `prefix` when it
+    is a registered id): one block on the host clock, one more under the
+    profiler; the idle share divides busy time by the unprofiled wall
+    time."""
     from llamavk_tpu_torch.runtime.sampling import SamplerParams
 
     for i in range(32):
         eng.submit(torch.randint(3, n_vocab, (64,), generator=gen).tolist(), 200,
-                   SamplerParams(temp=0.8 if i % 2 else 0.0), seed=i, ignore_eos=True)
+                   SamplerParams(temp=0.8 if i % 2 else 0.0), seed=i, ignore_eos=True,
+                   prefix=prefix)
     eng.step()  # admission and a first block
     steps0 = eng.stats["steps"]
     torch.cuda.synchronize()
@@ -1799,6 +2185,255 @@ def phase_serve_7b_lookup(seed: int) -> tuple[dict, dict, dict]:
     return result, counts, shapes
 
 
+RING_TOKENS = 700  # generate_7b_ring: one wrap of the 480 recycled rows, and 220 more
+
+
+class _TimedOut(io.StringIO):
+    """The CLI's stdout, with the host time of each write: the prompt's echo,
+    then one write per generated token (a decode block's tokens together)."""
+
+    def __init__(self):
+        super().__init__()
+        self.times: list[float] = []
+
+    def write(self, s: str) -> int:
+        self.times.append(time.perf_counter())
+        return super().write(s)
+
+
+def phase_generate_7b_ring(seed: int) -> tuple[dict, dict]:
+    """The generate CLI with --ctx-swap ring --n-keep 32 on synthetic 7B,
+    n_ctx 512, bf16 KV: a 32-token prompt generating 700 tokens (the ring
+    wraps at the 481st), whose first 480 must equal the plain greedy CLI's
+    stream (which fills the context) or part only at a near tie; ms per
+    token before and after the wrap from the CLI's per-token writes; at a
+    wrapped state (a 600-token eval), the next forward through the kernels
+    and through the plain versions within 2^-8 of the largest plain logit,
+    and the device's idle share over 8 decode steps."""
+    from llamavk_tpu_torch.models.llama import llama_forward
+    from llamavk_tpu_torch.runtime.engine import Engine, EngineConfig
+    from llamavk_tpu_torch.runtime.sampling import SamplerParams
+
+    cfg, params = _model_7b(seed)
+    gen = torch.Generator().manual_seed(seed + 5)
+    text = "".join(chr(ord("a") + int(i)) for i in torch.randint(0, 26, (30,), generator=gen))
+    prompt = [1] + [b + 3 for b in (" " + text).encode()]  # BOS, the CLI's space, 30 letters
+    argv = ["-p", text, "-c", str(N_CTX), "--temp", "0", "--ignore-eos"]
+    ring = argv + ["--ctx-swap", "ring", "--n-keep", str(RING_KEEP)]
+    _cli_7b(ring + ["-n", "8"], cfg, params)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    timed = _TimedOut()
+    out, err = _cli_7b(ring + ["-n", str(RING_TOKENS)], cfg, params, out=timed)
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    got = _ids(out)[len(prompt):]
+    n_plain = N_CTX - len(prompt)  # 480: the plain stream fills the context
+    pout, _ = _cli_7b(argv + ["-n", str(n_plain)], cfg, params)
+    plain = _ids(pout)[len(prompt):]
+    if len(got) != RING_TOKENS or len(plain) != n_plain:
+        raise SystemExit(f"generate_7b_ring: {len(got)} ring and {len(plain)} plain tokens")
+    split = _split_at(cfg, params, prompt, got[:n_plain], plain, "generate_7b_ring",
+                      torch.bfloat16, None)
+    # token i is written at times[1 + i]; blocks of 16 end at tokens 16j.
+    # Before the wrap: tokens 16..480 (positions 48..511); after: 496..688
+    # (rows recycled from 32 on)
+    t = timed.times
+    before = 1e3 * (t[1 + 480] - t[1 + 16]) / (480 - 16)
+    after = 1e3 * (t[1 + 688] - t[1 + 496]) / (688 - 496)
+    # a wrapped state: 600 tokens evaluated in ring chunks (512, then 88 in a
+    # 128-row bucket at row 32)
+    eng = Engine(cfg, params, EngineConfig(n_ctx=N_CTX, ring_keep=RING_KEEP, ctx_ring=True),
+                 device="cuda")
+    eng.eval(torch.randint(3, cfg.n_vocab, (600,), generator=gen).tolist())
+    logits = {}
+    for ref in (False, True):
+        cache = eng.cache.clone()
+        logits[ref] = llama_forward(params, torch.tensor([[7]], device="cuda"), cache,
+                                    eng.n_past, cfg, ring_keep=RING_KEEP, use_ref=ref)[0][0, -1]
+        del cache
+    a, w = logits[False], logits[True]
+    scale = float(w.abs().max())
+    rel = float((a - w).abs().max()) / scale
+    top2 = torch.topk(w, 2).values
+    clear = float(top2[0] - top2[1]) / scale > LOGIT_REL_LIMIT
+    if not (math.isfinite(rel) and rel <= LOGIT_REL_LIMIT) or (clear and a.argmax() != w.argmax()):
+        raise SystemExit(f"generate_7b_ring: post-wrap kernel logits {rel:.3g} from plain")
+    greedy = SamplerParams(temp=0.0)
+    eng.generate([7], 8, greedy, ignore_eos=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.generate([], 8, greedy, ignore_eos=True)
+    torch.cuda.synchronize()
+    plain_wall_ms = (time.perf_counter() - t0) * 1e3
+    wall_ms, busy_ms, n_dev, top = _device_busy(lambda: eng.generate([], 8, greedy,
+                                                                      ignore_eos=True))
+    del eng
+    torch.cuda.empty_cache()
+    _require("generate_7b_ring", counts, ("q4_gemv", "q4_gemm", "attn_update_ring"))
+    em = re.search(r"^eval += +([\d.]+) ms / +(\d+) tokens", err, re.M)
+    result = {
+        "prompt_tokens": len(prompt), "tokens": len(got), "ring_keep": RING_KEEP,
+        "wrapped_at_token": N_CTX - len(prompt),
+        "first_tokens_equal_to_plain_greedy": n_plain if split is None else split["token"],
+        "split_at_near_tie": split,
+        "ms_per_token_before_wrap": before, "ms_per_token_after_wrap": after,
+        "cli_eval_ms_per_token": None if em is None else float(em[1]) / int(em[2]),
+        "kernel_vs_plain_post_wrap": {"rel": rel, "limit_rel": LOGIT_REL_LIMIT,
+                                      "argmax_equal": bool(a.argmax() == w.argmax())},
+        "peak_mem_bytes": peak, "launches": counts,
+        "wall_ms_per_step": plain_wall_ms / 8, "profiled_wall_ms_per_step": wall_ms / 8,
+        "device_busy_ms_per_step": None if busy_ms is None else busy_ms / 8,
+        "device_activities_per_step": n_dev / 8,
+        "device_idle_share": None if busy_ms is None else 1 - busy_ms / plain_wall_ms,
+        "device_ms_per_step_by_name": {k: v / 8 for k, v in top.items()},
+    }
+    return result, counts
+
+
+SHARED_DIRECT, SHARED_DIRECT_TOKENS = 8, 32  # serve_7b_shared's requests against the oracle
+
+
+def _shared_oracle(cfg, params, prefix: list[int], suffixes: list[list[int]], n: int):
+    """The composition a shared-prefix engine implements, through the plain
+    versions (the oracle of tests/test_batching.py:311-379): the prefix
+    prefilled once into a bf16 pool entry of POOL_CTX rows; each suffix
+    prefilled alone into its row of an int8 slot cache holding only suffix
+    rows (padded as the engine's bucket); then every row decoded greedily,
+    one T = 1 forward per token for all rows at once (rows never read each
+    other's). Returns the streams and each step's logits [B, V]."""
+    from llamavk_tpu_torch.models.llama import KVCache, init_kv_cache, llama_forward
+
+    def bucket(m: int) -> int:
+        return max(8, 1 << (m - 1).bit_length())
+
+    plen, b = len(prefix), len(suffixes)
+    pool = init_kv_cache(cfg, 1, POOL_CTX, device="cuda")
+    toks = torch.zeros((1, bucket(plen)), dtype=torch.int64)
+    toks[0, :plen] = torch.tensor(prefix)
+    llama_forward(params, toks.cuda(), pool, 0, cfg, last_idx=plen - 1, use_ref=True)
+    slots = init_kv_cache(cfg, b, N_CTX, torch.int8, "cuda")
+
+    def pkw(rows: int) -> dict:
+        return dict(prefix_kv=(pool.k, pool.v),
+                    prefix_id=torch.zeros(rows, dtype=torch.int32, device="cuda"),
+                    prefix_len=torch.full((rows,), plen, dtype=torch.int32, device="cuda"))
+
+    steps = [torch.empty((b, cfg.n_vocab), device="cuda")]
+    for j, sfx in enumerate(suffixes):
+        row = KVCache(*(x[:, j : j + 1] for x in slots.planes()))
+        toks = torch.zeros((1, bucket(len(sfx))), dtype=torch.int64)
+        toks[0, : len(sfx)] = torch.tensor(sfx)
+        steps[0][j] = llama_forward(
+            params, toks.cuda(), row, torch.tensor([plen], dtype=torch.int32, device="cuda"),
+            cfg, last_idx=torch.tensor([len(sfx) - 1], device="cuda"), use_ref=True,
+            **pkw(1))[0][0, -1]
+    npast = torch.tensor([plen + len(x) for x in suffixes], dtype=torch.int32, device="cuda")
+    for _ in range(n - 1):
+        tok = steps[-1].argmax(-1)[:, None]
+        steps.append(llama_forward(params, tok, slots, npast, cfg, use_ref=True,
+                                   **pkw(b))[0][:, -1])
+        npast = npast + 1
+    streams = torch.stack([x.argmax(-1) for x in steps], 1).tolist()
+    return streams, steps
+
+
+def phase_serve_7b_shared(seed: int) -> tuple[dict, dict, dict]:
+    """Synthetic LLaMA-7B serving with the shared-prefix pool (--shared-prefix
+    --prefix-pool 4 --prefix-ctx 256 --kv-dtype int8 --max-batch 32, n_ctx
+    512): a seeded 200-token prefix registered once; 8 greedy suffix
+    requests through the engine against the plain-version composition
+    (equal, or parting only at a near tie of the composition's logits); then
+    32 concurrent requests over HTTP continuing it (16-128-token suffixes, 64
+    tokens, half sampled); the pool's and the slot cache's bytes, peak
+    memory, the idle share. Returns (result, launches, shapes)."""
+    from llamavk_tpu_torch.runtime.batching import BatchConfig, BatchedEngine
+    from llamavk_tpu_torch.runtime.sampling import SamplerParams
+    from llamavk_tpu_torch.runtime.server import LlamaServer
+
+    cfg, params = _model_7b(seed)
+    tok = _id_tokenizer(cfg.n_vocab)
+    bcfg = BatchConfig(max_batch=32, n_ctx=N_CTX, block=8, admit_chunk=4, kv_dtype="int8",
+                       shared_prefix=True, prefix_pool=POOL, prefix_ctx=POOL_CTX)
+    gen = torch.Generator().manual_seed(seed + 3)
+    prefix = torch.randint(3, cfg.n_vocab, (PLEN,), generator=gen).tolist()
+    _reset_shapes()
+    suffixes = [torch.randint(3, cfg.n_vocab, (int(n),), generator=gen).tolist()
+                for n in torch.randint(16, 129, (SHARED_DIRECT,), generator=gen)]
+    be = BatchedEngine(cfg, params, bcfg, device="cuda")
+    pid = be.register_prefix(prefix)
+    reqs = [be.submit(sfx, SHARED_DIRECT_TOKENS, SamplerParams(temp=0.0), ignore_eos=True,
+                      prefix=pid) for sfx in suffixes]
+    be.run()
+    del be
+    torch.cuda.empty_cache()
+    want, steps = _shared_oracle(cfg, params, prefix, suffixes, SHARED_DIRECT_TOKENS)
+    ties = []
+    for j, r in enumerate(reqs):
+        if r.generated == want[j]:
+            continue
+        i = next(i for i, (x, y) in enumerate(zip(r.generated, want[j])) if x != y)
+        lg = steps[i][j]
+        top, scale = float(lg.max()), float(lg.abs().max())
+        gaps = [(top - float(lg[x])) / scale for x in (r.generated[i], want[j][i])]
+        if max(gaps) > LOGIT_REL_LIMIT:
+            raise SystemExit(f"serve_7b_shared: request {j} parts from the plain composition at "
+                             f"token {i}, {max(gaps):.3g} below the top (limit {LOGIT_REL_LIMIT})")
+        ties.append({"request": j, "token": i, "gap_rel": gaps})
+    del steps
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    srv = LlamaServer(cfg, params, tok, bcfg, model_name="llama-7B-synthetic", device="cuda")
+    base, thread = _serve(srv)
+    status, data = _post(base, "/v1/prefixes", {"tokens": prefix})
+    pid = json.loads(data)["prefix_id"]
+    _complete(base, dict(prompt=[5, 6, 7], prefix_id=pid, max_tokens=2, temperature=0.0,
+                         ignore_eos=True))  # warm-up
+    bodies = []
+    for i in range(32):
+        n = int(torch.randint(16, 129, (1,), generator=gen))
+        sampling = dict(temperature=0.8, top_k=40, top_p=0.95) if i % 2 else dict(temperature=0.0)
+        bodies.append(dict(prompt=torch.randint(3, cfg.n_vocab, (n,), generator=gen).tolist(),
+                           prefix_id=pid, max_tokens=SMOKE_TOKENS, ignore_eos=True,
+                           stream=(i // 2) % 4 == 0, seed=i, **sampling))
+    _reset_counts()
+    load = _load(srv, base, bodies)
+    torch.cuda.synchronize()
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    eng = srv.engine
+    pool_bytes = 2 * eng.pfx_k.numel() * eng.pfx_k.element_size()
+    slot_bytes = sum(x.numel() * x.element_size() for x in eng.cache.planes())
+    srv.shutdown()
+    thread.join(timeout=30)
+    if status != 200:
+        raise SystemExit("serve_7b_shared: the prefix was not registered")
+    _check_answers("serve_7b_shared", load.pop("answers"))
+    idle = _idle_window(eng, cfg.n_vocab, gen, prefix=pid)
+    del srv, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    _require("serve_7b_shared", counts, ("q4_gemm", "attn_update_prefix_i8"))
+    shapes = _shapes()
+    # a per-slot copy of the prefix (serve_7b's registered prefix) puts its
+    # rows in every slot that continues it: 32 slots x 200 rows of int8 K
+    # and V with their scales
+    copy_bytes = 32 * PLEN * 2 * cfg.n_layer * _row_bytes(True, cfg.n_head, cfg.head_dim)
+    result = {
+        "prefix_tokens": PLEN, "pool_entries": POOL, "pool_rows": POOL_CTX,
+        "direct": {"requests": SHARED_DIRECT, "tokens": SHARED_DIRECT_TOKENS,
+                   "suffix_tokens": [len(x) for x in suffixes],
+                   "equal_to_plain_composition": SHARED_DIRECT - len(ties),
+                   "split_at_near_tie": ties},
+        "max_tokens": SMOKE_TOKENS, **load, "peak_mem_bytes": peak,
+        "pool_bytes": pool_bytes, "slot_cache_bytes": slot_bytes,
+        "per_slot_prefix_copy_bytes_at_32_slots": copy_bytes, "launches": counts,
+        **_shape_report(shapes), **idle,
+    }
+    return result, counts, shapes
+
+
 def _attn_samples(attn: dict) -> list[tuple[tuple, int]]:
     """The attention shapes to check, with their launches: every key, except
     that keys differing only in a host-int n_past (a decode loop's one per
@@ -1822,11 +2457,14 @@ def _attn_samples(attn: dict) -> list[tuple[tuple, int]]:
 def phase_serve_shapes(shapes: dict, seed: int, reps: int, phase: str = "serve_7b") -> list[dict]:
     """Every kernel against its plain version at every shape a phase
     launched it at (`_shapes`): K1 and K5 at each (M, K, N); K2 and K3 at
-    each (B, T, S, block_k, cache type, n_past, page table width, straddle),
-    a vector n_past seeded per row, a decode loop's host-int n_past sampled
-    (`_attn_samples`); K4 at each (B, S, block_k, cache type, page table
-    width), n_past seeded per row. Paged shapes run through scrambled
-    tables and are also held bit for bit against the flat kernels."""
+    each (B, T, S, block_k, cache type, n_past, page table width, straddle,
+    mode), a vector n_past seeded per row, a decode loop's host-int n_past
+    sampled (`_attn_samples`); K4 at each (B, S, block_k, cache type, page
+    table width), n_past seeded per row. Paged shapes run through scrambled
+    tables and are also held bit for bit against the flat kernels; ring
+    shapes over the plane an engine leaves at that n_past (keep 32); prefix
+    shapes over a seeded pool of the shape's entries and rows, prefix
+    lengths seeded per row."""
     timer = Timer(reps)
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
     gen_cpu = torch.Generator().manual_seed(seed + 2)
@@ -1844,13 +2482,23 @@ def phase_serve_shapes(shapes: dict, seed: int, reps: int, phase: str = "serve_7
         add(kernel_q4_i8(timer, gen, names[(k, n)], m, True, plain_reps=2),
             shapes["q4_i8"][(m, k, n)])
     for key, launches in _attn_samples(shapes["attn"]):
-        path, b, t, h, s, d, bk, quant, n_past, maxlb, straddle = key
+        path, b, t, h, s, d, bk, quant, n_past, maxlb, straddle, mode = key
         if (h, d) != (H, D):
             raise SystemExit(f"serve_shapes: attention at H={h} D={d}, not the 7B width")
         cap = s * (maxlb or 1)
+        if mode is not None and mode[0] == "ring":
+            row = kernel_attn_ring(timer, gen, t, n_past, path == "update", quant, True, s=s,
+                                   bk=bk)
+            add(row, launches)
+            continue
         if n_past is None:
             n_past = torch.randint(0, cap - t + 1, (b,), generator=gen_cpu).tolist()
-        if maxlb is None:
+        if mode is not None:  # ("prefix", NP, Sp, pblock_k): seeded prefix lengths
+            _, n_pool, sp, _ = mode
+            plens = torch.randint(0, sp + 1, (b,), generator=gen_cpu).tolist()
+            row = kernel_attn_prefix(timer, gen, gen_cpu, b, t, n_past, path == "update", quant,
+                                     True, plens, sp, n_pool, s, bk=bk)
+        elif maxlb is None:
             row = kernel_attn(timer, gen, t, n_past, path == "update", True, b, quant, s, bk)
         else:
             row = kernel_attn_paged(timer, gen, gen_cpu, t, n_past, path == "update", b, quant,
@@ -1894,7 +2542,7 @@ def summary(rows: list[dict], counts: dict) -> dict:
 
 
 PHASES = ("env,build,kernels,tiny_cli,generate_7b,generate_7b_lookup,spec_7b_self,tiny_serve,"
-          "serve_7b,serve_7b_paged,serve_7b_lookup")
+          "serve_7b,serve_7b_paged,serve_7b_lookup,generate_7b_ring,serve_7b_shared")
 
 
 def main() -> int:
@@ -1989,8 +2637,14 @@ def main() -> int:
             report["tiny_serve"], path_counts = phase_tiny_serve(Path(work))
         add(path_counts)
         emit({"phase": "tiny_serve", **report["tiny_serve"]})
+    if "generate_7b_ring" in phases:
+        with timed("generate_7b_ring"):
+            report["generate_7b_ring"], path_counts = phase_generate_7b_ring(args.seed)
+        add(path_counts)
+        emit({"phase": "generate_7b_ring", **report["generate_7b_ring"]})
     for name, phase in (("serve_7b", phase_serve_7b), ("serve_7b_paged", phase_serve_7b_paged),
-                        ("serve_7b_lookup", phase_serve_7b_lookup)):
+                        ("serve_7b_lookup", phase_serve_7b_lookup),
+                        ("serve_7b_shared", phase_serve_7b_shared)):
         if name in phases:
             with timed(name):
                 report[name], path_counts, shapes = phase(args.seed)

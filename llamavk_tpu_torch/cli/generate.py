@@ -2,16 +2,20 @@
 
 Prompt eval + streaming decode with the sampling flags of examples/main
 (top-k/top-p/temp/repeat-penalty/repeat-last-n), --ignore-eos, and --n-keep
-with the infinite-generation context swap (keep n_keep prompt tokens, re-feed
-half of the recent window on overflow, main.cpp:246-266), a bf16 or int8
-KV cache (--kv-dtype), and speculative decoding: --draft-lookup drafts from
-the context itself (prompt lookup), --draft-model from a second checkpoint,
---draft-n tokens per round. Interactive, instruct and ring modes are not
-ported yet; argparse rejects their flags. LLAMAVK_Q4_DOT=i8 in the
-environment takes the int8 dot (K5) where the JAX package takes it.
+with infinite generation past the context: --ctx-swap reeval keeps n_keep
+prompt tokens and re-feeds half of the recent window on overflow
+(main.cpp:246-266), --ctx-swap ring keeps min(n_keep, ctx/2) pinned rows in a
+history-ring KV cache and never re-evaluates. A bf16 or int8 KV cache
+(--kv-dtype), and speculative decoding: --draft-lookup drafts from the
+context itself (prompt lookup), --draft-model from a second checkpoint,
+--draft-n tokens per round (neither under a ring, as there). Interactive and
+instruct modes are not ported yet; argparse rejects their flags.
+LLAMAVK_Q4_DOT=i8 in the environment takes the int8 dot (K5) where the JAX
+package takes it.
 
     python -m llamavk_tpu_torch.cli.generate -m model.bin -p "text" --device cuda
     python -m llamavk_tpu_torch.cli.generate -m model.bin -p "text" --draft-lookup --temp 0
+    python -m llamavk_tpu_torch.cli.generate -m model.bin -p "text" --ctx-swap ring --n-keep 32
 """
 
 from __future__ import annotations
@@ -43,6 +47,10 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--repeat-last-n", type=int, default=64)
     ap.add_argument("--ignore-eos", action="store_true")
     ap.add_argument("--n-keep", type=int, default=0)
+    ap.add_argument(
+        "--ctx-swap", choices=["reeval", "ring"], default="reeval",
+        help="context-overflow strategy: reeval = keep n_keep + re-feed half the window "
+        "(main.cpp:246-266 parity); ring = history-ring KV, no re-eval")
     ap.add_argument("--kv-dtype", choices=["bfloat16", "int8"], default="bfloat16",
                     help="KV cache type: bf16, or int8 with per-row scales")
     ap.add_argument("--draft-model", default=None,
@@ -99,10 +107,12 @@ def run(args, stdout=sys.stdout) -> int:
     # --n-keep -1 = keep the whole prompt (main.cpp:151-153)
     n_keep = args.n_keep if args.n_keep > 0 else len(prompt_tokens)
 
+    ring = args.ctx_swap == "ring"
     engine = Engine(
         cfg, params,
         EngineConfig(n_ctx=args.ctx_size, kv_dtype=args.kv_dtype,
-                     seed=args.seed if args.seed >= 0 else 0),
+                     seed=args.seed if args.seed >= 0 else 0, ctx_ring=ring,
+                     ring_keep=min(n_keep, args.ctx_size // 2) if ring else 0),
         device=args.device,
     )
     engine.timings.t_load_us = (time.perf_counter() - t_load0) * 1e6
@@ -132,8 +142,11 @@ def run(args, stdout=sys.stdout) -> int:
     pending = prompt_tokens
     remaining = args.n_predict
     while remaining > 0:
-        ctxman.ensure_room(len(pending) + 1)
-        n = min(remaining, args.ctx_size - engine.n_past - len(pending))
+        if ring:
+            n = remaining  # the ring absorbs overflow; no swap, no re-eval
+        else:
+            ctxman.ensure_room(len(pending) + 1)
+            n = min(remaining, args.ctx_size - engine.n_past - len(pending))
         if n <= 0:
             break
         got = engine.generate(pending, n, sp, on_token=stream, ignore_eos=args.ignore_eos)
@@ -155,9 +168,9 @@ def _lookup(args, cfg, params, tok, prompt_tokens, sp, stdout) -> bool:
     """--draft-lookup (generate.py:202-253 there): single-shot, the budget
     clamped to what fits, since the speculative engines do no context swap.
     Returns False, after a warning, where it falls back to plain decode."""
-    if not (args.temp <= 0 or args.repeat_penalty == 1.0):
-        print("warning: --draft-lookup requires repeat-penalty 1.0 when sampling; ignoring",
-              file=sys.stderr)
+    if args.ctx_swap == "ring" or not (args.temp <= 0 or args.repeat_penalty == 1.0):
+        print("warning: --draft-lookup requires non-interactive, non-ring, and repeat-penalty "
+              "1.0 when sampling; ignoring", file=sys.stderr)
         return False
     g = max(1, args.draft_n)
     scfg = SpecConfig(n_ctx=args.ctx_size, gamma=g, kv_dtype=args.kv_dtype)
@@ -184,8 +197,9 @@ def _lookup(args, cfg, params, tok, prompt_tokens, sp, stdout) -> bool:
 def _draft_model(args, cfg, params, tok, prompt_tokens, stdout) -> bool:
     """--draft-model (generate.py:255-290 there): greedy only, single-shot.
     Returns False, after a warning, when sampling asks for plain decode."""
-    if args.temp > 0:
-        print("warning: --draft-model requires --temp 0; ignoring the draft", file=sys.stderr)
+    if args.temp > 0 or args.ctx_swap == "ring":
+        print("warning: --draft-model requires --temp 0, non-interactive, non-ring; ignoring "
+              "the draft", file=sys.stderr)
         return False
     dcfg, dparams, _ = load_model(args.draft_model, device=args.device)
     spec = SpeculativeEngine(cfg, params, dcfg, dparams,

@@ -161,22 +161,121 @@ __device__ __forceinline__ void v_accum(float* acc, float p, const uint8_t* row,
 
 inline size_t dyn_smem(int block_k) { return (size_t)WARPS * block_k * sizeof(float); }
 
+// Attention modes of the K2/K3 kernels beyond the flat and paged cache
+// (llamavk_tpu/ops/flash_attn.py:512-808 there). K4 uses MODE_PLAIN only.
+//  * MODE_RING, the history ring: a key row's logical position is pos[j * nb
+//    + b] of the position plane [S, B] (-1 = empty), and row j is visible to
+//    a query at logical position p iff 0 <= pos <= p (:763-778). The plane
+//    is read, never written, here. Without `bounded` the whole ring is
+//    scanned; with it the scan stops where the flat one would (:555-563),
+//    which is exact while pos[r] >= r (rings the engine fills).
+//  * MODE_PREFIX, the shared-prefix pool: before the slot loop, the block
+//    walks rows [0, len[b]) of pool entry id[b] ([NP, H, rows, D] bf16 per
+//    layer, KV blocks of `block_k` rows that divide `rows`), unmasked but for
+//    col < len, and its (m, l, acc) carry flows into the slot loop, whose
+//    n_past is the slot-local one (:643-735). The pool is bf16 whatever the
+//    slot cache holds, so the pre-pass has its own bf16 tile.
+enum { MODE_PLAIN = 0, MODE_RING = 1, MODE_PREFIX = 2 };
+
+struct Ring {
+  const int* pos;  // [S, nb] int32 logical positions
+  int nb;
+  int bounded;
+};
+
+struct Prefix {
+  const __nv_bfloat16* k;  // one layer of the pool [NP, H, rows, D]
+  const __nv_bfloat16* v;
+  const int* id;   // [B] pool entry of each batch row
+  const int* len;  // [B] valid prefix rows
+  int rows;
+  int block_k;
+};
+
+// One KV block [kb0, kb1) of the online softmax, for the rows of a block of
+// warps: scores (masked by `vis(col)`), the running max and sum, then the PV
+// sum. kbase/vbase (and ksb/vsb, int8 only) address the block's first row.
+// A score that is masked (-1e30) gets p = 0 (flash_attn.py:783-786 there): a
+// block can be fully masked for a row while its running max is still -1e30
+// (empty or future ring rows), and exp(0) would then count each such key
+// once. Where the running max is finite the masked p is already exactly 0.
+template <int D, typename KV, typename Vis>
+__device__ __forceinline__ void online_block(uint8_t* tile, const float* qw, float* sc,
+                                             const KV* kbase, const KV* vbase, const float* ksb,
+                                             const float* vsb, int H, int kb0, int kb1,
+                                             bool active, int lane, float& m, float& l,
+                                             float* acc, Vis vis) {
+  constexpr bool QUANT = sizeof(KV) == 1;
+  constexpr int DPL = D / 32;
+  constexpr int RB = Row<D, KV>::BYTES;
+  // scores of this KV block: lane j scores keys j, j + 32, ... of a tile
+  for (int j0 = kb0; j0 < kb1; j0 += KT) {
+    const int nk = min(KT, kb1 - j0);
+    __syncthreads();
+    load_tile<D, KV>(tile, kbase, j0 - kb0, nk);
+    __syncthreads();
+    if (active) {
+      for (int kk = lane; kk < nk; kk += 32) {
+        float s = key_dot<D>(qw, tile + kk * RB, KV());
+        const int col = j0 + kk;
+        if constexpr (QUANT) s = __fmul_rn(s, __ldcg(ksb + (size_t)(col - kb0) * H));
+        sc[col - kb0] = vis(col) ? s : NEG;
+      }
+    }
+  }
+  // online softmax update over the whole block
+  if (active) {
+    __syncwarp();
+    const int nkb = kb1 - kb0;
+    float bm = NEG;
+    for (int j = lane; j < nkb; j += 32) bm = fmaxf(bm, sc[j]);
+    const float m_new = fmaxf(m, warp_max(bm));
+    const float alpha = expf(__fsub_rn(m, m_new));
+    float ps = 0.f;
+    for (int j = lane; j < nkb; j += 32) {
+      const float s = sc[j];
+      float p = s <= NEG * 0.5f ? 0.f : expf(__fsub_rn(s, m_new));
+      ps = __fadd_rn(ps, p);
+      if constexpr (QUANT) p = __fmul_rn(p, __ldcg(vsb + (size_t)j * H));
+      sc[j] = bf16_round(p);
+    }
+    l = fmaf(l, alpha, warp_sum(ps));
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) acc[e] = __fmul_rn(acc[e], alpha);
+    m = m_new;
+    __syncwarp();
+  }
+  // PV over the block, keys in order
+  for (int j0 = kb0; j0 < kb1; j0 += KT) {
+    const int nk = min(KT, kb1 - j0);
+    __syncthreads();
+    load_tile<D, KV>(tile, vbase, j0 - kb0, nk);
+    __syncthreads();
+    if (active) {
+      const float* pj = sc + (j0 - kb0);
+      for (int kk = 0; kk < nk; ++kk) v_accum<D>(acc, pj[kk], tile + kk * RB, lane, KV());
+    }
+  }
+}
+
 // Attention of query rows [t0, t0 + WARPS) of (b, h) over one cache layer.
 // Every thread of the block calls it (it synchronises the block); warp w
 // owns row t0 + w when that row is < T.
 //   q    [B, T, H, D] bf16          out [B, T, H, D] f32
 //   kc/vc one layer, ks/vs its f32 scales (int8 only), addressed by `map`
-//   np   the row's n_past: query t sits at position np + t
+//   np   the row's n_past: query t sits at position np + t (logical in a
+//        ring, slot-local over a prefix)
 // block_k divides map.rows, so no KV block crosses a page.
-template <int D, typename KV>
+template <int D, typename KV, int MODE = MODE_PLAIN>
 __device__ __forceinline__ void attend_block(const __nv_bfloat16* q, const KV* kc, const KV* vc,
                                              const float* ks, const float* vs, float* out,
                                              int b, int h, int t0, int np, int T, int H,
-                                             const KVMap& map, int block_k, float scale) {
+                                             const KVMap& map, int block_k, float scale,
+                                             const Ring& ring = Ring{},
+                                             const Prefix& pre = Prefix{}) {
   constexpr bool QUANT = sizeof(KV) == 1;
   constexpr int DPL = D / 32;
-  constexpr int RB = Row<D, KV>::BYTES;
-  __shared__ __align__(16) uint8_t tile[KT * RB];
+  __shared__ __align__(16) uint8_t tile[KT * Row<D, KV>::BYTES];
   __shared__ float q_s[WARPS][D];
   extern __shared__ float sc_all[];  // [WARPS][block_k]: scores, then bf16(p)
 
@@ -185,7 +284,9 @@ __device__ __forceinline__ void attend_block(const __nv_bfloat16* q, const KV* k
   const bool active = t < T;
   const int row_pos = np + t;
   const int t_last = min(T, t0 + WARPS) - 1;
-  const int limit = min(np + t_last + 1, map.cap());  // columns any row of the block sees
+  // columns any row of the block sees (the whole ring unless bounded)
+  const int limit = MODE == MODE_RING && !ring.bounded ? map.cap()
+                                                       : min(np + t_last + 1, map.cap());
   float* sc = sc_all + warp * block_k;
 
   if (active)
@@ -198,6 +299,19 @@ __device__ __forceinline__ void attend_block(const __nv_bfloat16* q, const KV* k
 #pragma unroll
   for (int e = 0; e < DPL; ++e) acc[e] = 0.f;
 
+  if constexpr (MODE == MODE_PREFIX) {
+    __shared__ __align__(16) uint8_t ptile[KT * Row<D, __nv_bfloat16>::BYTES];
+    const int plen = pre.len[b];
+    const size_t base = ((size_t)pre.id[b] * H + h) * pre.rows * D;
+    for (int kb0 = 0; kb0 < plen; kb0 += pre.block_k) {
+      const int kb1 = min(kb0 + pre.block_k, plen);
+      online_block<D, __nv_bfloat16>(ptile, q_s[warp], sc, pre.k + base + (size_t)kb0 * D,
+                                     pre.v + base + (size_t)kb0 * D, nullptr, nullptr, H, kb0,
+                                     kb1, active, lane, m, l, acc,
+                                     [plen](int col) { return col < plen; });
+    }
+  }
+
   const int nblocks = (limit + block_k - 1) / block_k;
   for (int i = 0; i < nblocks; ++i) {
     const int kb0 = i * block_k;
@@ -209,52 +323,17 @@ __device__ __forceinline__ void attend_block(const __nv_bfloat16* q, const KV* k
     const KV* vbase = vc + map.data(at, h, H, D);
     const float* ksb = QUANT ? ks + map.scale(at, h, H) : nullptr;
     const float* vsb = QUANT ? vs + map.scale(at, h, H) : nullptr;
-    // scores of this KV block: lane j scores keys j, j + 32, ... of a tile
-    for (int j0 = kb0; j0 < kb1; j0 += KT) {
-      const int nk = min(KT, kb1 - j0);
-      __syncthreads();
-      load_tile<D, KV>(tile, kbase, j0 - kb0, nk);
-      __syncthreads();
-      if (active) {
-        for (int kk = lane; kk < nk; kk += 32) {
-          float s = key_dot<D>(q_s[warp], tile + kk * RB, KV());
-          const int col = j0 + kk;
-          if constexpr (QUANT) s = __fmul_rn(s, __ldcg(ksb + (size_t)(col - kb0) * H));
-          sc[col - kb0] = col <= row_pos ? s : NEG;
-        }
-      }
-    }
-    // online softmax update over the whole block
-    if (active) {
-      __syncwarp();
-      const int nkb = kb1 - kb0;
-      float bm = NEG;
-      for (int j = lane; j < nkb; j += 32) bm = fmaxf(bm, sc[j]);
-      const float m_new = fmaxf(m, warp_max(bm));
-      const float alpha = expf(__fsub_rn(m, m_new));
-      float ps = 0.f;
-      for (int j = lane; j < nkb; j += 32) {
-        float p = expf(__fsub_rn(sc[j], m_new));
-        ps = __fadd_rn(ps, p);
-        if constexpr (QUANT) p = __fmul_rn(p, __ldcg(vsb + (size_t)j * H));
-        sc[j] = bf16_round(p);
-      }
-      l = fmaf(l, alpha, warp_sum(ps));
-#pragma unroll
-      for (int e = 0; e < DPL; ++e) acc[e] = __fmul_rn(acc[e], alpha);
-      m = m_new;
-      __syncwarp();
-    }
-    // PV over the block, keys in order
-    for (int j0 = kb0; j0 < kb1; j0 += KT) {
-      const int nk = min(KT, kb1 - j0);
-      __syncthreads();
-      load_tile<D, KV>(tile, vbase, j0 - kb0, nk);
-      __syncthreads();
-      if (active) {
-        const float* pj = sc + (j0 - kb0);
-        for (int kk = 0; kk < nk; ++kk) v_accum<D>(acc, pj[kk], tile + kk * RB, lane, KV());
-      }
+    if constexpr (MODE == MODE_RING) {
+      const int* pos = ring.pos;
+      const int nb = ring.nb;
+      online_block<D, KV>(tile, q_s[warp], sc, kbase, vbase, ksb, vsb, H, kb0, kb1, active, lane,
+                          m, l, acc, [pos, nb, b, row_pos](int col) {
+                            const int p = __ldg(pos + (size_t)col * nb + b);
+                            return p >= 0 && p <= row_pos;
+                          });
+    } else {
+      online_block<D, KV>(tile, q_s[warp], sc, kbase, vbase, ksb, vsb, H, kb0, kb1, active, lane,
+                          m, l, acc, [row_pos](int col) { return col <= row_pos; });
     }
   }
 

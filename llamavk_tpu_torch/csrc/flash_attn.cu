@@ -26,6 +26,15 @@
 // The table is read by every block from device memory: the TPU's scalar
 // prefetch has no counterpart here.
 //
+// Ring mode (the JAX kernels' `kv_pos`/`write_row`, flash_attn.py:145-147,
+// :191, :555-563, :763-786 there): the write lands row t at physical row
+// write_row[b] + t while n_past stays the logical query position, and the
+// attention masks by the position plane [S, B] (int32, compared as
+// integers). Prefix mode (`prefix_k/v/id/len`, :643-735 there): the
+// attention first walks the row's entry of the bf16 shared-prefix pool, and
+// n_past is the slot-local row. Both are `attn::attend_block`'s MODE
+// template argument, so the flat and paged kernels keep their code.
+//
 // The score, online-softmax and PV arithmetic is `attn::attend_block` of
 // attn_common.cuh, shared with the batched decode kernel (flash_decode.cu),
 // so both give bit-equal outputs at equal block_k, and a paged call equals a
@@ -51,12 +60,18 @@ namespace {
 using attn::KVMap;
 using attn::WARPS;
 
-// k_new/v_new [B, T, H, D] bf16 -> bf16 cache layer rows n_past[b] + t
+// k_new/v_new row t of batch row b lands at cache row wrow[b] + t (wrow is
+// n_past, or the ring's physical write row)
+__device__ __forceinline__ int write_row(const int* wrow_vec, int wrow_scalar, int b, int t) {
+  return (wrow_vec ? wrow_vec[b] : wrow_scalar) + t;
+}
+
+// k_new/v_new [B, T, H, D] bf16 -> bf16 cache layer rows wrow[b] + t
 // (through `map`)
 __global__ void kv_write_kernel(const __nv_bfloat16* __restrict__ knew,
                                 const __nv_bfloat16* __restrict__ vnew,
                                 __nv_bfloat16* __restrict__ kc, __nv_bfloat16* __restrict__ vc,
-                                const int* __restrict__ npast_vec, int npast_scalar, KVMap map,
+                                const int* __restrict__ wrow_vec, int wrow_scalar, KVMap map,
                                 int B, int T, int H, int D) {
   const int chunks = D / 8;
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -68,7 +83,7 @@ __global__ void kv_write_kernel(const __nv_bfloat16* __restrict__ knew,
   r /= H;
   const int t = (int)(r % T);
   const int b = (int)(r / T);
-  const int row = (npast_vec ? npast_vec[b] : npast_scalar) + t;
+  const int row = write_row(wrow_vec, wrow_scalar, b, t);
   if (row < 0 || row >= map.cap()) return;
   const size_t src = (((size_t)b * T + t) * H + h) * D + c * 8;
   const size_t dst = map.data(map.locate(b, row), h, H, D) + c * 8;
@@ -82,7 +97,7 @@ template <int D>
 __global__ void __launch_bounds__(WARPS * 32)
 kv_quant_kernel(const __nv_bfloat16* __restrict__ knew, const __nv_bfloat16* __restrict__ vnew,
                 int8_t* __restrict__ kc, int8_t* __restrict__ vc, float* __restrict__ ks,
-                float* __restrict__ vs, const int* __restrict__ npast_vec, int npast_scalar,
+                float* __restrict__ vs, const int* __restrict__ wrow_vec, int wrow_scalar,
                 KVMap map, int B, int T, int H) {
   const size_t r = (size_t)blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (r >= (size_t)B * T * H) return;
@@ -90,7 +105,7 @@ kv_quant_kernel(const __nv_bfloat16* __restrict__ knew, const __nv_bfloat16* __r
   const int h = (int)(r % H);
   const int t = (int)((r / H) % T);
   const int b = (int)(r / ((size_t)H * T));
-  const int row = (npast_vec ? npast_vec[b] : npast_scalar) + t;
+  const int row = write_row(wrow_vec, wrow_scalar, b, t);
   if (row < 0 || row >= map.cap()) return;
   const int2 at = map.locate(b, row);
   const size_t dst = map.data(at, h, H, D);
@@ -99,47 +114,106 @@ kv_quant_kernel(const __nv_bfloat16* __restrict__ knew, const __nv_bfloat16* __r
   attn::quantize_row<D>(vnew + r * D, vc + dst, vs + sdst, lane);
 }
 
-template <int D, typename KV>
+template <int D, typename KV, int MODE>
 __global__ void __launch_bounds__(WARPS * 32)
 attn_kernel(const __nv_bfloat16* __restrict__ q, const KV* kc, const KV* vc, const float* ks,
             const float* vs, float* __restrict__ out, const int* __restrict__ npast_vec,
-            int npast_scalar, KVMap map, int T, int H, int block_k, float scale) {
+            int npast_scalar, KVMap map, int T, int H, int block_k, float scale, attn::Ring ring,
+            attn::Prefix pre) {
   const int b = blockIdx.z;
   const int np = npast_vec ? npast_vec[b] : npast_scalar;
-  attn::attend_block<D, KV>(q, kc, vc, ks, vs, out, b, blockIdx.y, blockIdx.x * WARPS, np, T, H,
-                            map, block_k, scale);
+  attn::attend_block<D, KV, MODE>(q, kc, vc, ks, vs, out, b, blockIdx.y, blockIdx.x * WARPS, np,
+                                  T, H, map, block_k, scale, ring, pre);
 }
 
-template <int D, typename KV>
+template <int D, typename KV, int MODE>
 cudaError_t launch_attn(const void* q, const void* kc, const void* vc, const float* ks,
                         const float* vs, void* out, const int* npast_vec, int npast_scalar,
                         KVMap map, int B, int T, int H, int block_k, float scale,
-                        cudaStream_t stream) {
+                        const attn::Ring& ring, const attn::Prefix& pre, cudaStream_t stream) {
   static size_t dyn_done = 0;
   const size_t dyn = attn::dyn_smem(block_k);
-  cudaError_t e = attn::allow_dyn_smem(attn_kernel<D, KV>, dyn, dyn_done);
+  cudaError_t e = attn::allow_dyn_smem(attn_kernel<D, KV, MODE>, dyn, dyn_done);
   if (e != cudaSuccess) return e;
   dim3 grid((T + WARPS - 1) / WARPS, H, B);
-  attn_kernel<D, KV><<<grid, WARPS * 32, dyn, stream>>>(
+  attn_kernel<D, KV, MODE><<<grid, WARPS * 32, dyn, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(kc),
       static_cast<const KV*>(vc), ks, vs, static_cast<float*>(out), npast_vec, npast_scalar, map,
-      T, H, block_k, scale);
+      T, H, block_k, scale, ring, pre);
   return cudaGetLastError();
+}
+
+template <int D, typename KV>
+cudaError_t launch_mode(const void* q, const void* kc, const void* vc, const float* ks,
+                        const float* vs, void* out, const int* npast_vec, int npast_scalar,
+                        KVMap map, int B, int T, int H, int block_k, float scale,
+                        const attn::Ring& ring, const attn::Prefix& pre, cudaStream_t st) {
+  if (ring.pos)
+    return launch_attn<D, KV, attn::MODE_RING>(q, kc, vc, ks, vs, out, npast_vec, npast_scalar,
+                                               map, B, T, H, block_k, scale, ring, pre, st);
+  if (pre.k)
+    return launch_attn<D, KV, attn::MODE_PREFIX>(q, kc, vc, ks, vs, out, npast_vec,
+                                                 npast_scalar, map, B, T, H, block_k, scale,
+                                                 ring, pre, st);
+  return launch_attn<D, KV, attn::MODE_PLAIN>(q, kc, vc, ks, vs, out, npast_vec, npast_scalar,
+                                              map, B, T, H, block_k, scale, ring, pre, st);
 }
 
 template <typename KV>
 cudaError_t attend(const void* q, const void* kc, const void* vc, const void* ks, const void* vs,
                    void* out, const int* npast_vec, int npast_scalar, KVMap map, int B, int T,
-                   int H, int D, int block_k, float scale, cudaStream_t st) {
+                   int H, int D, int block_k, float scale, const attn::Ring& ring,
+                   const attn::Prefix& pre, cudaStream_t st) {
   auto kss = static_cast<const float*>(ks);
   auto vss = static_cast<const float*>(vs);
   if (D == 128)
-    return launch_attn<128, KV>(q, kc, vc, kss, vss, out, npast_vec, npast_scalar, map, B, T, H,
-                                block_k, scale, st);
+    return launch_mode<128, KV>(q, kc, vc, kss, vss, out, npast_vec, npast_scalar, map, B, T, H,
+                                block_k, scale, ring, pre, st);
   if (D == 64)
-    return launch_attn<64, KV>(q, kc, vc, kss, vss, out, npast_vec, npast_scalar, map, B, T, H,
-                               block_k, scale, st);
+    return launch_mode<64, KV>(q, kc, vc, kss, vss, out, npast_vec, npast_scalar, map, B, T, H,
+                               block_k, scale, ring, pre, st);
   return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// The ring and prefix operands of a call (null pointers: the mode is off).
+// pos [S, B] int32 ring positions, ring_bounded the ragged scan bound;
+// wrow_vec [B] (device) or wrow_scalar: the ring's physical write rows, used
+// by the update path in place of n_past when has_wrow; pk/pv one layer of the
+// bf16 prefix pool [NP, H, sp, D], pid/plen [B] int32, pblock_k dividing sp.
+struct AttnModes {
+  const void* pos;
+  int ring_bounded;
+  const void* wrow_vec;
+  int wrow_scalar;
+  int has_wrow;
+  const void* pk;
+  const void* pv;
+  const void* pid;
+  const void* plen;
+  int sp;
+  int pblock_k;
+};
+
+namespace {
+
+// the device-side mode operands of `modes` (which may be null)
+cudaError_t mode_args(const AttnModes* modes, int B, attn::Ring& ring, attn::Prefix& pre) {
+  ring = attn::Ring{};
+  pre = attn::Prefix{};
+  if (!modes) return cudaSuccess;
+  if (modes->pos) ring = attn::Ring{static_cast<const int*>(modes->pos), B, modes->ring_bounded};
+  if (modes->pk) {
+    if (!modes->pv || !modes->pid || !modes->plen || modes->pblock_k < 1 ||
+        modes->sp % modes->pblock_k != 0 || ring.pos)
+      return cudaErrorInvalidValue;
+    pre = attn::Prefix{static_cast<const __nv_bfloat16*>(modes->pk),
+                       static_cast<const __nv_bfloat16*>(modes->pv),
+                       static_cast<const int*>(modes->pid), static_cast<const int*>(modes->plen),
+                       modes->sp, modes->pblock_k};
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -149,37 +223,47 @@ cudaError_t attend(const void* q, const void* kc, const void* vc, const void* ks
 // (else null): flat [B, H, S, D] with scales [B, S, H] when page_table is
 // null, else a pool [NP, H, S, D] with scales [NP, S, H] read through
 // page_table [B, maxlb] (S the page's rows); out f32 [B, T, H, D]; n_past
-// from npast_vec[B] (device) when it is not null, else npast_scalar.
+// from npast_vec[B] (device) when it is not null, else npast_scalar; `modes`
+// (or null) the ring or prefix operands, on a flat cache only.
 // D in {64, 128}; block_k divides S.
 extern "C" int attn_read_launch(const void* q, const void* k_cache, const void* v_cache,
                                 const void* k_scale, const void* v_scale, void* out,
                                 const void* npast_vec, int npast_scalar, const void* page_table,
                                 int maxlb, int B, int T, int H, int S, int D, int block_k,
-                                float scale, int kv_int8, void* stream) {
+                                float scale, int kv_int8, const AttnModes* modes, void* stream) {
   if (block_k < 1 || S % block_k != 0) return (int)cudaErrorInvalidValue;
   if (page_table && maxlb < 1) return (int)cudaErrorInvalidValue;
+  attn::Ring ring;
+  attn::Prefix pre;
+  cudaError_t e = mode_args(modes, B, ring, pre);
+  if (e != cudaSuccess) return (int)e;
+  if (page_table && (ring.pos || pre.k)) return (int)cudaErrorInvalidValue;
   auto npv = static_cast<const int*>(npast_vec);
   auto st = static_cast<cudaStream_t>(stream);
   const KVMap map{static_cast<const int*>(page_table), maxlb, S};
   if (kv_int8)
     return (int)attend<int8_t>(q, k_cache, v_cache, k_scale, v_scale, out, npv, npast_scalar, map,
-                               B, T, H, D, block_k, scale, st);
+                               B, T, H, D, block_k, scale, ring, pre, st);
   return (int)attend<__nv_bfloat16>(q, k_cache, v_cache, nullptr, nullptr, out, npv,
-                                    npast_scalar, map, B, T, H, D, block_k, scale, st);
+                                    npast_scalar, map, B, T, H, D, block_k, scale, ring, pre, st);
 }
 
 // Update path (K2): write k_new/v_new [B, T, H, D] bf16 into rows
 // [n_past, n_past + T) of the cache layer (int8: quantized, with their
-// scales; paged: through the table), then attend (two launches).
+// scales; paged: through the table; ring: rows [write_row, write_row + T)),
+// then attend (two launches).
 extern "C" int attn_update_launch(const void* q, const void* k_new, const void* v_new,
                                   void* k_cache, void* v_cache, void* k_scale, void* v_scale,
                                   void* out, const void* npast_vec, int npast_scalar,
                                   const void* page_table, int maxlb, int B, int T, int H, int S,
-                                  int D, int block_k, float scale, int kv_int8, void* stream) {
+                                  int D, int block_k, float scale, int kv_int8,
+                                  const AttnModes* modes, void* stream) {
   if (block_k < 1 || S % block_k != 0 || (D != 64 && D != 128)) return (int)cudaErrorInvalidValue;
   if (page_table && maxlb < 1) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  auto npv = static_cast<const int*>(npast_vec);
+  const bool ring_write = modes && modes->has_wrow;
+  auto wrv = static_cast<const int*>(ring_write ? modes->wrow_vec : npast_vec);
+  const int wrs = ring_write ? modes->wrow_scalar : npast_scalar;
   const KVMap map{static_cast<const int*>(page_table), maxlb, S};
   auto kn = static_cast<const __nv_bfloat16*>(k_new);
   auto vn = static_cast<const __nv_bfloat16*>(v_new);
@@ -191,19 +275,20 @@ extern "C" int attn_update_launch(const void* q, const void* k_new, const void* 
     auto ksp = static_cast<float*>(k_scale);
     auto vsp = static_cast<float*>(v_scale);
     if (D == 128)
-      kv_quant_kernel<128><<<grid, WARPS * 32, 0, st>>>(kn, vn, kq, vq, ksp, vsp, npv,
-                                                        npast_scalar, map, B, T, H);
+      kv_quant_kernel<128><<<grid, WARPS * 32, 0, st>>>(kn, vn, kq, vq, ksp, vsp, wrv, wrs, map,
+                                                        B, T, H);
     else
-      kv_quant_kernel<64><<<grid, WARPS * 32, 0, st>>>(kn, vn, kq, vq, ksp, vsp, npv,
-                                                       npast_scalar, map, B, T, H);
+      kv_quant_kernel<64><<<grid, WARPS * 32, 0, st>>>(kn, vn, kq, vq, ksp, vsp, wrv, wrs, map,
+                                                       B, T, H);
   } else {
     const size_t total = (size_t)B * T * H * (D / 8);
     kv_write_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
-        kn, vn, static_cast<__nv_bfloat16*>(k_cache), static_cast<__nv_bfloat16*>(v_cache), npv,
-        npast_scalar, map, B, T, H, D);
+        kn, vn, static_cast<__nv_bfloat16*>(k_cache), static_cast<__nv_bfloat16*>(v_cache), wrv,
+        wrs, map, B, T, H, D);
   }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   return attn_read_launch(q, k_cache, v_cache, k_scale, v_scale, out, npast_vec, npast_scalar,
-                          page_table, maxlb, B, T, H, S, D, block_k, scale, kv_int8, stream);
+                          page_table, maxlb, B, T, H, S, D, block_k, scale, kv_int8, modes,
+                          stream);
 }

@@ -18,8 +18,16 @@ with `page_straddle` its multi-token writes may start anywhere in a page and
 run into the next (the speculative verify). Every packed matmul goes through
 `q4_matmul`, whose dot mode (LLAMAVK_Q4_DOT) picks K1 or K5.
 
-Ring caches, the shared-prefix pool, tensor/pipeline parallelism and the ggml
-numerics oracle raise NotImplementedError.
+A history-ring cache (`init_kv_cache(ring=True)`, `ring_keep`) keeps the
+logical position of each physical row in `KVCache.pos`: writes land at
+`ring_phys(n_past)` and attention masks by position, so generation runs past
+n_ctx with no re-evaluation. A shared-prefix pool (`prefix_kv`) holds
+prompt prefixes once for every row: row b attends over entry
+`prefix_id[b]`'s first `prefix_len[b]` rows, then over its own cache, which
+holds only the suffix (its rows are n_past - prefix_len).
+
+Tensor/pipeline parallelism and the ggml numerics oracle raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -143,25 +151,34 @@ class KVCache:
     v: torch.Tensor
     k_scale: torch.Tensor | None = None
     v_scale: torch.Tensor | None = None
+    pos: torch.Tensor | None = None  # [S, B] int32 history-ring positions, -1 = empty
 
     @property
     def quantized(self) -> bool:
         return self.k_scale is not None
 
+    @property
+    def ring(self) -> bool:
+        return self.pos is not None
+
     def planes(self) -> list[torch.Tensor]:
-        """Every tensor of the cache: k, v, and the scale planes if int8."""
+        """Every data and scale tensor of the cache: k, v, and the scale
+        planes if int8 (not the ring's position plane)."""
         return [self.k, self.v] + ([self.k_scale, self.v_scale] if self.quantized else [])
 
     def clone(self) -> "KVCache":
-        return KVCache(*(p.clone() for p in self.planes()))
+        return KVCache(*(p.clone() for p in self.planes()),
+                       pos=None if self.pos is None else self.pos.clone())
 
 
 def init_kv_cache(
-    cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16, device="cuda"
+    cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16, device="cuda",
+    ring: bool = False,
 ) -> KVCache:
     """A zeroed bf16 or int8 cache. The JAX package pads an int8 cache's
     scale planes to 128 head lanes (llama.py:161-168 there), a TPU DMA rule;
-    here they keep H."""
+    here they keep H. `ring` adds the history ring's position plane
+    [max_len, batch], every row empty (-1; llama.py:200-204 there)."""
     if dtype not in (torch.bfloat16, torch.int8):
         raise NotImplementedError(f"KV cache dtype {dtype}: bf16 or int8")
     shape = (cfg.n_layer, batch, cfg.n_head, max_len, cfg.head_dim)
@@ -169,7 +186,8 @@ def init_kv_cache(
     if dtype == torch.int8:
         sshape = (cfg.n_layer, batch, max_len, cfg.n_head)
         planes += [torch.zeros(sshape, dtype=torch.float32, device=device) for _ in range(2)]
-    return KVCache(*planes)
+    pos = torch.full((max_len, batch), -1, dtype=torch.int32, device=device) if ring else None
+    return KVCache(*planes, pos=pos)
 
 
 def init_paged_kv_cache(
@@ -185,6 +203,16 @@ def init_paged_kv_cache(
     if page_size % step:
         raise ValueError(f"page_size {page_size} must be a multiple of {step} for {dtype}")
     return init_kv_cache(cfg, n_pages, page_size, dtype, device)
+
+
+def ring_phys(pos, n_keep: int, s: int):
+    """Logical position -> physical ring row (llama.py:232-239 there): the
+    first fill is the identity; past the end, rows [n_keep, s) recycle and
+    the first n_keep rows stay pinned. `pos` is an int or an int tensor."""
+    span = max(s - n_keep, 1)
+    if isinstance(pos, int):
+        return pos if pos < s else n_keep + (pos - n_keep) % span
+    return torch.where(pos < s, pos, n_keep + torch.remainder(pos - n_keep, span))
 
 
 def _linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -209,14 +237,16 @@ def embed_tokens(emb: Embedding, tokens: torch.Tensor, dtype=torch.bfloat16) -> 
     return emb[tokens].to(dtype)
 
 
-def _attention(q, k_cache, v_cache, n_past, k_scale=None, v_scale=None) -> torch.Tensor:
+def _attention(q, k_cache, v_cache, n_past, k_scale=None, v_scale=None,
+               kv_pos=None) -> torch.Tensor:
     """Causal attention of T new queries against the updated cache layer
     [B, H, S, D]: the einsum numerics oracle (llama.py:266 there). An int8
-    layer is dequantized to f32 with its [B, S, H] scales first."""
+    layer is dequantized to f32 with its [B, S, H] scales first; a ring
+    masks by its position plane [S, B]."""
     if k_scale is not None:
         k_cache = dequantize_rows(k_cache, k_scale.transpose(1, 2))
         v_cache = dequantize_rows(v_cache, v_scale.transpose(1, 2))
-    return attention_ref(q, k_cache, v_cache, n_past)
+    return attention_ref(q, k_cache, v_cache, n_past, kv_pos=kv_pos)
 
 
 def llama_forward(
@@ -233,6 +263,8 @@ def llama_forward(
     use_ref: bool = False,
     ring_keep: int = 0,
     prefix_kv=None,
+    prefix_id=None,
+    prefix_len=None,
     page_table=None,
     page_straddle: bool = False,
     tp_axis=None,
@@ -265,11 +297,19 @@ def llama_forward(
     page); another T raises ValueError. page_straddle lifts the one-page rule
     of K2's writes (llama.py:603-626 there): the speculative verify writes T
     rows at any n_past, with n_past + T <= MAXLB * PS.
+
+    A ring cache (`cache.pos`) writes T rows at ring_phys(n_past, ring_keep)
+    (the caller keeps them from crossing the ring's end) after storing their
+    logical positions in the plane, once per forward; RoPE and the
+    attention's query positions stay logical (llama.py:464-487 there).
+    prefix_kv (pool k, v [L, NP, H, Sp, D] bf16) with prefix_id/prefix_len
+    ([B] int32) puts row b's first prefix_len[b] positions in pool entry
+    prefix_id[b]: n_past is a [B] vector of logical positions, the cache
+    holds rows n_past - prefix_len (llama.py:450-462 there). Both take the
+    fused kernels K2/K3 only, never K4 (llama.py:559-574 there); the plain
+    write plus K3 for T with T % min(256, T) != 0.
     """
-    unsupported = {
-        "ring_keep": ring_keep, "prefix_kv": prefix_kv, "tp_axis": tp_axis,
-        "pp_axis": pp_axis, "ggml_rounding": ggml_rounding,
-    }
+    unsupported = {"tp_axis": tp_axis, "pp_axis": pp_axis, "ggml_rounding": ggml_rounding}
     for name, val in unsupported.items():
         if val:
             raise NotImplementedError(f"llama_forward: {name} is not ported yet")
@@ -300,14 +340,48 @@ def llama_forward(
         positions = n_past[:, None].to(torch.int64) + torch.arange(t, device=dev)
     cos, sin = rope_cos_sin(positions, cfg.n_rot, cfg.rope_theta)  # [(B,) T, D/2]
 
+    paged = page_table is not None
+    ring = cache.ring
+    prefix = prefix_kv is not None
+    if paged and (ring or prefix):
+        raise ValueError("paged KV: non-ring pools, no prefix pool")
+    mode = {}  # the ring or prefix operands of K2/K3
+    local_past = n_past  # cache rows: n_past - prefix_len under a prefix
+    if prefix:
+        if ring:
+            raise ValueError("shared-prefix: non-ring slot caches only")
+        if isinstance(n_past, int):
+            raise ValueError("shared-prefix requires per-row n_past")
+        pid = torch.as_tensor(prefix_id, device=dev).to(torch.int32).expand(b).contiguous()
+        plen = torch.as_tensor(prefix_len, device=dev).to(torch.int32).expand(b).contiguous()
+        local_past = (n_past - plen).contiguous()
+        mode = dict(prefix_k=prefix_kv[0], prefix_v=prefix_kv[1], prefix_id=pid, prefix_len=plen)
+    wrow = local_past
+    if ring:
+        # the physical write rows and the position plane, once per forward:
+        # every layer's kernels read the updated plane (llama.py:464-487 there)
+        s_ctx = cache.k.shape[3]
+        wrow = ring_phys(n_past, ring_keep, s_ctx)
+        if isinstance(n_past, int):
+            cache.pos[wrow : wrow + t] = positions.to(torch.int32)[:, None]
+        else:
+            rows = wrow.to(torch.int64)[:, None] + torch.arange(t, device=dev)  # [B, T]
+            cache.pos[rows, torch.arange(b, device=dev)[:, None]] = positions.to(torch.int32)
+            wrow = wrow.to(torch.int32).contiguous()
+
     x = embed_tokens(params.tok_embeddings, tokens, dtype=dtype)  # [B, T, E]
     lp = params.layers
     fused = isinstance(lp, FusedLayerParams)
     bk = kv_block or (512 if t >= 256 else 256)
     impl = "flash" if attn_impl == "auto" else attn_impl
-    paged = page_table is not None
     if paged and (impl != "flash" or t % min(256, t)):
         raise ValueError(f"paged KV requires the fused flash path (impl={impl}, t={t})")
+    if prefix and impl != "flash":
+        raise ValueError(f"shared-prefix attention requires the flash path (impl={impl})")
+    upd_mode = read_mode = mode
+    if ring:
+        upd_mode = dict(kv_pos=cache.pos, write_row=wrow, ring_bounded=True)
+        read_mode = dict(kv_pos=cache.pos)
     # paged K2: the query block capped at the page (llama.py:602-608 there)
     pkw = dict(page_table=page_table, block_t=min(256, cache.k.shape[3]),
                page_straddle=page_straddle) if paged else {}
@@ -327,21 +401,22 @@ def llama_forward(
             v = linear(xa, lp.wv, l).reshape(b, t, h, d)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)  # RoPE'd K is what gets cached
-        if impl == "flash" and t == 1 and b > 1:
+        if impl == "flash" and t == 1 and b > 1 and not (ring or prefix):
             attn = attn_decode(q, k, v, cache.k, cache.v, n_past, l, block_k=bk,
                                k_scale=cache.k_scale, v_scale=cache.v_scale,
                                page_table=page_table)[0]
         elif impl == "flash" and t % min(256, t) == 0:
-            attn = attn_update(q, k, v, cache.k, cache.v, n_past, l, block_k=bk,
-                               k_scale=cache.k_scale, v_scale=cache.v_scale, **pkw)[0]
+            attn = attn_update(q, k, v, cache.k, cache.v, local_past, l, block_k=bk,
+                               k_scale=cache.k_scale, v_scale=cache.v_scale, **pkw,
+                               **upd_mode)[0]
         else:
-            write_rows(k, v, cache.k, cache.v, n_past, l, cache.k_scale, cache.v_scale)
+            write_rows(k, v, cache.k, cache.v, wrow, l, cache.k_scale, cache.v_scale)
             if impl == "flash":
-                attn = attn_read(q, cache.k, cache.v, n_past, layer_idx=l, block_k=bk,
-                                 k_scale=cache.k_scale, v_scale=cache.v_scale)
+                attn = attn_read(q, cache.k, cache.v, local_past, layer_idx=l, block_k=bk,
+                                 k_scale=cache.k_scale, v_scale=cache.v_scale, **read_mode)
             else:
                 ks, vs = (cache.k_scale[l], cache.v_scale[l]) if cache.quantized else (None, None)
-                attn = _attention(q, cache.k[l], cache.v[l], n_past, ks, vs)
+                attn = _attention(q, cache.k[l], cache.v[l], n_past, ks, vs, cache.pos)
         attn = attn.reshape(b, t, h * d).to(dtype)
         x = x + linear(attn, lp.wo, l)
         # --- FFN block (llama.cpp:1073-1101)

@@ -16,6 +16,23 @@ writes T rows at any n_past, and rows past a page's end go to the next
 logical page of the table (flash_attn.py:197-215 there; the CUDA write looks
 up every row's page anyway, so the mode changes the checks, not the kernel).
 
+History ring (`kv_pos` [S, B] int32, the logical position held by each
+physical row, -1 = empty; flash_attn.py:145-147, :555-563, :763-786 there):
+row j is visible to the query at logical position p iff
+0 <= kv_pos[j, b] <= p, so n_past is the LOGICAL position, and the update
+writes its T rows at physical rows [write_row[b], write_row[b] + T) (the
+caller keeps them inside the ring and has already stored their positions in
+the plane, which the kernels only read). `ring_bounded` stops the scan where
+the flat one stops, exact while kv_pos[r] >= r (rings the engine fills).
+
+Shared-prefix pool (`prefix_k/v` [L, NP, H, Sp, D] bf16, `prefix_id/len`
+[B] int32; :643-735 there): before the cache, each row attends over rows
+[0, prefix_len[b]) of pool entry prefix_id[b] with no causal mask, and
+n_past is the SLOT-LOCAL row (logical position minus prefix_len). The pool
+is bf16 over a bf16 or int8 cache; its KV block `pblock_k` is fitted to Sp
+on its own (`_fit_block_k(min(block_k, Sp), Sp)`, :880 there). Ring and
+prefix exclude each other and a page table, as the JAX asserts do.
+
 * `flash_attention_update` writes T new K/V rows at [n_past, n_past + T) of
   layer `layer_idx` IN PLACE (int8: quantized, with their scale rows; the JAX
   kernel got the same effect through buffer aliasing), then attends. On CUDA
@@ -53,19 +70,22 @@ from .kv_quant import quantize_rows
 # own
 launches = {f"{path}{mode}{kind}": 0 for path, mode in (
     ("update", ""), ("update", "_paged"), ("update", "_paged_straddle"), ("read", ""),
-    ("read", "_paged")) for kind in ("", "_i8")}
+    ("read", "_paged"), ("update", "_ring"), ("read", "_ring"), ("update", "_prefix"),
+    ("read", "_prefix")) for kind in ("", "_i8")}
 # launches by shape (path, B, T, H, S, D, block_k, int8, n_past: the int, or
 # None for a per-row vector, MAXLB: the page table's width, or None for a
-# flat cache, page_straddle; S is a page's rows when paged), so a caller can
-# check every shape a run reached
+# flat cache, page_straddle, mode: None, ("ring", ring_bounded) or ("prefix",
+# NP, Sp, pblock_k); S is a page's rows when paged), so a caller can check
+# every shape a run reached
 shapes: collections.Counter = collections.Counter()
 
 
-def launch_name(path: str, quant: bool, paged: bool, straddle: bool = False) -> str:
+def launch_name(path: str, quant: bool, paged: bool, straddle: bool = False,
+                mode: str = "") -> str:
     """The `launches` key of one call: update/read/decode, paged (and
-    straddling), int8."""
+    straddling), ring or prefix (`mode`), int8."""
     return (path + ("_paged" if paged else "") + ("_straddle" if straddle else "")
-            + ("_i8" if quant else ""))
+            + (f"_{mode}" if mode else "") + ("_i8" if quant else ""))
 
 
 def _fit_block_k(block_k: int, s: int, step: int = 8) -> int:
@@ -86,18 +106,22 @@ def kv_step(cache_dtype: torch.dtype) -> int:
 
 
 def attention_ref(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_past, scale: float | None = None
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_past, scale: float | None = None,
+    kv_pos: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Dense scores over the whole cache (parity oracle, flash_attn.py:99).
-    q [B, T, H, D]; k, v [B, H, S, D]; returns f32 [B, T, H, D]. Scores are
-    scaled by `scale`, 1/sqrt(D) unless given."""
+    """Dense scores over the whole cache (parity oracle, flash_attn.py:99;
+    with a ring's position plane `kv_pos` [S, B], the mask of llama.py:306-309
+    there). q [B, T, H, D]; k, v [B, H, S, D]; returns f32 [B, T, H, D].
+    Scores are scaled by `scale`, 1/sqrt(D) unless given."""
     b, t, h, d = q.shape
     s = k.shape[2]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     qf = q.to(k.dtype).to(torch.float32)
     scores = torch.einsum("bthd,bhsd->bhts", qf, k.to(torch.float32)) * scale
-    scores = scores.masked_fill(~visible_mask(n_past, b, t, s, q.device)[:, None], float("-inf"))
+    visible = (visible_mask(n_past, b, t, s, q.device) if kv_pos is None
+               else ring_visible(kv_pos, n_past, b, t))
+    scores = scores.masked_fill(~visible[:, None], float("-inf"))
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum(
         "bhts,bhsd->bthd", probs.to(v.dtype).to(torch.float32), v.to(torch.float32)
@@ -117,25 +141,60 @@ def visible_mask(n_past, b: int, t: int, s: int, device) -> torch.Tensor:
     return jpos[None, None, :] <= tpos[:, :, None]
 
 
-def attend_ref(q, k_l, v_l, visible, k_scale_l=None, v_scale_l=None) -> torch.Tensor:
+def ring_visible(kv_pos: torch.Tensor, n_past, b: int, t: int) -> torch.Tensor:
+    """[B, T, S] bool: ring row j is visible to query t of row b iff
+    0 <= kv_pos[j, b] <= n_past[b] + t (flash_attn.py:763-778 there; the
+    positions compared as integers)."""
+    pos = kv_pos.t().to(torch.int64)[:, None, :]  # [B, 1, S]
+    tpos = _npast_rows(n_past, b, kv_pos.device)[:, None] + torch.arange(t, device=kv_pos.device)
+    return (pos >= 0) & (pos <= tpos[:, :, None])
+
+
+def prefix_rows(prefix_k, prefix_v, prefix_id, prefix_len, layer_idx: int, t: int):
+    """The pool rows each batch row attends before its cache: (k, v) of
+    entry prefix_id[b] of layer `layer_idx`, [B, H, Sp, D] bf16, and their
+    mask [B, T, Sp] (row j visible iff j < prefix_len[b]: no causal mask,
+    every query sits past the prefix)."""
+    ids = prefix_id.to(torch.int64)
+    pk, pv = prefix_k[layer_idx][ids], prefix_v[layer_idx][ids]
+    sp = pk.shape[2]
+    vis = torch.arange(sp, device=pk.device)[None, :] < prefix_len.to(pk.device)[:, None].long()
+    return pk, pv, vis[:, None, :].expand(-1, t, -1)
+
+
+def attend_ref(q, k_l, v_l, visible, k_scale_l=None, v_scale_l=None, prefix=None) -> torch.Tensor:
     """Dense attention with the kernels' rounding points. q [B, T, H, D];
     k_l/v_l one cache layer [B, H, S, D] (bf16 or int8); visible [B, T, S];
-    k_scale_l/v_scale_l that layer's [B, S, H] scale planes for int8. q is
-    scaled by 1/sqrt(D) in f32 and rounded to bf16 before the QK product
-    (flash_attn.py:545 there); an int8 score is multiplied by its key's
-    scale; the probabilities are multiplied by the value scales and rounded
-    to bf16 before the PV product. Returns f32 [B, T, H, D]."""
+    k_scale_l/v_scale_l that layer's [B, S, H] scale planes for int8;
+    `prefix` (pk, pv, mask) bf16 pool rows [B, H, Sp, D] in the same softmax
+    (`prefix_rows`). q is scaled by 1/sqrt(D) in f32 and rounded to bf16
+    before the QK product (flash_attn.py:545 there); an int8 score is
+    multiplied by its key's scale; the probabilities are multiplied by the
+    value scales (cache rows only) and rounded to bf16 before the PV product.
+    Returns f32 [B, T, H, D]."""
     d = q.shape[-1]
     qs = (q.to(torch.float32) * (1.0 / math.sqrt(d))).to(torch.bfloat16).to(torch.float32)
     scores = torch.einsum("bthd,bhsd->bhts", qs, k_l.to(torch.float32))
     if k_scale_l is not None:
         scores = scores * k_scale_l.transpose(1, 2)[:, :, None, :]
-    probs = torch.softmax(scores.masked_fill(~visible[:, None], float("-inf")), dim=-1)
+    scores = scores.masked_fill(~visible[:, None], float("-inf"))
+    sp = 0
+    if prefix is not None:
+        pk, pv, pvis = prefix
+        pscores = torch.einsum("bthd,bhsd->bhts", qs, pk.to(torch.float32))
+        scores = torch.cat([pscores.masked_fill(~pvis[:, None], float("-inf")), scores], dim=-1)
+        sp = pk.shape[2]
+    probs = torch.softmax(scores, dim=-1)
+    pprobs, probs = probs[..., :sp], probs[..., sp:]
     if v_scale_l is not None:
         probs = probs * v_scale_l.transpose(1, 2)[:, :, None, :]
-    return torch.einsum(
+    out = torch.einsum(
         "bhts,bhsd->bthd", probs.to(torch.bfloat16).to(torch.float32), v_l.to(torch.float32)
     )
+    if prefix is not None:
+        out = out + torch.einsum("bhts,bhsd->bthd", pprobs.to(torch.bfloat16).to(torch.float32),
+                                 pv.to(torch.float32))
+    return out
 
 
 def gather_pages(plane_l: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
@@ -157,7 +216,8 @@ def write_rows(k_new, v_new, k, v, n_past, layer_idx: int, k_scale=None, v_scale
     rows for a bf16 cache; for an int8 cache the rows of bf16(new) quantized
     by `quantize_rows`, and their scales into k_scale/v_scale. With a page
     table, logical row j of batch row b goes to page `page_table[b, j // PS]`,
-    row `j % PS`, of the pool."""
+    row `j % PS`, of the pool. A ring passes its physical write rows as
+    `n_past`."""
     b, t = k_new.shape[:2]
     quant = k.dtype == torch.int8
     if quant:
@@ -194,17 +254,29 @@ def _layer_scales(k_scale, v_scale, layer_idx):
 
 
 def flash_attention_ref(q, k, v, n_past, layer_idx: int = 0, block_k: int = 256,
-                        k_scale=None, v_scale=None, page_table=None):
+                        k_scale=None, v_scale=None, page_table=None, kv_pos=None,
+                        ring_bounded: bool = False, prefix_k=None, prefix_v=None,
+                        prefix_id=None, prefix_len=None):
     """Plain version of `flash_attention`: dense attention over layer
     `layer_idx` of the stacked cache, or over the logical view of the pool
-    gathered through `page_table` (`attend_ref`)."""
-    del block_k  # the dense softmax has no KV blocks
+    gathered through `page_table`, or over a ring masked by `kv_pos`, after
+    the rows of a shared prefix (`attend_ref`). `ring_bounded` changes
+    nothing here: the kernels' bound only skips rows that an engine-filled
+    ring masks anyway."""
+    del block_k, ring_bounded  # the dense softmax has no KV blocks and no bound
+    _check_modes(page_table, kv_pos, prefix_k)
     b, t = q.shape[:2]
     planes = [k[layer_idx], v[layer_idx], *_layer_scales(k_scale, v_scale, layer_idx)]
     if page_table is not None:
         planes = [None if p is None else gather_pages(p, page_table) for p in planes]
-    visible = visible_mask(n_past, b, t, planes[0].shape[2], q.device)
-    return attend_ref(q, *planes[:2], visible, *planes[2:])
+    if kv_pos is not None:
+        visible = ring_visible(kv_pos, n_past, b, t)
+    else:
+        visible = visible_mask(n_past, b, t, planes[0].shape[2], q.device)
+    prefix = None
+    if prefix_k is not None:
+        prefix = prefix_rows(prefix_k, prefix_v, prefix_id, prefix_len, layer_idx, t)
+    return attend_ref(q, *planes[:2], visible, *planes[2:], prefix=prefix)
 
 
 def check_paged_write(n_past: int, t: int, block_t: int, page_rows: int) -> None:
@@ -221,15 +293,33 @@ def check_paged_write(n_past: int, t: int, block_t: int, page_rows: int) -> None
 
 def flash_attention_update_ref(
     q, k_new, v_new, k, v, n_past, layer_idx: int, block_t: int = 256, block_k: int = 256,
-    k_scale=None, v_scale=None, page_table=None, page_straddle: bool = False,
+    k_scale=None, v_scale=None, page_table=None, page_straddle: bool = False, kv_pos=None,
+    write_row=None, ring_bounded: bool = False, prefix_k=None, prefix_v=None, prefix_id=None,
+    prefix_len=None,
 ):
-    """Plain version of `flash_attention_update`: the cache write, then the
-    dense attention. Returns (out, k, v), plus (k_scale, v_scale) for an int8
-    cache, every cache plane updated in place."""
+    """Plain version of `flash_attention_update`: the cache write (a ring's
+    at `write_row`), then the dense attention. Returns (out, k, v), plus
+    (k_scale, v_scale) for an int8 cache, every cache plane updated in
+    place."""
+    _check_modes(page_table, kv_pos, prefix_k, write_row, update=True)
     _check_block_t(q.shape[1], block_t, n_past, k.shape[3], page_table, page_straddle)
-    write_rows(k_new, v_new, k, v, n_past, layer_idx, k_scale, v_scale, page_table)
-    out = flash_attention_ref(q, k, v, n_past, layer_idx, block_k, k_scale, v_scale, page_table)
+    write_rows(k_new, v_new, k, v, n_past if kv_pos is None else write_row, layer_idx, k_scale,
+               v_scale, page_table)
+    out = flash_attention_ref(q, k, v, n_past, layer_idx, block_k, k_scale, v_scale, page_table,
+                              kv_pos, ring_bounded, prefix_k, prefix_v, prefix_id, prefix_len)
     return (out, k, v) if k_scale is None else (out, k, v, k_scale, v_scale)
+
+
+def _check_modes(page_table, kv_pos, prefix_k, write_row=None, update: bool = False) -> None:
+    """The JAX wrappers' mode asserts (flash_attn.py:857-864, :1045-1051
+    there): ring and prefix exclude each other and a page table; a ring's
+    update names its physical write rows."""
+    if kv_pos is not None and prefix_k is not None:
+        raise ValueError("shared-prefix attention: non-ring slot caches only")
+    if page_table is not None and (kv_pos is not None or prefix_k is not None):
+        raise ValueError("paged KV: non-ring caches, no prefix-pool pre-pass")
+    if update and (write_row is None) != (kv_pos is None):
+        raise ValueError("a ring update needs both kv_pos and write_row")
 
 
 def _check_block_t(t: int, block_t: int, n_past, rows: int, page_table,
@@ -253,25 +343,47 @@ def _check_block_t(t: int, block_t: int, n_past, rows: int, page_table,
             check_paged_write(n_past, t, bt, rows)
 
 
+class _Modes(ctypes.Structure):
+    """`AttnModes` of csrc/flash_attn.cu: the ring and prefix operands."""
+
+    _fields_ = [("pos", ctypes.c_void_p), ("ring_bounded", ctypes.c_int),
+                ("wrow_vec", ctypes.c_void_p), ("wrow_scalar", ctypes.c_int),
+                ("has_wrow", ctypes.c_int), ("pk", ctypes.c_void_p), ("pv", ctypes.c_void_p),
+                ("pid", ctypes.c_void_p), ("plen", ctypes.c_void_p), ("sp", ctypes.c_int),
+                ("pblock_k", ctypes.c_int)]
+
+
 @functools.cache
 def _lib():
     lib = _build.load("flash_attn")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.attn_read_launch.argtypes = [p, p, p, p, p, p, p, i, p, i, i, i, i, i, i, i, f, i, p]
+    modes = ctypes.POINTER(_Modes)
+    lib.attn_read_launch.argtypes = [p, p, p, p, p, p, p, i, p, i, i, i, i, i, i, i, f, i, modes,
+                                     p]
     lib.attn_read_launch.restype = ctypes.c_int
     lib.attn_update_launch.argtypes = [p, p, p, p, p, p, p, p, p, i, p, i, i, i, i, i, i, i, f,
-                                       i, p]
+                                       i, modes, p]
     lib.attn_update_launch.restype = ctypes.c_int
     return lib
 
 
+def _on_device(x, q, what: str, dtype=torch.int32, shape=None) -> None:
+    """x must be a contiguous `dtype` CUDA tensor of `shape` on q's device."""
+    if (not isinstance(x, torch.Tensor) or x.dtype != dtype or not x.is_cuda
+            or x.device != q.device or not x.is_contiguous()
+            or (shape is not None and tuple(x.shape) != tuple(shape))):
+        raise ValueError(f"attention kernel: {what} must be a contiguous {dtype} CUDA tensor "
+                         f"of shape {shape} on q's device")
+
+
 def check_cuda(q, k, v, n_past, layer_idx, k_scale=None, v_scale=None, tensors=(),
-               page_table=None):
+               page_table=None, ring: bool = False):
     """Validate kernel operands (bf16 q and new rows; a bf16 cache, or an
     int8 cache with f32 scale planes; flat [L, B, H, S, D] with scales
     [L, B, S, H], or a pool [L, NP, H, PS, D] with scales [L, NP, PS, H] and
     an int32 [B, MAXLB] page table). Returns (npast_ptr, npast_scalar, int8
-    flag, k_scale_ptr, v_scale_ptr, table_ptr, MAXLB) for layer_idx."""
+    flag, k_scale_ptr, v_scale_ptr, table_ptr, MAXLB) for layer_idx. A
+    ring's n_past is logical and may pass the cache's rows."""
     b, t, h, d = q.shape
     paged = page_table is not None
     if (k.dim() != 5 or k.shape != v.shape or k.shape[2] != h or k.shape[4] != d
@@ -309,12 +421,51 @@ def check_cuda(q, k, v, n_past, layer_idx, k_scale=None, v_scale=None, tensors=(
     sptr = (k_scale[layer_idx].data_ptr(), v_scale[layer_idx].data_ptr()) if quant else (None, None)
     tptr = (page_table.data_ptr(), maxlb) if paged else (None, 0)
     if isinstance(n_past, int):
-        if not 0 <= n_past <= cap - t:
+        if not 0 <= n_past <= (n_past if ring else cap - t):
             raise ValueError(f"attention: n_past {n_past} + T {t} exceeds the cache ({cap})")
         return None, n_past, quant, *sptr, *tptr
     if n_past.shape != (b,) or n_past.dtype != torch.int32 or n_past.device != q.device:
         raise ValueError("attention kernel: vector n_past must be int32 [B] on q's device")
     return n_past.data_ptr(), 0, quant, *sptr, *tptr
+
+
+def _modes(q, k, layer_idx, bk, kv_pos=None, write_row=None, ring_bounded=False,
+           prefix_k=None, prefix_v=None, prefix_id=None, prefix_len=None):
+    """The `_Modes` of a call on CUDA tensors after checking its ring and
+    prefix operands, and its shape-key mode: None, ("ring", bounded) or
+    ("prefix", NP, Sp, pblock_k)."""
+    b, t, h, d = q.shape
+    m = _Modes()
+    if kv_pos is not None:
+        _on_device(kv_pos, q, "kv_pos", shape=(k.shape[3], b))
+        m.pos, m.ring_bounded = kv_pos.data_ptr(), int(ring_bounded)
+        if write_row is not None:
+            m.has_wrow = 1
+            if isinstance(write_row, int):
+                if not 0 <= write_row <= k.shape[3] - t:
+                    raise ValueError(f"ring write rows [{write_row}, {write_row + t}) leave the "
+                                     f"ring of {k.shape[3]} rows")
+                m.wrow_scalar = write_row
+            else:
+                _on_device(write_row, q, "write_row", shape=(b,))
+                m.wrow_vec = write_row.data_ptr()
+        return m, ("ring", bool(ring_bounded))
+    if prefix_k is None:
+        return m, None
+    if (prefix_k.dim() != 5 or prefix_v is None or prefix_v.shape != prefix_k.shape
+            or prefix_k.shape[0] != k.shape[0] or prefix_k.shape[2] != h
+            or prefix_k.shape[4] != d):
+        raise ValueError(f"attention: prefix pool {tuple(prefix_k.shape)} does not fit the "
+                         f"cache {tuple(k.shape)}")
+    npool, sp = prefix_k.shape[1], prefix_k.shape[3]
+    for x, what in ((prefix_k, "prefix_k"), (prefix_v, "prefix_v")):
+        _on_device(x, q, what, torch.bfloat16)
+    for x, what in ((prefix_id, "prefix_id"), (prefix_len, "prefix_len")):
+        _on_device(x, q, what, shape=(b,))
+    pbk = _fit_block_k(min(bk, sp), sp)
+    m.pk, m.pv = prefix_k[layer_idx].data_ptr(), prefix_v[layer_idx].data_ptr()
+    m.pid, m.plen, m.sp, m.pblock_k = prefix_id.data_ptr(), prefix_len.data_ptr(), sp, pbk
+    return m, ("prefix", npool, sp, pbk)
 
 
 def flash_attention(
@@ -327,27 +478,38 @@ def flash_attention(
     k_scale: torch.Tensor | None = None,  # [L, B, S, H] / [L, NP, PS, H] f32: int8 cache
     v_scale: torch.Tensor | None = None,
     page_table: torch.Tensor | None = None,  # [B, MAXLB] int32: k/v are a page pool
+    kv_pos: torch.Tensor | None = None,  # [S, B] int32: history-ring positions
+    ring_bounded: bool = False,  # ragged bound on rings with kv_pos[r] >= r
+    prefix_k: torch.Tensor | None = None,  # [L, NP, H, Sp, D] bf16 shared pool
+    prefix_v: torch.Tensor | None = None,
+    prefix_id: torch.Tensor | None = None,  # [B] int32 pool entry per row
+    prefix_len: torch.Tensor | None = None,  # [B] int32 valid prefix rows
 ) -> torch.Tensor:
     """Causal attention of T queries over layer `layer_idx` of a cache that
     already holds their rows (K3). Returns f32 [B, T, H, D]."""
     if not q.is_cuda:
         return flash_attention_ref(q, k, v, n_past, layer_idx, block_k, k_scale, v_scale,
-                                   page_table)
+                                   page_table, kv_pos, ring_bounded, prefix_k, prefix_v,
+                                   prefix_id, prefix_len)
+    _check_modes(page_table, kv_pos, prefix_k)
     npv, nps, quant, ksp, vsp, tab, maxlb = check_cuda(q, k, v, n_past, layer_idx, k_scale,
-                                                       v_scale, page_table=page_table)
+                                                       v_scale, page_table=page_table,
+                                                       ring=kv_pos is not None)
     b, t, h, d = q.shape
     s = k.shape[3]
     bk = _fit_block_k(block_k, s, kv_step(k.dtype))
+    modes, mode = _modes(q, k, layer_idx, bk, kv_pos, None, ring_bounded, prefix_k, prefix_v,
+                         prefix_id, prefix_len)
     out = torch.empty((b, t, h, d), dtype=torch.float32, device=q.device)
     rc = _lib().attn_read_launch(
         q.data_ptr(), k[layer_idx].data_ptr(), v[layer_idx].data_ptr(), ksp, vsp,
         out.data_ptr(), npv, nps, tab, maxlb, b, t, h, s, d, bk, 1.0 / math.sqrt(d), int(quant),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        ctypes.byref(modes), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, "attn_read_launch")
-    launches[launch_name("read", quant, tab is not None)] += 1
+    launches[launch_name("read", quant, tab is not None, mode=mode and mode[0])] += 1
     shapes[("read", b, t, h, s, d, bk, quant, n_past if npv is None else None,
-            maxlb or None, False)] += 1
+            maxlb or None, False, mode)] += 1
     return out
 
 
@@ -365,19 +527,28 @@ def flash_attention_update(
     v_scale: torch.Tensor | None = None,
     page_table: torch.Tensor | None = None,  # [B, MAXLB] int32: k/v are a page pool
     page_straddle: bool = False,  # paged writes at any n_past (speculative verify)
+    kv_pos: torch.Tensor | None = None,  # [S, B] int32: history-ring positions
+    write_row=None,  # int or [B] int32: the ring's physical write rows
+    ring_bounded: bool = False,  # ragged bound on rings with kv_pos[r] >= r
+    prefix_k: torch.Tensor | None = None,  # [L, NP, H, Sp, D] bf16 shared pool
+    prefix_v: torch.Tensor | None = None,
+    prefix_id: torch.Tensor | None = None,  # [B] int32 pool entry per row
+    prefix_len: torch.Tensor | None = None,  # [B] int32 valid prefix rows
 ):
     """Writes the T new K/V rows at [n_past[b], n_past[b] + T) of layer
     `layer_idx` IN PLACE (int8: the rows of bf16(k_new) quantized, and their
-    scales), then attends (K2). Returns (out [B, T, H, D] f32, k, v), plus
-    (k_scale, v_scale) for an int8 cache. Requires T % min(block_t, T) == 0,
-    as the JAX kernel does, and, paged, that every block of block_t rows
-    lies in one page (checked for a host-int n_past; `check_paged_write`),
-    unless `page_straddle`: then rows cross into the next logical page, and
-    n_past + T <= MAXLB * PS."""
+    scales; a ring: at [write_row[b], write_row[b] + T)), then attends (K2).
+    Returns (out [B, T, H, D] f32, k, v), plus (k_scale, v_scale) for an int8
+    cache. Requires T % min(block_t, T) == 0, as the JAX kernel does, and,
+    paged, that every block of block_t rows lies in one page (checked for a
+    host-int n_past; `check_paged_write`), unless `page_straddle`: then rows
+    cross into the next logical page, and n_past + T <= MAXLB * PS."""
     if not q.is_cuda:
         return flash_attention_update_ref(q, k_new, v_new, k, v, n_past, layer_idx,
                                           block_t, block_k, k_scale, v_scale, page_table,
-                                          page_straddle)
+                                          page_straddle, kv_pos, write_row, ring_bounded,
+                                          prefix_k, prefix_v, prefix_id, prefix_len)
+    _check_modes(page_table, kv_pos, prefix_k, write_row, update=True)
     _check_block_t(q.shape[1], block_t, n_past, k.shape[3], page_table, page_straddle)
     # the cast flash_attn.py:1101-1103 makes; an int8 cache quantizes bf16 rows
     kn = k_new.to(torch.bfloat16).contiguous()
@@ -385,18 +556,23 @@ def flash_attention_update(
     if kn.shape != q.shape or vn.shape != q.shape:
         raise ValueError("flash_attention_update: k_new/v_new must match q's shape")
     npv, nps, quant, ksp, vsp, tab, maxlb = check_cuda(q, k, v, n_past, layer_idx, k_scale,
-                                                       v_scale, (kn, vn), page_table)
+                                                       v_scale, (kn, vn), page_table,
+                                                       ring=kv_pos is not None)
     b, t, h, d = q.shape
     s = k.shape[3]
     bk = _fit_block_k(block_k, s, kv_step(k.dtype))
+    modes, mode = _modes(q, k, layer_idx, bk, kv_pos, write_row, ring_bounded, prefix_k,
+                         prefix_v, prefix_id, prefix_len)
     out = torch.empty((b, t, h, d), dtype=torch.float32, device=q.device)
     rc = _lib().attn_update_launch(
         q.data_ptr(), kn.data_ptr(), vn.data_ptr(), k[layer_idx].data_ptr(),
         v[layer_idx].data_ptr(), ksp, vsp, out.data_ptr(), npv, nps, tab, maxlb, b, t, h, s, d,
-        bk, 1.0 / math.sqrt(d), int(quant), torch.cuda.current_stream(q.device).cuda_stream,
+        bk, 1.0 / math.sqrt(d), int(quant), ctypes.byref(modes),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, "attn_update_launch")
-    launches[launch_name("update", quant, tab is not None, page_straddle)] += 1
+    launches[launch_name("update", quant, tab is not None, page_straddle,
+                         mode and mode[0])] += 1
     shapes[("update", b, t, h, s, d, bk, quant, n_past if npv is None else None,
-            maxlb or None, page_straddle)] += 1
+            maxlb or None, page_straddle, mode)] += 1
     return (out, k, v) if k_scale is None else (out, k, v, k_scale, v_scale)

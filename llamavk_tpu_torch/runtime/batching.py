@@ -41,7 +41,17 @@ repeat penalty folded in per verify position. Paged, each block maps
 n_steps * gamma rows of pages ahead and the verify writes may cross a page
 (`page_straddle`). A request needs gamma - 1 rows of slack in n_ctx.
 
-The shared-prefix pool and meshes raise NotImplementedError.
+Shared-prefix pool (`BatchConfig.shared_prefix`, batching.py:74-82, 662-812
+and 962-986 there): a registered prefix is prefilled once into a bf16 cache
+of `prefix_ctx` rows and copied into its entry of one pool
+[L, prefix_pool, H, prefix_ctx, D], which every slot that continues it
+attends through the kernels' prefix pre-pass. Slots hold only suffix rows,
+so prefix KV memory is O(pool), not O(batch); n_past stays logical (the
+slot's rows are n_past - prefix_len), and a request without a prefix runs
+with prefix_len 0. It composes with an int8 slot cache and with
+`lookup_gamma`, not with `paged`.
+
+Meshes raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -106,8 +116,11 @@ class BatchConfig:
     kv_block: int = 0
     # > 0: prompt-lookup speculative decoding, gamma rows verified per round
     lookup_gamma: int = 0
-    # a mode of the JAX package's BatchConfig not ported yet (it raises)
+    # registered prefixes live in ONE read-only bf16 pool that every slot
+    # attends before its own rows; slots hold only suffix rows
     shared_prefix: bool = False
+    prefix_pool: int = 4  # shared-prefix pool entries
+    prefix_ctx: int = 256  # pool entry rows (positions; a multiple of 256)
 
 
 def _rows(plane: torch.Tensor, batch, n: int) -> torch.Tensor:
@@ -134,10 +147,13 @@ class BatchedEngine:
     def __init__(self, cfg: ModelConfig, params: LlamaParams,
                  bcfg: BatchConfig = BatchConfig(), mesh=None, device="cuda"):
         self.device = resolve(device)
-        unported = {"mesh": mesh is not None, "shared_prefix": bcfg.shared_prefix}
-        for name, on in unported.items():
-            if on:
-                raise NotImplementedError(f"BatchedEngine: {name} is not ported yet")
+        if mesh is not None:
+            raise NotImplementedError("BatchedEngine: mesh is not ported yet")
+        if bcfg.shared_prefix and bcfg.paged:
+            raise ValueError("paged KV excludes shared_prefix (the block table IS the "
+                             "sharing mechanism)")
+        if bcfg.shared_prefix and bcfg.prefix_ctx % 256:
+            raise ValueError(f"prefix_ctx {bcfg.prefix_ctx}: a multiple of 256")
         self.cfg = cfg
         self.params = params
         self.bcfg = bcfg
@@ -180,10 +196,22 @@ class BatchedEngine:
         }
         if self.pager is not None:
             self.stats["pages_peak"] = 1  # the most pages in use at a block's start
+        self.shared = bcfg.shared_prefix
+        if self.shared:
+            # the pool is bf16 whatever the slot cache holds: one copy serves
+            # every slot (batching.py:671-690 there)
+            pool = (cfg.n_layer, bcfg.prefix_pool, cfg.n_head, bcfg.prefix_ctx, cfg.head_dim)
+            self.pfx_k = torch.zeros(pool, dtype=torch.bfloat16, device=self.device)
+            self.pfx_v = torch.zeros(pool, dtype=torch.bfloat16, device=self.device)
+            self.pfx_len = np.zeros(b, np.int32)  # each slot's pool rows
+            self.pfx_id = np.zeros(b, np.int32)  # and their entry
+        # the lookup history spans logical positions: prefix + suffix when
+        # the prefix lives in the pool
+        self._ctx_len = bcfg.n_ctx + (bcfg.prefix_ctx if self.shared else 0)
         if bcfg.lookup_gamma > 0:
             # each row's token history at logical positions, read by the
             # lookup drafter on the device
-            self.ctx_dev = torch.zeros((b, bcfg.n_ctx), dtype=torch.int64, device=self.device)
+            self.ctx_dev = torch.zeros((b, self._ctx_len), dtype=torch.int64, device=self.device)
             self.stats.update(rounds=0, accepted=0)
             if self.pager is not None:
                 self.stats["straddled"] = 0  # verify writes that crossed a page
@@ -196,6 +224,28 @@ class BatchedEngine:
 
     def _dev(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(a, dtype=dtype).to(self.device)
+
+    def _pfx_kw(self, ids=None, lens=None) -> dict:
+        """The prefix-pool operands of a forward whose rows continue pool
+        entries `ids` over `lens` rows (default: every slot's), or {}
+        without the pool."""
+        if not self.shared:
+            return {}
+        ids = self.pfx_id if ids is None else ids
+        lens = self.pfx_len if lens is None else lens
+        return dict(prefix_kv=(self.pfx_k, self.pfx_v), prefix_id=self._dev(ids, torch.int32),
+                    prefix_len=self._dev(lens, torch.int32))
+
+    def _free(self, slot: int) -> None:
+        """A finished slot's per-slot state back to idle."""
+        self.slots[slot] = None
+        self.n_past[slot] = 0
+        self.gens[slot] = None
+        if self.pager is not None:
+            self.pager.free_slot(slot)
+        if self.shared:
+            self.pfx_len[slot] = 0
+            self.pfx_id[slot] = 0
 
     def _noise(self, slots) -> torch.Tensor:
         """[len(slots), k] Exp(1) draws: one row from each sampled slot's own
@@ -240,6 +290,8 @@ class BatchedEngine:
         (prefix caching, batching.py:988-1012 there). Paged: the prefix's
         full pages are shared by the slots' tables instead (`_register_paged`)."""
         plen = len(tokens)
+        if self.shared:
+            return self._register_shared(tokens)
         if not 0 < plen < self.bcfg.n_ctx:
             raise ValueError("prefix length out of range")
         if self.pager is not None:
@@ -262,6 +314,8 @@ class BatchedEngine:
         if prefix >= 0 and prefix not in self.prefixes:
             raise ValueError(f"unknown prefix id {prefix}")
         total = len(prompt) + (self.prefixes[prefix][1] if prefix >= 0 else 0)
+        if self.shared:
+            total = len(prompt)  # the slot holds only the suffix
         # lookup rounds write gamma-row windows: gamma - 1 rows of slack
         slack = max(self.bcfg.lookup_gamma - 1, 0)
         if total + n_predict + slack > self.bcfg.n_ctx:
@@ -274,6 +328,32 @@ class BatchedEngine:
         self._rid += 1
         self.queue.append(req)
         return req
+
+    def _register_shared(self, tokens: list[int]) -> int:
+        """Shared pool (batching.py:962-986 there): prefill the prefix into a
+        one-row bf16 cache of prefix_ctx rows and copy it into the next pool
+        entry (`_pool_write`)."""
+        plen = len(tokens)
+        if not 0 < plen <= self.bcfg.prefix_ctx:
+            raise ValueError("prefix exceeds pool ctx")
+        pid = self._pid
+        if pid >= self.bcfg.prefix_pool:
+            raise ValueError("prefix pool full")
+        bucket = _bucket(plen, self.bcfg.prefix_ctx)
+        padded = np.zeros((1, bucket), np.int64)
+        padded[0, :plen] = tokens
+        cache1 = init_kv_cache(self.cfg, 1, self.bcfg.prefix_ctx, torch.bfloat16, self.device)
+        self._fwd(self._dev(padded), cache1, 0, last_idx=self._dev([plen - 1]))
+        self._pool_write(cache1, pid)
+        self._pid += 1
+        self.prefixes[pid] = (None, plen, list(tokens))
+        return pid
+
+    def _pool_write(self, cache1: KVCache, pid: int) -> None:
+        """Pool entry `pid` = the one-row cache's rows (batching.py:802-812
+        there)."""
+        self.pfx_k[:, pid] = cache1.k[:, 0]
+        self.pfx_v[:, pid] = cache1.v[:, 0]
 
     def _register_paged(self, tokens: list[int]) -> int:
         """Paged prefix (batching.py:930-961 there): its FULL pages are
@@ -327,13 +407,15 @@ class BatchedEngine:
         for (bucket, pfx), items in groups.items():
             pfx_cache, pfx_len, pfx_tokens = self.prefixes[pfx] if pfx >= 0 else (None, 0, [])
             # suffix writes live at [pfx_len, pfx_len + bucket): clamp the
-            # padding so they cannot run past the slot region
-            bucket = min(bucket, self.bcfg.n_ctx - pfx_len)
+            # padding so they cannot run past the slot region (shared: the
+            # slot holds only the suffix, from row 0)
+            rows0 = 0 if self.shared else pfx_len
+            bucket = min(bucket, self.bcfg.n_ctx - rows0)
             # every admission copy is bounded to the rows the chunk touches:
-            # the power of two >= pfx_len + bucket (64 at least), not n_ctx.
+            # the power of two >= rows0 + bucket (64 at least), not n_ctx.
             # Slot rows past it keep the previous occupant's stale K/V, which
             # no query reads before decode overwrites them.
-            scratch_len = _bucket(pfx_len + bucket, self.bcfg.n_ctx, floor=64)
+            scratch_len = _bucket(rows0 + bucket, self.bcfg.n_ctx, floor=64)
             for chunk in self._chunks(items):
                 n = len(chunk)
                 toks = np.zeros((n, bucket), np.int64)
@@ -343,14 +425,21 @@ class BatchedEngine:
                     toks[j, :plen] = req.prompt
                     last_idx[j] = plen - 1
                     self._set_slot(req.slot, req, pfx_tokens + req.prompt, pfx_len + plen)
-                if pfx >= 0:  # the prefix rows, copied into every chunk row
+                    if self.shared:
+                        self.pfx_len[req.slot] = pfx_len
+                        self.pfx_id[req.slot] = max(pfx, 0)
+                if pfx >= 0 and not self.shared:  # the prefix rows, copied into every chunk row
                     scratch = KVCache(*(
                         _rows(p, slice(None), scratch_len).expand(-1, n, *[-1] * (p.dim() - 2))
                         .clone() for p in pfx_cache.planes()))
                 else:
                     scratch = init_kv_cache(self.cfg, n, scratch_len, self.kv_dtype, self.device)
-                logits, _, _ = self._fwd(self._dev(toks), scratch, pfx_len,
-                                         last_idx=self._dev(last_idx))
+                # shared (_admit_chunk_shared, batching.py:747-800 there): the
+                # suffix attends the pool, its rows land at 0, n_past logical
+                npast = self._dev([pfx_len] * n, torch.int32) if self.shared else pfx_len
+                logits, _, _ = self._fwd(self._dev(toks), scratch, npast,
+                                         last_idx=self._dev(last_idx),
+                                         **self._pfx_kw([max(pfx, 0)] * n, [pfx_len] * n))
                 for j, req in enumerate(chunk):
                     for dst, src in zip(self.cache.planes(), scratch.planes()):
                         _rows(dst, req.slot, scratch_len).copy_(src[:, j])
@@ -364,10 +453,10 @@ class BatchedEngine:
         (batching.py:1151-1172, 1312-1324 there)."""
         if self.bcfg.lookup_gamma <= 0 or not admitted:
             return
-        rows = np.zeros((len(admitted), self.bcfg.n_ctx), np.int64)
+        rows = np.zeros((len(admitted), self._ctx_len), np.int64)
         for j, req in enumerate(admitted):
             pfx_tokens = self.prefixes[req.prefix][2] if req.prefix >= 0 else []
-            hist = (pfx_tokens + req.prompt + req.generated)[: self.bcfg.n_ctx]
+            hist = (pfx_tokens + req.prompt + req.generated)[: self._ctx_len]
             rows[j, : len(hist)] = hist
         self.ctx_dev[self._dev([r.slot for r in admitted], torch.int64)] = self._dev(rows)
 
@@ -505,6 +594,7 @@ class BatchedEngine:
         slots = list(range(b))
         npast = self._dev(self.n_past, torch.int32)
         kw = {} if self.pager is None else dict(page_table=self._table_dev)
+        kw.update(self._pfx_kw())
         toks = torch.empty((b, n_steps), dtype=torch.int64, device=self.device)
         for i in range(n_steps):
             logits, _, _ = self._fwd(cur[:, None], self.cache, npast, **kw)
@@ -566,7 +656,9 @@ class BatchedEngine:
         self._admit()
         if not any(s is not None for s in self.slots):
             return []
-        room = self.bcfg.n_ctx - 1 - int(self.n_past.max())
+        # the slots' cache rows: n_past, less the pool rows when shared
+        local = self.n_past - self.pfx_len if self.shared else self.n_past
+        room = self.bcfg.n_ctx - 1 - int(local.max())
         if self.bcfg.lookup_gamma > 0:
             return self._step_lookup(room, self.bcfg.lookup_gamma)
         n_steps = min(self.bcfg.block, max(1, room))
@@ -599,11 +691,7 @@ class BatchedEngine:
             self.cur_tok[slot] = toks[slot][consumed - 1]
             if req.done:
                 finished.append(req)
-                self.slots[slot] = None
-                self.n_past[slot] = 0
-                self.gens[slot] = None
-                if self.pager is not None:
-                    self.pager.free_slot(slot)
+                self._free(slot)
         return finished
 
     # --- lookup speculation ---------------------------------------------------
@@ -628,6 +716,7 @@ class BatchedEngine:
         penalty) of `_decode_lookup_sampled`, batching.py:455-640 there).
         Returns (emitted [B, g], count [B], next tokens, n_past, windows)."""
         kw = {} if self.pager is None else dict(page_table=self._table_dev, page_straddle=True)
+        kw.update(self._pfx_kw())
         seq, draft, p = lookup_draft_batched(self.ctx_dev, cur, npast, g)
         logits, _, _ = self._fwd(seq, self.cache, npast, logits_all=True, **kw)  # [B, g, V]
         if params is None:
@@ -719,11 +808,7 @@ class BatchedEngine:
             self.cur_tok[slot] = toks[slot]
             if req.done:
                 finished.append(req)
-                self.slots[slot] = None
-                self.n_past[slot] = 0
-                self.gens[slot] = None
-                if self.pager is not None:
-                    self.pager.free_slot(slot)
+                self._free(slot)
         return finished
 
     def run(self) -> list[Request]:

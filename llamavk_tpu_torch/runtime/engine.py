@@ -6,9 +6,12 @@ tensor; the host receives one [n_steps] tensor of token ids per decode block,
 never a per-step `.item()`. The KV cache is updated in place. The API mirrors
 llama.h: eval / sample / get-set-kv-cache / timings.
 
-The KV cache is bf16 or int8 (`EngineConfig.kv_dtype`). Capturing the
-decode step in a CUDA graph is later work; the history ring and the ggml
-numerics oracle are not ported yet. Activations are bf16.
+The KV cache is bf16 or int8 (`EngineConfig.kv_dtype`). With `ctx_ring`
+it is a history ring (engine.py:149-185 there): the first `ring_keep` rows
+stay pinned and the rest recycle, so generation runs past n_ctx with no
+swap and no re-evaluation; each eval chunk stops at the ring's end.
+Capturing the decode step in a CUDA graph is later work; the ggml numerics
+oracle is not ported yet. Activations are bf16.
 """
 
 from __future__ import annotations
@@ -21,7 +24,14 @@ import numpy as np
 import torch
 
 from ..device import resolve
-from ..models.llama import KVCache, LlamaParams, ModelConfig, init_kv_cache, llama_forward
+from ..models.llama import (
+    KVCache,
+    LlamaParams,
+    ModelConfig,
+    init_kv_cache,
+    llama_forward,
+    ring_phys,
+)
 from ..ops.flash_attn import kv_step
 from .sampling import SamplerParams, sample_token
 
@@ -32,7 +42,8 @@ class EngineConfig:
     kv_dtype: str = "bfloat16"  # the reference's f16_kv option (llama.h:56), or "int8"
     seed: int = 0
     decode_block: int = 16  # tokens decoded per host round-trip
-    ctx_ring: bool = False  # history-ring KV (not ported yet)
+    ctx_ring: bool = False  # history-ring KV: generation past n_ctx, no re-eval
+    ring_keep: int = 0  # the ring's pinned first rows
     ggml_numerics: str | None = None  # the C-reference numerics oracle (not ported yet)
 
 
@@ -47,6 +58,7 @@ class SessionState:
     tokens: list[int]
     k_scale: torch.Tensor | None = None  # int8 caches (ops/kv_quant.py)
     v_scale: torch.Tensor | None = None
+    pos: torch.Tensor | None = None  # the history ring's position plane
 
 
 @dataclass
@@ -99,8 +111,6 @@ class Engine:
         device="cuda",
     ):
         self.device = resolve(device)
-        if ecfg.ctx_ring:
-            raise NotImplementedError("Engine: the history-ring KV (ctx_ring) is not ported yet")
         self.kv_dtype = kv_dtype(ecfg.kv_dtype, ecfg.n_ctx)
         if ecfg.ggml_numerics is not None:
             raise NotImplementedError("Engine: ggml_numerics is not ported yet")
@@ -113,7 +123,8 @@ class Engine:
     # --- state ---------------------------------------------------------
 
     def reset(self) -> None:
-        self.cache = init_kv_cache(self.cfg, 1, self.ecfg.n_ctx, self.kv_dtype, self.device)
+        self.cache = init_kv_cache(self.cfg, 1, self.ecfg.n_ctx, self.kv_dtype, self.device,
+                                   ring=self.ecfg.ctx_ring)
         self.n_past = 0
         self.tokens: list[int] = []
         self.set_seed(self.ecfg.seed)
@@ -126,7 +137,12 @@ class Engine:
             torch.cuda.synchronize(self.device)
 
     def _forward(self, tokens: torch.Tensor, n_past: int, **kw):
-        return llama_forward(self.params, tokens, self.cache, n_past, self.cfg, **kw)
+        return llama_forward(self.params, tokens, self.cache, n_past, self.cfg,
+                             ring_keep=self.ecfg.ring_keep, **kw)
+
+    def _ring_row(self, pos: int) -> int:
+        """The physical ring row of logical position `pos` (ring_phys)."""
+        return ring_phys(pos, self.ecfg.ring_keep, self.ecfg.n_ctx)
 
     # --- eval (llama_eval parity) ---------------------------------------
 
@@ -137,31 +153,53 @@ class Engine:
         full = list(backlog) + new_toks
         if not full:
             raise ValueError("eval: no tokens to evaluate")
-        if self.n_past + len(full) > self.ecfg.n_ctx:
+        ring = self.ecfg.ctx_ring
+        if not ring and self.n_past + len(full) > self.ecfg.n_ctx:
             raise ValueError(
                 f"context overflow: n_past({self.n_past}) + n_tokens({len(full)})"
                 f" > n_ctx({self.ecfg.n_ctx})"
             )
         t0 = time.perf_counter()
-        # bucket-pad T to a power of two, capped by the room left (the JAX
-        # package's compile buckets; kept so both take the same kernel
-        # routes). Garbage KV rows past the real tokens sit beyond n_past and
-        # are overwritten before any query can attend to them.
-        t_real = len(full)
-        bucket = 1 << (t_real - 1).bit_length()
-        bucket = min(bucket, self.ecfg.n_ctx - self.n_past)
-        padded = full + [0] * (bucket - t_real)
-        toks = torch.tensor([padded], dtype=torch.int64, device=self.device)
-        logits, self.cache, _ = self._forward(
-            toks, self.n_past, last_idx=t_real - 1, logits_all=logits_all
-        )
-        self.n_past += t_real
-        logits = logits[0][len(backlog) : t_real] if logits_all else logits[0]
+        if ring:
+            # chunk so no write crosses the ring's end, each chunk the
+            # largest power of two that fits the room (engine.py:234-248 there)
+            parts = []
+            i = 0
+            while i < len(full):
+                room = self.ecfg.n_ctx - self._ring_row(self.n_past)
+                take = min(len(full) - i, 1 << (room.bit_length() - 1))
+                parts.append(self._eval_chunk(full[i : i + take], logits_all))
+                i += take
+            logits = torch.cat(parts) if logits_all else parts[-1]
+        else:
+            logits = self._eval_chunk(full, logits_all)
+        if logits_all:
+            logits = logits[len(backlog) :]
         self._sync()
         self.tokens.extend(new_toks)
         self.timings.t_prompt_us += (time.perf_counter() - t0) * 1e6
         self.timings.n_prompt += len(full)
         return logits
+
+    def _eval_chunk(self, chunk: list[int], logits_all: bool) -> torch.Tensor:
+        """One forward over `chunk` at n_past: logits [T, V] or [1, V]."""
+        # bucket-pad T to a power of two, capped by the room left (the JAX
+        # package's compile buckets; kept so both take the same kernel
+        # routes). Garbage KV rows past the real tokens sit beyond n_past and
+        # are overwritten before any query can attend to them; in a ring that
+        # has wrapped they take the place of the oldest rows until then, as
+        # there (engine.py:210-217).
+        t_real = len(chunk)
+        bucket = 1 << (t_real - 1).bit_length()
+        row = self._ring_row(self.n_past) if self.ecfg.ctx_ring else self.n_past
+        bucket = min(bucket, self.ecfg.n_ctx - row)
+        padded = chunk + [0] * (bucket - t_real)
+        toks = torch.tensor([padded], dtype=torch.int64, device=self.device)
+        logits, self.cache, _ = self._forward(
+            toks, self.n_past, last_idx=t_real - 1, logits_all=logits_all
+        )
+        self.n_past += t_real
+        return logits[0][:t_real] if logits_all else logits[0]
 
     def eval(self, tokens, logits_all: bool = False) -> np.ndarray:
         """Evaluate tokens at the current position; returns host logits
@@ -195,8 +233,8 @@ class Engine:
         """Prefill the prompt, then decode up to n_predict tokens, surfacing
         tokens to the host in blocks of ecfg.decode_block. on_token returns
         False to stop early."""
-        if self.n_past + len(prompt_tokens) + n_predict > self.ecfg.n_ctx:
-            raise ValueError("context overflow; use the CLI's ContextManager to swap context")
+        if not self.ecfg.ctx_ring and self.n_past + len(prompt_tokens) + n_predict > self.ecfg.n_ctx:
+            raise ValueError("context overflow; use ctx_ring or the CLI's ContextManager")
         if sp.repeat_last_n <= 0:
             # penalty disabled: a 1-slot dummy window and a neutral factor
             sp = replace(sp, repeat_last_n=1, repeat_penalty=1.0)
@@ -232,7 +270,9 @@ class Engine:
 
         surface(int(tok))  # first token, sampled from the prefill logits
         while not stop and len(out) < n_predict:
-            n = min(self.ecfg.decode_block, n_predict - len(out), self.ecfg.n_ctx - self.n_past)
+            n = min(self.ecfg.decode_block, n_predict - len(out))
+            if not self.ecfg.ctx_ring:  # a ring decodes past n_ctx
+                n = min(n, self.ecfg.n_ctx - self.n_past)
             toks, last = self._decode_block(tok, last, sp, n)
             block = toks.tolist()  # the one host read of this block
             consumed = 0
@@ -257,9 +297,9 @@ class Engine:
         place."""
         c = self.cache.clone()
         return SessionState(k=c.k, v=c.v, n_past=self.n_past, tokens=list(self.tokens),
-                            k_scale=c.k_scale, v_scale=c.v_scale)
+                            k_scale=c.k_scale, v_scale=c.v_scale, pos=c.pos)
 
     def restore_session(self, s: SessionState) -> None:
-        self.cache = KVCache(s.k, s.v, s.k_scale, s.v_scale).clone()
+        self.cache = KVCache(s.k, s.v, s.k_scale, s.v_scale, s.pos).clone()
         self.n_past = s.n_past
         self.tokens = list(s.tokens)

@@ -109,12 +109,13 @@ def test_serve_paged_flags(tiny):
     assert (args.paged, args.page_size, args.n_pages) == (False, 128, 0)
 
 
-@pytest.mark.parametrize("argv,msg", [(["--shared-prefix"], "--shared-prefix is not ported yet"),
+@pytest.mark.parametrize("argv,msg", [(["--shared-prefix"],
+                                       "--shared-prefix and --paged are exclusive"),
                                       (["--dp", "2"], "--dp is not ported yet")])
 def test_serve_paged_combination_errors(tiny, argv, msg, capsys):
-    """With --paged, in either order, the unported flags are refused as
-    unported: the JAX CLI's combination errors (serve.py:78-83 there) need
-    those flags first."""
+    """With --paged, in either order: --shared-prefix is refused with the JAX
+    CLI's combination error (serve.py:81-83 there), and the unported --dp as
+    unported (the JAX CLI's --dp error needs the flag first)."""
     for order in (["--paged", *argv], [*argv, "--paged"]):
         with pytest.raises(SystemExit) as e:
             serve.build_argparser().parse_args(["-m", tiny, *order])
