@@ -74,12 +74,31 @@ Phases, each printing one JSON line (any failure exits non-zero):
               requests against the plain-version composition, then 32
               concurrent requests continuing it over HTTP; pool and slot
               cache bytes; then every kernel at every shape it launched
+  tiny_compat the llama.h API (compat.py) on the tiny GGJT file on the card,
+              f16_kv True and False (an f32 cache): greedy tokens equal to
+              the CPU's, logits within two bf16 ulps, a KV blob round trip on
+              the card and onto the CPU; BatchedEngine(kv_dtype="float32")
+              streams equal to the CPU's; the perplexity CLI (bf16 and
+              --f32) and the embedding CLI in their own processes on the
+              card against --device cpu
+  eval_7b_f32 synthetic 7B: one 512-token perplexity chunk through
+              make_chunk_nll, bf16 and as --f32 runs it (f32 scales, einsum
+              attention, f32 KV), NLLs against the plain versions and ms per
+              chunk; the llama.h API with f16_kv = false (f32 KV): a
+              32-token prompt, 128 greedy tokens and a 300-token turn through
+              llama_eval, against the plain forward teacher-forced on the
+              stream, ms per token, idle share, cache bytes, embeddings; 32
+              requests through BatchedEngine(kv_dtype="float32"); a B=32
+              decode step over an f32 cache, kernels against plain; then
+              every kernel at every shape it launched
 
 The kernels phase also holds the page-table modes of K2, K3 and K4 (bf16
 and int8, scrambled tables of 128-row pages; K2 also in page_straddle mode)
 against their plain versions, with written pages byte-equal and the others
 unchanged, and bit for bit against the flat kernels on the gathered view at
-block_k = 128, and K5 (the int8 dot) at M = 1, 4 and 32; and the history
+block_k = 128, and K5 (the int8 dot) at M = 1, 4 and 32; K1 with an f32
+scale plane (GEMV and GEMM at M = 512) and the f32 cache of K2, K3 and K4
+(limit 2^-12 of attention(q, k, |v|), K4 bit-equal to K2); and the history
 ring and shared-prefix modes of K2 and K3 (bf16 and int8, caches
 byte-equal, the position plane and the pool unchanged; ring K2 before a wrap
 and prefix K2 at prefix_len 0 bit-equal to flat K2). tiny_cli also runs
@@ -120,6 +139,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 INT8_OP_PER_S = 1979e12
+F32_FLOP_PER_S = 67e12  # float32 outside the tensor cores
 
 # 7B matmul shapes (K, N) of the main path and their calls per forward
 K1_SHAPES = {
@@ -162,6 +182,13 @@ KERNEL_META = {
                                    "llamavk_tpu/ops/flash_attn.py:120"),
     "attn_update_paged_straddle_i8": ("llamavk_tpu_torch/csrc/flash_attn.cu",
                                       "llamavk_tpu/ops/flash_attn.py:120"),
+    # the f32 scale plane of K1 and the flat f32 cache of K2, K3 and K4
+    "q4_gemv_f32": ("llamavk_tpu_torch/csrc/q4_matmul.cu", "llamavk_tpu/ops/q4_matmul.py:96"),
+    "q4_gemm_f32": ("llamavk_tpu_torch/csrc/q4_matmul.cu", "llamavk_tpu/ops/q4_matmul.py:96"),
+    "attn_update_f32": ("llamavk_tpu_torch/csrc/flash_attn.cu",
+                        "llamavk_tpu/ops/flash_attn.py:120"),
+    "attn_read_f32": ("llamavk_tpu_torch/csrc/flash_attn.cu", "llamavk_tpu/ops/flash_attn.py:474"),
+    "decode_f32": ("llamavk_tpu_torch/csrc/flash_decode.cu", "llamavk_tpu/ops/flash_decode.py:67"),
     # the history-ring (`kv_pos`/`write_row`) and shared-prefix pool
     # (`prefix_k/v/id/len`) modes of K2 and K3
     **{f"attn_{path}_{mode}{kind}": ("llamavk_tpu_torch/csrc/flash_attn.cu",
@@ -266,22 +293,25 @@ def phase_build() -> dict:
     return {"seconds": round(secs, 2), "sources": sorted(logs), "ptxas": usage}
 
 
-def _q4_case(gen, m: int, k: int, n: int):
+def _q4_case(gen, m: int, k: int, n: int, f32_scales: bool = False):
+    """x bf16 [M, K] and a random Q4_0 weight [K, N], its scales bf16 or
+    (`f32_scales`) f32 as drawn."""
     from llamavk_tpu_torch.ops.qweight import QWeight
 
     packed = torch.randint(-128, 128, (k // 2, n), dtype=torch.int8, device="cuda", generator=gen)
     scales = torch.empty((k // 32, n), device="cuda").uniform_(0.005, 0.02, generator=gen)
     x = torch.randn((m, k), device="cuda", generator=gen).to(torch.bfloat16)
-    return x, QWeight(packed=packed, scales=scales.to(torch.bfloat16))
+    return x, QWeight(packed=packed,
+                      scales=scales if f32_scales else scales.to(torch.bfloat16))
 
 
 def kernel_q4(timer: Timer, gen, name: str, m: int, main_path: bool, reps: int | None = None,
-              plain_reps: int = 5) -> dict:
+              plain_reps: int = 5, f32_scales: bool = False) -> dict:
     from llamavk_tpu_torch.ops import q4_matmul as q4
     from llamavk_tpu_torch.ops.qweight import dequantize_qweight
 
     k, n = K1_SHAPES[name]
-    x, qw = _q4_case(gen, m, k, n)
+    x, qw = _q4_case(gen, m, k, n, f32_scales)
     got = q4.q4_matmul_cuda(x, qw.packed, qw.scales)
     want = q4.q4_matmul_ref(x, qw, out_dtype=torch.float32)
     torch.cuda.synchronize()
@@ -294,10 +324,11 @@ def kernel_q4(timer: Timer, gen, name: str, m: int, main_path: bool, reps: int |
     ms = timer(lambda: q4.q4_matmul_cuda(x, qw.packed, qw.scales), reps)
     plain_ms = timer(lambda: q4.q4_matmul_ref(x, qw, out_dtype=torch.float32), reps=plain_reps)
     library_ms = timer(lambda: torch.matmul(x, w_bf16), reps)
-    n_bytes = m * k * 2 + k // 2 * n + k // 32 * n * 2 + m * n * 4
+    n_bytes = m * k * 2 + k // 2 * n + k // 32 * n * qw.scales.element_size() + m * n * 4
     b_ms, b_by = bound(n_bytes, 2.0 * m * k * n)
     return {
-        "kernel": "q4_gemv" if m == 1 else "q4_gemm", "shape": f"{name} M={m} K={k} N={n}",
+        "kernel": ("q4_gemv" if m == 1 else "q4_gemm") + ("_f32" if f32_scales else ""),
+        "shape": f"{name} M={m} K={k} N={n}" + (" f32 scales" if f32_scales else ""),
         "main_path": main_path,
         "max_abs_err": err, "limit": limit, "err_over_limit": err / limit, "ok": err <= limit,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -367,7 +398,7 @@ def _sdpa_call(q, k, v, n_past, layer: int, k_scale=None, v_scale=None):
     """One PyTorch call for the same attention, as a closure: the cache's
     visible rows (an int8 cache dequantized to a bf16 copy first), and an
     explicit causal mask offset by each row's n_past, both made before the
-    call."""
+    call; over an f32 cache, on f32 operands."""
     from llamavk_tpu_torch.ops.kv_quant import dequantize_rows
 
     b, t = q.shape[:2]
@@ -379,25 +410,28 @@ def _sdpa_call(q, k, v, n_past, layer: int, k_scale=None, v_scale=None):
         vl = dequantize_rows(vl, v_scale[layer, :, :kv].transpose(1, 2)).to(torch.bfloat16)
     mask = (torch.arange(kv, device=q.device)[None, None, :]
             <= npv[:, None, None] + torch.arange(t, device=q.device)[None, :, None])
-    qh = q.transpose(1, 2)  # [B, H, T, D]
+    qh = q.transpose(1, 2).to(kl.dtype)  # [B, H, T, D]
     return lambda: torch.nn.functional.scaled_dot_product_attention(qh, kl, vl,
                                                                     attn_mask=mask[:, None])
 
 
-def _attn_sizes(b: int, t: int, n_past, update: bool, quant: bool) -> tuple[float, float]:
+def _attn_sizes(b: int, t: int, n_past, update: bool, quant: bool,
+                f32: bool = False) -> tuple[float, float]:
     """Bytes and operations one call needs: q read, the f32 output written,
     QK and PV over each query's visible keys. A cached position of K or V
-    is H * D elements (1 byte for int8, plus H f32 scales; 2 for bf16). The
-    update functions read the n_past earlier positions from the cache and
-    the T new ones from k_new/v_new (bf16), and write the new ones to the
-    cache; the read function reads all n_past + T positions from the cache.
-    n_past is one int for every row or a list, one per row."""
+    is H * D elements (1 byte for int8, plus H f32 scales; 2 for bf16; 4 for
+    f32, whose q and new rows are f32 too). The update functions read the
+    n_past earlier positions from the cache and the T new ones from
+    k_new/v_new, and write the new ones to the cache; the read function
+    reads all n_past + T positions from the cache. n_past is one int for
+    every row or a list, one per row."""
     pasts = n_past if isinstance(n_past, list) else [n_past] * b
-    pos = H * D * (1 if quant else 2) + (H * 4 if quant else 0)
+    qb = 4 if f32 else 2
+    pos = H * D * (1 if quant else qb) + (H * 4 if quant else 0)
     visible = sum(p + i + 1 for p in pasts for i in range(t))
-    n_bytes = b * t * H * D * (2 + 4)
+    n_bytes = b * t * H * D * (qb + 4)
     if update:
-        n_bytes += sum(2 * p * pos for p in pasts) + 2 * b * t * (H * D * 2 + pos)
+        n_bytes += sum(2 * p * pos for p in pasts) + 2 * b * t * (H * D * qb + pos)
     else:
         n_bytes += sum(2 * (p + t) * pos for p in pasts)
     return n_bytes, 4.0 * H * D * visible
@@ -412,31 +446,41 @@ def _attn_sizes(b: int, t: int, n_past, update: bool, quant: bool) -> tuple[floa
 # bound, element by element.
 ATTN_REL = 2.0**-6
 ATTN_LIMIT_RULE = "2^-6 * attention(q, k, |v|) per element (v dequantized for int8)"
+# an f32 cache rounds nothing to bf16: what is left is the f32 summation
+# order of the scores (at most D 2^-24 sum_d |q_d k_d|, ~6e-5 at unit scores
+# of D = 128), of l and of the PV sum (S 2^-24 each, ~3e-5 at S = 512), on
+# each side; 2^-12 (2.4e-4) covers twice their sum, 64 times tighter than
+# the bf16 limit
+F32_ATTN_REL = 2.0**-12
+F32_ATTN_LIMIT_RULE = "2^-12 * attention(q, k, |v|) per element (f32 cache)"
 
 
 def _attn_err(got, want, q, k, v, n_past, layer: int, k_scale=None,
               v_scale=None, page_table=None, **mode) -> tuple[float, float]:
     """(max |got - want|, the largest ratio of an element's error to its own
     limit) for attention outputs over layer `layer` of the cache (or pool)
-    k, v; `mode` the ring's or the prefix pool's operands (the pool's values
-    taken as |v| too)."""
+    k, v (the f32 limit over an f32 cache); `mode` the ring's or the prefix
+    pool's operands (the pool's values taken as |v| too)."""
     from llamavk_tpu_torch.ops import flash_attn as fa
 
     if "prefix_v" in mode:
         mode = {**mode, "prefix_v": mode["prefix_v"].abs()}
-    lim = ATTN_REL * fa.flash_attention_ref(q, k, v.abs(), n_past, layer_idx=layer,
+    rel = F32_ATTN_REL if k.dtype == torch.float32 else ATTN_REL
+    lim = rel * fa.flash_attention_ref(q, k, v.abs(), n_past, layer_idx=layer,
                                             k_scale=k_scale, v_scale=v_scale,
                                             page_table=page_table, **mode)
     err = (got - want).abs()
     return float(err.max()), float((err / lim.clamp_min(1e-30)).max())
 
 
-def _kv_cache(gen, shape, quant: bool) -> list:
+def _kv_cache(gen, shape, quant: bool, f32: bool = False) -> list:
     """Random cache planes for `shape` [L, B, H, S, D]: bf16 N(0, 1) values,
-    or the int8 rows and [L, B, S, H] scales of such values."""
+    or the int8 rows and [L, B, S, H] scales of such values, or (`f32`) f32
+    N(0, 1) values."""
     from llamavk_tpu_torch.ops.kv_quant import quantize_rows
 
-    planes = [torch.empty(shape, dtype=torch.bfloat16, device="cuda").normal_(generator=gen)
+    dtype = torch.float32 if f32 else torch.bfloat16
+    planes = [torch.empty(shape, dtype=dtype, device="cuda").normal_(generator=gen)
               for _ in range(2)]
     if not quant:
         return planes
@@ -449,15 +493,18 @@ def _scales(planes) -> dict:
 
 
 def kernel_attn(timer: Timer, gen, t: int, n_past, update: bool, main_path: bool,
-                b: int = 1, quant: bool = False, s: int = N_CTX, bk: int | None = None) -> dict:
+                b: int = 1, quant: bool = False, s: int = N_CTX, bk: int | None = None,
+                f32: bool = False) -> dict:
     """K2 (update) or K3 (read) against its plain version on a random cache
-    of S rows at block_k `bk` (llama_forward's default when None). n_past is
-    one int, or a list of one per row (passed as an int32 vector)."""
+    of S rows (bf16, int8, or `f32`) at block_k `bk` (llama_forward's
+    default when None). n_past is one int, or a list of one per row (passed
+    as an int32 vector). q and the new rows are bf16, as the engines'
+    activations are (the wrappers widen them to f32 over an f32 cache)."""
     from llamavk_tpu_torch.ops import flash_attn as fa
 
     layers = 2
     layer = 1  # a layer past the first: the wrapper offsets into the stack
-    planes = _kv_cache(gen, (layers, b, H, s, D), quant)
+    planes = _kv_cache(gen, (layers, b, H, s, D), quant, f32)
     q, kn, vn = (torch.randn((b, t, H, D), device="cuda", generator=gen).to(torch.bfloat16)
                  for _ in range(3))
     bk = bk or (512 if t >= 256 else 256)  # llama_forward's default KV block
@@ -489,13 +536,16 @@ def kernel_attn(timer: Timer, gen, t: int, n_past, update: bool, main_path: bool
     ms = timer(run)
     plain_ms = timer(plain, reps=5)
     library_ms = timer(_sdpa_call(q, k, v, npast, layer, *planes[2:]))
-    b_ms, b_by = bound(*_attn_sizes(b, t, n_past, update, quant))
+    b_ms, b_by = bound(*_attn_sizes(b, t, n_past, update, quant, f32),
+                       F32_FLOP_PER_S if f32 else BF16_FLOP_PER_S)
     return {
-        "kernel": ("attn_update" if update else "attn_read") + ("_i8" if quant else ""),
+        "kernel": ("attn_update" if update else "attn_read") + ("_i8" if quant else "")
+                  + ("_f32" if f32 else ""),
         "shape": f"B={b} T={t} n_past={n_past} H={H} D={D} S={s} block_k={bk}"
-                 + (" int8" if quant else ""),
+                 + (" int8" if quant else "") + (" f32" if f32 else ""),
         "main_path": main_path,
-        "max_abs_err": err, "limit": ATTN_LIMIT_RULE, "err_over_limit": ratio,
+        "max_abs_err": err, "limit": F32_ATTN_LIMIT_RULE if f32 else ATTN_LIMIT_RULE,
+        "err_over_limit": ratio,
         "cache_bytes_equal": cache_equal, "ok": ratio <= 1.0 and cache_equal,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": library_ms,
@@ -510,16 +560,18 @@ def _decode_npast(b: int, s: int, gen_cpu) -> list[int]:
 
 
 def kernel_decode(timer: Timer, gen, gen_cpu, b: int, quant: bool, main_path: bool,
-                  h: int = H, d: int = D, s: int = N_CTX, bk: int = 256) -> dict:
+                  h: int = H, d: int = D, s: int = N_CTX, bk: int = 256,
+                  f32: bool = False) -> dict:
     """K4 against its plain version, and against K2 at T = 1 row by row at
-    the same block_k: outputs and every cache plane bit-equal."""
+    the same block_k: outputs and every cache plane bit-equal. `f32`: an
+    f32 cache (bf16 q and new rows, widened by the wrappers)."""
     from llamavk_tpu_torch.ops import flash_attn as fa
     from llamavk_tpu_torch.ops import flash_decode as fd
 
     layer = 1
     npl = _decode_npast(b, s, gen_cpu)
     npast = torch.tensor(npl, dtype=torch.int32, device="cuda")
-    planes = _kv_cache(gen, (2, b, h, s, d), quant)
+    planes = _kv_cache(gen, (2, b, h, s, d), quant, f32)
     q, kn, vn = (torch.randn((b, 1, h, d), device="cuda", generator=gen).to(torch.bfloat16)
                  for _ in range(3))
     p1, p2 = [x.clone() for x in planes], [x.clone() for x in planes]
@@ -538,11 +590,12 @@ def kernel_decode(timer: Timer, gen, gen_cpu, b: int, quant: bool, main_path: bo
             torch.equal(x[:, 0], y[:, r]) for x, y in zip(pr, p1))
     err, ratio = _attn_err(got, want, q, p1[0], p1[1], npast, layer, *p1[2:])
     row = {
-        "kernel": "decode_i8" if quant else "decode",
+        "kernel": "decode" + ("_i8" if quant else "") + ("_f32" if f32 else ""),
         "shape": f"B={b} n_past={min(npl)}..{max(npl)} H={h} D={d} S={s} block_k={bk}"
-                 + (" int8" if quant else ""),
+                 + (" int8" if quant else "") + (" f32" if f32 else ""),
         "main_path": main_path,
-        "max_abs_err": err, "limit": ATTN_LIMIT_RULE, "err_over_limit": ratio,
+        "max_abs_err": err, "limit": F32_ATTN_LIMIT_RULE if f32 else ATTN_LIMIT_RULE,
+        "err_over_limit": ratio,
         "cache_bytes_equal": cache_equal, "bit_equal_to_update_kernel": k2_equal,
         "ok": ratio <= 1.0 and cache_equal and k2_equal,
     }
@@ -553,7 +606,8 @@ def kernel_decode(timer: Timer, gen, gen_cpu, b: int, quant: bool, main_path: bo
     row["plain_ms"] = timer(lambda: fd.flash_decode_update_ref(
         q, kn, vn, p2[0], p2[1], npast, layer, block_k=bk, **_scales(p2)), reps=5)
     row["library_ms"] = timer(_sdpa_call(q, p1[0], p1[1], npast, layer, *p1[2:]))
-    row["bound_ms"], row["bound_by"] = bound(*_attn_sizes(b, 1, npl, True, quant))
+    row["bound_ms"], row["bound_by"] = bound(*_attn_sizes(b, 1, npl, True, quant, f32),
+                                             F32_FLOP_PER_S if f32 else BF16_FLOP_PER_S)
     return row
 
 
@@ -645,7 +699,8 @@ def kernel_attn_paged(timer, gen, gen_cpu, t: int, n_past, update: bool, b: int 
                                                page_table=table, **sc)
     err, ratio = _attn_err(got, want, q, k, v, npast, layer, *planes[2:], page_table=table)
     row = {
-        "kernel": fa.launch_name("attn_update" if update else "attn_read", quant, True, straddle),
+        "kernel": fa.launch_name("attn_update" if update else "attn_read",
+                                 "int8" if quant else "bf16", True, straddle),
         "shape": f"B={b} T={t} n_past={n_past} H={h} D={d} PS={ps} MAXLB={s // ps} "
                  f"block_k={bk}" + (" int8" if quant else ""),
         "main_path": main_path,
@@ -809,8 +864,8 @@ def kernel_attn_ring(timer, gen, t: int, n_past: int, update: bool, quant: bool,
     torch.cuda.synchronize()
     cache_equal = all(torch.equal(x, y) for x, y in zip(planes, p2))
     pos_equal = torch.equal(pos, pos0)
-    row = {"kernel": fa.launch_name("attn_update" if update else "attn_read", quant, False,
-                                    mode="ring")}
+    row = {"kernel": fa.launch_name("attn_update" if update else "attn_read",
+                                    "int8" if quant else "bf16", False, mode="ring")}
     if n_past + t <= s and not holes:  # before the first wrap: the flat kernel's result
         fsc = _scales(flat_planes)
         if update:
@@ -923,8 +978,8 @@ def kernel_attn_prefix(timer, gen, gen_cpu, b: int, t: int, npl: list[int], upda
     del za, zb, pool0
     err, ratio = _attn_err(got, want, q, k, v, npast, layer, *planes[2:], **pkw)
     row = {
-        "kernel": fa.launch_name("attn_update" if update else "attn_read", quant, False,
-                                 mode="prefix"),
+        "kernel": fa.launch_name("attn_update" if update else "attn_read",
+                                 "int8" if quant else "bf16", False, mode="prefix"),
         "shape": f"B={b} T={t} n_past={min(npl)}..{max(npl)} prefix_len="
                  f"{int(plens.min())}..{int(plens.max())} of Sp={sp} x {n_pool} H={h} D={d} "
                  f"S={s} block_k={bk}" + (" int8" if quant else ""),
@@ -1135,10 +1190,33 @@ def phase_kernels(reps: int) -> list[dict]:
             rows.append(kernel_attn_prefix(timer, gen, gen_cpu, b, t, pasts, update, quant,
                                            quant and update))
             emit({"phase": "kernel", **rows[-1]})
+    rows += kernels_f32(timer, gen, gen_cpu)
     emit({"phase": "kernel_edges", **kernel_edges(gen, gen_cpu)})
     bad = [r["shape"] for r in rows if not r["ok"]]
     if bad:
         raise SystemExit(f"kernels disagree with their plain versions: {bad}")
+    return rows
+
+
+def kernels_f32(timer: Timer, gen, gen_cpu) -> list[dict]:
+    """The f32 modes at 7B shapes. K1 with an f32 scale plane: the GEMV
+    (M = 1; no main path loads f32 scales and decodes) and the GEMM at
+    perplexity --f32's 512-token chunk. The f32 cache of K2 (the llama.h
+    API's f16_kv = false: decode at n_past 480, the 32-token prompt; a
+    full-context prefill), K3 (its 300-token second turn in a 353-row
+    bucket at n_past 159) and K4 (BatchedEngine(kv_dtype="float32") at 32
+    slots, ragged n_past, bit-equal to K2 row by row)."""
+    rows = []
+    for m, main in ((1, False), (512, True)):
+        for name in K1_SHAPES:
+            rows.append(kernel_q4(timer, gen, name, m, main, f32_scales=True))
+            emit({"phase": "kernel", **rows[-1]})
+    for t, n_past, update, main in ((1, 480, True, True), (32, 0, True, True),
+                                    (512, 0, True, False), (353, 159, False, True)):
+        rows.append(kernel_attn(timer, gen, t, n_past, update, main, f32=True))
+        emit({"phase": "kernel", **rows[-1]})
+    rows.append(kernel_decode(timer, gen, gen_cpu, 32, False, True, f32=True))
+    emit({"phase": "kernel", **rows[-1]})
     return rows
 
 
@@ -1204,21 +1282,22 @@ def _reset_shapes() -> None:
     from llamavk_tpu_torch.ops import flash_decode as fd
     from llamavk_tpu_torch.ops import q4_matmul as q4
 
-    for c in (q4.shapes, q4.shapes_i8, fa.shapes, fd.shapes):
+    for c in (q4.shapes, q4.shapes_f32, q4.shapes_i8, fa.shapes, fd.shapes):
         c.clear()
 
 
 def _shapes() -> dict:
     """The shapes every kernel was launched at since the last
-    `_reset_shapes`, with their launch counts: {"q4" and "q4_i8": {(M, K,
-    N): n}, "attn": {(path, B, T, H, S, D, block_k, int8, n_past, MAXLB,
-    straddle): n}, "decode": {(B, H, S, D, block_k, int8, MAXLB): n}}."""
+    `_reset_shapes`, with their launch counts: {"q4", "q4_f32" (f32 scales)
+    and "q4_i8": {(M, K, N): n}, "attn": {(path, B, T, H, S, D, block_k,
+    cache type, n_past, MAXLB, straddle, mode): n}, "decode": {(B, H, S, D,
+    block_k, cache type, MAXLB): n}}."""
     from llamavk_tpu_torch.ops import flash_attn as fa
     from llamavk_tpu_torch.ops import flash_decode as fd
     from llamavk_tpu_torch.ops import q4_matmul as q4
 
-    return {"q4": dict(q4.shapes), "q4_i8": dict(q4.shapes_i8), "attn": dict(fa.shapes),
-            "decode": dict(fd.shapes)}
+    return {"q4": dict(q4.shapes), "q4_f32": dict(q4.shapes_f32), "q4_i8": dict(q4.shapes_i8),
+            "attn": dict(fa.shapes), "decode": dict(fd.shapes)}
 
 
 def _counts() -> dict:
@@ -1227,8 +1306,7 @@ def _counts() -> dict:
     from llamavk_tpu_torch.ops import flash_decode as fd
     from llamavk_tpu_torch.ops import q4_matmul as q4
 
-    counts = {"q4_gemv": q4.launches["gemv"], "q4_gemm": q4.launches["gemm"],
-              "q4_i8": q4.launches["i8"]}
+    counts = {f"q4_{k}": n for k, n in q4.launches.items()}
     counts.update({f"attn_{k}": n for k, n in fa.launches.items()})
     counts.update(fd.launches)
     return counts
@@ -1728,11 +1806,13 @@ def _tiny_shared(path: str, n_tokens: int, counts: dict) -> dict:
     return result
 
 
-def _decode_step_check(params, cfg, seed: int) -> dict:
+def _decode_step_check(params, cfg, seed: int, kvs=("int8", "bfloat16"),
+                       phase: str = "serve_7b") -> dict:
     """One decode step at B=32 with ragged n_past (the batched decode
     kernel's route) through the kernels and through the plain versions,
-    over a seeded int8 cache and a seeded bf16 cache: logits within 2^-8 of
-    the largest, and equal argmax wherever the top-2 gap is wider."""
+    over a seeded cache of each type in `kvs` (int8, bfloat16, float32):
+    logits within 2^-8 of the largest, and equal argmax wherever the top-2
+    gap is wider."""
     from llamavk_tpu_torch.models.llama import KVCache, llama_forward
 
     b, out = 32, {}
@@ -1740,11 +1820,12 @@ def _decode_step_check(params, cfg, seed: int) -> dict:
     gen_cpu = torch.Generator().manual_seed(seed + 1)
     npast = torch.tensor(_decode_npast(b, N_CTX, gen_cpu), dtype=torch.int32, device="cuda")
     toks = torch.randint(3, cfg.n_vocab, (b, 1), generator=gen_cpu).cuda()
-    for kv, quant in (("int8", True), ("bfloat16", False)):
+    for kv in kvs:
+        quant = kv == "int8"
         shape = (cfg.n_layer, b, cfg.n_head, N_CTX, cfg.head_dim)
         planes = [torch.randint(-127, 128, shape, dtype=torch.int8, device="cuda", generator=gen)
                   for _ in range(2)] if quant else [
-            torch.empty(shape, dtype=torch.bfloat16, device="cuda").normal_(generator=gen)
+            torch.empty(shape, dtype=getattr(torch, kv), device="cuda").normal_(generator=gen)
             for _ in range(2)]
         if quant:
             sshape = (cfg.n_layer, b, N_CTX, cfg.n_head)
@@ -1763,7 +1844,7 @@ def _decode_step_check(params, cfg, seed: int) -> dict:
         clear = (top2[:, 0] - top2[:, 1]) / scale > LOGIT_REL_LIMIT
         argmax_ok = bool(((a.argmax(-1) == w.argmax(-1)) | ~clear).all())
         if not (math.isfinite(rel) and rel <= LOGIT_REL_LIMIT and argmax_ok):
-            raise SystemExit(f"serve_7b: B=32 decode step ({kv}) kernel vs plain: rel {rel:.3g}, "
+            raise SystemExit(f"{phase}: B=32 decode step ({kv}) kernel vs plain: rel {rel:.3g}, "
                              f"argmax on clear gaps equal: {argmax_ok}")
         out[kv] = {"rel": rel, "limit_rel": LOGIT_REL_LIMIT, "argmax_equal_on_clear_gaps": True,
                    "rows_with_clear_gap": int(clear.sum())}
@@ -1880,6 +1961,8 @@ def _idle_window(eng, n_vocab: int, gen, prefix: int = -1) -> dict:
 def _shape_report(shapes: dict) -> dict:
     return {
         "k1_shapes": {f"M={m} K={k} N={n}": c for (m, k, n), c in sorted(shapes["q4"].items())},
+        "k1_f32_scale_shapes": {f"M={m} K={k} N={n}": c
+                                for (m, k, n), c in sorted(shapes["q4_f32"].items())},
         "k5_shapes": {f"M={m} K={k} N={n}": c
                       for (m, k, n), c in sorted(shapes["q4_i8"].items())},
         "attn_shapes": {str(key): c for key, c in sorted(shapes["attn"].items(), key=str)},
@@ -2434,6 +2517,365 @@ def phase_serve_7b_shared(seed: int) -> tuple[dict, dict, dict]:
     return result, counts, shapes
 
 
+# the compat phases' greedy prompt on the tiny model: every top-2 logit gap
+# stays above 0.15 for 6 tokens on the CPU with an f32 cache (and with bf16
+# and int8 caches, TINY_SERVE_PROMPTS)
+TINY_COMPAT_PROMPT = TINY_SERVE_PROMPTS[0]
+# the tiny CLIs' text: 2000 bytes, 2 chunks of 16 tokens
+TINY_TEXT = bytes(65 + (i % 26) for i in range(2000))
+# a perplexity's logarithm is the mean NLL: each NLL moves by at most twice
+# the logits' drift, which stays within two bf16 ulps (0.032) on the tiny
+# model's |logits| < 4 (tests/test_torch_compat.py)
+TINY_PPL_LOG_TOL = 0.064
+
+
+def _compat_greedy(ctx, prompt: list[int], n: int) -> tuple[list[int], list]:
+    """llama.h's loop on a compat context: eval the prompt, then n times
+    sample greedily and eval the token. Returns the tokens and each step's
+    logits row."""
+    from llamavk_tpu_torch import compat as llama
+
+    llama.llama_eval(ctx, prompt, n_past=0)
+    toks, rows = [], []
+    for _ in range(n):
+        rows.append(llama.llama_get_logits(ctx)[-1].copy())
+        toks.append(llama.llama_sample_top_p_top_k(ctx, toks or prompt, 40, 0.95, 0.0, 1.0))
+        llama.llama_eval(ctx, [toks[-1]])
+    return toks, rows
+
+
+def _cli_proc(module: str, argv: list[str]) -> subprocess.Popen:
+    return subprocess.Popen([sys.executable, "-m", f"llamavk_tpu_torch.cli.{module}", *argv],
+                            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _cli_out(proc: subprocess.Popen, what: str) -> str:
+    out, err = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise SystemExit(f"tiny_compat: {what} failed ({proc.returncode}):\n{err[-2000:]}")
+    return out
+
+
+def phase_tiny_compat(work: Path) -> tuple[dict, dict]:
+    """The llama.h API (compat.py) on the tiny GGJT file on the card, with
+    f16_kv True and False (an f32 cache): a greedy llama.h loop whose tokens
+    equal the CPU context's and whose logits stay within two bf16 ulps of
+    them; a KV blob taken on the card continues identically on the card and
+    within the same limit on the CPU. BatchedEngine(kv_dtype="float32")
+    streams against the CPU's. The perplexity CLI (bf16 and --f32) and the
+    embedding CLI, each in its own process on the card (started together),
+    against the same CLIs in this process with --device cpu."""
+    from llamavk_tpu_torch import compat as llama
+    from llamavk_tpu_torch.cli import embedding, perplexity
+    from llamavk_tpu_torch.models.loader import load_model, random_tiny_model
+    from llamavk_tpu_torch.runtime.batching import BatchConfig, BatchedEngine
+    from llamavk_tpu_torch.runtime.sampling import SamplerParams
+
+    path = str(work / "tiny-q4.bin")
+    random_tiny_model(write_path=path, quantize=True)
+    text = work / "text.raw"
+    text.write_bytes(TINY_TEXT)
+    ppl_argv = ["-m", path, "-f", str(text), "-c", "16", "--max-chunks", "2"]
+    emb_argv = ["-m", path, "-p", "hi", "-c", "32"]
+    procs = {"ppl": _cli_proc("perplexity", ppl_argv + ["--device", "cuda"]),
+             "ppl_f32": _cli_proc("perplexity", ppl_argv + ["--f32", "--device", "cuda"]),
+             "emb": _cli_proc("embedding", emb_argv + ["--device", "cuda"])}
+    result, counts = {}, dict.fromkeys(KERNEL_META, 0)
+    for f16 in (True, False):
+        name = "f16_kv" if f16 else "f32_kv"
+        out = {}
+        _reset_counts()
+        for device in ("cuda", "cpu"):
+            p = llama.llama_context_default_params()
+            p.n_ctx, p.f16_kv, p.device = 64, f16, device
+            ctx = llama.llama_init_from_file(path, p)
+            toks, rows = _compat_greedy(ctx, TINY_COMPAT_PROMPT, 6)
+            if device == "cuda":
+                for key, n in _counts().items():
+                    counts[key] += n
+                blob = llama.llama_get_kv_cache(ctx)
+                n_tok = llama.llama_get_kv_cache_token_count(ctx)
+                llama.llama_eval(ctx, [5, 6])
+                after = llama.llama_get_logits(ctx).copy()
+                llama.llama_set_kv_cache(ctx, blob, n_tok)
+                llama.llama_eval(ctx, [5, 6])
+                roundtrip_equal = bool((llama.llama_get_logits(ctx) == after).all())
+            else:
+                llama.llama_set_kv_cache(ctx, blob, n_tok)  # the card's blob on the CPU
+                llama.llama_eval(ctx, [5, 6])
+                cross = float(abs(llama.llama_get_logits(ctx) - after).max())
+            out[device] = (toks, rows, llama.llama_get_kv_cache_size(ctx))
+        drift = max(float(abs(a - b).max()) for a, b in zip(out["cuda"][1], out["cpu"][1]))
+        ok = (out["cuda"][0] == out["cpu"][0] and drift <= 0.032 and cross <= 0.032
+              and roundtrip_equal and out["cuda"][2] == out["cpu"][2])
+        result[name] = {"tokens": out["cuda"][0], "equal_to_cpu": out["cuda"][0] == out["cpu"][0],
+                        "logit_drift": drift, "limit": 0.032, "blob_roundtrip_equal":
+                        roundtrip_equal, "card_blob_on_cpu_drift": cross,
+                        "kv_cache_bytes": out["cuda"][2]}
+        if not ok:
+            raise SystemExit(f"tiny_compat ({name}): {result[name]}")
+    # the library path to K4's f32 mode: 4 slots decoding together
+    streams = {}
+    _reset_counts()
+    for device in ("cuda", "cpu"):
+        cfg, params, _ = load_model(path, device=device)
+        be = BatchedEngine(cfg, params, BatchConfig(max_batch=4, n_ctx=64, block=4,
+                                                    kv_dtype="float32"), device=device)
+        reqs = [be.submit(pr, 6, SamplerParams(temp=0.0), ignore_eos=True)
+                for pr in TINY_SERVE_PROMPTS]
+        be.run()
+        streams[device] = [r.generated for r in reqs]
+        if device == "cuda":
+            for key, n in _counts().items():
+                counts[key] += n
+    if streams["cuda"] != streams["cpu"]:
+        raise SystemExit(f"tiny_compat: batched f32 streams {streams}")
+    result["batched_f32"] = {"streams": streams["cuda"], "equal_to_cpu": True}
+    # the CLIs: the card's processes against this process on the CPU
+    ppl = {}
+    for key, extra in (("ppl", []), ("ppl_f32", ["--f32"])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+            perplexity.main(ppl_argv + extra + ["--device", "cpu"])
+        card = _cli_out(procs[key], key)
+        vals = [float(re.search(r"final perplexity: ([0-9.]+)", o).group(1))
+                for o in (card, buf.getvalue())]
+        ppl[key] = {"card": vals[0], "cpu": vals[1],
+                    "log_diff": abs(math.log(vals[0]) - math.log(vals[1])),
+                    "limit": TINY_PPL_LOG_TOL}
+        if ppl[key]["log_diff"] > TINY_PPL_LOG_TOL:
+            raise SystemExit(f"tiny_compat: perplexity CLI {key}: {ppl[key]}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+        embedding.main(emb_argv + ["--device", "cpu"])
+    vecs = [torch.tensor([float(v) for v in o.split()])
+            for o in (_cli_out(procs["emb"], "embedding"), buf.getvalue())]
+    emb_drift = float((vecs[0] - vecs[1]).abs().max())
+    if vecs[0].shape != (128,) or emb_drift > 0.032:
+        raise SystemExit(f"tiny_compat: embedding CLI drift {emb_drift} ({vecs[0].shape})")
+    result["perplexity_cli"] = ppl
+    result["embedding_cli"] = {"n": 128, "max_abs_diff_to_cpu": emb_drift, "limit": 0.032}
+    _require("tiny_compat", counts, ("q4_gemv", "q4_gemm", "attn_update", "attn_update_f32",
+                                     "decode_f32"))
+    return result, counts
+
+
+# the final-norm activations of a kernel and a plain forward whose bf16
+# roundings part somewhere in 32 layers: single elements may move several
+# bf16 steps (2^-8 of themselves) while the logits, sums over 4096 of them,
+# stay within 2^-8 of the largest; the embedding as a whole is held to 2^-5
+# of its L2 norm
+EMB_L2_LIMIT = 2.0**-5
+
+
+def _nll_check(chunk_nll, chunk_plain, params, toks, what: str) -> dict:
+    """A chunk's NLLs through the kernels (make_chunk_nll) against the plain
+    versions' (`_plain_nll`): each NLL is a log-sum-exp minus a logit,
+    so it moves by at most twice the logits' drift, which the kernel phases
+    hold to 2^-8 of the largest logit; the limit is twice that bound, from
+    the plain forward's largest |logit|. Also the kernels' ms per chunk
+    (the median of 3, after a warm-up)."""
+    got = chunk_nll(params, toks)
+    want, scale = chunk_plain(params, toks)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        chunk_nll(params, toks)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    err = float((got - want).abs().max())
+    limit = 4 * LOGIT_REL_LIMIT * scale
+    half = toks.shape[1] // 2
+    ppl = [math.exp(float(x[half:].mean())) for x in (got, want)]
+    if not (math.isfinite(err) and err <= limit):
+        raise SystemExit(f"eval_7b_f32 ({what}): NLL {err:.3g} from plain (limit {limit:.3g})")
+    return {"nll_max_abs_diff": err, "limit": limit, "max_abs_logit": scale,
+            "ppl_second_half": ppl[0], "plain_ppl_second_half": ppl[1],
+            "ms_per_chunk": statistics.median(times[1:]), "tokens": toks.shape[1]}
+
+
+def _plain_nll(cfg, n_ctx: int, dtype, attn_impl: str):
+    """make_chunk_nll's computation through the plain versions of the
+    kernels, also returning the largest |logit| (the limit's scale)."""
+    from llamavk_tpu_torch.models.llama import init_kv_cache, llama_forward
+
+    def run(params, toks):
+        kv = torch.float32 if dtype == torch.float32 else torch.bfloat16
+        cache = init_kv_cache(cfg, 1, n_ctx, kv, "cuda")
+        logits = llama_forward(params, toks, cache, 0, cfg, logits_all=True, dtype=dtype,
+                               attn_impl=attn_impl, use_ref=True)[0][0]
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -logp[:-1].gather(1, toks[0, 1:, None])[:, 0]
+        return nll, float(logits.abs().max())
+
+    return run
+
+
+def phase_eval_7b_f32(seed: int) -> tuple[dict, dict, dict]:
+    """Synthetic LLaMA-7B through this slice's entry points. Perplexity: one
+    seeded 512-token chunk through make_chunk_nll, bf16 (K1, K2 at T = 512)
+    and as --f32 runs it (f32 scales: K1's f32 scale plane; f32 activations,
+    einsum attention, f32 KV), NLLs against the plain versions, ms per
+    chunk. The llama.h API with f16_kv = false (an f32 cache) over the same
+    weights: a 32-token prompt, 128 greedy tokens through llama_eval (K2 f32
+    at T = 1), then a 300-token turn (301 rows at n_past 159, a 353-row
+    bucket: K3 f32); the stream against the plain forward teacher-forced on
+    it (equal, or parting at a near tie), ms per token, the idle share, the
+    cache's bytes, and the embeddings against the plain versions' second
+    turn over the same cache. BatchedEngine(kv_dtype="float32"): 32 greedy
+    requests decoding together (K4 f32). A B=32 decode step over a seeded
+    f32 cache, kernels against plain. Returns (result, launches, shapes)."""
+    from llamavk_tpu_torch import compat as llama
+    from llamavk_tpu_torch.cli.perplexity import make_chunk_nll
+    from llamavk_tpu_torch.models.llama import KVCache, init_kv_cache, llama_forward
+    from llamavk_tpu_torch.models.loader import synthetic_params
+    from llamavk_tpu_torch.runtime.batching import BatchConfig, BatchedEngine
+    from llamavk_tpu_torch.runtime.engine import Engine, EngineConfig
+    from llamavk_tpu_torch.runtime.sampling import SamplerParams
+
+    cfg, params = _model_7b(seed)
+    gen = torch.Generator().manual_seed(seed + 6)
+    result = {}
+    _reset_counts()
+    _reset_shapes()
+    toks = torch.randint(3, cfg.n_vocab, (1, N_CTX), generator=gen).cuda()
+    result["perplexity_bf16"] = _nll_check(make_chunk_nll(cfg, N_CTX), _plain_nll(
+        cfg, N_CTX, torch.bfloat16, "auto"), params, toks, "bf16")
+    p32 = synthetic_params(cfg, seed=seed, device="cuda", scale_dtype=torch.float32)
+    result["perplexity_f32"] = _nll_check(
+        make_chunk_nll(cfg, N_CTX, dtype=torch.float32, attn_impl="einsum"),
+        _plain_nll(cfg, N_CTX, torch.float32, "einsum"), p32, toks, "--f32")
+    del p32
+    counts = _counts()
+
+    # the llama.h API with f16_kv = false over the synthetic weights
+    cp = llama.llama_context_default_params()
+    cp.f16_kv = False
+    eng = Engine(cfg, params, EngineConfig(n_ctx=N_CTX, kv_dtype="float32", seed=seed),
+                 device="cuda")
+    ctx = llama.llama_context(engine=eng, tokenizer=_id_tokenizer(cfg.n_vocab), params=cp)
+    prompt1 = torch.randint(3, cfg.n_vocab, (32,), generator=gen).tolist()
+    prompt2 = torch.randint(3, cfg.n_vocab, (300,), generator=gen).tolist()
+    _compat_greedy(ctx, prompt1, 8)  # warm-up
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    llama.llama_eval(ctx, prompt1, n_past=0)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    stream = []
+    t0 = time.perf_counter()
+    for i in range(128):
+        stream.append(llama.llama_sample_top_p_top_k(ctx, prompt1 + stream, 40, 0.95, 0.0, 1.0))
+        if i < 127:  # the last token stays pending, as the generate CLI leaves it
+            llama.llama_eval(ctx, [stream[-1]])
+    decode_ms = (time.perf_counter() - t0) * 1e3 / 127
+    snap = eng.save_session()  # the cache the second turn starts from
+    t0 = time.perf_counter()
+    llama.llama_eval(ctx, [stream[-1]] + prompt2)
+    torch.cuda.synchronize()
+    turn2_ms = (time.perf_counter() - t0) * 1e3
+    emb = torch.from_numpy(llama.llama_get_embeddings(ctx))
+    cache_bytes = llama.llama_get_kv_cache_size(ctx)
+    for key, n in _counts().items():
+        counts[key] += n
+    # the embeddings against the second turn over the same cache (301 rows
+    # at n_past 159 in the engine's 353-row bucket): bit-equal to the
+    # kernels' forward, and within EMB_L2_LIMIT of the plain versions'; the
+    # same drift over the cache in bf16 for comparison
+    turn2 = torch.zeros((1, N_CTX - snap.n_past), dtype=torch.int64, device="cuda")
+    turn2[0, : len(prompt2) + 1] = torch.tensor([stream[-1]] + prompt2)
+    embs = {}
+    for kv, ref in ((torch.float32, False), (torch.float32, True), (torch.bfloat16, False),
+                    (torch.bfloat16, True)):
+        c = KVCache(snap.k.to(kv), snap.v.to(kv))
+        embs[kv, ref] = llama_forward(params, turn2, c, snap.n_past, cfg, last_idx=len(prompt2),
+                                      use_ref=ref)[2][0].cpu()
+        del c
+    del snap
+    emb_equal = bool(torch.equal(emb, embs[torch.float32, False]))
+    emb_drift = {("f32" if kv == torch.float32 else "bf16"): {
+        "max_rel": float((embs[kv, False] - embs[kv, True]).abs().max()
+                         / embs[kv, True].abs().max()),
+        "l2_rel": float((embs[kv, False] - embs[kv, True]).norm() / embs[kv, True].norm())}
+        for kv in (torch.float32, torch.bfloat16)}
+    # the plain forward over the first turn, teacher-forced on the stream
+    plain_cache = init_kv_cache(cfg, 1, N_CTX, torch.float32, "cuda")
+    lg = llama_forward(params, torch.tensor([prompt1 + stream]).cuda(), plain_cache, 0, cfg,
+                       logits_all=True, use_ref=True)[0]
+    del plain_cache
+    split = None
+    for i, tok in enumerate(stream):
+        row = lg[0, len(prompt1) - 1 + i]
+        top, scale = float(row.max()), float(row.abs().max())
+        gap = (top - float(row[tok])) / scale
+        if gap > 0:
+            if gap > LOGIT_REL_LIMIT:
+                raise SystemExit(f"eval_7b_f32: token {i} ({tok}) is {gap:.3g} below the plain "
+                                 f"top logit (limit {LOGIT_REL_LIMIT})")
+            split = split or {"token": i, "gap_rel": gap}
+    if not (emb_equal and emb_drift["f32"]["l2_rel"] <= EMB_L2_LIMIT):
+        raise SystemExit(f"eval_7b_f32: embeddings equal to the kernels' forward: {emb_equal}, "
+                         f"drift from plain {emb_drift} (limit {EMB_L2_LIMIT})")
+    del lg
+    # where a decode step's time goes: 8 llama_eval steps on the host clock,
+    # 8 more under the profiler
+    llama.llama_eval(ctx, stream[:1], n_past=40)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in stream[1:9]:
+        llama.llama_eval(ctx, [t])
+    torch.cuda.synchronize()
+    plain_wall_ms = (time.perf_counter() - t0) * 1e3
+    wall_ms, busy_ms, n_dev, top = _device_busy(
+        lambda: [llama.llama_eval(ctx, [t]) for t in stream[9:17]])
+    del ctx, eng
+    result["compat_f32_kv"] = {
+        "prompt": len(prompt1), "prefill_ms": prefill_ms, "decode_tokens": 127,
+        "decode_ms_per_token": decode_ms, "tok_per_s": 1e3 / decode_ms,
+        "turn2_rows": len(prompt2) + 1, "turn2_ms": turn2_ms,
+        "stream_vs_plain": split or "equal", "embeddings_equal_to_kernel_forward": emb_equal,
+        "embeddings_drift_from_plain": emb_drift, "embeddings_limit_l2_rel": EMB_L2_LIMIT,
+        "limit_rel": LOGIT_REL_LIMIT, "kv_cache_bytes": cache_bytes,
+        "wall_ms_per_step": plain_wall_ms / 8, "profiled_wall_ms_per_step": wall_ms / 8,
+        "device_busy_ms_per_step": None if busy_ms is None else busy_ms / 8,
+        "device_activities_per_step": n_dev / 8,
+        "device_idle_share": None if busy_ms is None else 1 - busy_ms / plain_wall_ms,
+        "device_ms_per_step_by_name": {k: v / 8 for k, v in top.items()},
+    }
+    # the library path to K4's f32 mode: 32 greedy requests of 16 tokens
+    # decoding together in BatchedEngine(kv_dtype="float32")
+    be = BatchedEngine(cfg, params, BatchConfig(max_batch=32, n_ctx=N_CTX, block=8,
+                                                kv_dtype="float32"), device="cuda")
+    reqs = [be.submit(torch.randint(3, cfg.n_vocab, (16,), generator=gen).tolist(), 16,
+                      SamplerParams(temp=0.0), ignore_eos=True) for _ in range(32)]
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    be.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for key, n in _counts().items():
+        counts[key] += n
+    result["batched_engine_f32"] = {
+        "requests": len(reqs), "tokens": sum(len(r.generated) for r in reqs),
+        "tok_per_s": sum(len(r.generated) for r in reqs) / wall, "steps": be.stats["steps"],
+        "slot_cache_bytes": sum(p.numel() * p.element_size() for p in be.cache.planes())}
+    if any(len(r.generated) != 16 for r in reqs):
+        raise SystemExit("eval_7b_f32: short batched generation")
+    del be, reqs
+    # a B=32 decode step over a seeded f32 cache: K4 f32, kernels vs plain
+    result["batched_f32_step"] = _decode_step_check(params, cfg, seed, ("float32",),
+                                                    "eval_7b_f32")["float32"]
+    shapes = _shapes()
+    result["launches"] = counts
+    result.update(_shape_report(shapes))
+    _require("eval_7b_f32", counts, ("q4_gemv", "q4_gemm", "q4_gemm_f32", "attn_update",
+                                     "attn_update_f32", "attn_read_f32", "decode_f32"))
+    return result, counts, shapes
+
+
 def _attn_samples(attn: dict) -> list[tuple[tuple, int]]:
     """The attention shapes to check, with their launches: every key, except
     that keys differing only in a host-int n_past (a decode loop's one per
@@ -2478,11 +2920,15 @@ def phase_serve_shapes(shapes: dict, seed: int, reps: int, phase: str = "serve_7
 
     for m, k, n in sorted(shapes["q4"]):
         add(kernel_q4(timer, gen, names[(k, n)], m, True, plain_reps=2), shapes["q4"][(m, k, n)])
+    for m, k, n in sorted(shapes["q4_f32"]):
+        add(kernel_q4(timer, gen, names[(k, n)], m, True, plain_reps=2, f32_scales=True),
+            shapes["q4_f32"][(m, k, n)])
     for m, k, n in sorted(shapes["q4_i8"]):
         add(kernel_q4_i8(timer, gen, names[(k, n)], m, True, plain_reps=2),
             shapes["q4_i8"][(m, k, n)])
     for key, launches in _attn_samples(shapes["attn"]):
-        path, b, t, h, s, d, bk, quant, n_past, maxlb, straddle, mode = key
+        path, b, t, h, s, d, bk, kind, n_past, maxlb, straddle, mode = key
+        quant, f32 = kind == "int8", kind == "f32"
         if (h, d) != (H, D):
             raise SystemExit(f"serve_shapes: attention at H={h} D={d}, not the 7B width")
         cap = s * (maxlb or 1)
@@ -2499,17 +2945,18 @@ def phase_serve_shapes(shapes: dict, seed: int, reps: int, phase: str = "serve_7
             row = kernel_attn_prefix(timer, gen, gen_cpu, b, t, n_past, path == "update", quant,
                                      True, plens, sp, n_pool, s, bk=bk)
         elif maxlb is None:
-            row = kernel_attn(timer, gen, t, n_past, path == "update", True, b, quant, s, bk)
+            row = kernel_attn(timer, gen, t, n_past, path == "update", True, b, quant, s, bk, f32)
         else:
             row = kernel_attn_paged(timer, gen, gen_cpu, t, n_past, path == "update", b, quant,
                                     cap, s, bk, main_path=True, straddle=straddle)
         add(row, launches)
     for key in sorted(shapes["decode"], key=str):
-        b, h, s, d, bk, quant, maxlb = key
+        b, h, s, d, bk, kind, maxlb = key
+        quant = kind == "int8"
         if (h, d) != (H, D):
             raise SystemExit(f"serve_shapes: batched decode at H={h} D={d}, not the 7B width")
         if maxlb is None:
-            row = kernel_decode(timer, gen, gen_cpu, b, quant, True, h, d, s, bk)
+            row = kernel_decode(timer, gen, gen_cpu, b, quant, True, h, d, s, bk, kind == "f32")
         else:
             row = kernel_decode_paged(timer, gen, gen_cpu, b, quant, s * maxlb, s, bk,
                                       main_path=True)
@@ -2541,8 +2988,9 @@ def summary(rows: list[dict], counts: dict) -> dict:
     return {"kernels": out}
 
 
-PHASES = ("env,build,kernels,tiny_cli,generate_7b,generate_7b_lookup,spec_7b_self,tiny_serve,"
-          "serve_7b,serve_7b_paged,serve_7b_lookup,generate_7b_ring,serve_7b_shared")
+PHASES = ("env,build,kernels,tiny_cli,tiny_compat,generate_7b,generate_7b_lookup,spec_7b_self,"
+          "tiny_serve,serve_7b,serve_7b_paged,serve_7b_lookup,generate_7b_ring,serve_7b_shared,"
+          "eval_7b_f32")
 
 
 def main() -> int:
@@ -2599,6 +3047,13 @@ def main() -> int:
         for key, n in path_counts.items():
             counts[key] += n
 
+    if "tiny_compat" in phases:
+        (ROOT / "build").mkdir(exist_ok=True)
+        with timed("tiny_compat"), tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+            report["tiny_compat"], path_counts = phase_tiny_compat(Path(work))
+        add(path_counts)
+        emit({"phase": "tiny_compat", **report["tiny_compat"]})
+
     if "generate_7b" in phases:
         with timed("generate_7b"):
             report["generate_7b"], path_counts = phase_generate_7b(args.seed)
@@ -2644,7 +3099,8 @@ def main() -> int:
         emit({"phase": "generate_7b_ring", **report["generate_7b_ring"]})
     for name, phase in (("serve_7b", phase_serve_7b), ("serve_7b_paged", phase_serve_7b_paged),
                         ("serve_7b_lookup", phase_serve_7b_lookup),
-                        ("serve_7b_shared", phase_serve_7b_shared)):
+                        ("serve_7b_shared", phase_serve_7b_shared),
+                        ("eval_7b_f32", phase_eval_7b_f32)):
         if name in phases:
             with timed(name):
                 report[name], path_counts, shapes = phase(args.seed)

@@ -2,7 +2,9 @@
 
 The LLaMA Q4_0 engines of the JAX package beside it (single-stream
 generation, continuous-batching serving over a flat or paged bf16 or int8 KV
-cache, and prompt-lookup and draft-model speculation), with their Pallas TPU
+cache, and prompt-lookup and draft-model speculation; the llama.h API with an
+f32 cache under `f16_kv = false`; perplexity, embedding and the quantizer),
+with their Pallas TPU
 kernels rewritten by hand in CUDA C++ for
 sm_90a (`csrc/`, built with nvcc on first use and bound with ctypes). Every
 kernel has a plain PyTorch version beside it, which CPU tensors take.
@@ -14,7 +16,9 @@ Subpackages:
               quantization, the nvcc build
   runtime   — decode engine, continuous-batching engine, page allocator,
               speculative engines, HTTP server, sampling
-  cli       — generate, serve
+  cli       — generate, serve, perplexity, embedding, quantize
+  compat    — the llama.h API (llama_init_from_file, llama_eval, ...)
+  utils     — system_info
 """
 
 __version__ = "0.1.0"

@@ -8,9 +8,11 @@
 // translation units: K4 and K2 give bit-equal outputs at equal `block_k`,
 // as the JAX package's K4 and K2 do (flash_decode.py:23-26 there).
 //
-// KV element types: `__nv_bfloat16` (bf16 cache, no scales) or `int8_t`
+// KV element types: `__nv_bfloat16` (bf16 cache, no scales), `int8_t`
 // (int8 cache with one f32 scale per (position, head) row, scale planes
-// [B, S, H] per layer, as ops/kv_quant.py lays them out).
+// [B, S, H] per layer, as ops/kv_quant.py lays them out) or `float` (f32
+// cache, no scales; flat only). q is bf16 for a bf16 or int8 cache and f32
+// for an f32 one (`QType`).
 //
 // Cache modes (`KVMap`): a flat layer [B, H, S, D], or a page pool layer
 // [NP, H, PS, D] (scales [NP, PS, H]) read through a block table [B, MAXLB]
@@ -27,13 +29,20 @@
 // int8, then -1e30 where the key is past the query's position; the online
 // max and sum run in f32 over KV blocks of exactly `block_k` rows; the sum
 // l takes p before the v-scale; p is multiplied by the v-scale (int8) and
-// rounded to bf16 for the PV product; out = acc / l.
+// rounded to bf16 for the PV product; out = acc / l. An f32 cache has no
+// rounding point (the JAX kernel multiplies in the cache's own type,
+// flash_attn.py:749, :798 there): q * scale stays f32, a score is the f32
+// sum of f32 products, and p enters the PV product unrounded. The rounding
+// is chosen by the KV type alone (`op_round`), so the bf16 and int8 code is
+// the code it was.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace attn {
 
@@ -43,6 +52,22 @@ constexpr float NEG = -1e30f;
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16(v));
+}
+
+// the query type of a KV type: f32 for an f32 cache, else bf16
+template <typename KV>
+using QType = typename std::conditional<std::is_same<KV, float>::value, float,
+                                        __nv_bfloat16>::type;
+
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_float(float v) { return v; }
+
+// an operand of the products: rounded to bf16 for a bf16 or int8 cache,
+// unrounded for an f32 one
+template <typename KV>
+__device__ __forceinline__ float op_round(float v) {
+  if constexpr (std::is_same<KV, float>::value) return v;
+  return bf16_round(v);
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -137,6 +162,15 @@ __device__ __forceinline__ float key_dot(const float* q_s, const uint8_t* row, i
   return s;
 }
 
+template <int D>
+__device__ __forceinline__ float key_dot(const float* q_s, const uint8_t* row, float) {
+  const float* kr = reinterpret_cast<const float*>(row);
+  float s = 0.f;
+#pragma unroll 16
+  for (int d = 0; d < D; ++d) s = fmaf(q_s[d], kr[d], s);
+  return s;
+}
+
 // acc[e] += p * v[lane * DPL + e] for this lane's DPL = D / 32 output dims
 template <int D>
 __device__ __forceinline__ void v_accum(float* acc, float p, const uint8_t* row, int lane,
@@ -157,6 +191,14 @@ __device__ __forceinline__ void v_accum(float* acc, float p, const uint8_t* row,
   const int8_t* vr = reinterpret_cast<const int8_t*>(row) + lane * DPL;
 #pragma unroll
   for (int e = 0; e < DPL; ++e) acc[e] = fmaf(p, (float)vr[e], acc[e]);
+}
+
+template <int D>
+__device__ __forceinline__ void v_accum(float* acc, float p, const uint8_t* row, int lane, float) {
+  constexpr int DPL = D / 32;
+  const float* vr = reinterpret_cast<const float*>(row) + lane * DPL;
+#pragma unroll
+  for (int e = 0; e < DPL; ++e) acc[e] = fmaf(p, vr[e], acc[e]);
 }
 
 inline size_t dyn_smem(int block_k) { return (size_t)WARPS * block_k * sizeof(float); }
@@ -237,7 +279,7 @@ __device__ __forceinline__ void online_block(uint8_t* tile, const float* qw, flo
       float p = s <= NEG * 0.5f ? 0.f : expf(__fsub_rn(s, m_new));
       ps = __fadd_rn(ps, p);
       if constexpr (QUANT) p = __fmul_rn(p, __ldcg(vsb + (size_t)j * H));
-      sc[j] = bf16_round(p);
+      sc[j] = op_round<KV>(p);
     }
     l = fmaf(l, alpha, warp_sum(ps));
 #pragma unroll
@@ -261,13 +303,13 @@ __device__ __forceinline__ void online_block(uint8_t* tile, const float* qw, flo
 // Attention of query rows [t0, t0 + WARPS) of (b, h) over one cache layer.
 // Every thread of the block calls it (it synchronises the block); warp w
 // owns row t0 + w when that row is < T.
-//   q    [B, T, H, D] bf16          out [B, T, H, D] f32
+//   q    [B, T, H, D] QType<KV>     out [B, T, H, D] f32
 //   kc/vc one layer, ks/vs its f32 scales (int8 only), addressed by `map`
 //   np   the row's n_past: query t sits at position np + t (logical in a
 //        ring, slot-local over a prefix)
 // block_k divides map.rows, so no KV block crosses a page.
 template <int D, typename KV, int MODE = MODE_PLAIN>
-__device__ __forceinline__ void attend_block(const __nv_bfloat16* q, const KV* kc, const KV* vc,
+__device__ __forceinline__ void attend_block(const QType<KV>* q, const KV* kc, const KV* vc,
                                              const float* ks, const float* vs, float* out,
                                              int b, int h, int t0, int np, int T, int H,
                                              const KVMap& map, int block_k, float scale,
@@ -277,7 +319,7 @@ __device__ __forceinline__ void attend_block(const __nv_bfloat16* q, const KV* k
   constexpr int DPL = D / 32;
   __shared__ __align__(16) uint8_t tile[KT * Row<D, KV>::BYTES];
   __shared__ float q_s[WARPS][D];
-  extern __shared__ float sc_all[];  // [WARPS][block_k]: scores, then bf16(p)
+  extern __shared__ float sc_all[];  // [WARPS][block_k]: scores, then p (bf16(p) if it rounds)
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int t = t0 + warp;
@@ -291,8 +333,8 @@ __device__ __forceinline__ void attend_block(const __nv_bfloat16* q, const KV* k
 
   if (active)
     for (int d = lane; d < D; d += 32)
-      q_s[warp][d] = bf16_round(
-          __fmul_rn(__bfloat162float(q[(((size_t)b * T + t) * H + h) * D + d]), scale));
+      q_s[warp][d] =
+          op_round<KV>(__fmul_rn(to_float(q[(((size_t)b * T + t) * H + h) * D + d]), scale));
 
   float m = NEG, l = 0.f;
   float acc[DPL];

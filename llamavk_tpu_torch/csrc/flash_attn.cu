@@ -1,8 +1,11 @@
 // Causal attention over the KV cache for Hopper (sm_90a), and the fused cache
-// write that precedes it; bf16 caches and int8 caches with per-row scales.
+// write that precedes it; bf16 caches, int8 caches with per-row scales, and
+// f32 caches.
 //
 // Replaces two TPU kernels of llamavk_tpu/ops/flash_attn.py, in their flat
-// and page-table cache modes (bf16 and int8):
+// and page-table cache modes (bf16 and int8), and their flat f32 mode (q
+// and the new rows arrive as f32, and nothing is rounded to bf16: the JAX
+// kernels multiply in the cache's type, flash_attn.py:749, :798 there):
 //  * `_update_kernel` (:120, entry `flash_attention_update`): write T new
 //    K/V rows at [n_past, n_past+T) of layer l (int8: quantize each row and
 //    write its scale), then attend;
@@ -44,9 +47,9 @@
 //
 // What bounds it on an H100: decode (T = 1) reads the valid cache prefix of
 // one layer, paged or not (2 * H * n_past * D bytes of int8, twice that of
-// bf16, plus 8 * n_past * H bytes of int8 scales), plus the new rows, and is
-// bound by those bytes; prefill
-// is bound by its operations (4 * T * S_visible * D per head). This first
+// bf16, four times that of f32, plus 8 * n_past * H bytes of int8 scales),
+// plus the new rows, and is bound by those bytes; prefill is bound by its
+// operations (4 * T * S_visible * D per head). This first
 // design uses CUDA cores only: a block owns 8 query rows of one (batch,
 // head), one per warp; K and V arrive in 64-row shared tiles (rows padded so
 // lane j reading key j is free of bank conflicts); lane j scores key j of
@@ -66,14 +69,15 @@ __device__ __forceinline__ int write_row(const int* wrow_vec, int wrow_scalar, i
   return (wrow_vec ? wrow_vec[b] : wrow_scalar) + t;
 }
 
-// k_new/v_new [B, T, H, D] bf16 -> bf16 cache layer rows wrow[b] + t
-// (through `map`)
-__global__ void kv_write_kernel(const __nv_bfloat16* __restrict__ knew,
-                                const __nv_bfloat16* __restrict__ vnew,
-                                __nv_bfloat16* __restrict__ kc, __nv_bfloat16* __restrict__ vc,
+// k_new/v_new [B, T, H, D] -> cache layer rows wrow[b] + t (through
+// `map`), in the cache's type E (bf16 or f32), 16 bytes per thread
+template <typename E>
+__global__ void kv_write_kernel(const E* __restrict__ knew, const E* __restrict__ vnew,
+                                E* __restrict__ kc, E* __restrict__ vc,
                                 const int* __restrict__ wrow_vec, int wrow_scalar, KVMap map,
                                 int B, int T, int H, int D) {
-  const int chunks = D / 8;
+  constexpr int PER = 16 / (int)sizeof(E);  // elements per 16-byte chunk
+  const int chunks = D / PER;
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   const size_t total = (size_t)B * T * H * chunks;
   if (idx >= total) return;
@@ -85,8 +89,8 @@ __global__ void kv_write_kernel(const __nv_bfloat16* __restrict__ knew,
   const int b = (int)(r / T);
   const int row = write_row(wrow_vec, wrow_scalar, b, t);
   if (row < 0 || row >= map.cap()) return;
-  const size_t src = (((size_t)b * T + t) * H + h) * D + c * 8;
-  const size_t dst = map.data(map.locate(b, row), h, H, D) + c * 8;
+  const size_t src = (((size_t)b * T + t) * H + h) * D + c * PER;
+  const size_t dst = map.data(map.locate(b, row), h, H, D) + c * PER;
   *reinterpret_cast<uint4*>(kc + dst) = *reinterpret_cast<const uint4*>(knew + src);
   *reinterpret_cast<uint4*>(vc + dst) = *reinterpret_cast<const uint4*>(vnew + src);
 }
@@ -116,7 +120,7 @@ kv_quant_kernel(const __nv_bfloat16* __restrict__ knew, const __nv_bfloat16* __r
 
 template <int D, typename KV, int MODE>
 __global__ void __launch_bounds__(WARPS * 32)
-attn_kernel(const __nv_bfloat16* __restrict__ q, const KV* kc, const KV* vc, const float* ks,
+attn_kernel(const attn::QType<KV>* __restrict__ q, const KV* kc, const KV* vc, const float* ks,
             const float* vs, float* __restrict__ out, const int* __restrict__ npast_vec,
             int npast_scalar, KVMap map, int T, int H, int block_k, float scale, attn::Ring ring,
             attn::Prefix pre) {
@@ -137,7 +141,7 @@ cudaError_t launch_attn(const void* q, const void* kc, const void* vc, const flo
   if (e != cudaSuccess) return e;
   dim3 grid((T + WARPS - 1) / WARPS, H, B);
   attn_kernel<D, KV, MODE><<<grid, WARPS * 32, dyn, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(kc),
+      static_cast<const attn::QType<KV>*>(q), static_cast<const KV*>(kc),
       static_cast<const KV*>(vc), ks, vs, static_cast<float*>(out), npast_vec, npast_scalar, map,
       T, H, block_k, scale, ring, pre);
   return cudaGetLastError();
@@ -148,13 +152,18 @@ cudaError_t launch_mode(const void* q, const void* kc, const void* vc, const flo
                         const float* vs, void* out, const int* npast_vec, int npast_scalar,
                         KVMap map, int B, int T, int H, int block_k, float scale,
                         const attn::Ring& ring, const attn::Prefix& pre, cudaStream_t st) {
-  if (ring.pos)
-    return launch_attn<D, KV, attn::MODE_RING>(q, kc, vc, ks, vs, out, npast_vec, npast_scalar,
-                                               map, B, T, H, block_k, scale, ring, pre, st);
-  if (pre.k)
-    return launch_attn<D, KV, attn::MODE_PREFIX>(q, kc, vc, ks, vs, out, npast_vec,
+  // an f32 cache is flat with no ring or prefix (checked by the caller), so
+  // those modes are not built for it
+  if constexpr (!std::is_same<KV, float>::value) {
+    if (ring.pos)
+      return launch_attn<D, KV, attn::MODE_RING>(q, kc, vc, ks, vs, out, npast_vec,
                                                  npast_scalar, map, B, T, H, block_k, scale,
                                                  ring, pre, st);
+    if (pre.k)
+      return launch_attn<D, KV, attn::MODE_PREFIX>(q, kc, vc, ks, vs, out, npast_vec,
+                                                   npast_scalar, map, B, T, H, block_k, scale,
+                                                   ring, pre, st);
+  }
   return launch_attn<D, KV, attn::MODE_PLAIN>(q, kc, vc, ks, vs, out, npast_vec, npast_scalar,
                                               map, B, T, H, block_k, scale, ring, pre, st);
 }
@@ -218,48 +227,58 @@ cudaError_t mode_args(const AttnModes* modes, int B, attn::Ring& ring, attn::Pre
 
 }  // namespace
 
-// Read path (K3). q bf16 [B, T, H, D]; k_cache/v_cache: one layer, bf16, or
-// int8 when kv_int8 != 0 with k_scale/v_scale that layer's f32 scale planes
-// (else null): flat [B, H, S, D] with scales [B, S, H] when page_table is
+// Cache types of the C interface (`kv_kind`).
+enum { KV_BF16 = 0, KV_INT8 = 1, KV_F32 = 2 };
+
+// Read path (K3). q [B, T, H, D], bf16 (f32 for an f32 cache); k_cache/v_cache:
+// one layer of type kv_kind, with k_scale/v_scale that layer's f32 scale
+// planes for int8 (else null): flat [B, H, S, D] with scales [B, S, H] when page_table is
 // null, else a pool [NP, H, S, D] with scales [NP, S, H] read through
 // page_table [B, maxlb] (S the page's rows); out f32 [B, T, H, D]; n_past
 // from npast_vec[B] (device) when it is not null, else npast_scalar; `modes`
-// (or null) the ring or prefix operands, on a flat cache only.
-// D in {64, 128}; block_k divides S.
+// (or null) the ring or prefix operands, on a flat cache only. An f32 cache
+// is flat, with no ring or prefix. D in {64, 128}; block_k divides S.
 extern "C" int attn_read_launch(const void* q, const void* k_cache, const void* v_cache,
                                 const void* k_scale, const void* v_scale, void* out,
                                 const void* npast_vec, int npast_scalar, const void* page_table,
                                 int maxlb, int B, int T, int H, int S, int D, int block_k,
-                                float scale, int kv_int8, const AttnModes* modes, void* stream) {
+                                float scale, int kv_kind, const AttnModes* modes, void* stream) {
   if (block_k < 1 || S % block_k != 0) return (int)cudaErrorInvalidValue;
+  if (kv_kind < KV_BF16 || kv_kind > KV_F32) return (int)cudaErrorInvalidValue;
   if (page_table && maxlb < 1) return (int)cudaErrorInvalidValue;
   attn::Ring ring;
   attn::Prefix pre;
   cudaError_t e = mode_args(modes, B, ring, pre);
   if (e != cudaSuccess) return (int)e;
   if (page_table && (ring.pos || pre.k)) return (int)cudaErrorInvalidValue;
+  if (kv_kind == KV_F32 && (page_table || ring.pos || pre.k)) return (int)cudaErrorInvalidValue;
   auto npv = static_cast<const int*>(npast_vec);
   auto st = static_cast<cudaStream_t>(stream);
   const KVMap map{static_cast<const int*>(page_table), maxlb, S};
-  if (kv_int8)
+  if (kv_kind == KV_INT8)
     return (int)attend<int8_t>(q, k_cache, v_cache, k_scale, v_scale, out, npv, npast_scalar, map,
                                B, T, H, D, block_k, scale, ring, pre, st);
+  if (kv_kind == KV_F32)
+    return (int)attend<float>(q, k_cache, v_cache, nullptr, nullptr, out, npv, npast_scalar, map,
+                              B, T, H, D, block_k, scale, ring, pre, st);
   return (int)attend<__nv_bfloat16>(q, k_cache, v_cache, nullptr, nullptr, out, npv,
                                     npast_scalar, map, B, T, H, D, block_k, scale, ring, pre, st);
 }
 
-// Update path (K2): write k_new/v_new [B, T, H, D] bf16 into rows
-// [n_past, n_past + T) of the cache layer (int8: quantized, with their
-// scales; paged: through the table; ring: rows [write_row, write_row + T)),
-// then attend (two launches).
+// Update path (K2): write k_new/v_new [B, T, H, D] (bf16; f32 for an f32
+// cache) into rows [n_past, n_past + T) of the cache layer (int8: quantized,
+// with their scales; paged: through the table; ring: rows [write_row,
+// write_row + T)), then attend (two launches).
 extern "C" int attn_update_launch(const void* q, const void* k_new, const void* v_new,
                                   void* k_cache, void* v_cache, void* k_scale, void* v_scale,
                                   void* out, const void* npast_vec, int npast_scalar,
                                   const void* page_table, int maxlb, int B, int T, int H, int S,
-                                  int D, int block_k, float scale, int kv_int8,
+                                  int D, int block_k, float scale, int kv_kind,
                                   const AttnModes* modes, void* stream) {
   if (block_k < 1 || S % block_k != 0 || (D != 64 && D != 128)) return (int)cudaErrorInvalidValue;
   if (page_table && maxlb < 1) return (int)cudaErrorInvalidValue;
+  if (kv_kind == KV_F32 && (page_table || (modes && (modes->pos || modes->pk))))
+    return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   const bool ring_write = modes && modes->has_wrow;
   auto wrv = static_cast<const int*>(ring_write ? modes->wrow_vec : npast_vec);
@@ -267,7 +286,7 @@ extern "C" int attn_update_launch(const void* q, const void* k_new, const void* 
   const KVMap map{static_cast<const int*>(page_table), maxlb, S};
   auto kn = static_cast<const __nv_bfloat16*>(k_new);
   auto vn = static_cast<const __nv_bfloat16*>(v_new);
-  if (kv_int8) {
+  if (kv_kind == KV_INT8) {
     const size_t rows = (size_t)B * T * H;
     const unsigned grid = (unsigned)((rows + WARPS - 1) / WARPS);
     auto kq = static_cast<int8_t*>(k_cache);
@@ -280,15 +299,20 @@ extern "C" int attn_update_launch(const void* q, const void* k_new, const void* 
     else
       kv_quant_kernel<64><<<grid, WARPS * 32, 0, st>>>(kn, vn, kq, vq, ksp, vsp, wrv, wrs, map,
                                                        B, T, H);
+  } else if (kv_kind == KV_F32) {
+    const size_t total = (size_t)B * T * H * (D / 4);
+    kv_write_kernel<float><<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+        static_cast<const float*>(k_new), static_cast<const float*>(v_new),
+        static_cast<float*>(k_cache), static_cast<float*>(v_cache), wrv, wrs, map, B, T, H, D);
   } else {
     const size_t total = (size_t)B * T * H * (D / 8);
-    kv_write_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+    kv_write_kernel<__nv_bfloat16><<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
         kn, vn, static_cast<__nv_bfloat16*>(k_cache), static_cast<__nv_bfloat16*>(v_cache), wrv,
         wrs, map, B, T, H, D);
   }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   return attn_read_launch(q, k_cache, v_cache, k_scale, v_scale, out, npast_vec, npast_scalar,
-                          page_table, maxlb, B, T, H, S, D, block_k, scale, kv_int8, modes,
+                          page_table, maxlb, B, T, H, S, D, block_k, scale, kv_kind, modes,
                           stream);
 }

@@ -1,6 +1,8 @@
 // Batched single-token decode attention for Hopper (sm_90a): insert each
 // row's new K/V row into the cache, then attend, in one launch per layer;
-// bf16 caches and int8 caches with per-row scales.
+// bf16 caches, int8 caches with per-row scales, and flat f32 caches (q and
+// the new rows f32, nothing rounded to bf16, as flash_decode.py:326, :356
+// there multiply in the cache's type).
 //
 // Replaces the TPU kernel `_flat_kernel` of llamavk_tpu/ops/flash_decode.py
 // (:67, entry `flash_decode_update` :380), flat and page-table modes. The TPU kernel runs one
@@ -28,8 +30,8 @@
 //
 // What bounds it on an H100: the bytes of every row's valid cache prefix,
 // paged or not, sum_b (n_past[b] + 1) * H * D * 2 (K and V) times 2 bytes
-// for bf16 or 1
-// for int8 (plus 8 bytes of scales per row and head), and the new rows
+// for bf16, 1 for int8 (plus 8 bytes of scales per row and head) or 4 for
+// f32, and the new rows
 // written. Blocks of 256 threads load 64-row tiles with 16-byte reads; one
 // warp computes (T = 1), the other seven help load. Split-KV decode is later
 // work.
@@ -43,9 +45,9 @@ using attn::WARPS;
 
 template <int D, typename KV>
 __global__ void __launch_bounds__(WARPS * 32)
-decode_kernel(const __nv_bfloat16* __restrict__ q,     // [B, 1, H, D]
-              const __nv_bfloat16* __restrict__ knew,  // [B, 1, H, D]
-              const __nv_bfloat16* __restrict__ vnew, KV* kc, KV* vc, float* ks, float* vs,
+decode_kernel(const attn::QType<KV>* __restrict__ q,     // [B, 1, H, D]
+              const attn::QType<KV>* __restrict__ knew,  // [B, 1, H, D]
+              const attn::QType<KV>* __restrict__ vnew, KV* kc, KV* vc, float* ks, float* vs,
               float* __restrict__ out, const int* __restrict__ npast_vec, int npast_scalar,
               KVMap map, int H, int block_k, float scale) {
   constexpr bool QUANT = sizeof(KV) == 1;
@@ -61,7 +63,7 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,     // [B, 1, H, D]
     if (in_cache && warp == 0) attn::quantize_row<D>(knew + src, kc + dst, ks + sdst, lane);
     if (in_cache && warp == 1) attn::quantize_row<D>(vnew + src, vc + dst, vs + sdst, lane);
   } else if (in_cache) {
-    constexpr int CH = D / 8;  // 16-byte chunks of a bf16 row
+    constexpr int CH = D * (int)sizeof(KV) / 16;  // 16-byte chunks of a bf16 or f32 row
     if (threadIdx.x < CH)
       reinterpret_cast<uint4*>(kc + dst)[threadIdx.x] =
           reinterpret_cast<const uint4*>(knew + src)[threadIdx.x];
@@ -82,8 +84,8 @@ cudaError_t launch(const void* q, const void* kn, const void* vn, void* kc, void
   cudaError_t e = attn::allow_dyn_smem(decode_kernel<D, KV>, dyn, dyn_done);
   if (e != cudaSuccess) return e;
   decode_kernel<D, KV><<<dim3(H, B), WARPS * 32, dyn, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kn),
-      static_cast<const __nv_bfloat16*>(vn), static_cast<KV*>(kc), static_cast<KV*>(vc),
+      static_cast<const attn::QType<KV>*>(q), static_cast<const attn::QType<KV>*>(kn),
+      static_cast<const attn::QType<KV>*>(vn), static_cast<KV*>(kc), static_cast<KV*>(vc),
       static_cast<float*>(ks), static_cast<float*>(vs), static_cast<float*>(out), npv, nps, map, H,
       block_k, scale);
   return cudaGetLastError();
@@ -102,10 +104,11 @@ cudaError_t dispatch(const void* q, const void* kn, const void* vn, void* kc, vo
 
 }  // namespace
 
-// q, k_new, v_new bf16 [B, 1, H, D]; k_cache/v_cache one layer, bf16, or
-// int8 when kv_int8 != 0 with k_scale/v_scale that layer's f32 scale planes
-// (else null): flat [B, H, S, D] with scales [B, S, H] when page_table is
-// null, else a pool [NP, H, S, D] with scales [NP, S, H] read through
+// q, k_new, v_new [B, 1, H, D], bf16 (f32 for an f32 cache); k_cache/v_cache
+// one layer of type kv_kind (0 bf16, 1 int8, 2 f32), with k_scale/v_scale
+// that layer's f32 scale planes for int8 (else null): flat [B, H, S, D] with
+// scales [B, S, H] when page_table is null (always for f32), else a pool
+// [NP, H, S, D] with scales [NP, S, H] read through
 // page_table [B, maxlb] (S the page's rows); out f32 [B, 1, H, D]; n_past
 // from npast_vec[B] (device) when it is not null, else npast_scalar; every
 // n_past below the rows a batch row addresses. D in {64, 128}; block_k
@@ -114,15 +117,20 @@ extern "C" int flash_decode_launch(const void* q, const void* k_new, const void*
                                    void* k_cache, void* v_cache, void* k_scale, void* v_scale,
                                    void* out, const void* npast_vec, int npast_scalar,
                                    const void* page_table, int maxlb, int B, int H, int S, int D,
-                                   int block_k, float scale, int kv_int8, void* stream) {
+                                   int block_k, float scale, int kv_kind, void* stream) {
   if (block_k < 1 || S % block_k != 0) return (int)cudaErrorInvalidValue;
   if (page_table && maxlb < 1) return (int)cudaErrorInvalidValue;
+  if (kv_kind < 0 || kv_kind > 2 || (kv_kind == 2 && page_table))
+    return (int)cudaErrorInvalidValue;
   auto npv = static_cast<const int*>(npast_vec);
   auto st = static_cast<cudaStream_t>(stream);
   const KVMap map{static_cast<const int*>(page_table), maxlb, S};
-  if (kv_int8)
+  if (kv_kind == 1)
     return (int)dispatch<int8_t>(q, k_new, v_new, k_cache, v_cache, k_scale, v_scale, out, npv,
                                  npast_scalar, map, B, H, D, block_k, scale, st);
+  if (kv_kind == 2)
+    return (int)dispatch<float>(q, k_new, v_new, k_cache, v_cache, nullptr, nullptr, out, npv,
+                                npast_scalar, map, B, H, D, block_k, scale, st);
   return (int)dispatch<__nv_bfloat16>(q, k_new, v_new, k_cache, v_cache, nullptr, nullptr, out,
                                       npv, npast_scalar, map, B, H, D, block_k, scale, st);
 }

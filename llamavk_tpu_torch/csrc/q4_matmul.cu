@@ -13,6 +13,9 @@
 //
 // Numerics (the JAX package's defaults, q4_matmul.py:117-121): x is bf16,
 // w = bf16(float(q) * float(scale)), products accumulate in f32, out is f32.
+// The scale plane is bf16, or f32 (`perplexity --f32` loads it so,
+// q4_matmul.py:120 there reads it as it is): the kernels take the scale
+// type as a template argument (`ST`), and only the scale loads differ.
 //
 // What bounds it on an H100:
 //  * decode (M = 1): weight bytes. 7B decode reads ~3.7 GB of packed
@@ -45,15 +48,33 @@ __device__ __forceinline__ float bf16_bits_to_float(uint32_t bits16) {
   return __uint_as_float(bits16 << 16);
 }
 
+// the scales of 4 consecutive columns from `p` (16-byte aligned for f32)
+__device__ __forceinline__ void load_scales4(const __nv_bfloat16* p, float* s) {
+  const uint2 bits = __ldg(reinterpret_cast<const uint2*>(p));
+  s[0] = bf16_bits_to_float(bits.x & 0xffffu);
+  s[1] = bf16_bits_to_float(bits.x >> 16);
+  s[2] = bf16_bits_to_float(bits.y & 0xffffu);
+  s[3] = bf16_bits_to_float(bits.y >> 16);
+}
+
+__device__ __forceinline__ void load_scales4(const float* p, float* s) {
+  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+  s[0] = v.x;
+  s[1] = v.y;
+  s[2] = v.z;
+  s[3] = v.w;
+}
+
 // ---------------------------------------------------------------- decode GEMV
 constexpr int GV_WARPS = 8;
 constexpr int GV_COLS = 128;  // 32 lanes x 4 columns
 constexpr int GV_SMEM = 40960;
 
+template <typename ST>
 __global__ void __launch_bounds__(GV_WARPS * 32)
 q4_gemv_kernel(const __nv_bfloat16* __restrict__ x,   // [K]
                const int8_t* __restrict__ packed,     // [K/2, N]
-               const __nv_bfloat16* __restrict__ scales,  // [G, N]
+               const ST* __restrict__ scales,         // [G, N] bf16 or f32
                float* __restrict__ out,               // [gridDim.y, N]
                int K, int N, int gps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -81,12 +102,8 @@ q4_gemv_kernel(const __nv_bfloat16* __restrict__ x,   // [K]
       for (int m = 0; m < 16; ++m)
         words[m] = __ldg(reinterpret_cast<const uint32_t*>(
             packed + (size_t)(m * G + g) * N + n0));
-      const uint2 sbits = __ldg(reinterpret_cast<const uint2*>(scales + (size_t)g * N + n0));
       float s[4];
-      s[0] = bf16_bits_to_float(sbits.x & 0xffffu);
-      s[1] = bf16_bits_to_float(sbits.x >> 16);
-      s[2] = bf16_bits_to_float(sbits.y & 0xffffu);
-      s[3] = bf16_bits_to_float(sbits.y >> 16);
+      load_scales4(scales + (size_t)g * N + n0, s);
       const __nv_bfloat16* xg = xs + (g - g_begin) * 32;
 #pragma unroll
       for (int m = 0; m < 16; ++m) {
@@ -128,8 +145,9 @@ __global__ void splitk_reduce_kernel(const float* __restrict__ partial,
   out[i] = sum;
 }
 
+template <typename ST>
 cudaError_t launch_gemv(const __nv_bfloat16* x, const int8_t* packed,
-                        const __nv_bfloat16* scales, float* out, float* partial,
+                        const ST* scales, float* out, float* partial,
                         int K, int N, int ksplit, cudaStream_t stream) {
   const int G = K / 32;
   const int gps = (G + ksplit - 1) / ksplit;
@@ -140,7 +158,7 @@ cudaError_t launch_gemv(const __nv_bfloat16* x, const int8_t* packed,
   if (smem > GV_SMEM) return cudaErrorInvalidValue;
   dim3 grid((N + GV_COLS - 1) / GV_COLS, splits);
   float* dst = splits == 1 ? out : partial;
-  q4_gemv_kernel<<<grid, GV_WARPS * 32, smem, stream>>>(x, packed, scales, dst, K, N, gps);
+  q4_gemv_kernel<ST><<<grid, GV_WARPS * 32, smem, stream>>>(x, packed, scales, dst, K, N, gps);
   if (splits > 1)
     splitk_reduce_kernel<<<(N + 255) / 256, 256, 0, stream>>>(partial, out, splits, N);
   return cudaGetLastError();
@@ -151,14 +169,29 @@ constexpr int BM = 64, BN = 128, BKT = 64;  // BKT = two quantization groups
 constexpr int XS_LD = BKT + 8;   // bf16 elements, keeps WMMA rows 32-byte aligned
 constexpr int WS_LD = BN + 8;
 
+template <typename ST>
 struct GemmRegs {
-  uint4 xv[2];   // two 8-element x chunks
-  uint2 pk[2];   // two 8-column packed words
-  uint4 sc[2];   // their 8 scales
+  static constexpr int SW = (int)sizeof(ST) / 2;  // 16-byte words of 8 scales
+  uint4 xv[2];      // two 8-element x chunks
+  uint2 pk[2];      // two 8-column packed words
+  uint4 sc[2][SW];  // their 8 scales
 };
 
-__device__ __forceinline__ void gemm_load(GemmRegs& rg, const __nv_bfloat16* x,
-                                          const int8_t* packed, const __nv_bfloat16* scales,
+// scale j (0..7) of 8 held in 16-byte words
+__device__ __forceinline__ float scale_at(const uint4* w, int j, __nv_bfloat16) {
+  const uint32_t sw[4] = {w[0].x, w[0].y, w[0].z, w[0].w};
+  return bf16_bits_to_float((sw[j >> 1] >> (16 * (j & 1))) & 0xffffu);
+}
+
+__device__ __forceinline__ float scale_at(const uint4* w, int j, float) {
+  const uint4 q = w[j >> 2];
+  const uint32_t sw[4] = {q.x, q.y, q.z, q.w};
+  return __uint_as_float(sw[j & 3]);
+}
+
+template <typename ST>
+__device__ __forceinline__ void gemm_load(GemmRegs<ST>& rg, const __nv_bfloat16* x,
+                                          const int8_t* packed, const ST* scales,
                                           int M, int K, int N, int G, int m_blk, int n_blk,
                                           int g0, int tid) {
 #pragma unroll
@@ -173,15 +206,19 @@ __device__ __forceinline__ void gemm_load(GemmRegs& rg, const __nv_bfloat16* x,
     const int mrow = tid >> 4, cc = (tid & 15) * 8;
     const int gw = g0 + i, n = n_blk + cc;
     rg.pk[i] = make_uint2(0, 0);
-    rg.sc[i] = make_uint4(0, 0, 0, 0);
+#pragma unroll
+    for (int w = 0; w < GemmRegs<ST>::SW; ++w) rg.sc[i][w] = make_uint4(0, 0, 0, 0);
     if (gw < G && n < N) {
       rg.pk[i] = __ldg(reinterpret_cast<const uint2*>(packed + (size_t)(mrow * G + gw) * N + n));
-      rg.sc[i] = __ldg(reinterpret_cast<const uint4*>(scales + (size_t)gw * N + n));
+#pragma unroll
+      for (int w = 0; w < GemmRegs<ST>::SW; ++w)
+        rg.sc[i][w] = __ldg(reinterpret_cast<const uint4*>(scales + (size_t)gw * N + n) + w);
     }
   }
 }
 
-__device__ __forceinline__ void gemm_store(const GemmRegs& rg, __nv_bfloat16* xs,
+template <typename ST>
+__device__ __forceinline__ void gemm_store(const GemmRegs<ST>& rg, __nv_bfloat16* xs,
                                            __nv_bfloat16* ws, int tid) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -189,11 +226,10 @@ __device__ __forceinline__ void gemm_store(const GemmRegs& rg, __nv_bfloat16* xs
     *reinterpret_cast<uint4*>(xs + r * XS_LD + c) = rg.xv[i];
     const int mrow = tid >> 4, cc = (tid & 15) * 8;
     const uint32_t pw[2] = {rg.pk[i].x, rg.pk[i].y};
-    const uint32_t sw[4] = {rg.sc[i].x, rg.sc[i].y, rg.sc[i].z, rg.sc[i].w};
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int b = (int)(int8_t)((pw[j >> 2] >> (8 * (j & 3))) & 0xffu);
-      const float s = bf16_bits_to_float((sw[j >> 1] >> (16 * (j & 1))) & 0xffffu);
+      const float s = scale_at(rg.sc[i], j, ST());
       ws[(32 * i + mrow) * WS_LD + cc + j] =
           __float2bfloat16((float)((int8_t)(b << 4) >> 4) * s);
       ws[(32 * i + mrow + 16) * WS_LD + cc + j] = __float2bfloat16((float)(b >> 4) * s);
@@ -201,9 +237,10 @@ __device__ __forceinline__ void gemm_store(const GemmRegs& rg, __nv_bfloat16* xs
   }
 }
 
+template <typename ST>
 __global__ void __launch_bounds__(256)
 q4_gemm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ packed,
-               const __nv_bfloat16* __restrict__ scales, float* __restrict__ out,
+               const ST* __restrict__ scales, float* __restrict__ out,
                int M, int K, int N) {
   using namespace nvcuda;
   __shared__ __align__(32) __nv_bfloat16 xs[BM * XS_LD];
@@ -221,7 +258,7 @@ q4_gemm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ p
 #pragma unroll
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
 
-  GemmRegs rg;
+  GemmRegs<ST> rg;
   gemm_load(rg, x, packed, scales, M, K, N, G, m_blk, n_blk, 0, tid);
   for (int g0 = 0; g0 < G; g0 += 2) {
     gemm_store(rg, xs, ws, tid);
@@ -260,24 +297,33 @@ q4_gemm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ p
     }
 }
 
+template <typename ST>
+cudaError_t launch(const __nv_bfloat16* x, const int8_t* packed, const ST* scales, float* out,
+                   float* partial, int M, int K, int N, int ksplit, cudaStream_t st) {
+  if (M == 1) return launch_gemv(x, packed, scales, out, partial, K, N, ksplit, st);
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  q4_gemm_kernel<ST><<<grid, 256, 0, st>>>(x, packed, scales, out, M, K, N);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// x bf16 [M, K], packed int8 [K/2, N] (ilv, one chunk), scales bf16 [G, N],
-// out f32 [M, N]; partial f32 [ksplit, N] scratch for the decode split (M = 1).
+// x bf16 [M, K], packed int8 [K/2, N] (ilv, one chunk), scales [G, N] (bf16,
+// or f32 when scale_f32 != 0), out f32 [M, N]; partial f32 [ksplit, N]
+// scratch for the decode split (M = 1).
 // Requires K % 32 == 0, N % 8 == 0 and 16-byte aligned pointers (checked by
 // the Python wrapper). Returns cudaGetLastError() after the launches.
 extern "C" int q4_matmul_launch(const void* x, const void* packed, const void* scales,
                                 void* out, void* partial, int M, int K, int N,
-                                int ksplit, void* stream) {
+                                int ksplit, int scale_f32, void* stream) {
   auto xs = static_cast<const __nv_bfloat16*>(x);
   auto pk = static_cast<const int8_t*>(packed);
-  auto sc = static_cast<const __nv_bfloat16*>(scales);
   auto o = static_cast<float*>(out);
   auto part = static_cast<float*>(partial);
   auto st = static_cast<cudaStream_t>(stream);
   if (K % 32 != 0 || N % 8 != 0 || M < 1 || ksplit < 1) return (int)cudaErrorInvalidValue;
-  if (M == 1) return (int)launch_gemv(xs, pk, sc, o, part, K, N, ksplit, st);
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  q4_gemm_kernel<<<grid, 256, 0, st>>>(xs, pk, sc, o, M, K, N);
-  return (int)cudaGetLastError();
+  if (scale_f32)
+    return (int)launch(xs, pk, static_cast<const float*>(scales), o, part, M, K, N, ksplit, st);
+  return (int)launch(xs, pk, static_cast<const __nv_bfloat16*>(scales), o, part, M, K, N, ksplit,
+                     st);
 }

@@ -9,9 +9,9 @@ Mirrors the reference graph:
 
 Layer weights are stacked over a leading n_layer dim; a layer's weights are
 views of the stacked planes, never copies. K is RoPE'd before caching. The
-KV cache `[L, B, H, S, D]` (flat; bf16, or int8 with per-row f32 scales) is
-updated IN PLACE: the JAX package threads it through `lax.scan` and gets the
-same effect by buffer aliasing. `n_past` may be a per-row vector
+KV cache `[L, B, H, S, D]` (flat; bf16, int8 with per-row f32 scales, or
+f32) is updated IN PLACE: the JAX package threads it through `lax.scan` and
+gets the same effect by buffer aliasing. `n_past` may be a per-row vector
 (continuous batching). A paged pool `[L, NP, H, PS, D]`
 (`init_paged_kv_cache`) is addressed through a block table (`page_table`);
 with `page_straddle` its multi-token writes may start anywhere in a page and
@@ -141,7 +141,8 @@ class LlamaParams:
 
 @dataclass
 class KVCache:
-    """Dense per-layer KV slabs [L, B, H, S, D], heads-major, bf16 or int8.
+    """Dense per-layer KV slabs [L, B, H, S, D], heads-major, bf16, int8 or
+    f32 (flat only).
     An int8 cache carries one f32 scale per (layer, batch, position, head)
     row in k_scale/v_scale [L, B, S, H] (`ops/kv_quant.py`). A page pool has
     the same fields with pages in place of batch rows: [L, NP, H, PS, D] and
@@ -175,12 +176,15 @@ def init_kv_cache(
     cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16, device="cuda",
     ring: bool = False,
 ) -> KVCache:
-    """A zeroed bf16 or int8 cache. The JAX package pads an int8 cache's
-    scale planes to 128 head lanes (llama.py:161-168 there), a TPU DMA rule;
-    here they keep H. `ring` adds the history ring's position plane
-    [max_len, batch], every row empty (-1; llama.py:200-204 there)."""
-    if dtype not in (torch.bfloat16, torch.int8):
-        raise NotImplementedError(f"KV cache dtype {dtype}: bf16 or int8")
+    """A zeroed bf16, int8 or f32 cache. The JAX package pads an int8
+    cache's scale planes to 128 head lanes (llama.py:161-168 there), a TPU
+    DMA rule; here they keep H. `ring` adds the history ring's position
+    plane [max_len, batch], every row empty (-1; llama.py:200-204 there);
+    an f32 ring is not ported yet."""
+    if dtype not in (torch.bfloat16, torch.int8, torch.float32):
+        raise NotImplementedError(f"KV cache dtype {dtype}: bf16, int8 or f32")
+    if ring and dtype == torch.float32:
+        raise NotImplementedError("an f32 history ring is not ported yet (ROADMAP.md queue 2)")
     shape = (cfg.n_layer, batch, cfg.n_head, max_len, cfg.head_dim)
     planes = [torch.zeros(shape, dtype=dtype, device=device) for _ in range(2)]
     if dtype == torch.int8:
@@ -198,7 +202,8 @@ def init_paged_kv_cache(
     (H kept, no 128-lane pad, as `init_kv_cache`). The page's rows must be a
     multiple of 8, and of 32 for int8 (the KV block step)."""
     if dtype not in (torch.bfloat16, torch.int8):
-        raise NotImplementedError(f"KV pool dtype {dtype}: bf16 or int8")
+        raise NotImplementedError(f"KV pool dtype {dtype}: bf16 or int8 (an f32 pool is not "
+                                  f"ported yet, ROADMAP.md queue 2)")
     step = 32 if dtype == torch.int8 else 8
     if page_size % step:
         raise ValueError(f"page_size {page_size} must be a multiple of {step} for {dtype}")

@@ -1,9 +1,17 @@
 """Attention over the KV cache (twin of `llamavk_tpu/ops/flash_attn.py`, flat
-and page-table modes, bf16 and int8).
+and page-table modes, bf16 and int8, and the flat f32 mode).
 
-q: [B, T, H, D] (new queries), cache: STACKED [L, B, H, S, D] bf16 or int8,
-n_past: int or [B] int32 tensor. An int8 cache comes with f32 scale planes
-k_scale/v_scale [L, B, S, H] (`ops/kv_quant.py`). Outputs are [B, T, H, D] f32.
+q: [B, T, H, D] (new queries), cache: STACKED [L, B, H, S, D] bf16, int8 or
+f32, n_past: int or [B] int32 tensor. An int8 cache comes with f32 scale
+planes k_scale/v_scale [L, B, S, H] (`ops/kv_quant.py`). Outputs are
+[B, T, H, D] f32.
+
+An f32 cache (the llama.h API's `f16_kv = false`, perplexity's f32 mode)
+multiplies in f32 throughout, as the JAX kernels multiply in the cache's
+own type (flash_attn.py:749, :798 there): q * scale and the probabilities
+are not rounded to bf16, and the new rows are stored as they arrive. The
+CUDA kernels take it flat only; an f32 page pool, ring or prefix-pool slot
+cache raises NotImplementedError (ROADMAP.md queue 2).
 
 With `page_table` (int32 [B, MAXLB]) the cache is a PAGE POOL
 [L, NP, H, PS, D] (int8 scales [L, NP, PS, H]) and logical row j of batch
@@ -47,10 +55,10 @@ write (paged: straight into the pool through the table), then the dense
 masked softmax of `attend_ref` (paged: over the logical view gathered
 through the table, `gather_pages`) with the kernels'
 rounding points (q scaled and rounded to bf16; int8 scores times the key
-scale; probabilities times the value scale, rounded to bf16). The kernels
-use the online softmax over KV blocks of `block_k` rows; `_fit_block_k` picks
-that block exactly as the JAX package does, so pinning `block_k` pins the
-accumulation order.
+scale; probabilities times the value scale, rounded to bf16; none of these
+roundings for an f32 cache). The kernels use the online softmax over KV
+blocks of `block_k` rows; `_fit_block_k` picks that block exactly as the JAX
+package does, so pinning `block_k` pins the accumulation order.
 """
 
 from __future__ import annotations
@@ -67,25 +75,34 @@ from .kv_quant import quantize_rows
 
 # launches of the CUDA kernels (one per wrapper call on CUDA tensors), by
 # path, cache mode and cache type; the update path's page_straddle mode on its
-# own
+# own; an f32 cache is flat only
 launches = {f"{path}{mode}{kind}": 0 for path, mode in (
     ("update", ""), ("update", "_paged"), ("update", "_paged_straddle"), ("read", ""),
     ("read", "_paged"), ("update", "_ring"), ("read", "_ring"), ("update", "_prefix"),
     ("read", "_prefix")) for kind in ("", "_i8")}
-# launches by shape (path, B, T, H, S, D, block_k, int8, n_past: the int, or
-# None for a per-row vector, MAXLB: the page table's width, or None for a
-# flat cache, page_straddle, mode: None, ("ring", ring_bounded) or ("prefix",
-# NP, Sp, pblock_k); S is a page's rows when paged), so a caller can check
+launches.update(update_f32=0, read_f32=0)
+# launches by shape (path, B, T, H, S, D, block_k, cache type: "bf16",
+# "int8" or "f32", n_past: the int, or None for a per-row vector, MAXLB: the
+# page table's width, or None for a flat cache, page_straddle, mode: None,
+# ("ring", ring_bounded) or ("prefix", NP, Sp, pblock_k); S is a page's rows
+# when paged), so a caller can check
 # every shape a run reached
 shapes: collections.Counter = collections.Counter()
 
 
-def launch_name(path: str, quant: bool, paged: bool, straddle: bool = False,
+# the cache types of the kernels, as shape keys name them, and the code the
+# C interfaces take (`kv_kind` of csrc/flash_attn.cu and flash_decode.cu)
+KV_KINDS = {torch.bfloat16: "bf16", torch.int8: "int8", torch.float32: "f32"}
+KV_CODES = {"bf16": 0, "int8": 1, "f32": 2}
+
+
+def launch_name(path: str, kind: str, paged: bool, straddle: bool = False,
                 mode: str = "") -> str:
     """The `launches` key of one call: update/read/decode, paged (and
-    straddling), ring or prefix (`mode`), int8."""
+    straddling), ring or prefix (`mode`), cache type `kind` (bf16, int8,
+    f32)."""
     return (path + ("_paged" if paged else "") + ("_straddle" if straddle else "")
-            + (f"_{mode}" if mode else "") + ("_i8" if quant else ""))
+            + (f"_{mode}" if mode else "") + {"bf16": "", "int8": "_i8", "f32": "_f32"}[kind])
 
 
 def _fit_block_k(block_k: int, s: int, step: int = 8) -> int:
@@ -101,7 +118,8 @@ def _fit_block_k(block_k: int, s: int, step: int = 8) -> int:
 
 
 def kv_step(cache_dtype: torch.dtype) -> int:
-    """The KV block step of a cache type: 32 rows for int8, else 8."""
+    """The KV block step of a cache type: 32 rows for int8, else 8 (bf16 and
+    f32, as engine.py:137-138 there)."""
     return 32 if cache_dtype == torch.int8 else 8
 
 
@@ -171,9 +189,11 @@ def attend_ref(q, k_l, v_l, visible, k_scale_l=None, v_scale_l=None, prefix=None
     before the QK product (flash_attn.py:545 there); an int8 score is
     multiplied by its key's scale; the probabilities are multiplied by the
     value scales (cache rows only) and rounded to bf16 before the PV product.
-    Returns f32 [B, T, H, D]."""
+    An f32 cache rounds neither q nor the probabilities (the products are in
+    the cache's type there, :749, :798). Returns f32 [B, T, H, D]."""
     d = q.shape[-1]
-    qs = (q.to(torch.float32) * (1.0 / math.sqrt(d))).to(torch.bfloat16).to(torch.float32)
+    rnd = torch.float32 if k_l.dtype == torch.float32 else torch.bfloat16
+    qs = (q.to(torch.float32) * (1.0 / math.sqrt(d))).to(rnd).to(torch.float32)
     scores = torch.einsum("bthd,bhsd->bhts", qs, k_l.to(torch.float32))
     if k_scale_l is not None:
         scores = scores * k_scale_l.transpose(1, 2)[:, :, None, :]
@@ -189,7 +209,7 @@ def attend_ref(q, k_l, v_l, visible, k_scale_l=None, v_scale_l=None, prefix=None
     if v_scale_l is not None:
         probs = probs * v_scale_l.transpose(1, 2)[:, :, None, :]
     out = torch.einsum(
-        "bhts,bhsd->bthd", probs.to(torch.bfloat16).to(torch.float32), v_l.to(torch.float32)
+        "bhts,bhsd->bthd", probs.to(rnd).to(torch.float32), v_l.to(torch.float32)
     )
     if prefix is not None:
         out = out + torch.einsum("bhts,bhsd->bthd", pprobs.to(torch.bfloat16).to(torch.float32),
@@ -212,8 +232,9 @@ def gather_pages(plane_l: torch.Tensor, page_table: torch.Tensor) -> torch.Tenso
 
 def write_rows(k_new, v_new, k, v, n_past, layer_idx: int, k_scale=None, v_scale=None,
                page_table=None) -> None:
-    """cache[layer_idx, b, :, n_past[b] + t] = new[b, t] (in place): bf16
-    rows for a bf16 cache; for an int8 cache the rows of bf16(new) quantized
+    """cache[layer_idx, b, :, n_past[b] + t] = new[b, t] (in place): the rows
+    cast to the cache's type for a bf16 or f32 cache (an f32 cache holds them
+    as they arrive); for an int8 cache the rows of bf16(new) quantized
     by `quantize_rows`, and their scales into k_scale/v_scale. With a page
     table, logical row j of batch row b goes to page `page_table[b, j // PS]`,
     row `j % PS`, of the pool. A ring passes its physical write rows as
@@ -376,14 +397,28 @@ def _on_device(x, q, what: str, dtype=torch.int32, shape=None) -> None:
                          f"of shape {shape} on q's device")
 
 
+def _query(q, k, prefix_k=None) -> torch.Tensor:
+    """q as the kernels take it: f32 over an f32 cache (exact for bf16
+    activations; the JAX kernel widens q to f32 there), else as given. An
+    f32 slot cache under a prefix pool is refused, as the JAX kernels assert
+    a bf16 pool over bf16 or int8 slots (flash_attn.py:877, :1073 there)."""
+    if k.dtype != torch.float32:
+        return q
+    if prefix_k is not None:
+        raise NotImplementedError("attention kernel: an f32 slot cache under a shared-prefix "
+                                  "pool is not ported (ROADMAP.md queue 2)")
+    return q.to(torch.float32).contiguous()
+
+
 def check_cuda(q, k, v, n_past, layer_idx, k_scale=None, v_scale=None, tensors=(),
                page_table=None, ring: bool = False):
-    """Validate kernel operands (bf16 q and new rows; a bf16 cache, or an
-    int8 cache with f32 scale planes; flat [L, B, H, S, D] with scales
-    [L, B, S, H], or a pool [L, NP, H, PS, D] with scales [L, NP, PS, H] and
-    an int32 [B, MAXLB] page table). Returns (npast_ptr, npast_scalar, int8
-    flag, k_scale_ptr, v_scale_ptr, table_ptr, MAXLB) for layer_idx. A
-    ring's n_past is logical and may pass the cache's rows."""
+    """Validate kernel operands (q and new rows bf16, f32 for an f32 cache;
+    a bf16 cache, an int8 cache with f32 scale planes, or a flat f32 cache;
+    flat [L, B, H, S, D] with scales [L, B, S, H], or a pool
+    [L, NP, H, PS, D] with scales [L, NP, PS, H] and an int32 [B, MAXLB]
+    page table). Returns (npast_ptr, npast_scalar, cache type, k_scale_ptr,
+    v_scale_ptr, table_ptr, MAXLB) for layer_idx. A ring's n_past is logical
+    and may pass the cache's rows."""
     b, t, h, d = q.shape
     paged = page_table is not None
     if (k.dim() != 5 or k.shape != v.shape or k.shape[2] != h or k.shape[4] != d
@@ -393,9 +428,15 @@ def check_cuda(q, k, v, n_past, layer_idx, k_scale=None, v_scale=None, tensors=(
         raise ValueError(f"attention kernel: head_dim must be 64 or 128, got {d}")
     if not 0 <= layer_idx < k.shape[0]:
         raise ValueError(f"attention: layer {layer_idx} out of range")
-    if k.dtype not in (torch.bfloat16, torch.int8) or v.dtype != k.dtype:
-        raise ValueError(f"attention kernel: cache must be bf16 or int8, got {k.dtype}/{v.dtype}")
-    quant = k.dtype == torch.int8
+    if k.dtype not in KV_KINDS or v.dtype != k.dtype:
+        raise ValueError(f"attention kernel: cache must be bf16, int8 or f32, got "
+                         f"{k.dtype}/{v.dtype}")
+    kind = KV_KINDS[k.dtype]
+    if kind == "f32" and (paged or ring):
+        raise NotImplementedError("attention kernel: an f32 cache is flat only; f32 page pools "
+                                  "and rings are not ported yet (ROADMAP.md queue 2)")
+    quant = kind == "int8"
+    qtype = torch.float32 if kind == "f32" else torch.bfloat16
     scales = (k_scale, v_scale) if quant else ()
     if quant:
         want = (k.shape[0], k.shape[1], k.shape[3], h)
@@ -405,8 +446,9 @@ def check_cuda(q, k, v, n_past, layer_idx, k_scale=None, v_scale=None, tensors=(
     elif k_scale is not None or v_scale is not None:
         raise ValueError("attention kernel: scale planes belong to an int8 cache")
     for x in (q, *tensors):
-        if x.dtype != torch.bfloat16:
-            raise ValueError(f"attention kernel: q and new rows must be bf16, got {x.dtype}")
+        if x.dtype != qtype:
+            raise ValueError(f"attention kernel: q and new rows must be {qtype} over a {kind} "
+                             f"cache, got {x.dtype}")
     tables = (page_table,) if paged else ()
     if paged and (page_table.dtype != torch.int32 or page_table.dim() != 2
                   or page_table.shape[0] != b):
@@ -423,10 +465,10 @@ def check_cuda(q, k, v, n_past, layer_idx, k_scale=None, v_scale=None, tensors=(
     if isinstance(n_past, int):
         if not 0 <= n_past <= (n_past if ring else cap - t):
             raise ValueError(f"attention: n_past {n_past} + T {t} exceeds the cache ({cap})")
-        return None, n_past, quant, *sptr, *tptr
+        return None, n_past, kind, *sptr, *tptr
     if n_past.shape != (b,) or n_past.dtype != torch.int32 or n_past.device != q.device:
         raise ValueError("attention kernel: vector n_past must be int32 [B] on q's device")
-    return n_past.data_ptr(), 0, quant, *sptr, *tptr
+    return n_past.data_ptr(), 0, kind, *sptr, *tptr
 
 
 def _modes(q, k, layer_idx, bk, kv_pos=None, write_row=None, ring_bounded=False,
@@ -492,9 +534,10 @@ def flash_attention(
                                    page_table, kv_pos, ring_bounded, prefix_k, prefix_v,
                                    prefix_id, prefix_len)
     _check_modes(page_table, kv_pos, prefix_k)
-    npv, nps, quant, ksp, vsp, tab, maxlb = check_cuda(q, k, v, n_past, layer_idx, k_scale,
-                                                       v_scale, page_table=page_table,
-                                                       ring=kv_pos is not None)
+    q = _query(q, k, prefix_k)
+    npv, nps, kind, ksp, vsp, tab, maxlb = check_cuda(q, k, v, n_past, layer_idx, k_scale,
+                                                      v_scale, page_table=page_table,
+                                                      ring=kv_pos is not None)
     b, t, h, d = q.shape
     s = k.shape[3]
     bk = _fit_block_k(block_k, s, kv_step(k.dtype))
@@ -503,12 +546,12 @@ def flash_attention(
     out = torch.empty((b, t, h, d), dtype=torch.float32, device=q.device)
     rc = _lib().attn_read_launch(
         q.data_ptr(), k[layer_idx].data_ptr(), v[layer_idx].data_ptr(), ksp, vsp,
-        out.data_ptr(), npv, nps, tab, maxlb, b, t, h, s, d, bk, 1.0 / math.sqrt(d), int(quant),
-        ctypes.byref(modes), torch.cuda.current_stream(q.device).cuda_stream,
+        out.data_ptr(), npv, nps, tab, maxlb, b, t, h, s, d, bk, 1.0 / math.sqrt(d),
+        KV_CODES[kind], ctypes.byref(modes), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, "attn_read_launch")
-    launches[launch_name("read", quant, tab is not None, mode=mode and mode[0])] += 1
-    shapes[("read", b, t, h, s, d, bk, quant, n_past if npv is None else None,
+    launches[launch_name("read", kind, tab is not None, mode=mode and mode[0])] += 1
+    shapes[("read", b, t, h, s, d, bk, kind, n_past if npv is None else None,
             maxlb or None, False, mode)] += 1
     return out
 
@@ -550,14 +593,15 @@ def flash_attention_update(
                                           prefix_k, prefix_v, prefix_id, prefix_len)
     _check_modes(page_table, kv_pos, prefix_k, write_row, update=True)
     _check_block_t(q.shape[1], block_t, n_past, k.shape[3], page_table, page_straddle)
-    # the cast flash_attn.py:1101-1103 makes; an int8 cache quantizes bf16 rows
-    kn = k_new.to(torch.bfloat16).contiguous()
-    vn = v_new.to(torch.bfloat16).contiguous()
+    q = _query(q, k, prefix_k)
+    # the cast flash_attn.py:1101-1103 makes (to an f32 cache's type; an int8
+    # cache quantizes bf16 rows)
+    kn, vn = (x.to(q.dtype).contiguous() for x in (k_new, v_new))
     if kn.shape != q.shape or vn.shape != q.shape:
         raise ValueError("flash_attention_update: k_new/v_new must match q's shape")
-    npv, nps, quant, ksp, vsp, tab, maxlb = check_cuda(q, k, v, n_past, layer_idx, k_scale,
-                                                       v_scale, (kn, vn), page_table,
-                                                       ring=kv_pos is not None)
+    npv, nps, kind, ksp, vsp, tab, maxlb = check_cuda(q, k, v, n_past, layer_idx, k_scale,
+                                                      v_scale, (kn, vn), page_table,
+                                                      ring=kv_pos is not None)
     b, t, h, d = q.shape
     s = k.shape[3]
     bk = _fit_block_k(block_k, s, kv_step(k.dtype))
@@ -567,12 +611,12 @@ def flash_attention_update(
     rc = _lib().attn_update_launch(
         q.data_ptr(), kn.data_ptr(), vn.data_ptr(), k[layer_idx].data_ptr(),
         v[layer_idx].data_ptr(), ksp, vsp, out.data_ptr(), npv, nps, tab, maxlb, b, t, h, s, d,
-        bk, 1.0 / math.sqrt(d), int(quant), ctypes.byref(modes),
+        bk, 1.0 / math.sqrt(d), KV_CODES[kind], ctypes.byref(modes),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, "attn_update_launch")
-    launches[launch_name("update", quant, tab is not None, page_straddle,
+    launches[launch_name("update", kind, tab is not None, page_straddle,
                          mode and mode[0])] += 1
-    shapes[("update", b, t, h, s, d, bk, quant, n_past if npv is None else None,
+    shapes[("update", b, t, h, s, d, bk, kind, n_past if npv is None else None,
             maxlb or None, page_straddle, mode)] += 1
     return (out, k, v) if k_scale is None else (out, k, v, k_scale, v_scale)

@@ -1,5 +1,7 @@
 """Batched single-token decode attention (twin of
-`llamavk_tpu/ops/flash_decode.py`, flat and page-table modes, bf16 and int8).
+`llamavk_tpu/ops/flash_decode.py`, flat and page-table modes, bf16 and int8,
+and the flat f32 mode: q and the new rows f32, no bf16 rounding, as
+flash_decode.py:326, :356 there multiply in the cache's type).
 
 `flash_decode_update` inserts each row's new K/V row at n_past[b] of layer
 `layer_idx` IN PLACE (int8: quantized, with its scale rows) and attends, for
@@ -29,7 +31,9 @@ import torch
 
 from . import _build
 from .flash_attn import (
+    KV_CODES,
     _fit_block_k,
+    _query,
     check_cuda,
     flash_attention_update_ref,
     kv_step,
@@ -37,12 +41,13 @@ from .flash_attn import (
 )
 
 # launches of the CUDA kernel (one per wrapper call on CUDA tensors), by
-# cache mode and type
-launches = {launch_name("decode", quant, paged): 0 for paged in (False, True)
-            for quant in (False, True)}
-# launches by shape (B, H, S, D, block_k, int8, MAXLB: the page table's
-# width, or None for a flat cache; S is a page's rows when paged), so a
-# caller can check every shape a run reached
+# cache mode and type (f32: flat only)
+launches = {launch_name("decode", kind, paged): 0 for paged in (False, True)
+            for kind in ("bf16", "int8")}
+launches[launch_name("decode", "f32", False)] = 0
+# launches by shape (B, H, S, D, block_k, cache type: "bf16", "int8" or
+# "f32", MAXLB: the page table's width, or None for a flat cache; S is a
+# page's rows when paged), so a caller can check every shape a run reached
 shapes: collections.Counter = collections.Counter()
 
 
@@ -112,21 +117,22 @@ def flash_decode_update(
     b, t, h, d = q.shape
     if t != 1:
         raise ValueError("flash_decode_update is the single-token decode path")
-    kn = k_new.to(torch.bfloat16).contiguous()  # the cast flash_decode.py:413-418 makes
-    vn = v_new.to(torch.bfloat16).contiguous()
+    q = _query(q, k)
+    # the cast flash_decode.py:413-418 makes (bf16, or an f32 cache's type)
+    kn, vn = (x.to(q.dtype).contiguous() for x in (k_new, v_new))
     if kn.shape != q.shape or vn.shape != q.shape:
         raise ValueError("flash_decode_update: k_new/v_new must match q's shape")
-    npv, nps, quant, ksp, vsp, tab, maxlb = check_cuda(q, k, v, n_past, layer_idx, k_scale,
-                                                       v_scale, (kn, vn), page_table)
+    npv, nps, kind, ksp, vsp, tab, maxlb = check_cuda(q, k, v, n_past, layer_idx, k_scale,
+                                                      v_scale, (kn, vn), page_table)
     s = k.shape[3]
     bk = _fit_block_k(block_k, s, kv_step(k.dtype))
     out = torch.empty((b, 1, h, d), dtype=torch.float32, device=q.device)
     rc = _lib().flash_decode_launch(
         q.data_ptr(), kn.data_ptr(), vn.data_ptr(), k[layer_idx].data_ptr(),
         v[layer_idx].data_ptr(), ksp, vsp, out.data_ptr(), npv, nps, tab, maxlb, b, h, s, d, bk,
-        1.0 / math.sqrt(d), int(quant), torch.cuda.current_stream(q.device).cuda_stream,
+        1.0 / math.sqrt(d), KV_CODES[kind], torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, "flash_decode_launch")
-    launches[launch_name("decode", quant, tab is not None)] += 1
-    shapes[(b, h, s, d, bk, quant, maxlb or None)] += 1
+    launches[launch_name("decode", kind, tab is not None)] += 1
+    shapes[(b, h, s, d, bk, kind, maxlb or None)] += 1
     return (out, k, v) if k_scale is None else (out, k, v, k_scale, v_scale)

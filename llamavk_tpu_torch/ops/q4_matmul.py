@@ -14,13 +14,18 @@ there reads it):
   the plain version, `q4_matmul_ref`: x cast to bf16, w = bf16(f32(q) *
   f32(scale)), products summed in f32, out f32 then `out_dtype`. A Q4_1
   weight's bias term is added outside the kernel as a plain group-sum product
-  (as q4_matmul.py:790-794 does).
+  (as q4_matmul.py:790-794 does). The scale plane (and a Q4_1 bias plane)
+  is bf16, or f32 as `perplexity --f32` loads it (q4_matmul.py:120 there
+  reads it in its own type): w = bf16(f32(q) * s) with s exact; the bias
+  term casts the bias to bf16 as there.
 * K5, the int8 dot (`i8`), where `i8_route` says so (Q4_0, ilv, b <= 64, the
   JAX package's tile fit): activations quantized per 32-block to int8
   (`quantize_act_blocks`), an exact int32 dot per group against the int4
   weights, both scales folded in after. A CUDA tensor launches the kernel of
   `csrc/q4_matmul_i8.cu` (it replaces `_kernel_q4_i8`, q4_matmul.py:226
   there); a CPU tensor takes `q4_matmul_i8_ref`. Elsewhere `i8` takes K1.
+  K5's kernel takes bf16 scales only: an f32-scale weight on the K5 route
+  raises NotImplementedError on a CUDA tensor (ROADMAP.md queue 2).
 
 The K1 modes `LLAMAVK_Q4_DOT=f32` and `LLAMAVK_Q4_MUL=bf16` change the JAX
 package's numerics and are not ported yet (ROADMAP.md queue 2): a call
@@ -43,11 +48,13 @@ from .kv_quant import INV_127
 from .qweight import QWeight, dequantize_qweight
 
 # launches of the CUDA kernels: K1's decode GEMV (M = 1) and tiled GEMM (every
-# M > 1), and K5 (`i8`), one per q4_matmul call on a CUDA tensor
-launches = {"gemv": 0, "gemm": 0, "i8": 0}
+# M > 1), with bf16 or f32 (`_f32`) scale planes, and K5 (`i8`), one per
+# q4_matmul call on a CUDA tensor
+launches = {"gemv": 0, "gemm": 0, "gemv_f32": 0, "gemm_f32": 0, "i8": 0}
 # launches by shape (M, K, N), so a caller can check every shape a run
-# reached: K1's in `shapes`, K5's in `shapes_i8`
+# reached: K1's in `shapes` (f32 scales: `shapes_f32`), K5's in `shapes_i8`
 shapes: collections.Counter = collections.Counter()
+shapes_f32: collections.Counter = collections.Counter()
 shapes_i8: collections.Counter = collections.Counter()
 
 # the JAX package's switches (q4_matmul.py:450-464 there), read at import
@@ -123,7 +130,8 @@ def q4_matmul_ref(
     x: torch.Tensor, qw: QWeight, out_dtype=torch.float32, layer_idx: int | None = None
 ) -> torch.Tensor:
     """Plain version of `q4_matmul` on any device: dequantize with the bf16
-    weight cast, then a bf16 product summed in f32."""
+    weight cast (bf16(f32(q) * f32(s)), for bf16 and f32 scales alike),
+    then a bf16 product summed in f32."""
     if layer_idx is not None:
         qw = qw.layer(layer_idx)
     lead = x.shape[:-1]
@@ -142,7 +150,7 @@ def _lib():
     lib = _build.load("q4_matmul")
     p = ctypes.c_void_p
     lib.q4_matmul_launch.argtypes = [p, p, p, p, p, ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_int, p]
+                                     ctypes.c_int, ctypes.c_int, ctypes.c_int, p]
     lib.q4_matmul_launch.restype = ctypes.c_int
     return lib
 
@@ -167,15 +175,18 @@ def _ksplit(m: int, k: int, n: int, index: int) -> int:
 
 def q4_matmul_cuda(xf: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """Launch the K1 kernel: xf bf16 [M, K], packed int8 [K/2, N] (ilv, one
-    chunk), scales bf16 [G, N] → f32 [M, N]."""
+    chunk), scales bf16 or f32 [G, N] → f32 [M, N]."""
     m, k = xf.shape
     half, n = packed.shape
     if not (xf.is_cuda and packed.is_cuda and scales.is_cuda):
         raise ValueError("q4_matmul_cuda: every operand must be a CUDA tensor")
-    if xf.dtype != torch.bfloat16 or packed.dtype != torch.int8 or scales.dtype != torch.bfloat16:
+    if (xf.dtype != torch.bfloat16 or packed.dtype != torch.int8
+            or scales.dtype not in (torch.bfloat16, torch.float32)):
         raise ValueError(
-            f"q4_matmul_cuda: want bf16/int8/bf16, got {xf.dtype}/{packed.dtype}/{scales.dtype}"
+            f"q4_matmul_cuda: want bf16/int8/bf16 or f32, got {xf.dtype}/{packed.dtype}/"
+            f"{scales.dtype}"
         )
+    f32s = scales.dtype == torch.float32
     if 2 * half != k or k % QK or n % 8 or scales.shape != (k // QK, n):
         raise ValueError(
             f"q4_matmul_cuda: shapes x {tuple(xf.shape)} packed {tuple(packed.shape)} "
@@ -193,11 +204,12 @@ def q4_matmul_cuda(xf: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor)
     )
     rc = _lib().q4_matmul_launch(
         xf.data_ptr(), packed.data_ptr(), scales.data_ptr(), out.data_ptr(),
-        partial.data_ptr(), m, k, n, ksplit, torch.cuda.current_stream(xf.device).cuda_stream,
+        partial.data_ptr(), m, k, n, ksplit, int(f32s),
+        torch.cuda.current_stream(xf.device).cuda_stream,
     )
     _build.check(rc, "q4_matmul_launch")
-    launches["gemv" if m == 1 else "gemm"] += 1
-    shapes[(m, k, n)] += 1
+    launches[("gemv" if m == 1 else "gemm") + ("_f32" if f32s else "")] += 1
+    (shapes_f32 if f32s else shapes)[(m, k, n)] += 1
     return out
 
 
@@ -359,6 +371,10 @@ def q4_matmul(
         if plain or not x.is_cuda:
             return q4_matmul_i8_ref(x, qw, out_dtype)
         _check_i8_weight(qw)
+        if qw.scales.dtype != torch.bfloat16:
+            raise NotImplementedError(
+                "the int8 dot's kernel (K5) takes bf16 scales; f32 scales are not ported yet "
+                "(ROADMAP.md queue 2)")
         xf = x.reshape(-1, qw.k).to(torch.bfloat16).contiguous()
         return q4_matmul_i8_cuda(xf, qw.packed, qw.scales).to(out_dtype).reshape(*lead, qw.n)
     if plain or not x.is_cuda:

@@ -105,7 +105,7 @@ class BatchConfig:
     block: int = 8  # decode steps per host round-trip
     top_k: int = 64  # shared sampler pool (the per-request top_k is not read)
     repeat_last_n: int = 64
-    kv_dtype: str = "bfloat16"  # or "int8"
+    kv_dtype: str = "bfloat16"  # or "int8", or "float32" (flat, no shared prefix)
     admit_chunk: int = 4  # max requests per batched admission prefill
     paged: bool = False  # block-table paged KV (runtime/paged.py)
     page_size: int = 128  # pool page rows: a power of two dividing n_ctx
@@ -158,6 +158,12 @@ class BatchedEngine:
         self.params = params
         self.bcfg = bcfg
         self.kv_dtype = kv_dtype(bcfg.kv_dtype, bcfg.n_ctx)
+        if self.kv_dtype == torch.float32 and (bcfg.paged or bcfg.shared_prefix):
+            # JAX asserts bf16/int8 pools and a bf16 prefix pool over bf16 or
+            # int8 slots (batching.py:180-183, flash_attn.py:877 there)
+            raise NotImplementedError("BatchedEngine: an f32 cache is flat only; paged and "
+                                      "shared-prefix f32 caches are not ported yet (ROADMAP.md "
+                                      "queue 2)")
         b, w = bcfg.max_batch, bcfg.repeat_last_n
         self.pager: SlotPages | None = None
         if bcfg.paged:

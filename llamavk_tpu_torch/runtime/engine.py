@@ -6,7 +6,8 @@ tensor; the host receives one [n_steps] tensor of token ids per decode block,
 never a per-step `.item()`. The KV cache is updated in place. The API mirrors
 llama.h: eval / sample / get-set-kv-cache / timings.
 
-The KV cache is bf16 or int8 (`EngineConfig.kv_dtype`). With `ctx_ring`
+The KV cache is bf16, int8 or f32 (`EngineConfig.kv_dtype`; f32 is the
+llama.h API's `f16_kv = false`). With `ctx_ring` (bf16 or int8)
 it is a history ring (engine.py:149-185 there): the first `ring_keep` rows
 stay pinned and the rest recycle, so generation runs past n_ctx with no
 swap and no re-evaluation; each eval chunk stops at the ring's end.
@@ -39,7 +40,7 @@ from .sampling import SamplerParams, sample_token
 @dataclass(frozen=True)
 class EngineConfig:
     n_ctx: int = 512
-    kv_dtype: str = "bfloat16"  # the reference's f16_kv option (llama.h:56), or "int8"
+    kv_dtype: str = "bfloat16"  # "float32" is llama.h's f16_kv = false (llama.h:56); or "int8"
     seed: int = 0
     decode_block: int = 16  # tokens decoded per host round-trip
     ctx_ring: bool = False  # history-ring KV: generation past n_ctx, no re-eval
@@ -88,12 +89,12 @@ class Timings:
 
 
 def kv_dtype(name: str, n_ctx: int) -> torch.dtype:
-    """The cache type of a `kv_dtype` option ("bfloat16" or "int8"), after
-    checking that n_ctx is a multiple of its KV block step (32 rows for
-    int8, 8 for bf16, as engine.py:137-138 there)."""
-    types = {"bfloat16": torch.bfloat16, "int8": torch.int8}
+    """The cache type of a `kv_dtype` option ("bfloat16", "int8" or
+    "float32"), after checking that n_ctx is a multiple of its KV block step
+    (32 rows for int8, 8 for bf16 and f32, as engine.py:137-138 there)."""
+    types = {"bfloat16": torch.bfloat16, "int8": torch.int8, "float32": torch.float32}
     if name not in types:
-        raise NotImplementedError(f"kv_dtype={name!r}: bfloat16 or int8")
+        raise NotImplementedError(f"kv_dtype={name!r}: bfloat16, int8 or float32")
     step = kv_step(types[name])
     if n_ctx % step:
         raise ValueError(
@@ -127,6 +128,7 @@ class Engine:
                                    ring=self.ecfg.ctx_ring)
         self.n_past = 0
         self.tokens: list[int] = []
+        self._last_emb: torch.Tensor | None = None
         self.set_seed(self.ecfg.seed)
 
     def set_seed(self, seed: int) -> None:
@@ -195,7 +197,7 @@ class Engine:
         bucket = min(bucket, self.ecfg.n_ctx - row)
         padded = chunk + [0] * (bucket - t_real)
         toks = torch.tensor([padded], dtype=torch.int64, device=self.device)
-        logits, self.cache, _ = self._forward(
+        logits, self.cache, self._last_emb = self._forward(
             toks, self.n_past, last_idx=t_real - 1, logits_all=logits_all
         )
         self.n_past += t_real
@@ -206,6 +208,14 @@ class Engine:
         [T or 1, V]. A final sampled token of a previous generate() is in
         self.tokens but not yet in the cache; it is prepended here."""
         return self._eval(tokens, logits_all).cpu().numpy()
+
+    def get_embeddings(self) -> np.ndarray:
+        """Final-norm activations of the last evaluated token, f32
+        [n_embd] (llama_get_embeddings parity, llama.h:115-118; engine.py:258
+        there). Set by eval, not by the decode loop."""
+        if self._last_emb is None:
+            raise ValueError("get_embeddings: nothing evaluated yet")
+        return self._last_emb[0].cpu().numpy()
 
     # --- generation ------------------------------------------------------
 
@@ -293,8 +303,8 @@ class Engine:
     # --- session save/restore (llama_get/set_kv_cache parity) ------------
 
     def save_session(self) -> SessionState:
-        """Clone the cache, scale planes included: the live one is updated in
-        place."""
+        """Clone the cache, scale planes included (bf16, int8 or f32 data):
+        the live one is updated in place."""
         c = self.cache.clone()
         return SessionState(k=c.k, v=c.v, n_past=self.n_past, tokens=list(self.tokens),
                             k_scale=c.k_scale, v_scale=c.v_scale, pos=c.pos)

@@ -8,7 +8,10 @@ from pathlib import Path
 import pytest
 import torch
 
+from llamavk_tpu_torch import compat
+from llamavk_tpu_torch.cli import embedding
 from llamavk_tpu_torch.cli import generate as cli
+from llamavk_tpu_torch.cli import perplexity
 from llamavk_tpu_torch.cli import serve
 from llamavk_tpu_torch.models import loader as tl
 from llamavk_tpu_torch.runtime.batching import BatchedEngine
@@ -61,10 +64,24 @@ def test_entry_points_default_to_cuda(no_cuda, tmp_path):
         LlamaServer(cfg, params, tok)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["-m", path])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        compat.llama_init_from_file(path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        embedding.main(["-m", path])
+    text = tmp_path / "text.raw"
+    text.write_bytes(b"abc" * 100)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        perplexity.main(["-m", path, "-f", str(text)])
     assert cli.build_argparser().parse_args(["-m", path]).device == "cuda"
     assert serve.build_argparser().parse_args(["-m", path]).device == "cuda"
+    assert embedding.build_argparser().parse_args(["-m", path]).device == "cuda"
+    assert perplexity.build_argparser().parse_args(["-m", path, "-f", "t"]).device == "cuda"
+    assert compat.llama_context_default_params().device == "cuda"
     # the CPU, when asked for, works
     assert Engine(cfg, params, device="cpu").cache.k.device.type == "cpu"
     assert BatchedEngine(cfg, params, device="cpu").cache.k.device.type == "cpu"
     assert LlamaServer(cfg, params, tok, device="cpu").engine.cache.k.device.type == "cpu"
     assert tl.synthetic_params(cfg, device="cpu").norm.device.type == "cpu"
+    p = compat.llama_context_default_params()
+    p.device, p.n_ctx = "cpu", 32
+    assert compat.llama_init_from_file(path, p).engine.cache.k.device.type == "cpu"
