@@ -7,7 +7,9 @@
 Phases, each printing one JSON line (any failure exits non-zero):
 
   env         versions, nvcc, triton, the card's name and power limit
-  build       nvcc builds `llamavk_tpu_torch/csrc/*.cu` for sm_90a
+  build       nvcc builds `llamavk_tpu_torch/csrc/*.cu` for sm_90a, g++ the
+              native host library (the loader's repack: native or NumPy,
+              as printed)
   kernels     each hand-written kernel against its plain PyTorch version on
               the card at the LLaMA-7B shapes of the main paths: error, time
               (CUDA events, median, L2 flushed between launches), bound, and
@@ -17,7 +19,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
               at row counts, group counts, ragged widths and head sizes off
               those shapes
   tiny_cli    the generate CLI on a tiny GGJT file, greedy, bf16 and int8
-              KV, on the card and on the CPU: the token streams must be equal
+              KV, on the card and on the CPU: the token streams must be
+              equal; also an interactive session (-i -r, two scripted
+              turns of stdin) with equal text
   generate_7b synthetic LLaMA-7B Q4_0 weights, n_ctx 512, bf16 KV: kernel and
               plain forward passes agree on the main path's routes and
               shapes; then the main path (a 32-token prompt generating 128
@@ -46,14 +50,18 @@ Phases, each printing one JSON line (any failure exits non-zero):
               which preempts; then every kernel at every shape it launched
   generate_7b_lookup
               the generate CLI with --draft-lookup --draft-n 4 on synthetic
-              7B (a 16-token pattern repeated 3 times, 128 tokens) and plain
-              greedy, with the default dot here and LLAMAVK_Q4_DOT=i8 (K5) in
-              a process of its own: streams equal, or parting only at a near
-              tie; under i8 also a B=32 decode step against the plain path
+              7B at 16 of its 32 layers (a 16-token pattern repeated 3
+              times, 128 tokens) and plain greedy, with the default dot here
+              and LLAMAVK_Q4_DOT=i8 (K5) in a process of its own: streams
+              equal, or parting only at a near tie; under i8 also a B=32
+              decode step against the plain path and a perplexity --f32
+              -c 64 chunk (K5 over f32 scales); the device's idle share
+              over a 16-token lookup run (--lookup-idle-tokens 16,64 adds
+              windows)
   spec_7b_self
-              generate --draft-model with the 7B weights as target and draft,
-              64 tokens: the plain greedy stream and full acceptance, up to a
-              near tie
+              generate --draft-model with the 7B weights (the lookup phase's
+              16 layers) as target and draft, 64 tokens: the plain greedy
+              stream and full acceptance, up to a near tie
   serve_7b_lookup
               serve --lookup-gamma 4, int8 KV: 8 repeated-pattern greedy
               requests through flat and paged lookup engines against a plain
@@ -91,6 +99,15 @@ Phases, each printing one JSON line (any failure exits non-zero):
               requests through BatchedEngine(kv_dtype="float32"); a B=32
               decode step over an f32 cache, kernels against plain; then
               every kernel at every shape it launched
+  generate_7b_modes
+              K1's modes through the single-stream entry points on
+              synthetic 7B: the generate CLI (32-token prompt, 128 greedy
+              tokens, each stream against the plain forward teacher-forced
+              on it, ms per token and prefill ms) on the ilv weights, on lin
+              weights, and under LLAMAVK_Q4_DOT=f32 in a process of its own;
+              a 512-token perplexity --f32 chunk under LLAMAVK_Q4_MUL=bf16 in
+              another, NLL against plain; --mtest -b 32 on the lin weights;
+              then, in each process, every kernel at every shape it launched
 
 The kernels phase also holds the page-table modes of K2, K3 and K4 (bf16
 and int8, scrambled tables of 128-row pages; K2 also in page_straddle mode)
@@ -101,10 +118,14 @@ scale plane (GEMV and GEMM at M = 512) and the f32 cache of K2, K3 and K4
 (limit 2^-12 of attention(q, k, |v|), K4 bit-equal to K2); and the history
 ring and shared-prefix modes of K2 and K3 (bf16 and int8, caches
 byte-equal, the position plane and the pool unchanged; ring K2 before a wrap
-and prefix K2 at prefix_len 0 bit-equal to flat K2). tiny_cli also runs
---ctx-swap ring, and tiny_serve serves the tiny file paged (page_size 8
-bf16, 32 int8) and with --shared-prefix (bf16 and int8, with and without
---lookup-gamma 4). Each phase's wall time is printed on a line of its own.
+and prefix K2 at prefix_len 0 bit-equal to flat K2); K1's lin layout (GEMV,
+GEMM at M = 32 and 512), f32 dot (GEMV, GEMM at M = 32 and at 512 over bf16
+and f32 scales) and bf16 multiply (M = 512 over f32 scales; over bf16
+scales it is the default kernel's launch), and K5 over f32 scales at M = 1,
+4 and 64. tiny_cli also runs --ctx-swap ring, and tiny_serve serves the
+tiny file paged (page_size 8 bf16, 32 int8) and with --shared-prefix (bf16
+and int8, with and without --lookup-gamma 4). Each phase's wall time is
+printed on a line of its own.
 
 The line before the last is `{"kernels": [...]}`; the last line is
 `{"ok": true, "device": {...}}`. Without CUDA the script exits 2 and prints
@@ -195,6 +216,15 @@ KERNEL_META = {
                                       f"llamavk_tpu/ops/flash_attn.py:{line}")
        for path, line in (("update", 120), ("read", 474)) for mode in ("ring", "prefix")
        for kind in ("", "_i8")},
+    # K1's lin layout (its branch at q4_matmul.py:190), the bf16 multiply over
+    # f32 scales (LLAMAVK_Q4_MUL=bf16) and the f32 dot (LLAMAVK_Q4_DOT=f32),
+    # named as q4_matmul.launch_key names them; K5 over f32 scales
+    **{f"q4_{base}{mode}": ("llamavk_tpu_torch/csrc/q4_matmul.cu",
+                            "llamavk_tpu/ops/q4_matmul.py:" + ("190" if "lin" in mode else "96"))
+       for base in ("gemv", "gemm")
+       for mode in ("_lin", "_lin_f32", "_lin_f32_mulbf16", "_lin_dotf32", "_lin_f32_dotf32",
+                    "_f32_mulbf16", "_dotf32", "_f32_dotf32")},
+    "q4_i8_f32": ("llamavk_tpu_torch/csrc/q4_matmul_i8.cu", "llamavk_tpu/ops/q4_matmul.py:226"),
 }
 
 # the tiny model's prompt for the CLI phase: its greedy stream keeps every
@@ -282,62 +312,98 @@ def phase_env() -> dict:
 
 
 def phase_build() -> dict:
+    """nvcc builds the kernels (all sources started together); g++ builds
+    the native host library (`native.py`) meanwhile. Reports which host
+    repack the loader takes: the native one, or NumPy where it did not
+    build (host code only, no device or kernel on either path)."""
+    from llamavk_tpu_torch import native
     from llamavk_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
+    host = threading.Thread(target=native.get_lib)
+    host.start()
     logs = _build.build_all()
+    host.join()
     secs = time.perf_counter() - t0
-    # ptxas resource lines: registers, spills, shared memory per kernel
+    # ptxas resource lines: each kernel's (mangled) name, registers, spills
+    # and shared memory
     usage = [ln.strip() for log in logs.values() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    return {"seconds": round(secs, 2), "sources": sorted(logs), "ptxas": usage}
+             if "registers" in ln or "spill" in ln or "Function properties" in ln]
+    lib = native.get_lib()
+    return {"seconds": round(secs, 2), "sources": sorted(logs), "ptxas": usage,
+            "host_repack": f"native ({lib._name})" if lib is not None else "numpy fallback"}
 
 
-def _q4_case(gen, m: int, k: int, n: int, f32_scales: bool = False):
-    """x bf16 [M, K] and a random Q4_0 weight [K, N], its scales bf16 or
-    (`f32_scales`) f32 as drawn."""
+def _q4_case(gen, m: int, k: int, n: int, f32_scales: bool = False, layout: str = "ilv"):
+    """x bf16 [M, K] and a random Q4_0 weight [K, N] in `layout`, its scales
+    bf16 or (`f32_scales`) f32 as drawn."""
     from llamavk_tpu_torch.ops.qweight import QWeight
 
     packed = torch.randint(-128, 128, (k // 2, n), dtype=torch.int8, device="cuda", generator=gen)
     scales = torch.empty((k // 32, n), device="cuda").uniform_(0.005, 0.02, generator=gen)
     x = torch.randn((m, k), device="cuda", generator=gen).to(torch.bfloat16)
-    return x, QWeight(packed=packed,
-                      scales=scales if f32_scales else scales.to(torch.bfloat16))
+    return x, QWeight(packed=packed, scales=scales if f32_scales else scales.to(torch.bfloat16),
+                      layout=layout)
 
 
 def kernel_q4(timer: Timer, gen, name: str, m: int, main_path: bool, reps: int | None = None,
-              plain_reps: int = 5, f32_scales: bool = False) -> dict:
+              plain_reps: int = 5, f32_scales: bool = False, layout: str = "ilv",
+              dot: str = "bf16", mul: torch.dtype = torch.float32) -> dict:
+    """K1 against its plain version at (name, M), in a layout, dot mode and
+    multiply type: within 2 K 2^-24 max_n sum_k |x_k w_kn| (w as the mode
+    forms it). The library call is torch.matmul on the mode's dequantized
+    weight: bf16, or f32 (TF32 off) for the f32 dot."""
     from llamavk_tpu_torch.ops import q4_matmul as q4
-    from llamavk_tpu_torch.ops.qweight import dequantize_qweight
 
     k, n = K1_SHAPES[name]
-    x, qw = _q4_case(gen, m, k, n, f32_scales)
-    got = q4.q4_matmul_cuda(x, qw.packed, qw.scales)
-    want = q4.q4_matmul_ref(x, qw, out_dtype=torch.float32)
+    x, qw = _q4_case(gen, m, k, n, f32_scales, layout)
+
+    def kernel():
+        return q4.q4_matmul_cuda(x, qw.packed, qw.scales, layout, dot, mul)
+
+    got = kernel()
+    want = q4.q4_matmul_ref(x, qw, out_dtype=torch.float32, dot_mode=dot, mul_dtype=mul)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
-    # both sum the same bf16 products in f32, in different orders: each sum
-    # is within (K-1) u sum_k |x_k w_kn| of the exact one (u = 2^-24)
-    w_bf16 = dequantize_qweight(qw).to(torch.bfloat16)
-    mag = float((x.float().abs() @ w_bf16.float().abs()).max())
+    # both sum the same products (exact in f32) in f32, in different orders:
+    # each sum is within (K-1) u sum_k |x_k w_kn| of the exact one (u = 2^-24)
+    w = q4.mode_weight(qw, dot, mul)
+    mag = float((x.float().abs() @ w.abs()).max())
     limit = 2 * k * 2.0**-24 * mag
-    ms = timer(lambda: q4.q4_matmul_cuda(x, qw.packed, qw.scales), reps)
-    plain_ms = timer(lambda: q4.q4_matmul_ref(x, qw, out_dtype=torch.float32), reps=plain_reps)
-    library_ms = timer(lambda: torch.matmul(x, w_bf16), reps)
+    w_f32 = dot == "f32" and mul == torch.float32
+    round_s = f32_scales and mul == torch.bfloat16
+    ms = timer(kernel, reps)
+    plain_ms = timer(lambda: q4.q4_matmul_ref(x, qw, out_dtype=torch.float32, dot_mode=dot,
+                                              mul_dtype=mul), reps=plain_reps)
+    if w_f32:
+        xf = x.float()
+        library_ms = timer(lambda: torch.matmul(xf, w), reps)
+    else:
+        w_bf16 = w.to(torch.bfloat16)
+        library_ms = timer(lambda: torch.matmul(x, w_bf16), reps)
     n_bytes = m * k * 2 + k // 2 * n + k // 32 * n * qw.scales.element_size() + m * n * 4
-    b_ms, b_by = bound(n_bytes, 2.0 * m * k * n)
+    if w_f32 and m == 1:  # the GEMV's f32 products, on the CUDA cores
+        b_ms, b_by = bound(n_bytes, 2.0 * m * k * n, F32_FLOP_PER_S)
+    else:  # the f32 dot's GEMM: one bf16 pass per part (two, three over f32 scales)
+        passes = (3 if f32_scales else 2) if w_f32 and m > 1 else 1
+        b_ms, b_by = bound(n_bytes, 2.0 * m * k * n * passes)
+    mode = " ".join(filter(None, [layout if layout != "ilv" else "",
+                                  "f32 scales" if f32_scales else "",
+                                  "dot f32" if dot == "f32" else "",
+                                  "mul bf16" if mul == torch.bfloat16 else ""]))
     return {
-        "kernel": ("q4_gemv" if m == 1 else "q4_gemm") + ("_f32" if f32_scales else ""),
-        "shape": f"{name} M={m} K={k} N={n}" + (" f32 scales" if f32_scales else ""),
+        "kernel": "q4_" + q4.launch_key(m, layout == "lin", f32_scales, round_s, w_f32),
+        "shape": f"{name} M={m} K={k} N={n}" + (f" {mode}" if mode else ""),
         "main_path": main_path,
-        "max_abs_err": err, "limit": limit, "err_over_limit": err / limit, "ok": err <= limit,
+        "max_abs_err": err, "limit": limit, "err_over_limit": err / limit,
+        "ok": err <= limit,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": library_ms,
     }
 
 
 def kernel_q4_i8(timer: Timer, gen, name: str, m: int, main_path: bool,
-                 reps: int | None = None, plain_reps: int = 3) -> dict:
+                 reps: int | None = None, plain_reps: int = 3, f32_scales: bool = False) -> dict:
     """K5 against its plain version at (name, M): the activation bytes and
     scales bit-equal to the plain quantization on the card, the output within
     the sum-order bound G 2^-24 sum_g |d sx s| per element (d is exact on
@@ -348,8 +414,8 @@ def kernel_q4_i8(timer: Timer, gen, name: str, m: int, main_path: bool,
     from llamavk_tpu_torch.ops.qweight import dequantize_qweight
 
     k, n = K1_SHAPES[name]
-    x, qw = _q4_case(gen, m, k, n)
-    shape = f"{name} M={m} K={k} N={n}"
+    x, qw = _q4_case(gen, m, k, n, f32_scales)
+    shape = f"{name} M={m} K={k} N={n}" + (" f32 scales" if f32_scales else "")
     if not q4.i8_route("i8", m, k, n, qw):
         before = dict(q4.launches)
         q4.q4_matmul(x, qw, torch.float32, dot_mode="i8")
@@ -357,7 +423,8 @@ def kernel_q4_i8(timer: Timer, gen, name: str, m: int, main_path: bool,
         took = {key: q4.launches[key] - before[key] for key in before}
         for key in before:  # a check, not a main-path launch
             q4.launches[key] = before[key]
-        ok = took["i8"] == 0 and took["gemm" if m > 1 else "gemv"] == 1
+        k1 = ("gemm" if m > 1 else "gemv") + ("_f32" if f32_scales else "")
+        ok = took["i8"] == took["i8_f32"] == 0 and took[k1] == 1
         return {"kernel": "q4_i8_route", "shape": shape, "route": "K1", "launched": took,
                 "ok": ok}
     got = q4.q4_matmul_i8_cuda(x, qw.packed, qw.scales)
@@ -381,10 +448,11 @@ def kernel_q4_i8(timer: Timer, gen, name: str, m: int, main_path: bool,
     plain_ms = timer(lambda: q4.q4_matmul_i8_ref(x, qw), reps=plain_reps)
     library_ms = timer(lambda: torch.matmul(x, w_bf16), reps)
     g = k // 32
-    n_bytes = k // 2 * n + g * n * 2 + m * k + 4 * g * m + 4 * m * n
+    n_bytes = k // 2 * n + g * n * qw.scales.element_size() + m * k + 4 * g * m + 4 * m * n
     b_ms, b_by = bound(n_bytes, 2.0 * m * k * n, INT8_OP_PER_S)
     return {
-        "kernel": "q4_i8", "shape": shape, "main_path": main_path, "route": "K5",
+        "kernel": "q4_i8_f32" if f32_scales else "q4_i8", "shape": shape,
+        "main_path": main_path, "route": "K5",
         "ksplit": q4.ksplit_i8(k, n), "max_abs_err": err,
         "limit": "G * 2^-24 * sum_g |d * sx * s| per element", "err_over_limit": ratio,
         "xq_sx_bit_equal": quant_equal, "rows_bit_equal_to_m1": rows_equal,
@@ -1191,6 +1259,7 @@ def phase_kernels(reps: int) -> list[dict]:
                                            quant and update))
             emit({"phase": "kernel", **rows[-1]})
     rows += kernels_f32(timer, gen, gen_cpu)
+    rows += kernels_modes(timer, gen)
     emit({"phase": "kernel_edges", **kernel_edges(gen, gen_cpu)})
     bad = [r["shape"] for r in rows if not r["ok"]]
     if bad:
@@ -1217,6 +1286,42 @@ def kernels_f32(timer: Timer, gen, gen_cpu) -> list[dict]:
         emit({"phase": "kernel", **rows[-1]})
     rows.append(kernel_decode(timer, gen, gen_cpu, 32, False, True, f32=True))
     emit({"phase": "kernel", **rows[-1]})
+    return rows
+
+
+def kernels_modes(timer: Timer, gen) -> list[dict]:
+    """K1's lin layout (GEMV at the five M = 1 shapes, GEMM at the 32-token
+    prompt's M = 32 and a 512-token chunk's M = 512: generate_7b_modes runs
+    the first two), the f32 dot (GEMV, GEMM at M = 32, and at M = 512 over
+    bf16 and f32 scales), the bf16 multiply at M = 512 over f32 scales
+    (perplexity --f32's chunk under LLAMAVK_Q4_MUL=bf16), and K5 over f32
+    scales at M = 1 and 4, and at perplexity --f32 -c 64's M = 64 (where w2
+    takes K1). Over bf16 scales the bf16 multiply is the default kernel's
+    launch (its mode bits are 0: f32(q) f32(s) of a bf16 s is exact and
+    rounds once either way), so it has no row of its own;
+    tests/test_torch_q4_modes.py::test_mul_bf16_weight_bits holds the
+    weight bits equal on the CPU."""
+    rows = []
+    lin = [(m, name) for m in (1, 32, 512) for name in K1_SHAPES
+           if not (m == 32 and name == "output")]
+    f32dot = [(m, name, False) for m in (1, 32) for name in K1_SHAPES
+              if not (m == 32 and name == "output")]
+    f32dot += [(512, name, f32s) for f32s in (False, True) for name in K1_SHAPES]
+    for m, name in lin:
+        rows.append(kernel_q4(timer, gen, name, m, m < 512, plain_reps=3, layout="lin"))
+        emit({"phase": "kernel", **rows[-1]})
+    for m, name, f32s in f32dot:
+        rows.append(kernel_q4(timer, gen, name, m, m < 512, plain_reps=3, f32_scales=f32s,
+                              dot="f32"))
+        emit({"phase": "kernel", **rows[-1]})
+    for name in K1_SHAPES:
+        rows.append(kernel_q4(timer, gen, name, 512, True, plain_reps=3, f32_scales=True,
+                              mul=torch.bfloat16))
+        emit({"phase": "kernel", **rows[-1]})
+    for m in (1, 4, 64):
+        for name in K1_SHAPES:
+            rows.append(kernel_q4_i8(timer, gen, name, m, m == 64, f32_scales=True))
+            emit({"phase": "kernel", **rows[-1]})
     return rows
 
 
@@ -1262,7 +1367,36 @@ def phase_tiny_cli(work: Path) -> dict:
             raise SystemExit(f"tiny_cli (ring, {kv}): card and CPU streams differ:\n"
                              f"{outs['cuda']!r}\n{outs['cpu']!r}")
         result[f"ring {kv}"] = {"tokens_text": outs["cuda"].strip(), "equal_to_cpu": True}
+    # an interactive session: -i -r J with two scripted turns of stdin, then
+    # EOF, on a tiny file (seed 5) whose session keeps every top-2 logit gap
+    # above 0.105 on the CPU
+    path5 = str(work / "tiny5-q4.bin")
+    random_tiny_model(write_path=path5, quantize=True, seed=5)
+    outs = {}
+    for device in ("cuda", "cpu"):
+        args = cli.build_argparser().parse_args(
+            ["-m", path5, "-p", "go", "-i", "-r", "J", "-n", "8", "--temp", "0", "-c", "128",
+             "--device", device])
+        buf = io.StringIO()
+        with contextlib.redirect_stderr(io.StringIO()):
+            if cli.run(args, stdin=_Lines(["ok\n", "go\n"]), stdout=buf) != 0:
+                raise SystemExit(f"tiny_cli: interactive session on {device} failed")
+        outs[device] = buf.getvalue()
+    if outs["cuda"] != outs["cpu"] or outs["cuda"].count("\n> ") != 3:
+        raise SystemExit(f"tiny_cli (interactive): card and CPU sessions differ:\n"
+                         f"{outs['cuda']!r}\n{outs['cpu']!r}")
+    result["interactive -i -r J"] = {"text": outs["cuda"].strip(), "equal_to_cpu": True}
     return result
+
+
+class _Lines:
+    """A scripted stdin: one line per readline, then EOF."""
+
+    def __init__(self, lines: list[str]):
+        self.lines = list(lines)
+
+    def readline(self) -> str:
+        return self.lines.pop(0) if self.lines else ""
 
 
 def _reset_counts() -> None:
@@ -1282,14 +1416,15 @@ def _reset_shapes() -> None:
     from llamavk_tpu_torch.ops import flash_decode as fd
     from llamavk_tpu_torch.ops import q4_matmul as q4
 
-    for c in (q4.shapes, q4.shapes_f32, q4.shapes_i8, fa.shapes, fd.shapes):
+    for c in (q4.shapes, q4.shapes_f32, q4.shapes_i8, q4.shapes_modes, fa.shapes, fd.shapes):
         c.clear()
 
 
 def _shapes() -> dict:
     """The shapes every kernel was launched at since the last
     `_reset_shapes`, with their launch counts: {"q4", "q4_f32" (f32 scales)
-    and "q4_i8": {(M, K, N): n}, "attn": {(path, B, T, H, S, D, block_k,
+    and "q4_i8": {(M, K, N): n}, "q4_modes": {(launch key, M, K, N): n},
+    "attn": {(path, B, T, H, S, D, block_k,
     cache type, n_past, MAXLB, straddle, mode): n}, "decode": {(B, H, S, D,
     block_k, cache type, MAXLB): n}}."""
     from llamavk_tpu_torch.ops import flash_attn as fa
@@ -1297,7 +1432,8 @@ def _shapes() -> dict:
     from llamavk_tpu_torch.ops import q4_matmul as q4
 
     return {"q4": dict(q4.shapes), "q4_f32": dict(q4.shapes_f32), "q4_i8": dict(q4.shapes_i8),
-            "attn": dict(fa.shapes), "decode": dict(fd.shapes)}
+            "q4_modes": dict(q4.shapes_modes), "attn": dict(fa.shapes),
+            "decode": dict(fd.shapes)}
 
 
 def _counts() -> dict:
@@ -1462,6 +1598,12 @@ def phase_generate_7b(seed: int) -> tuple[dict, dict]:
 
 
 GAMMA = 4  # the speculative phases' draft rows per round (--draft-n, --lookup-gamma)
+# generate_7b_lookup's and spec_7b_self's depth: 7B's full width, 16 of its
+# 32 layers, to keep the script in its time
+LOOKUP_LAYERS = 16
+# the lookup runs timed and profiled for the idle share, in tokens
+# (--lookup-idle-tokens; the profiler's own cost grows with the window)
+LOOKUP_IDLE_TOKENS = (16,)
 
 
 def _cli_7b(argv: list[str], cfg, params, out: io.StringIO | None = None) -> tuple[str, str]:
@@ -1505,14 +1647,18 @@ def _lookup_cli_runs(seed: int) -> tuple[dict, dict]:
     from llamavk_tpu_torch.ops import q4_matmul as q4
     from llamavk_tpu_torch.runtime.speculative import LookupEngine, SpecConfig
 
-    cfg, params = _model_7b(seed)
+    t_start = time.perf_counter()
+    cfg, params = _model_7b(seed, LOOKUP_LAYERS)
     text, prompt = _lookup_prompt(seed)
     argv = ["-p", text, "-n", "128", "-c", str(N_CTX), "--temp", "0", "--ignore-eos"]
     _reset_shapes()
+    marks = {"model": time.perf_counter()}
     _cli_7b(argv + ["-n", "8", "--draft-lookup", "--draft-n", str(GAMMA)], cfg, params)  # warm-up
     torch.cuda.synchronize()
+    marks["warm-up"] = time.perf_counter()
     _reset_counts()
     out, err = _cli_7b(argv + ["--draft-lookup", "--draft-n", str(GAMMA)], cfg, params)
+    marks["lookup cli"] = time.perf_counter()
     counts = _counts()
     m = re.search(r"lookup-speculative: (\d+) tokens in (\d+) rounds \(([\d.]+) tok/round, "
                   r"([\d.]+) ms/round\)", err)
@@ -1524,42 +1670,69 @@ def _lookup_cli_runs(seed: int) -> tuple[dict, dict]:
     pout, perr = _cli_7b(argv, cfg, params)
     plain_counts = _counts()
     plain = _ids(pout)[len(prompt):]
+    marks["plain cli"] = time.perf_counter()
     pm = re.search(r"eval += +([\d.]+) ms / (\d+) tokens .*?([\d.]+) tok/s", perr)
     if len(lookup) != 128 or len(plain) != 128 or pm is None:
         raise SystemExit(f"generate_7b_lookup: {len(lookup)} lookup and {len(plain)} plain tokens")
-    # the device's share of a lookup block: 64 tokens driven on the engine,
-    # on the host clock, then again under the profiler (prefill included)
+    # the device's share of a lookup block: each window's tokens driven on
+    # the engine, on the host clock, then again under the profiler (prefill
+    # included)
     eng = LookupEngine(cfg, params, SpecConfig(n_ctx=N_CTX, gamma=GAMMA), device="cuda")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    eng.generate(prompt, 64, ignore_eos=True)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    n_rounds = eng.stats["rounds"]
-    _, busy_ms, _, top = _device_busy(lambda: eng.generate(prompt, 64, ignore_eos=True))
+    windows = []
+    for n_tokens in LOOKUP_IDLE_TOKENS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.generate(prompt, n_tokens, ignore_eos=True)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        n_rounds = eng.stats["rounds"]
+        marks[f"idle window {n_tokens}"] = time.perf_counter()
+        _, busy_ms, _, top = _device_busy(lambda: eng.generate(prompt, n_tokens,
+                                                              ignore_eos=True))
+        marks[f"profiled window {n_tokens}"] = time.perf_counter()
+        windows.append({
+            "idle_window_tokens": n_tokens, "idle_window_rounds": n_rounds,
+            "wall_ms_per_round": wall_ms / n_rounds,
+            "device_busy_ms_per_round": None if busy_ms is None else busy_ms / n_rounds,
+            "device_idle_share": None if busy_ms is None else 1 - busy_ms / wall_ms,
+            "device_ms_per_round_by_name": {k: v / n_rounds for k, v in top.items()},
+        })
     del eng
     shapes = _shapes()  # of the lookup and plain runs, held to the plain versions below
     mode = q4.resolve_dot_mode()
     split = _split_at(cfg, params, prompt, lookup, plain, f"generate_7b_lookup ({mode})",
                       torch.bfloat16, None)
+    marks["split"] = time.perf_counter()
     result = {
         "dot": mode, "prompt_tokens": len(prompt), "tokens": emitted, "rounds": rounds,
         "tok_per_round": emitted / rounds, "ms_per_round": ms_round,
         "tok_per_s": emitted / (rounds * ms_round / 1e3),
         "plain_greedy_tok_per_s": float(pm[3]), "plain_ms_per_token": float(pm[1]) / int(pm[2]),
         "equal_to_plain_greedy": split is None, "split_at_near_tie": split,
-        "idle_window_rounds": n_rounds, "wall_ms_per_round": wall_ms / n_rounds,
-        "device_busy_ms_per_round": None if busy_ms is None else busy_ms / n_rounds,
-        "device_idle_share": None if busy_ms is None else 1 - busy_ms / wall_ms,
-        "device_ms_per_round_by_name": {k: v / n_rounds for k, v in top.items()},
+        **windows[0], "idle_windows": windows[1:],
         "launches": counts, "plain_launches": plain_counts, "plain_stream": plain,
     }
     if mode == "i8":
         result["decode_step_b32"] = _decode_step_check(params, cfg, seed)
+        marks["decode step"] = time.perf_counter()
         k5 = {"q4_i8": counts["q4_i8"] + plain_counts["q4_i8"]}
         _require("generate_7b_lookup (i8)", k5, ("q4_i8",))
+        # perplexity --f32 -c 64 under the int8 dot: f32 scales, 64 rows,
+        # so K5 over f32 scales for every K = 4096 matmul (w2 takes K1)
+        result["perplexity_f32_c64"], ppl_counts = _perplexity_f32(
+            cfg, seed, 64, "generate_7b_lookup (i8, perplexity --f32 -c 64)")
+        _require("generate_7b_lookup (i8, perplexity --f32 -c 64)", ppl_counts,
+                 ("q4_i8_f32", "q4_gemm_f32"))
+        for key, n in ppl_counts.items():
+            counts[key] += n
+        marks["perplexity"] = time.perf_counter()
+        shapes = _shapes()  # the perplexity chunk's K1 shapes too
         result.update(_shape_report(shapes))
         result["shape_rows"] = phase_serve_shapes(shapes, seed, 5, "generate_7b_lookup_i8")
+        marks["shape rows"] = time.perf_counter()
+    # where the phase's time goes, by section
+    names, times = list(marks), [t_start, *marks.values()]
+    result["seconds"] = {name: round(b - a, 2) for name, a, b in zip(names, times, times[1:])}
     return result, counts
 
 
@@ -1569,16 +1742,22 @@ def phase_generate_7b_lookup(seed: int) -> tuple[dict, dict]:
     is read at import). Returns (result, the lookup runs' launches)."""
     bf16, counts = _lookup_cli_runs(seed)
     _require("generate_7b_lookup", counts, ("q4_gemm", "attn_update"))
-    proc = subprocess.run(
-        [sys.executable, str(Path(__file__).resolve()), "--phases", "lookup_i8_child",
-         "--seed", str(seed)],
-        cwd=ROOT, env=dict(os.environ, LLAMAVK_Q4_DOT="i8"), capture_output=True, text=True,
-        timeout=900)
-    if proc.returncode != 0:
-        raise SystemExit(f"generate_7b_lookup (i8) failed:\n{proc.stderr[-3000:]}")
-    i8 = json.loads(proc.stdout.strip().splitlines()[-1])
+    i8 = _run_child("lookup_i8_child", seed, {"LLAMAVK_Q4_DOT": "i8"})
     counts = {key: n + i8["launches"][key] for key, n in counts.items()}
     return {"bf16": bf16, "i8": i8}, counts
+
+
+def _run_child(phase: str, seed: int, env: dict) -> dict:
+    """The result of this script's `phase` in a process of its own, under the
+    environment variables `env` (the dot and multiply modes are read at
+    import)."""
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--phases", phase, "--seed", str(seed),
+         "--lookup-idle-tokens", ",".join(map(str, LOOKUP_IDLE_TOKENS))],
+        cwd=ROOT, env=dict(os.environ, **env), capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise SystemExit(f"{phase} ({env}) failed:\n{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 def phase_spec_7b_self(seed: int, plain: list[int] | None) -> tuple[dict, dict]:
@@ -1586,7 +1765,7 @@ def phase_spec_7b_self(seed: int, plain: list[int] | None) -> tuple[dict, dict]:
     copy), greedy, 64 tokens: the stream equals plain greedy (`plain`, the
     lookup phase's, or computed here), or parts only at a near tie; every
     draft is accepted unless it does."""
-    cfg, params = _model_7b(seed)
+    cfg, params = _model_7b(seed, LOOKUP_LAYERS)
     text, prompt = _lookup_prompt(seed)
     argv = ["-p", text, "-n", "64", "-c", str(N_CTX), "--temp", "0", "--ignore-eos",
             "--draft-model", "synthetic-7B", "--draft-n", str(GAMMA)]
@@ -1852,13 +2031,14 @@ def _decode_step_check(params, cfg, seed: int, kvs=("int8", "bfloat16"),
 
 
 @functools.cache
-def _model_7b(seed: int):
+def _model_7b(seed: int, n_layer: int | None = None):
     """(cfg, params) of synthetic LLaMA-7B Q4_0 on the card, made once for
-    the serving phases."""
+    the serving phases; at full width with the first `n_layer` of its 32
+    layers where given."""
     from llamavk_tpu_torch.models.llama import ModelConfig
     from llamavk_tpu_torch.models.loader import LLAMA_CONFIGS, synthetic_params
 
-    cfg = ModelConfig(**LLAMA_CONFIGS["7B"])
+    cfg = ModelConfig(**{**LLAMA_CONFIGS["7B"], **({"n_layer": n_layer} if n_layer else {})})
     return cfg, synthetic_params(cfg, seed=seed, device="cuda")
 
 
@@ -1965,6 +2145,8 @@ def _shape_report(shapes: dict) -> dict:
                                 for (m, k, n), c in sorted(shapes["q4_f32"].items())},
         "k5_shapes": {f"M={m} K={k} N={n}": c
                       for (m, k, n), c in sorted(shapes["q4_i8"].items())},
+        "k1_k5_mode_shapes": {f"{key} M={m} K={k} N={n}": c
+                              for (key, m, k, n), c in sorted(shapes["q4_modes"].items())},
         "attn_shapes": {str(key): c for key, c in sorted(shapes["attn"].items(), key=str)},
         "decode_shapes": {str(key): c for key, c in sorted(shapes["decode"].items(), key=str)},
     }
@@ -2375,6 +2557,121 @@ def phase_generate_7b_ring(seed: int) -> tuple[dict, dict]:
     return result, counts
 
 
+MODES_TOKENS = 128  # generate_7b_modes' greedy tokens after a 32-token prompt
+
+
+def _modes_cli_run(cfg, params, seed: int, what: str) -> tuple[dict, dict]:
+    """The generate CLI on synthetic 7B in this process's modes: a 32-token
+    prompt (seeded letters after BOS and the CLI's space) and 128 greedy
+    tokens, after an 8-token warm-up run; the stream against the plain
+    forward teacher-forced on it; prefill ms and ms per token from the CLI's
+    timings; the run's launches."""
+    gen = torch.Generator().manual_seed(seed + 8)
+    text = "".join(chr(ord("a") + int(i)) for i in torch.randint(0, 26, (30,), generator=gen))
+    prompt = [1] + [b + 3 for b in (" " + text).encode()]
+    argv = ["-p", text, "-c", str(N_CTX), "--temp", "0", "--ignore-eos"]
+    _cli_7b(argv + ["-n", "8"], cfg, params)  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    out, err = _cli_7b(argv + ["-n", str(MODES_TOKENS)], cfg, params)
+    counts = _counts()
+    stream = _ids(out)[len(prompt):]
+    pm = re.search(r"^prompt eval += +([\d.]+) ms / +(\d+) tokens", err, re.M)
+    em = re.search(r"^eval += +([\d.]+) ms / +(\d+) tokens", err, re.M)
+    if len(stream) != MODES_TOKENS or pm is None or em is None:
+        raise SystemExit(f"{what}: {len(stream)} tokens, timings {err[-500:]!r}")
+    split = _teacher_forced(cfg, params, prompt, stream, what)
+    return {"prompt_tokens": len(prompt), "tokens": len(stream),
+            "stream_vs_plain": split or "equal", "limit_rel": LOGIT_REL_LIMIT,
+            "prefill_ms": float(pm[1]), "ms_per_token": float(em[1]) / int(em[2]),
+            "launches": {key: n for key, n in counts.items() if n}}, counts
+
+
+def _modes_shape_rows(result: dict, seed: int, phase: str) -> None:
+    """Every kernel against its plain version at every shape launched since
+    the last `_reset_shapes`, into `result` (`shape_rows`, and the shapes)."""
+    shapes = _shapes()
+    result.update(_shape_report(shapes))
+    result["shape_rows"] = phase_serve_shapes(shapes, seed, 5, phase)
+
+
+def _modes_f32_child(seed: int) -> dict:
+    """generate_7b_modes under LLAMAVK_Q4_DOT=f32 (this process was started
+    with it): the CLI run on the ilv weights, K1 keeping w = q * s in f32;
+    then every kernel at every shape it launched."""
+    from llamavk_tpu_torch.ops import q4_matmul as q4
+
+    cfg, params = _model_7b(seed)
+    _reset_shapes()
+    result, counts = _modes_cli_run(cfg, params, seed, "generate_7b_modes (LLAMAVK_Q4_DOT=f32)")
+    _require("generate_7b_modes (LLAMAVK_Q4_DOT=f32)", counts, ("q4_gemv_dotf32", "q4_gemm_dotf32"))
+    result = {"dot": q4.resolve_dot_mode(), **result, "launches": counts}
+    _modes_shape_rows(result, seed, "generate_7b_modes_f32")
+    return result
+
+
+def _modes_mul_child(seed: int) -> dict:
+    """generate_7b_modes under LLAMAVK_Q4_MUL=bf16 (this process was started
+    with it): one seeded 512-token chunk of perplexity --f32, whose f32
+    scales K1 rounds to bf16, against the plain versions in the same mode;
+    then every kernel at every shape it launched."""
+    from llamavk_tpu_torch.models.llama import ModelConfig
+    from llamavk_tpu_torch.models.loader import LLAMA_CONFIGS
+    from llamavk_tpu_torch.ops import q4_matmul as q4
+
+    cfg = ModelConfig(**LLAMA_CONFIGS["7B"])
+    _reset_shapes()
+    result, counts = _perplexity_f32(cfg, seed, N_CTX,
+                                     "generate_7b_modes (perplexity --f32, LLAMAVK_Q4_MUL=bf16)")
+    _require("generate_7b_modes (LLAMAVK_Q4_MUL=bf16)", counts, ("q4_gemm_f32_mulbf16",))
+    result = {"mul": str(q4.resolve_mul_dtype()), **result, "launches": counts}
+    _modes_shape_rows(result, seed, "generate_7b_modes_mul")
+    return result
+
+
+def phase_generate_7b_modes(seed: int) -> tuple[dict, dict]:
+    """K1's layout and numerics modes through the single-stream entry
+    points on synthetic 7B (full width and depth), n_ctx 512, bf16 KV: the
+    generate CLI (32-token prompt, 128 greedy tokens, each stream against
+    the plain forward teacher-forced on it) on the ilv weights in the
+    default modes, on lin weights (synthetic_params(layout="lin")), and on
+    the ilv weights under LLAMAVK_Q4_DOT=f32 in a process of its own; a
+    512-token perplexity --f32 chunk under LLAMAVK_Q4_MUL=bf16 in another;
+    --mtest -b 32 on the lin weights. Each process then holds every kernel
+    against its plain version at every shape it launched (`shape_rows`).
+    Returns (result, launches)."""
+    from llamavk_tpu_torch.models.loader import synthetic_params
+
+    cfg, params = _model_7b(seed)
+    result = {}
+    _reset_shapes()
+    result["ilv_bf16"], counts = _modes_cli_run(cfg, params, seed, "generate_7b_modes (ilv)")
+    lin = synthetic_params(cfg, seed=seed, device="cuda", layout="lin")
+    result["lin"], lin_counts = _modes_cli_run(cfg, lin, seed, "generate_7b_modes (lin)")
+    _reset_counts()
+    _, err = _cli_7b(["--mtest", "-n", str(N_CTX), "-c", str(N_CTX), "-b", "32"], cfg, lin)
+    result["lin_mtest"] = [ln.strip() for ln in err.strip().splitlines() if " = " in ln]
+    for part in (lin_counts, _counts()):
+        for key, n in part.items():
+            counts[key] += n
+    del lin
+    torch.cuda.empty_cache()
+    _require("generate_7b_modes (lin)", counts, ("q4_gemv_lin", "q4_gemm_lin"))
+    _modes_shape_rows(result, seed, "generate_7b_modes")
+    f32 = result["f32_dot"] = _run_child("modes_f32_child", seed, {"LLAMAVK_Q4_DOT": "f32"})
+    mul = result["mul_bf16"] = _run_child("modes_mul_child", seed, {"LLAMAVK_Q4_MUL": "bf16"})
+    for part in (f32, mul):
+        for key, n in part["launches"].items():
+            counts[key] += n
+        part["launches"] = {key: n for key, n in part["launches"].items() if n}
+        result["shape_rows"] += part.pop("shape_rows")
+    result["ms_per_token"] = {"ilv bf16": result["ilv_bf16"]["ms_per_token"],
+                              "lin": result["lin"]["ms_per_token"],
+                              "ilv f32 dot": f32["ms_per_token"]}
+    result["launches"] = {key: n for key, n in counts.items() if n}
+    return result, counts
+
+
 SHARED_DIRECT, SHARED_DIRECT_TOKENS = 8, 32  # serve_7b_shared's requests against the oracle
 
 
@@ -2689,10 +2986,56 @@ def _nll_check(chunk_nll, chunk_plain, params, toks, what: str) -> dict:
     half = toks.shape[1] // 2
     ppl = [math.exp(float(x[half:].mean())) for x in (got, want)]
     if not (math.isfinite(err) and err <= limit):
-        raise SystemExit(f"eval_7b_f32 ({what}): NLL {err:.3g} from plain (limit {limit:.3g})")
+        raise SystemExit(f"{what}: NLL {err:.3g} from plain (limit {limit:.3g})")
     return {"nll_max_abs_diff": err, "limit": limit, "max_abs_logit": scale,
             "ppl_second_half": ppl[0], "plain_ppl_second_half": ppl[1],
             "ms_per_chunk": statistics.median(times[1:]), "tokens": toks.shape[1]}
+
+
+def _teacher_forced(cfg, params, prompt: list[int], stream: list[int], what: str,
+                    kv=torch.bfloat16) -> dict | None:
+    """The plain forward over the prompt and a greedy stream, teacher-forced
+    on the stream: None where every token is the plain argmax; else the
+    first that is not, which must lie within 2^-8 of the largest logit of
+    the plain top (a near tie)."""
+    from llamavk_tpu_torch.models.llama import init_kv_cache, llama_forward
+
+    cache = init_kv_cache(cfg, 1, N_CTX, kv, "cuda")
+    lg = llama_forward(params, torch.tensor([prompt + stream]).cuda(), cache, 0, cfg,
+                       logits_all=True, use_ref=True)[0]
+    del cache
+    split = None
+    for i, tok in enumerate(stream):
+        row = lg[0, len(prompt) - 1 + i]
+        top, scale = float(row.max()), float(row.abs().max())
+        gap = (top - float(row[tok])) / scale
+        if gap > 0:
+            if gap > LOGIT_REL_LIMIT:
+                raise SystemExit(f"{what}: token {i} ({tok}) is {gap:.3g} below the plain "
+                                 f"top logit (limit {LOGIT_REL_LIMIT})")
+            split = split or {"token": i, "gap_rel": gap}
+    return split
+
+
+def _perplexity_f32(cfg, seed: int, n_ctx: int, what: str) -> tuple[dict, dict]:
+    """One seeded n_ctx-token chunk of perplexity --f32 (f32 scale planes,
+    f32 activations and KV, einsum attention) through make_chunk_nll against
+    the plain versions, in this process's dot and multiply modes; with the
+    chunk's launches."""
+    from llamavk_tpu_torch.cli.perplexity import make_chunk_nll
+    from llamavk_tpu_torch.models.loader import synthetic_params
+
+    p32 = synthetic_params(cfg, seed=seed, device="cuda", scale_dtype=torch.float32)
+    toks = torch.randint(3, cfg.n_vocab, (1, n_ctx),
+                         generator=torch.Generator().manual_seed(seed + 9)).cuda()
+    _reset_counts()
+    res = _nll_check(make_chunk_nll(cfg, n_ctx, dtype=torch.float32, attn_impl="einsum"),
+                     _plain_nll(cfg, n_ctx, torch.float32, "einsum"), p32, toks, what)
+    counts = _counts()
+    del p32
+    torch.cuda.empty_cache()
+    res["launches"] = {key: n for key, n in counts.items() if n}
+    return res, counts
 
 
 def _plain_nll(cfg, n_ctx: int, dtype, attn_impl: str):
@@ -2728,7 +3071,7 @@ def phase_eval_7b_f32(seed: int) -> tuple[dict, dict, dict]:
     f32 cache, kernels against plain. Returns (result, launches, shapes)."""
     from llamavk_tpu_torch import compat as llama
     from llamavk_tpu_torch.cli.perplexity import make_chunk_nll
-    from llamavk_tpu_torch.models.llama import KVCache, init_kv_cache, llama_forward
+    from llamavk_tpu_torch.models.llama import KVCache, llama_forward
     from llamavk_tpu_torch.models.loader import synthetic_params
     from llamavk_tpu_torch.runtime.batching import BatchConfig, BatchedEngine
     from llamavk_tpu_torch.runtime.engine import Engine, EngineConfig
@@ -2741,11 +3084,11 @@ def phase_eval_7b_f32(seed: int) -> tuple[dict, dict, dict]:
     _reset_shapes()
     toks = torch.randint(3, cfg.n_vocab, (1, N_CTX), generator=gen).cuda()
     result["perplexity_bf16"] = _nll_check(make_chunk_nll(cfg, N_CTX), _plain_nll(
-        cfg, N_CTX, torch.bfloat16, "auto"), params, toks, "bf16")
+        cfg, N_CTX, torch.bfloat16, "auto"), params, toks, "eval_7b_f32 (bf16)")
     p32 = synthetic_params(cfg, seed=seed, device="cuda", scale_dtype=torch.float32)
     result["perplexity_f32"] = _nll_check(
         make_chunk_nll(cfg, N_CTX, dtype=torch.float32, attn_impl="einsum"),
-        _plain_nll(cfg, N_CTX, torch.float32, "einsum"), p32, toks, "--f32")
+        _plain_nll(cfg, N_CTX, torch.float32, "einsum"), p32, toks, "eval_7b_f32 (--f32)")
     del p32
     counts = _counts()
 
@@ -2800,25 +3143,10 @@ def phase_eval_7b_f32(seed: int) -> tuple[dict, dict, dict]:
                          / embs[kv, True].abs().max()),
         "l2_rel": float((embs[kv, False] - embs[kv, True]).norm() / embs[kv, True].norm())}
         for kv in (torch.float32, torch.bfloat16)}
-    # the plain forward over the first turn, teacher-forced on the stream
-    plain_cache = init_kv_cache(cfg, 1, N_CTX, torch.float32, "cuda")
-    lg = llama_forward(params, torch.tensor([prompt1 + stream]).cuda(), plain_cache, 0, cfg,
-                       logits_all=True, use_ref=True)[0]
-    del plain_cache
-    split = None
-    for i, tok in enumerate(stream):
-        row = lg[0, len(prompt1) - 1 + i]
-        top, scale = float(row.max()), float(row.abs().max())
-        gap = (top - float(row[tok])) / scale
-        if gap > 0:
-            if gap > LOGIT_REL_LIMIT:
-                raise SystemExit(f"eval_7b_f32: token {i} ({tok}) is {gap:.3g} below the plain "
-                                 f"top logit (limit {LOGIT_REL_LIMIT})")
-            split = split or {"token": i, "gap_rel": gap}
+    split = _teacher_forced(cfg, params, prompt1, stream, "eval_7b_f32", torch.float32)
     if not (emb_equal and emb_drift["f32"]["l2_rel"] <= EMB_L2_LIMIT):
         raise SystemExit(f"eval_7b_f32: embeddings equal to the kernels' forward: {emb_equal}, "
                          f"drift from plain {emb_drift} (limit {EMB_L2_LIMIT})")
-    del lg
     # where a decode step's time goes: 8 llama_eval steps on the host clock,
     # 8 more under the profiler
     llama.llama_eval(ctx, stream[:1], n_past=40)
@@ -2898,7 +3226,9 @@ def _attn_samples(attn: dict) -> list[tuple[tuple, int]]:
 
 def phase_serve_shapes(shapes: dict, seed: int, reps: int, phase: str = "serve_7b") -> list[dict]:
     """Every kernel against its plain version at every shape a phase
-    launched it at (`_shapes`): K1 and K5 at each (M, K, N); K2 and K3 at
+    launched it at (`_shapes`): K1 and K5 at each (M, K, N), in each mode
+    the launch key names (`q4_matmul.launch_key`; K5 over f32 scales
+    `i8_f32`); K2 and K3 at
     each (B, T, S, block_k, cache type, n_past, page table width, straddle,
     mode), a vector n_past seeded per row, a decode loop's host-int n_past
     sampled (`_attn_samples`); K4 at each (B, S, block_k, cache type, page
@@ -2926,6 +3256,18 @@ def phase_serve_shapes(shapes: dict, seed: int, reps: int, phase: str = "serve_7
     for m, k, n in sorted(shapes["q4_i8"]):
         add(kernel_q4_i8(timer, gen, names[(k, n)], m, True, plain_reps=2),
             shapes["q4_i8"][(m, k, n)])
+    for key, m, k, n in sorted(shapes["q4_modes"]):
+        parts = key.split("_")
+        if parts[0] == "i8":  # K5 over f32 scales
+            row = kernel_q4_i8(timer, gen, names[(k, n)], m, True, plain_reps=2, f32_scales=True)
+        else:
+            row = kernel_q4(timer, gen, names[(k, n)], m, True, plain_reps=2,
+                            f32_scales="f32" in parts, layout="lin" if "lin" in parts else "ilv",
+                            dot="f32" if "dotf32" in parts else "bf16",
+                            mul=torch.bfloat16 if "mulbf16" in parts else torch.float32)
+            if row["kernel"] != "q4_" + key:
+                raise SystemExit(f"serve_shapes: {key} checked as {row['kernel']}")
+        add(row, shapes["q4_modes"][(key, m, k, n)])
     for key, launches in _attn_samples(shapes["attn"]):
         path, b, t, h, s, d, bk, kind, n_past, maxlb, straddle, mode = key
         quant, f32 = kind == "int8", kind == "f32"
@@ -2990,7 +3332,14 @@ def summary(rows: list[dict], counts: dict) -> dict:
 
 PHASES = ("env,build,kernels,tiny_cli,tiny_compat,generate_7b,generate_7b_lookup,spec_7b_self,"
           "tiny_serve,serve_7b,serve_7b_paged,serve_7b_lookup,generate_7b_ring,serve_7b_shared,"
-          "eval_7b_f32")
+          "eval_7b_f32,generate_7b_modes")
+# phases that run in a process of their own, under the environment a parent
+# phase starts them with
+CHILD_PHASES = {
+    "lookup_i8_child": lambda seed: _lookup_cli_runs(seed)[0],  # generate_7b_lookup's i8 half
+    "modes_f32_child": _modes_f32_child,  # generate_7b_modes under LLAMAVK_Q4_DOT=f32
+    "modes_mul_child": _modes_mul_child,  # generate_7b_modes under LLAMAVK_Q4_MUL=bf16
+}
 
 
 def main() -> int:
@@ -2999,8 +3348,12 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=20, help="timed launches per kernel")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", help="also write every phase's result to this JSON file")
+    ap.add_argument("--lookup-idle-tokens", default="16",
+                    help="generate_7b_lookup's idle-share windows, in tokens, comma-separated")
     args = ap.parse_args()
     phases = args.phases.split(",")
+    global LOOKUP_IDLE_TOKENS
+    LOOKUP_IDLE_TOKENS = tuple(int(n) for n in args.lookup_idle_tokens.split(","))
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -3008,8 +3361,10 @@ def main() -> int:
         return 2
     import llamavk_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
-    if phases == ["lookup_i8_child"]:  # generate_7b_lookup's i8 half, in its own process
-        emit(_lookup_cli_runs(args.seed)[0])
+    if len(phases) == 1 and phases[0] in CHILD_PHASES:
+        t0 = time.perf_counter()
+        result = CHILD_PHASES[phases[0]](args.seed)
+        emit({**result, "child_seconds": round(time.perf_counter() - t0, 2)})
         return 0
     report: dict = {}
     t_start = time.perf_counter()
@@ -3092,11 +3447,16 @@ def main() -> int:
             report["tiny_serve"], path_counts = phase_tiny_serve(Path(work))
         add(path_counts)
         emit({"phase": "tiny_serve", **report["tiny_serve"]})
-    if "generate_7b_ring" in phases:
-        with timed("generate_7b_ring"):
-            report["generate_7b_ring"], path_counts = phase_generate_7b_ring(args.seed)
-        add(path_counts)
-        emit({"phase": "generate_7b_ring", **report["generate_7b_ring"]})
+    for name, phase in (("generate_7b_ring", phase_generate_7b_ring),
+                        ("generate_7b_modes", phase_generate_7b_modes)):
+        if name in phases:
+            with timed(name):
+                report[name], path_counts = phase(args.seed)
+            add(path_counts)
+            if "shape_rows" in report[name]:
+                report[f"{name}_shapes"] = report[name].pop("shape_rows")
+                rows += report[f"{name}_shapes"]
+            emit({"phase": name, **report[name]})
     for name, phase in (("serve_7b", phase_serve_7b), ("serve_7b_paged", phase_serve_7b_paged),
                         ("serve_7b_lookup", phase_serve_7b_lookup),
                         ("serve_7b_shared", phase_serve_7b_shared),

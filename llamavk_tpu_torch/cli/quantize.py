@@ -4,8 +4,9 @@ examples/quantize + llama_model_quantize_internal (llama.cpp:1465-1577).
 Streams tensors from an f16/f32 (or already-quantized) GGML/GGMF/GGJT file,
 quantizes every 2-D '*weight' tensor to Q4_0 or Q4_1, writes a GGJT v1 file
 readable by both packages and the C reference, and prints per-tensor sizes
-plus the 16-bucket nibble histogram. The quantizer is the NumPy reference
-(`formats/q4.py`); the JAX package's threaded C++ one writes the same bytes.
+plus the 16-bucket nibble histogram. The quantizer is the threaded C++ one of
+`native.py` where it builds, else the NumPy reference (`formats/q4.py`):
+the same bytes.
 
 usage: python -m llamavk_tpu_torch.cli.quantize model-f16.bin model-q4_0.bin 2
        (type 2 = q4_0, 3 = q4_1 — same codes as the reference CLI)
@@ -23,8 +24,8 @@ from ..formats.q4 import (
     GGML_FTYPE_Q4_0,
     GGML_FTYPE_Q4_1,
     ftype_row_bytes,
-    quantize_tensor_with_hist,
 )
+from ..native import quantize_tensor_with_hist
 
 
 def quantize_file(path_in: str, path_out: str, ftype: int, verbose: bool = True) -> None:

@@ -12,8 +12,10 @@ in bf16, for every slot), with optional prompt-lookup speculation
     curl -d '{"prompt": "Hello", "max_tokens": 32}' localhost:8000/v1/completions
 
 --device cpu runs the plain PyTorch versions of the kernels; --port 0 takes
-any free port (the server prints the one it took). Tensor/data parallelism
-and replicas are not ported yet: the CLI rejects their flags and says so.
+any free port (the server prints the one it took). --no-int4-weights is
+accepted and ignored, as the JAX CLI ignores it off the TPU. Tensor/data
+parallelism and replicas are not ported yet: the CLI rejects their flags
+and says so.
 """
 
 from __future__ import annotations
@@ -74,6 +76,9 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--lookup-gamma", type=int, default=0,
                     help=">0: prompt-lookup speculative decoding, this many rows verified "
                     "per round")
+    ap.add_argument("--no-int4-weights", action="store_true",
+                    help="accepted for the JAX CLI's sake and ignored: the port keeps the "
+                    "byte-packed planes it loads")
     ap.add_argument("--model-name", default=None)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the hand-written kernels) or cpu (their plain versions)")

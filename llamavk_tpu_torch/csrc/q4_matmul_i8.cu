@@ -16,8 +16,11 @@
 //  * `i8_dot_kernel`: the group dot. Weight layout (ilv, one chunk): packed
 //    byte row j*G + g (j < 16) holds the low nibble of original k = 32g + j
 //    and the high nibble of k = 32g + 16 + j, both signed, both scaled by
-//    s[g, n] (bf16). Each thread owns 4 neighbouring columns (a warp reads
-//    128 contiguous bytes of a packed row), loads a group's 16 packed words
+//    s[g, n] (bf16, or f32 as `perplexity --f32` loads the scale plane: the
+//    scale type is the template argument `ST`, and only the scale loads
+//    differ, as `_kernel_q4_i8` reads s in its own type). Each thread owns
+//    4 neighbouring columns (a warp reads 128 contiguous bytes of a packed
+//    row), loads a group's 16 packed words
 //    and its 4 scales, transposes the bytes with __byte_perm and
 //    sign-extends the nibbles 4 at a time, so that each column holds its 32
 //    weights as 8 int8x4 words; then for each of the block's (up to) 8 rows
@@ -79,11 +82,29 @@ __device__ __forceinline__ int nib_hi(uint32_t w) {
   return (int)__vsub4(((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
 }
 
+// the scales of 4 consecutive columns from `p` (16-byte aligned for f32)
+__device__ __forceinline__ void load_scales4(const __nv_bfloat16* p, float* s) {
+  const uint2 sb = __ldg(reinterpret_cast<const uint2*>(p));
+  s[0] = __uint_as_float(sb.x << 16);
+  s[1] = __uint_as_float(sb.x & 0xffff0000u);
+  s[2] = __uint_as_float(sb.y << 16);
+  s[3] = __uint_as_float(sb.y & 0xffff0000u);
+}
+
+__device__ __forceinline__ void load_scales4(const float* p, float* s) {
+  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+  s[0] = v.x;
+  s[1] = v.y;
+  s[2] = v.z;
+  s[3] = v.w;
+}
+
+template <typename ST>
 __global__ void __launch_bounds__(WARPS * 32)
 i8_dot_kernel(const int8_t* __restrict__ xq,        // [M, K]
               const float* __restrict__ sx,         // [M, G]
               const int8_t* __restrict__ packed,    // [K/2, N]
-              const __nv_bfloat16* __restrict__ scales,  // [G, N]
+              const ST* __restrict__ scales,        // [G, N] bf16 or f32
               float* __restrict__ out,              // [gridDim.y, M, N]
               int M, int K, int N, int gps) {
   __shared__ float red[WARPS][ROWS][COLS];
@@ -108,12 +129,8 @@ i8_dot_kernel(const int8_t* __restrict__ xq,        // [M, K]
 #pragma unroll
       for (int j = 0; j < 16; ++j)
         words[j] = __ldg(reinterpret_cast<const uint32_t*>(packed + (size_t)(j * G + g) * N + n0));
-      const uint2 sb = __ldg(reinterpret_cast<const uint2*>(scales + (size_t)g * N + n0));
       float s[4];
-      s[0] = __uint_as_float(sb.x << 16);
-      s[1] = __uint_as_float(sb.x & 0xffff0000u);
-      s[2] = __uint_as_float(sb.y << 16);
-      s[3] = __uint_as_float(sb.y & 0xffff0000u);
+      load_scales4(scales + (size_t)g * N + n0, s);
       // w[c][i]: elements 4i..4i+3 (i < 4, low nibbles of rows 4i..4i+3) and
       // 16 + 4(i-4).. (i >= 4, the high nibbles of the same rows) of column c
       int w[4][8];
@@ -191,12 +208,13 @@ extern "C" int q4_i8_quantize_launch(const void* x, void* xq, void* sx, int M, i
 }
 
 // xq int8 [M, K], sx f32 [M, G] (from q4_i8_quantize_launch), packed int8
-// [K/2, N] (ilv, one chunk, Q4_0), scales bf16 [G, N] -> out f32 [M, N];
+// [K/2, N] (ilv, one chunk, Q4_0), scales [G, N] (bf16, or f32 when
+// scale_f32 != 0) -> out f32 [M, N];
 // partial f32 [ksplit, M, N] scratch when ksplit > 1. Requires K % 32 == 0,
 // N % 8 == 0, 16-byte aligned pointers (checked by the Python wrapper).
 extern "C" int q4_i8_matmul_launch(const void* xq, const void* sx, const void* packed,
                                    const void* scales, void* out, void* partial, int M, int K,
-                                   int N, int ksplit, void* stream) {
+                                   int N, int ksplit, int scale_f32, void* stream) {
   if (M < 1 || K % QK != 0 || N % 8 != 0 || ksplit < 1) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   const int G = K / QK;
@@ -204,10 +222,15 @@ extern "C" int q4_i8_matmul_launch(const void* xq, const void* sx, const void* p
   const int splits = (G + gps - 1) / gps;
   float* dst = splits == 1 ? static_cast<float*>(out) : static_cast<float*>(partial);
   dim3 grid((N + COLS - 1) / COLS, splits, (M + ROWS - 1) / ROWS);
-  i8_dot_kernel<<<grid, WARPS * 32, 0, st>>>(
-      static_cast<const int8_t*>(xq), static_cast<const float*>(sx),
-      static_cast<const int8_t*>(packed), static_cast<const __nv_bfloat16*>(scales), dst, M, K,
-      N, gps);
+  auto xqp = static_cast<const int8_t*>(xq);
+  auto sxp = static_cast<const float*>(sx);
+  auto pk = static_cast<const int8_t*>(packed);
+  if (scale_f32)
+    i8_dot_kernel<float><<<grid, WARPS * 32, 0, st>>>(
+        xqp, sxp, pk, static_cast<const float*>(scales), dst, M, K, N, gps);
+  else
+    i8_dot_kernel<__nv_bfloat16><<<grid, WARPS * 32, 0, st>>>(
+        xqp, sxp, pk, static_cast<const __nv_bfloat16*>(scales), dst, M, K, N, gps);
   if (splits > 1) {
     const int mn = M * N;
     split_sum_kernel<<<(mn + 255) / 256, 256, 0, st>>>(static_cast<const float*>(partial),

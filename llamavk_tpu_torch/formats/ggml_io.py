@@ -269,7 +269,11 @@ class CheckpointReader:
         return np.stack(bufs, axis=1).reshape(-1)
 
     def load_f32(self, name: str) -> np.ndarray:
-        """Load and dequantize a tensor to f32 in NumPy row-major shape."""
+        """Load and dequantize a tensor to f32 in NumPy row-major shape: f16
+        and q4 through the native library where it builds (the same bytes),
+        else NumPy."""
+        from .. import native
+
         t = self.tensors[name]
         raw = self.raw_tensor(name)
         n = int(np.prod(t.ne))
@@ -277,13 +281,19 @@ class CheckpointReader:
         if ft == GGML_FTYPE_F32:
             out = raw.view(np.float32)[:n].astype(np.float32)
         elif ft == GGML_FTYPE_F16:
-            out = raw.view(np.float16)[:n].astype(np.float32)
+            out = native.fp16_to_fp32(raw.view(np.uint16)[:n])
+            if out is None:
+                out = raw.view(np.float16)[:n].astype(np.float32)
         elif ft == GGML_FTYPE_Q4_0:
-            d, q = q4_0_from_bytes(raw, n)
-            out = ((q.astype(np.float32) - 8.0) * d[:, None]).reshape(-1)
+            out = native.dequantize_stream(raw, n, ft)
+            if out is None:
+                d, q = q4_0_from_bytes(raw, n)
+                out = ((q.astype(np.float32) - 8.0) * d[:, None]).reshape(-1)
         elif ft == GGML_FTYPE_Q4_1:
-            d, m, q = q4_1_from_bytes(raw, n)
-            out = (q.astype(np.float32) * d[:, None] + m[:, None]).reshape(-1)
+            out = native.dequantize_stream(raw, n, ft)
+            if out is None:
+                d, m, q = q4_1_from_bytes(raw, n)
+                out = (q.astype(np.float32) * d[:, None] + m[:, None]).reshape(-1)
         else:
             raise ValueError(f"ftype {ft}")
         return out.reshape(t.shape)

@@ -1,11 +1,12 @@
 """Checkpoint → device params (twin of `llamavk_tpu/models/loader.py`).
 
 Reads GGML/GGMF/GGJT tensors, repacks quantized weights into the device
-layout with the NumPy repack of `formats/repack.py` (the JAX package's
-fallback path when its native helper is not built), stacks the per-layer
-weights and moves everything to the device once. Also builds synthetic 7B
-params on the device and carries parameters across from the JAX package
-(`params_from_arrays`).
+layout (ilv, or lin with `layout="lin"`) with the native single-pass repack
+of `native.py`, or the NumPy repack of `formats/repack.py` where the native
+library is not available or LLAMAVK_NO_NATIVE is set (the two give the same
+bytes), stacks the per-layer weights and moves everything to the device
+once. Also builds synthetic 7B params on the device and carries parameters
+across from the JAX package (`params_from_arrays`).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from dataclasses import replace
 import numpy as np
 import torch
 
+from .. import native
 from ..device import resolve
 from ..formats.ggml_io import CheckpointReader, CheckpointWriter, Hparams, TokenEntry
 from ..formats.q4 import (
@@ -29,6 +31,7 @@ from ..formats.q4 import (
 )
 from ..formats.repack import (
     LAYOUT_ILV,
+    LAYOUT_LIN,
     PackedQ4,
     _interleave_cols,
     fuse_packed,
@@ -62,8 +65,14 @@ def _tensor(a: np.ndarray, device, dtype=None) -> torch.Tensor:
 
 
 def _read_packed(reader: CheckpointReader, name: str, layout: str):
-    """A 2-D matmul weight as PackedQ4 (q4) or dense f32 [K, N]."""
+    """A 2-D matmul weight as PackedQ4 (q4) or dense f32 [K, N]: the native
+    repack straight off the mapped file where it is built, else NumPy."""
     t = reader.tensors[name]
+    if t.ftype in (GGML_FTYPE_Q4_0, GGML_FTYPE_Q4_1):
+        pk = native.repack_q4_stream(reader.raw_tensor(name), t.shape[0], t.ne[0], t.ftype,
+                                     layout)
+        if pk is not None:
+            return pk
     if t.ftype == GGML_FTYPE_Q4_0:
         d, q = reader.load_q4(name)
         return repack_q4_0(d, q, layout=layout)
@@ -120,6 +129,16 @@ def _load_embedding(reader: CheckpointReader, name: str, scale_dtype, dense_dtyp
     t = reader.tensors[name]
     if t.ftype in (GGML_FTYPE_F16, GGML_FTYPE_F32):
         return _tensor(reader.load_f32(name), device, dense_dtype)
+    packed_sb = native.repack_q4_rows_stream(reader.raw_tensor(name), t.shape[0], t.ne[0],
+                                             t.ftype)
+    if packed_sb is not None:
+        packed, scales, bias = packed_sb
+        return QEmbedding(
+            packed=_tensor(packed, device),
+            scales=_tensor(scales, device, scale_dtype),
+            bias=None if bias is None else _tensor(bias, device, scale_dtype),
+            k=t.ne[0],
+        )
     if t.ftype == GGML_FTYPE_Q4_0:
         d, q = reader.load_q4(name)  # [V, G], [V, G, QK]
         bias = None
@@ -270,12 +289,16 @@ def params_from_arrays(
 
 
 def synthetic_params(cfg: ModelConfig, seed: int = 0, device="cuda",
-                     scale_dtype=torch.bfloat16) -> LlamaParams:
+                     scale_dtype=torch.bfloat16, layout: str = LAYOUT_ILV) -> LlamaParams:
     """Random Q4_0-packed fused params made on the device from one seeded
     generator: packed bytes uniform in [-128, 128), scales uniform in
     [0.005, 0.02] then bf16, norms 1 — the distributions of the JAX
-    package's synthetic_params (loader.py:526-529). For running the compute
+    package's synthetic_params (loader.py:509-530). `layout` names the
+    weight planes' layout, ilv or lin; random bytes are a valid plane of
+    either, so the same seed gives the same bytes. For running the compute
     path at full width without real weights."""
+    if layout not in (LAYOUT_ILV, LAYOUT_LIN):
+        raise NotImplementedError(f"synthetic_params: layout {layout!r} (ilv or lin)")
     device = resolve(device)
     g = torch.Generator(device=device).manual_seed(seed)
     L, e, f, v = cfg.n_layer, cfg.n_embd, cfg.n_ff, cfg.n_vocab
@@ -288,7 +311,8 @@ def synthetic_params(cfg: ModelConfig, seed: int = 0, device="cuda",
         return s.uniform_(0.005, 0.02, generator=g).to(scale_dtype)
 
     def qw(k, n, lead=()):
-        return QWeight(packed=packed(*lead, k // 2, n), scales=scales(*lead, k // QK, n))
+        return QWeight(packed=packed(*lead, k // 2, n), scales=scales(*lead, k // QK, n),
+                       layout=layout)
 
     norm_l = torch.ones((L, e), dtype=torch.float32, device=device)
     layers = FusedLayerParams(

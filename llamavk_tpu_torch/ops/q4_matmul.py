@@ -6,30 +6,34 @@ Two routes, chosen as the JAX package chooses them (`dot_mode`, default
 the environment variable `LLAMAVK_Q4_DOT`, read at import as q4_matmul.py:464
 there reads it):
 
-* K1, the bf16 dot (`bf16`, the default, and `i4`, which on the TPU is an
-  int4-bitcast unpack of the same bytes with the same numerics as the shift
-  unpack, q4_matmul.py:648-651 there, so here it is the same kernel). On a
-  CUDA tensor `q4_matmul` launches the kernel of `csrc/q4_matmul.cu` (it
-  replaces `_kernel_q4`, q4_matmul.py:96 there); on a CPU tensor it computes
-  the plain version, `q4_matmul_ref`: x cast to bf16, w = bf16(f32(q) *
-  f32(scale)), products summed in f32, out f32 then `out_dtype`. A Q4_1
-  weight's bias term is added outside the kernel as a plain group-sum product
-  (as q4_matmul.py:790-794 does). The scale plane (and a Q4_1 bias plane)
-  is bf16, or f32 as `perplexity --f32` loads it (q4_matmul.py:120 there
-  reads it in its own type): w = bf16(f32(q) * s) with s exact; the bias
-  term casts the bias to bf16 as there.
+* K1 (`bf16`, the default; `i4`, which on the TPU is an int4-bitcast
+  unpack of the same bytes with the same numerics as the shift unpack,
+  q4_matmul.py:648-651 there, so here it is the same kernel; and `f32`). On
+  a CUDA tensor `q4_matmul` launches the kernel of `csrc/q4_matmul.cu` (it
+  replaces `_kernel_q4`, q4_matmul.py:96 there), for the ilv and the lin
+  layout; on a CPU tensor it computes the plain version, `q4_matmul_ref`: x
+  cast to bf16, w = f32(q) * f32(scale) rounded to bf16 (the `f32` dot keeps
+  it f32), products summed in f32, out f32 then `out_dtype`. `mul_dtype`
+  bf16 (LLAMAVK_Q4_MUL=bf16) does the nibble-scale multiply in bf16: the
+  scale is rounded to bf16 and w = bf16(f32(q) * s) under either dot
+  (q4_matmul.py:121, :180-181, :192-193 there). A Q4_1 weight's bias term is
+  added outside the kernel as a plain group-sum product (as
+  q4_matmul.py:790-794 does). The scale plane (and a Q4_1 bias plane) is
+  bf16, or f32 as `perplexity --f32` loads it (q4_matmul.py:120 there reads
+  it in its own type); the bias term casts the bias to bf16 as there.
 * K5, the int8 dot (`i8`), where `i8_route` says so (Q4_0, ilv, b <= 64, the
   JAX package's tile fit): activations quantized per 32-block to int8
   (`quantize_act_blocks`), an exact int32 dot per group against the int4
   weights, both scales folded in after. A CUDA tensor launches the kernel of
   `csrc/q4_matmul_i8.cu` (it replaces `_kernel_q4_i8`, q4_matmul.py:226
   there); a CPU tensor takes `q4_matmul_i8_ref`. Elsewhere `i8` takes K1.
-  K5's kernel takes bf16 scales only: an f32-scale weight on the K5 route
-  raises NotImplementedError on a CUDA tensor (ROADMAP.md queue 2).
+  K5 reads the scale plane in its own type, bf16 or f32.
 
-The K1 modes `LLAMAVK_Q4_DOT=f32` and `LLAMAVK_Q4_MUL=bf16` change the JAX
-package's numerics and are not ported yet (ROADMAP.md queue 2): a call
-under them raises NotImplementedError, as does any other mode.
+The dot mode of a call is its `dot_mode` argument, else LLAMAVK_Q4_DOT. The
+JAX `_kernel_q4` reads the environment's mode for its dot type whatever the
+call's argument (q4_matmul.py:117 there); the port honours the argument
+(ROADMAP.md queue 3). An unknown mode raises NotImplementedError, as do
+weights packed in more than one chunk (tensor parallelism).
 """
 
 from __future__ import annotations
@@ -37,30 +41,52 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import itertools
 import os
 
 import torch
 
 from ..formats.q4 import QK
-from ..formats.repack import LAYOUT_ILV
+from ..formats.repack import LAYOUT_ILV, LAYOUT_LIN
 from . import _build
 from .kv_quant import INV_127
 from .qweight import QWeight, dequantize_qweight
 
-# launches of the CUDA kernels: K1's decode GEMV (M = 1) and tiled GEMM (every
-# M > 1), with bf16 or f32 (`_f32`) scale planes, and K5 (`i8`), one per
-# q4_matmul call on a CUDA tensor
-launches = {"gemv": 0, "gemm": 0, "gemv_f32": 0, "gemm_f32": 0, "i8": 0}
+
+def launch_key(m: int, lin: bool = False, f32_scales: bool = False, round_scales: bool = False,
+               w_f32: bool = False) -> str:
+    """The launch counter of a K1 launch: `gemv` (M = 1) or `gemm`, then
+    `_lin` for the lin layout, `_f32` for an f32 scale plane, `_mulbf16`
+    where LLAMAVK_Q4_MUL=bf16 rounds an f32 scale plane (a bf16 plane takes
+    the default kernel) and `_dotf32` for the f32 dot's weights."""
+    return (("gemv" if m == 1 else "gemm") + ("_lin" if lin else "")
+            + ("_f32" if f32_scales else "") + ("_mulbf16" if round_scales else "")
+            + ("_dotf32" if w_f32 else ""))
+
+
+# launches of the CUDA kernels, one per q4_matmul call on a CUDA tensor: K1's
+# decode GEMV (M = 1) and tiled GEMM (every M > 1) by mode (`launch_key`),
+# and K5 with bf16 (`i8`) or f32 (`i8_f32`) scales
+launches = {
+    launch_key(m, lin, f32s, rs, wf): 0
+    for m, lin, f32s, rs, wf in itertools.product((1, 2), (False, True), (False, True),
+                                                   (False, True), (False, True))
+    if not (rs and (wf or not f32s))
+}
+launches.update(i8=0, i8_f32=0)
 # launches by shape (M, K, N), so a caller can check every shape a run
-# reached: K1's in `shapes` (f32 scales: `shapes_f32`), K5's in `shapes_i8`
+# reached: K1's default ilv kernel in `shapes` (f32 scales: `shapes_f32`),
+# K5's with bf16 scales in `shapes_i8`; every other mode in `shapes_modes`,
+# keyed (launch key, M, K, N)
 shapes: collections.Counter = collections.Counter()
 shapes_f32: collections.Counter = collections.Counter()
 shapes_i8: collections.Counter = collections.Counter()
+shapes_modes: collections.Counter = collections.Counter()
 
 # the JAX package's switches (q4_matmul.py:450-464 there), read at import
 ENV_DOT = os.environ.get("LLAMAVK_Q4_DOT", "bf16")
 ENV_MUL = os.environ.get("LLAMAVK_Q4_MUL", "f32")
-DOT_MODES = ("bf16", "i4", "i8")
+DOT_MODES = ("bf16", "i4", "i8", "f32")
 # K5's batch cap (_I8_MAX_B there) and the TPU's VMEM budget that the JAX
 # route gate fits K5's tile into (_VMEM_BUDGET there)
 I8_MAX_B = 64
@@ -69,17 +95,23 @@ VMEM_BUDGET = 10 * 1024 * 1024
 
 def resolve_dot_mode(mode: str | None = None) -> str:
     """The dot mode of a call: `mode`, else LLAMAVK_Q4_DOT; raises
-    NotImplementedError on a mode or a LLAMAVK_Q4_MUL the port lacks."""
+    NotImplementedError on a mode the JAX package does not have."""
     mode = mode or ENV_DOT
-    if ENV_MUL == "bf16":
-        raise NotImplementedError(
-            "LLAMAVK_Q4_MUL=bf16 (K1's bf16 scale multiply) is not ported yet "
-            "(ROADMAP.md queue 2)")
     if mode not in DOT_MODES:
         raise NotImplementedError(
-            f"q4_matmul dot mode {mode!r} is not ported yet (ROADMAP.md queue 2); "
-            f"the port runs {', '.join(DOT_MODES)}")
+            f"q4_matmul dot mode {mode!r}: the port runs {', '.join(DOT_MODES)}")
     return mode
+
+
+def resolve_mul_dtype(mul_dtype: torch.dtype | None = None) -> torch.dtype:
+    """The nibble-scale multiply's type of a call: `mul_dtype`, else bf16
+    under LLAMAVK_Q4_MUL=bf16 and f32 for any other value, as
+    q4_matmul.py:451-453 there reads it."""
+    if mul_dtype is None:
+        return torch.bfloat16 if ENV_MUL == "bf16" else torch.float32
+    if mul_dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(f"q4_matmul mul_dtype {mul_dtype}: float32 or bfloat16")
+    return mul_dtype
 
 
 def _round_up(v: int, m: int) -> int:
@@ -126,20 +158,33 @@ def _bias_term(xf: torch.Tensor, qw: QWeight) -> torch.Tensor:
     return xg.to(torch.float32) @ qw.bias.to(torch.bfloat16).to(torch.float32)
 
 
+def mode_weight(qw: QWeight, dot_mode: str = "bf16",
+                mul_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """K1's dense weight [K, N] in f32 as a mode feeds it to the dot (any
+    layout): w = f32(q) * s, s rounded to bf16 first under the bf16 multiply,
+    and w rounded to bf16 unless the dot is f32 and the multiply f32."""
+    s = qw.scales.to(torch.bfloat16) if mul_dtype == torch.bfloat16 else qw.scales
+    w = dequantize_qweight(QWeight(packed=qw.packed, scales=s, layout=qw.layout,
+                                   chunks=qw.chunks))
+    if dot_mode == "f32" and mul_dtype == torch.float32:
+        return w
+    return w.to(torch.bfloat16).to(torch.float32)
+
+
 def q4_matmul_ref(
-    x: torch.Tensor, qw: QWeight, out_dtype=torch.float32, layer_idx: int | None = None
+    x: torch.Tensor, qw: QWeight, out_dtype=torch.float32, layer_idx: int | None = None,
+    dot_mode: str | None = None, mul_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
-    """Plain version of `q4_matmul` on any device: dequantize with the bf16
-    weight cast (bf16(f32(q) * f32(s)), for bf16 and f32 scales alike),
-    then a bf16 product summed in f32."""
+    """Plain version of K1 on any device, in the call's dot mode and multiply
+    type (defaults as `q4_matmul`): x cast to bf16, the weight of
+    `mode_weight`, products summed in f32."""
+    mode = resolve_dot_mode(dot_mode)
+    mul = resolve_mul_dtype(mul_dtype)
     if layer_idx is not None:
         qw = qw.layer(layer_idx)
     lead = x.shape[:-1]
     xf = x.reshape(-1, qw.k).to(torch.bfloat16)
-    w = dequantize_qweight(
-        QWeight(packed=qw.packed, scales=qw.scales, layout=qw.layout, chunks=qw.chunks)
-    ).to(torch.bfloat16)
-    y = xf.to(torch.float32) @ w.to(torch.float32)
+    y = xf.to(torch.float32) @ mode_weight(qw, mode, mul)
     if qw.bias is not None:
         y = y + _bias_term(xf, qw)
     return y.to(out_dtype).reshape(*lead, qw.n)
@@ -162,7 +207,9 @@ def _sm_count(index: int) -> int:
 
 def _ksplit(m: int, k: int, n: int, index: int) -> int:
     """Decode (M = 1) K split: enough blocks for two per SM, at least 16
-    groups per split, and an x slice that fits the kernel's 40 KB stage."""
+    groups per split, and an x slice that fits the kernel's 40 KB stage (a
+    lin split takes whole 32-row units, two groups each, and stages the same
+    bytes)."""
     if m != 1:
         return 1
     g = k // QK
@@ -173,9 +220,17 @@ def _ksplit(m: int, k: int, n: int, index: int) -> int:
     return max(want, -(-g // gps_max))
 
 
-def q4_matmul_cuda(xf: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
-    """Launch the K1 kernel: xf bf16 [M, K], packed int8 [K/2, N] (ilv, one
-    chunk), scales bf16 or f32 [G, N] → f32 [M, N]."""
+# mode bits of q4_matmul_launch (csrc/q4_matmul.cu)
+_SCALE_F32, _LIN, _ROUND_SCALE, _W_F32 = 1, 2, 4, 8
+
+
+def q4_matmul_cuda(xf: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+                   layout: str = LAYOUT_ILV, dot_mode: str = "bf16",
+                   mul_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Launch the K1 kernel: xf bf16 [M, K], packed int8 [K/2, N] (one chunk,
+    ilv or lin), scales bf16 or f32 [G, N] → f32 [M, N], in the numerics of
+    `dot_mode` ("f32" keeps w in f32; any other is the bf16 dot) and
+    `mul_dtype`."""
     m, k = xf.shape
     half, n = packed.shape
     if not (xf.is_cuda and packed.is_cuda and scales.is_cuda):
@@ -187,11 +242,17 @@ def q4_matmul_cuda(xf: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor)
             f"{scales.dtype}"
         )
     f32s = scales.dtype == torch.float32
-    if 2 * half != k or k % QK or n % 8 or scales.shape != (k // QK, n):
+    lin = layout == LAYOUT_LIN
+    if layout not in (LAYOUT_ILV, LAYOUT_LIN):
+        raise NotImplementedError(f"q4_matmul_cuda: layout {layout!r} (the port runs ilv and lin)")
+    if 2 * half != k or k % (64 if lin else QK) or n % 8 or scales.shape != (k // QK, n):
         raise ValueError(
             f"q4_matmul_cuda: shapes x {tuple(xf.shape)} packed {tuple(packed.shape)} "
-            f"scales {tuple(scales.shape)} (need K % 32 == 0, N % 8 == 0)"
+            f"scales {tuple(scales.shape)} (need K % 32 == 0, lin K % 64 == 0, N % 8 == 0)"
         )
+    round_s = f32s and mul_dtype == torch.bfloat16
+    w_f32 = dot_mode == "f32" and mul_dtype == torch.float32
+    bits = (_SCALE_F32 * f32s) | (_LIN * lin) | (_ROUND_SCALE * round_s) | (_W_F32 * w_f32)
     for t in (xf, packed, scales):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("q4_matmul_cuda: operands must be contiguous and 16-byte aligned")
@@ -204,12 +265,16 @@ def q4_matmul_cuda(xf: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor)
     )
     rc = _lib().q4_matmul_launch(
         xf.data_ptr(), packed.data_ptr(), scales.data_ptr(), out.data_ptr(),
-        partial.data_ptr(), m, k, n, ksplit, int(f32s),
+        partial.data_ptr(), m, k, n, ksplit, bits,
         torch.cuda.current_stream(xf.device).cuda_stream,
     )
     _build.check(rc, "q4_matmul_launch")
-    launches[("gemv" if m == 1 else "gemm") + ("_f32" if f32s else "")] += 1
-    (shapes_f32 if f32s else shapes)[(m, k, n)] += 1
+    key = launch_key(m, lin, f32s, round_s, w_f32)
+    launches[key] += 1
+    if bits & ~_SCALE_F32:
+        shapes_modes[(key, m, k, n)] += 1
+    else:
+        (shapes_f32 if f32s else shapes)[(m, k, n)] += 1
     return out
 
 
@@ -270,7 +335,7 @@ def _lib_i8():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.q4_i8_quantize_launch.argtypes = [p, p, p, i, i, p]
     lib.q4_i8_quantize_launch.restype = ctypes.c_int
-    lib.q4_i8_matmul_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+    lib.q4_i8_matmul_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
     lib.q4_i8_matmul_launch.restype = ctypes.c_int
     return lib
 
@@ -315,7 +380,7 @@ def _check_i8_x(xf: torch.Tensor) -> None:
 
 def q4_matmul_i8_cuda(xf: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """Launch K5: xf bf16 [M, K] (M <= 64), packed int8 [K/2, N] (ilv, one
-    chunk, Q4_0), scales bf16 [G, N] → f32 [M, N]. Two launches: the
+    chunk, Q4_0), scales bf16 or f32 [G, N] → f32 [M, N]. Two launches: the
     activation quantization, then the group dot (plus an in-order sum of the
     K split's partials)."""
     _check_i8_x(xf)
@@ -323,9 +388,10 @@ def q4_matmul_i8_cuda(xf: torch.Tensor, packed: torch.Tensor, scales: torch.Tens
     half, n = packed.shape
     if not (packed.is_cuda and scales.is_cuda and packed.device == xf.device == scales.device):
         raise ValueError("q4_matmul_i8_cuda: every operand must be a CUDA tensor on one device")
-    if packed.dtype != torch.int8 or scales.dtype != torch.bfloat16:
-        raise ValueError(f"q4_matmul_i8_cuda: want int8/bf16 weight planes, got "
+    if packed.dtype != torch.int8 or scales.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"q4_matmul_i8_cuda: want int8/bf16 or f32 weight planes, got "
                          f"{packed.dtype}/{scales.dtype}")
+    f32s = scales.dtype == torch.float32
     if not 1 <= m <= I8_MAX_B or 2 * half != k or n % 8 or scales.shape != (k // QK, n):
         raise ValueError(
             f"q4_matmul_i8_cuda: shapes x {tuple(xf.shape)} packed {tuple(packed.shape)} "
@@ -340,11 +406,16 @@ def q4_matmul_i8_cuda(xf: torch.Tensor, packed: torch.Tensor, scales: torch.Tens
                if ksplit > 1 else out)
     rc = _lib_i8().q4_i8_matmul_launch(
         xq.data_ptr(), sx.data_ptr(), packed.data_ptr(), scales.data_ptr(), out.data_ptr(),
-        partial.data_ptr(), m, k, n, ksplit, torch.cuda.current_stream(xf.device).cuda_stream,
+        partial.data_ptr(), m, k, n, ksplit, int(f32s),
+        torch.cuda.current_stream(xf.device).cuda_stream,
     )
     _build.check(rc, "q4_i8_matmul_launch")
-    launches["i8"] += 1
-    shapes_i8[(m, k, n)] += 1
+    if f32s:
+        launches["i8_f32"] += 1
+        shapes_modes[("i8_f32", m, k, n)] += 1
+    else:
+        launches["i8"] += 1
+        shapes_i8[(m, k, n)] += 1
     return out
 
 
@@ -355,15 +426,18 @@ def q4_matmul(
     layer_idx: int | None = None,
     dot_mode: str | None = None,
     plain: bool = False,
+    mul_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """y = x @ W for a packed QWeight. x: [..., K] (any leading dims).
 
     layer_idx: qw is STACKED ([L, K/2, N] / [L, G, N]) and layer `layer_idx`
     is used through views of the stacked planes (no copy). dot_mode: "bf16",
-    "i4" or "i8" (default LLAMAVK_Q4_DOT); `i8_route` picks K5 or K1. A CUDA x
-    launches the route's kernel; a CPU x, or `plain`, takes its plain
-    version."""
+    "i4", "i8" or "f32" (default LLAMAVK_Q4_DOT); `i8_route` picks K5 or K1.
+    mul_dtype: K1's nibble-scale multiply, torch.float32 or torch.bfloat16
+    (default LLAMAVK_Q4_MUL). A CUDA x launches the route's kernel; a CPU x,
+    or `plain`, takes its plain version."""
     mode = resolve_dot_mode(dot_mode)
+    mul = resolve_mul_dtype(mul_dtype)
     if layer_idx is not None:
         qw = qw.layer(layer_idx)
     lead = x.shape[:-1]
@@ -371,21 +445,16 @@ def q4_matmul(
         if plain or not x.is_cuda:
             return q4_matmul_i8_ref(x, qw, out_dtype)
         _check_i8_weight(qw)
-        if qw.scales.dtype != torch.bfloat16:
-            raise NotImplementedError(
-                "the int8 dot's kernel (K5) takes bf16 scales; f32 scales are not ported yet "
-                "(ROADMAP.md queue 2)")
         xf = x.reshape(-1, qw.k).to(torch.bfloat16).contiguous()
         return q4_matmul_i8_cuda(xf, qw.packed, qw.scales).to(out_dtype).reshape(*lead, qw.n)
     if plain or not x.is_cuda:
-        return q4_matmul_ref(x, qw, out_dtype)
-    if qw.layout != LAYOUT_ILV or qw.chunks != 1:
+        return q4_matmul_ref(x, qw, out_dtype, dot_mode=mode, mul_dtype=mul)
+    if qw.chunks != 1:
         raise NotImplementedError(
-            f"q4_matmul: the CUDA kernel takes the ilv layout with one chunk "
-            f"(got layout={qw.layout}, chunks={qw.chunks})"
-        )
+            f"q4_matmul: the CUDA kernel takes weights packed in one chunk (got "
+            f"chunks={qw.chunks}); chunks > 1 come with tensor parallelism")
     xf = x.reshape(-1, qw.k).to(torch.bfloat16).contiguous()
-    y = q4_matmul_cuda(xf, qw.packed, qw.scales)
+    y = q4_matmul_cuda(xf, qw.packed, qw.scales, qw.layout, mode, mul)
     if qw.bias is not None:
         y = y + _bias_term(xf, qw)
     return y.to(out_dtype).reshape(*lead, qw.n)

@@ -7,9 +7,9 @@ score (ties broken toward the leftmost pair), and emit byte-fallback tokens
 (id = byte value + 3) for any leftover symbol not in the vocab.
 BOS id = 1, EOS id = 2 (sentencepiece convention).
 
-Copy of `llamavk_tpu/tokenizer.py` without its optional C++ fast path: the
-port imports nothing from the JAX package, and the Python path here is the
-bit-identical twin of that fast path.
+Copy of `llamavk_tpu/tokenizer.py`, with its C++ fast path from the port's
+`native.py`; the Python path is that fast path's bit-identical twin and runs
+where the library does not build or LLAMAVK_NO_NATIVE is set.
 """
 
 from __future__ import annotations
@@ -35,6 +35,8 @@ class Tokenizer:
         self.token_to_id: dict[bytes, int] = {}
         for i, tok in enumerate(vocab):
             self.token_to_id[tok.text] = i
+        self._native = None  # built lazily on first encode
+        self._native_tried = False
 
     @property
     def n_vocab(self) -> int:
@@ -45,6 +47,21 @@ class Tokenizer:
         out = [BOS_ID] if bos else []
         if not data:
             return out if bos else []
+
+        # C++ fast path (the reference tokenizer is C++, llama.cpp:1199-1350)
+        if not self._native_tried:
+            self._native_tried = True
+            from . import native as _nv
+
+            self._native = _nv.make_tokenizer(
+                [t.text for t in self.vocab],
+                [t.score for t in self.vocab],
+            )
+        if self._native is not None:
+            ids = self._native.encode(data)
+            if ids is not None:
+                out.extend(ids)
+                return out
 
         # split into utf-8 characters (clamped at end of data)
         starts: list[int] = []

@@ -1,6 +1,6 @@
 """The port's CLIs on the CPU: one-shot greedy output of `generate` equals the
 port's own Engine.generate stream (bf16 and int8 caches), the context swap
-keeps generating past n_ctx, `generate --draft-lookup` and `--draft-model`
+keeps generating past n_ctx, every flag of the JAX CLI parses, `generate --draft-lookup` and `--draft-model`
 print the speculative engines' streams (and fall back or clamp as the JAX
 CLI does), `serve` rejects the flags it does not port yet, and `serve
 --paged` (with and without --lookup-gamma) answers completions."""
@@ -70,9 +70,14 @@ def test_cli_context_swap(tiny):
 
 
 def test_cli_rejects_unported_modes(tiny):
-    for flag in (["--interactive"], ["--instruct"], ["--ctx-ring"]):
-        with pytest.raises(SystemExit):
-            cli.build_argparser().parse_args(["-m", tiny, *flag])
+    """Every flag of the JAX CLI parses (interactive and instruct modes are
+    ported); a flag neither CLI has is still rejected."""
+    with pytest.raises(SystemExit):
+        cli.build_argparser().parse_args(["-m", tiny, "--ctx-ring"])
+    args = cli.build_argparser().parse_args(
+        ["-m", tiny, "--interactive", "--instruct", "-r", "User:", "--color", "--mtest", "-b", "4",
+         "--random-prompt", "--verbose", "--no-int4-weights"])
+    assert args.interactive and args.instruct and args.reverse_prompt == ["User:"]
 
 
 @pytest.mark.parametrize("kv_dtype", ["bfloat16", "int8"])

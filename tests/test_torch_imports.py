@@ -12,6 +12,7 @@ from llamavk_tpu_torch import compat
 from llamavk_tpu_torch.cli import embedding
 from llamavk_tpu_torch.cli import generate as cli
 from llamavk_tpu_torch.cli import perplexity
+from llamavk_tpu_torch.cli import quantize_stats
 from llamavk_tpu_torch.cli import serve
 from llamavk_tpu_torch.models import loader as tl
 from llamavk_tpu_torch.runtime.batching import BatchedEngine
@@ -72,10 +73,14 @@ def test_entry_points_default_to_cuda(no_cuda, tmp_path):
     text.write_bytes(b"abc" * 100)
     with pytest.raises(RuntimeError, match="CUDA"):
         perplexity.main(["-m", path, "-f", str(text)])
+    for argv in ([], ["--device"]):  # the card by default, and for the JAX CLI's bare flag
+        with pytest.raises(RuntimeError, match="CUDA"):
+            quantize_stats.main(["-m", path, *argv])
     assert cli.build_argparser().parse_args(["-m", path]).device == "cuda"
     assert serve.build_argparser().parse_args(["-m", path]).device == "cuda"
     assert embedding.build_argparser().parse_args(["-m", path]).device == "cuda"
     assert perplexity.build_argparser().parse_args(["-m", path, "-f", "t"]).device == "cuda"
+    assert quantize_stats.build_argparser().parse_args(["-m", path]).device == "cuda"
     assert compat.llama_context_default_params().device == "cuda"
     # the CPU, when asked for, works
     assert Engine(cfg, params, device="cpu").cache.k.device.type == "cpu"

@@ -135,25 +135,37 @@ def test_i8_route_matches_jax_gate():
 def test_dot_modes(mode, monkeypatch):
     """bf16 (the default) and i4 take K1's plain version (i4 is the TPU's
     int4-bitcast unpack of the same bytes, the same numbers); i8 takes K5's
-    where the route says so; the f32 dot, LLAMAVK_Q4_MUL=bf16 and unknown
-    modes raise NotImplementedError."""
+    where the route says so; the f32 dot takes K1's plain version with the
+    f32 weight q * s (not the bf16 dot's numbers), and LLAMAVK_Q4_MUL=bf16
+    K1's with bf16-rounded scales, which over this bf16 scale plane is the
+    default's result bit for bit. Each as a per-call argument and from the
+    environment alike; unknown modes raise NotImplementedError."""
     _, tw = _weights(128, 256, 3)
     _, xt = _bf16(np.random.default_rng(4).standard_normal((2, 128)))
     k1 = tq4.q4_matmul_ref(xt, tw, torch.float32)
     if mode == "mul-bf16":
-        monkeypatch.setattr(tq4, "ENV_MUL", "bf16")
-        with pytest.raises(NotImplementedError, match="LLAMAVK_Q4_MUL"):
-            tq4.q4_matmul(xt, tw, torch.float32)
+        want = tq4.q4_matmul_ref(xt, tw, torch.float32, mul_dtype=torch.bfloat16)
+        torch.testing.assert_close(want, k1, rtol=0, atol=0)
+        got = tq4.q4_matmul(xt, tw, torch.float32, mul_dtype=torch.bfloat16)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        monkeypatch.setattr(tq4, "ENV_MUL", "bf16")  # as if read from the environment
+        torch.testing.assert_close(tq4.q4_matmul(xt, tw, torch.float32), want, rtol=0, atol=0)
         return
-    if mode in ("f32", "other"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    if mode == "other":
+        with pytest.raises(NotImplementedError, match="dot mode"):
             tq4.q4_matmul(xt, tw, torch.float32, dot_mode=mode)
         monkeypatch.setattr(tq4, "ENV_DOT", mode)  # as if read from the environment
         with pytest.raises(NotImplementedError):
             tq4.q4_matmul(xt, tw, torch.float32)
         return
     got = tq4.q4_matmul(xt, tw, torch.float32, dot_mode=mode)
-    want = tq4.q4_matmul_i8_ref(xt, tw) if mode == "i8" else k1
+    if mode == "i8":
+        want = tq4.q4_matmul_i8_ref(xt, tw)
+    elif mode == "f32":
+        want = tq4.q4_matmul_ref(xt, tw, torch.float32, dot_mode="f32")
+        assert not torch.equal(want, k1)
+    else:
+        want = k1
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     monkeypatch.setattr(tq4, "ENV_DOT", mode)
     torch.testing.assert_close(tq4.q4_matmul(xt, tw, torch.float32), want, rtol=0, atol=0)
@@ -188,9 +200,42 @@ jout = JLookup(jcfg, jparams, JSpec(n_ctx=128, gamma=4, rounds_per_block=2)).gen
 tout = LookupEngine(cfg, params, SpecConfig(n_ctx=128, gamma=4, rounds_per_block=2),
                     device="cpu").generate(prompt, 4, ignore_eos=True)
 top2 = torch.topk(tlog[0, -1], 2).values
+# K5 over an f32 scale plane (scales off the bf16 grid), as perplexity --f32
+# loads it: the plain version against the JAX kernel (interpret mode) at
+# M = 1 and 4, each element's error over K5's limit
+import dataclasses
+import llamavk_tpu.ops.q4_matmul
+from llamavk_tpu import ops as jops
+from llamavk_tpu.formats import quantize_q4_0, repack_q4_0
+from llamavk_tpu_torch.ops import qweight as tqw
+pk = repack_q4_0(*quantize_q4_0((np.random.default_rng(9).standard_normal((256, 128)) * 0.1)
+                                .astype(np.float32)))
+pk = dataclasses.replace(pk, scales=pk.scales * np.float32(1.001))
+jqw = jops.qweight_from_packed(pk, scale_dtype=jnp.float32)
+tw = tqw.qweight_from_packed(pk, scale_dtype=torch.float32, device="cpu")
+f32_ratio = 0.0
+for m in (1, 4):
+    xj = jnp.asarray(np.random.default_rng(m).standard_normal((m, 128)), jnp.bfloat16)
+    xt = torch.from_numpy(np.array(xj.astype(jnp.float32))).to(torch.bfloat16)
+    want = np.asarray(jops.q4_matmul(xj, jqw, out_dtype=jnp.float32, dot_mode="i8"))
+    got = tq4.q4_matmul(xt, tw, torch.float32).double()
+    xq, sx = tq4.quantize_act_blocks(xt)
+    d = torch.einsum("mgb,mgn->gbn", xq.double(), tq4._nibbles(tw.packed, tw.g).double())
+    terms = d * sx.double()[:, :, None] * tw.scales.double()[:, None, :]
+    limit = tw.g * 2.0**-24 * terms.abs().sum(0)
+    f32_ratio = max(f32_ratio, float(((got - torch.from_numpy(want).double()).abs() / limit).max()))
+# the perplexity --f32 route on the tiny file at 8 rows: f32 scales reach K5
+from llamavk_tpu_torch.cli.perplexity import make_chunk_nll
+_, fparams, _ = tl.load_model(path, device="cpu", scale_dtype=torch.float32,
+                              dense_dtype=torch.float32)
+calls.clear()
+nll = make_chunk_nll(cfg, 8, dtype=torch.float32, attn_impl="einsum")(fparams,
+                                                                      torch.tensor([prompt]))
 print(json.dumps({"mode": tq4.ENV_DOT, "k5_calls": k5_calls,
                   "max_abs": float(np.abs(np.asarray(jlog) - tlog.numpy()).max()),
-                  "top2_gap": float(top2[0] - top2[1]), "jax": jout, "port": tout}))
+                  "top2_gap": float(top2[0] - top2[1]), "jax": jout, "port": tout,
+                  "f32_scales_ratio": f32_ratio, "f32_k5_calls": len(calls),
+                  "f32_nll_finite": bool(torch.isfinite(nll).all())}))
 """
 
 
@@ -207,7 +252,9 @@ def test_i8_forward_and_lookup_match_jax(tmp_path):
     K5's plain version (the 4 per layer and the output, at b = 8), the
     logits sit within I8_LOGIT_TOL of the JAX package's, and a 4-token lookup
     stream (its first token's top-2 gap far above that) equals the JAX
-    LookupEngine's."""
+    LookupEngine's. K5 over an f32 scale plane is within its limit of the
+    JAX kernel at M = 1 and 4, and perplexity --f32's chunk (f32 scales, 8
+    rows) takes it for every matmul."""
     prompt = [46, 189, 194, 46, 189, 194, 46, 189]
     env = dict(os.environ, LLAMAVK_Q4_DOT="i8", JAX_PLATFORMS="cpu",
                PYTHONPATH=os.pathsep.join(filter(None, [str(ROOT), os.environ.get("PYTHONPATH")])))
@@ -221,3 +268,5 @@ def test_i8_forward_and_lookup_match_jax(tmp_path):
     assert res["max_abs"] <= I8_LOGIT_TOL
     assert res["top2_gap"] > 4 * I8_LOGIT_TOL
     assert res["port"] == res["jax"] and len(res["port"]) == 4
+    assert res["f32_scales_ratio"] <= 1.0
+    assert res["f32_k5_calls"] == 4 * 2 + 1 and res["f32_nll_finite"]
