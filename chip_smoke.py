@@ -71,11 +71,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
 
   generate_7b_ring
               the generate CLI with --ctx-swap ring --n-keep 32 on synthetic
-              7B, n_ctx 512, bf16 KV: a 32-token prompt and 700 tokens (one
-              wrap and 220 more), the first 480 against the plain greedy
-              CLI's (equal, or parting only at a near tie), ms per token
-              before and after the wrap, a post-wrap forward through the
-              kernels against the plain versions, the idle share
+              7B (16 of its 32 layers), n_ctx 512, bf16 KV: a 32-token prompt
+              and 700 tokens (one wrap and 220 more), the first 480 against
+              the plain greedy CLI's (equal, or parting only at a near tie),
+              ms per token before and after the wrap, a post-wrap forward
+              through the kernels against the plain versions, the idle share
   serve_7b_shared
               --shared-prefix --prefix-pool 4 --prefix-ctx 256, int8 KV, 32
               slots: a 200-token prefix registered once, 8 greedy suffix
@@ -99,6 +99,20 @@ Phases, each printing one JSON line (any failure exits non-zero):
               requests through BatchedEngine(kv_dtype="float32"); a B=32
               decode step over an f32 cache, kernels against plain; then
               every kernel at every shape it launched
+  parallel_7b make_sharded_forward on synthetic 7B at full width, two ranks on
+              the one card over gloo (spawned processes): tp = 2 (a 32-token
+              prompt, 16 greedy decode steps) and pp = 2 with 2 microbatches
+              at B = 4 (4 steps); every step's logits bit-equal on both
+              ranks and within 2^-8 of the single-device forward's largest
+              logit (teacher-forced; the tp-packed weights run whole: K1 over
+              2 chunks), greedy tokens equal or parting at a near tie, K2's
+              batch_offset launches = microbatches x local layers per
+              forward; host ms per step (not a scaling result)
+  serve_7b_tp serve --tp 2's ranks (a LlamaServer on rank 0, follow_rank on
+              rank 1) on synthetic 7B, int8 KV, 8 concurrent greedy HTTP
+              requests: streams against one rank serving the same weights,
+              equal or parting at a near tie; tok/s, ms per step, backend;
+              the one-rank run's chunked K1 shapes against the plain version
   generate_7b_modes
               K1's modes through the single-stream entry points on
               synthetic 7B: the generate CLI (32-token prompt, 128 greedy
@@ -122,8 +136,12 @@ and prefix K2 at prefix_len 0 bit-equal to flat K2); K1's lin layout (GEMV,
 GEMM at M = 32 and 512), f32 dot (GEMV, GEMM at M = 32 and at 512 over bf16
 and f32 scales) and bf16 multiply (M = 512 over f32 scales; over bf16
 scales it is the default kernel's launch), and K5 over f32 scales at M = 1,
-4 and 64. tiny_cli also runs --ctx-swap ring, and tiny_serve serves the
-tiny file paged (page_size 8 bf16, 32 int8) and with --shared-prefix (bf16
+4 and 64; and the parallel paths' modes: K1 and K5 over wo/w2 packed in 2
+chunks, K1 at one tp = 2 rank's shapes, K2 with batch_offset (pp
+microbatches) and commit=0, K3 and K4 with batch_offset (each bit-equal to
+the call on a copy of the offset rows, the other rows unchanged; commit=0
+leaves every byte). tiny_cli also runs --ctx-swap ring, and tiny_serve
+serves the tiny file with `serve --tp 2` (flat bf16 and int8), paged (page_size 8 bf16, 32 int8) and with --shared-prefix (bf16
 and int8, with and without --lookup-gamma 4). Each phase's wall time is
 printed on a line of its own.
 
@@ -170,6 +188,16 @@ K1_SHAPES = {
     "w2": (11008, 4096),
     "output": (4096, 32000),
 }
+# the local shapes of the same matmuls on one rank of tp = 2: column-parallel
+# N halved, row-parallel K halved
+K1_SHAPES_TP2 = {
+    "wqkv/tp2": (4096, 6144),
+    "wo/tp2": (2048, 4096),
+    "w13/tp2": (4096, 11008),
+    "w2/tp2": (5504, 4096),
+    "output/tp2": (4096, 16000),
+}
+ALL_K1_SHAPES = {**K1_SHAPES, **K1_SHAPES_TP2}
 N_CTX = 512
 H, D = 32, 128
 PAGE = 128  # the serving page size (BatchConfig.page_size)
@@ -225,6 +253,26 @@ KERNEL_META = {
        for mode in ("_lin", "_lin_f32", "_lin_f32_mulbf16", "_lin_dotf32", "_lin_f32_dotf32",
                     "_f32_mulbf16", "_dotf32", "_f32_dotf32")},
     "q4_i8_f32": ("llamavk_tpu_torch/csrc/q4_matmul_i8.cu", "llamavk_tpu/ops/q4_matmul.py:226"),
+    # weights packed in 2 K chunks (tp packing run whole): one launch per
+    # chunk, every K1 mode and K5 (q4_matmul.py:714-728, :776-789, :522)
+    **{f"q4_{base}{mode}_chunks": ("llamavk_tpu_torch/csrc/q4_matmul.cu",
+                                   "llamavk_tpu/ops/q4_matmul.py:" + ("190" if "lin" in mode
+                                                                       else "96"))
+       for base in ("gemv", "gemm")
+       for mode in ("", "_f32", "_lin", "_lin_f32", "_lin_f32_mulbf16", "_lin_dotf32",
+                    "_lin_f32_dotf32", "_f32_mulbf16", "_dotf32", "_f32_dotf32")},
+    **{f"q4_i8{mode}_chunks": ("llamavk_tpu_torch/csrc/q4_matmul_i8.cu",
+                               "llamavk_tpu/ops/q4_matmul.py:226") for mode in ("", "_f32")},
+    # the pipeline modes: a microbatch's rows of a wider flat cache
+    # (`batch_offset`, flash_attn.py:827, :1023, flash_decode.py:391) and K2's
+    # commit=0 (flash_attn.py:1018)
+    **{f"{name}{kind}": (src, f"llamavk_tpu/ops/{line}")
+       for name, src, line in (
+           ("attn_update_boff", "llamavk_tpu_torch/csrc/flash_attn.cu", "flash_attn.py:120"),
+           ("attn_read_boff", "llamavk_tpu_torch/csrc/flash_attn.cu", "flash_attn.py:474"),
+           ("attn_update_nocommit", "llamavk_tpu_torch/csrc/flash_attn.cu", "flash_attn.py:120"),
+           ("decode_boff", "llamavk_tpu_torch/csrc/flash_decode.cu", "flash_decode.py:67"))
+       for kind in ("", "_i8", "_f32")},
 }
 
 # the tiny model's prompt for the CLI phase: its greedy stream keeps every
@@ -334,32 +382,36 @@ def phase_build() -> dict:
             "host_repack": f"native ({lib._name})" if lib is not None else "numpy fallback"}
 
 
-def _q4_case(gen, m: int, k: int, n: int, f32_scales: bool = False, layout: str = "ilv"):
-    """x bf16 [M, K] and a random Q4_0 weight [K, N] in `layout`, its scales
-    bf16 or (`f32_scales`) f32 as drawn."""
+def _q4_case(gen, m: int, k: int, n: int, f32_scales: bool = False, layout: str = "ilv",
+             chunks: int = 1):
+    """x bf16 [M, K] and a random Q4_0 weight [K, N] in `layout`, packed in
+    `chunks` K slices (random bytes are a valid plane of any packing), its
+    scales bf16 or (`f32_scales`) f32 as drawn."""
     from llamavk_tpu_torch.ops.qweight import QWeight
 
     packed = torch.randint(-128, 128, (k // 2, n), dtype=torch.int8, device="cuda", generator=gen)
     scales = torch.empty((k // 32, n), device="cuda").uniform_(0.005, 0.02, generator=gen)
     x = torch.randn((m, k), device="cuda", generator=gen).to(torch.bfloat16)
     return x, QWeight(packed=packed, scales=scales if f32_scales else scales.to(torch.bfloat16),
-                      layout=layout)
+                      layout=layout, chunks=chunks)
 
 
 def kernel_q4(timer: Timer, gen, name: str, m: int, main_path: bool, reps: int | None = None,
               plain_reps: int = 5, f32_scales: bool = False, layout: str = "ilv",
-              dot: str = "bf16", mul: torch.dtype = torch.float32) -> dict:
+              dot: str = "bf16", mul: torch.dtype = torch.float32, chunks: int = 1) -> dict:
     """K1 against its plain version at (name, M), in a layout, dot mode and
-    multiply type: within 2 K 2^-24 max_n sum_k |x_k w_kn| (w as the mode
-    forms it). The library call is torch.matmul on the mode's dequantized
-    weight: bf16, or f32 (TF32 off) for the f32 dot."""
+    multiply type, over a weight packed in `chunks` K slices (one launch
+    each, the partials summed in f32): within 2 K 2^-24 max_n sum_k
+    |x_k w_kn| (w as the mode forms it; a chunked sum is two such sums and
+    their f32 sum). The library call is torch.matmul on the mode's
+    dequantized weight: bf16, or f32 (TF32 off) for the f32 dot."""
     from llamavk_tpu_torch.ops import q4_matmul as q4
 
-    k, n = K1_SHAPES[name]
-    x, qw = _q4_case(gen, m, k, n, f32_scales, layout)
+    k, n = ALL_K1_SHAPES[name]
+    x, qw = _q4_case(gen, m, k, n, f32_scales, layout, chunks)
 
     def kernel():
-        return q4.q4_matmul_cuda(x, qw.packed, qw.scales, layout, dot, mul)
+        return q4.q4_matmul_cuda(x, qw.packed, qw.scales, layout, dot, mul, chunks)
 
     got = kernel()
     want = q4.q4_matmul_ref(x, qw, out_dtype=torch.float32, dot_mode=dot, mul_dtype=mul)
@@ -390,9 +442,11 @@ def kernel_q4(timer: Timer, gen, name: str, m: int, main_path: bool, reps: int |
     mode = " ".join(filter(None, [layout if layout != "ilv" else "",
                                   "f32 scales" if f32_scales else "",
                                   "dot f32" if dot == "f32" else "",
-                                  "mul bf16" if mul == torch.bfloat16 else ""]))
+                                  "mul bf16" if mul == torch.bfloat16 else "",
+                                  f"{chunks} chunks" if chunks > 1 else ""]))
     return {
-        "kernel": "q4_" + q4.launch_key(m, layout == "lin", f32_scales, round_s, w_f32),
+        "kernel": "q4_" + q4.launch_key(m, layout == "lin", f32_scales, round_s, w_f32,
+                                        chunks > 1),
         "shape": f"{name} M={m} K={k} N={n}" + (f" {mode}" if mode else ""),
         "main_path": main_path,
         "max_abs_err": err, "limit": limit, "err_over_limit": err / limit,
@@ -403,19 +457,22 @@ def kernel_q4(timer: Timer, gen, name: str, m: int, main_path: bool, reps: int |
 
 
 def kernel_q4_i8(timer: Timer, gen, name: str, m: int, main_path: bool,
-                 reps: int | None = None, plain_reps: int = 3, f32_scales: bool = False) -> dict:
-    """K5 against its plain version at (name, M): the activation bytes and
-    scales bit-equal to the plain quantization on the card, the output within
-    the sum-order bound G 2^-24 sum_g |d sx s| per element (d is exact on
-    both sides), each row bit-equal to the same row computed alone (M = 1);
-    where the route sends the shape to K1 (w2 past 16 rows), the check is
-    that q4_matmul launched K1 and not K5."""
+                 reps: int | None = None, plain_reps: int = 3, f32_scales: bool = False,
+                 chunks: int = 1) -> dict:
+    """K5 against its plain version at (name, M), over a weight packed in
+    `chunks` K slices: the activation bytes and scales bit-equal to the
+    plain quantization on the card, the output within the sum-order bound
+    G 2^-24 sum_g |d sx s| per element (d is exact on both sides; each
+    chunk's groups with their own nibbles), each row bit-equal to the same
+    row computed alone (M = 1); where the route sends the shape to K1 (w2
+    past 16 rows), the check is that q4_matmul launched K1 and not K5."""
     from llamavk_tpu_torch.ops import q4_matmul as q4
     from llamavk_tpu_torch.ops.qweight import dequantize_qweight
 
-    k, n = K1_SHAPES[name]
-    x, qw = _q4_case(gen, m, k, n, f32_scales)
-    shape = f"{name} M={m} K={k} N={n}" + (" f32 scales" if f32_scales else "")
+    k, n = ALL_K1_SHAPES[name]
+    x, qw = _q4_case(gen, m, k, n, f32_scales, chunks=chunks)
+    shape = (f"{name} M={m} K={k} N={n}" + (" f32 scales" if f32_scales else "")
+             + (f" {chunks} chunks" if chunks > 1 else ""))
     if not q4.i8_route("i8", m, k, n, qw):
         before = dict(q4.launches)
         q4.q4_matmul(x, qw, torch.float32, dot_mode="i8")
@@ -427,31 +484,36 @@ def kernel_q4_i8(timer: Timer, gen, name: str, m: int, main_path: bool,
         ok = took["i8"] == took["i8_f32"] == 0 and took[k1] == 1
         return {"kernel": "q4_i8_route", "shape": shape, "route": "K1", "launched": took,
                 "ok": ok}
-    got = q4.q4_matmul_i8_cuda(x, qw.packed, qw.scales)
+    got = q4.q4_matmul_i8_cuda(x, qw.packed, qw.scales, chunks)
     want = q4.q4_matmul_i8_ref(x, qw)
     xq, sx = q4.quantize_act_blocks_cuda(x)
     pxq, psx = q4.quantize_act_blocks(x)
     quant_equal = torch.equal(xq, pxq) and torch.equal(sx, psx)
     rows_equal = all(torch.equal(q4.q4_matmul_i8_cuda(x[r : r + 1].contiguous(), qw.packed,
-                                                      qw.scales)[0], got[r])
+                                                      qw.scales, chunks)[0], got[r])
                      for r in sorted({0, m - 1}))
-    d = torch.einsum("mgb,mgn->gbn", pxq.double(), q4._nibbles(qw.packed, qw.g).double())
-    terms = (d * psx.double()[:, :, None] * qw.scales.double()[:, None, :]).abs().sum(0)
+    gc = qw.g // chunks
+    terms = sum(
+        (torch.einsum("mgb,mgn->gbn", pxq[:, c * gc : (c + 1) * gc].double(),
+                      q4._nibbles(qw.chunk(c).packed, gc).double())
+         * psx[c * gc : (c + 1) * gc].double()[:, :, None]
+         * qw.chunk(c).scales.double()[:, None, :]).abs().sum(0)
+        for c in range(chunks))
     limit = qw.g * 2.0**-24 * terms
-    del d, terms
+    del terms
     diff = (got.double() - want.double()).abs()
     ratio = float(torch.where(limit > 0, diff / limit.clamp_min(1e-300),
                               diff * float("inf")).nan_to_num(0.0).max())
     err = float(diff.max())
     w_bf16 = dequantize_qweight(qw).to(torch.bfloat16)
-    ms = timer(lambda: q4.q4_matmul_i8_cuda(x, qw.packed, qw.scales), reps)
+    ms = timer(lambda: q4.q4_matmul_i8_cuda(x, qw.packed, qw.scales, chunks), reps)
     plain_ms = timer(lambda: q4.q4_matmul_i8_ref(x, qw), reps=plain_reps)
     library_ms = timer(lambda: torch.matmul(x, w_bf16), reps)
     g = k // 32
     n_bytes = k // 2 * n + g * n * qw.scales.element_size() + m * k + 4 * g * m + 4 * m * n
     b_ms, b_by = bound(n_bytes, 2.0 * m * k * n, INT8_OP_PER_S)
     return {
-        "kernel": "q4_i8_f32" if f32_scales else "q4_i8", "shape": shape,
+        "kernel": "q4_" + q4.i8_key(f32_scales, chunks > 1), "shape": shape,
         "main_path": main_path, "route": "K5",
         "ksplit": q4.ksplit_i8(k, n), "max_abs_err": err,
         "limit": "G * 2^-24 * sum_g |d * sx * s| per element", "err_over_limit": ratio,
@@ -484,25 +546,26 @@ def _sdpa_call(q, k, v, n_past, layer: int, k_scale=None, v_scale=None):
 
 
 def _attn_sizes(b: int, t: int, n_past, update: bool, quant: bool,
-                f32: bool = False) -> tuple[float, float]:
+                f32: bool = False, h: int = H) -> tuple[float, float]:
     """Bytes and operations one call needs: q read, the f32 output written,
     QK and PV over each query's visible keys. A cached position of K or V
-    is H * D elements (1 byte for int8, plus H f32 scales; 2 for bf16; 4 for
-    f32, whose q and new rows are f32 too). The update functions read the
+    is h * D elements, h the call's heads (H, or a tp rank's share of them;
+    1 byte for int8, plus h f32 scales; 2 for bf16; 4 for f32, whose q and
+    new rows are f32 too). The update functions read the
     n_past earlier positions from the cache and the T new ones from
     k_new/v_new, and write the new ones to the cache; the read function
     reads all n_past + T positions from the cache. n_past is one int for
     every row or a list, one per row."""
     pasts = n_past if isinstance(n_past, list) else [n_past] * b
     qb = 4 if f32 else 2
-    pos = H * D * (1 if quant else qb) + (H * 4 if quant else 0)
+    pos = h * D * (1 if quant else qb) + (h * 4 if quant else 0)
     visible = sum(p + i + 1 for p in pasts for i in range(t))
-    n_bytes = b * t * H * D * (qb + 4)
+    n_bytes = b * t * h * D * (qb + 4)
     if update:
-        n_bytes += sum(2 * p * pos for p in pasts) + 2 * b * t * (H * D * qb + pos)
+        n_bytes += sum(2 * p * pos for p in pasts) + 2 * b * t * (h * D * qb + pos)
     else:
         n_bytes += sum(2 * (p + t) * pos for p in pasts)
-    return n_bytes, 4.0 * H * D * visible
+    return n_bytes, 4.0 * h * D * visible
 
 
 # online softmax (kernel) against a dense softmax (plain version), both on
@@ -562,18 +625,18 @@ def _scales(planes) -> dict:
 
 def kernel_attn(timer: Timer, gen, t: int, n_past, update: bool, main_path: bool,
                 b: int = 1, quant: bool = False, s: int = N_CTX, bk: int | None = None,
-                f32: bool = False) -> dict:
+                f32: bool = False, h: int = H) -> dict:
     """K2 (update) or K3 (read) against its plain version on a random cache
     of S rows (bf16, int8, or `f32`) at block_k `bk` (llama_forward's
-    default when None). n_past is one int, or a list of one per row (passed
+    default when None), over h heads (a tp rank's H / tp, or H). n_past is one int, or a list of one per row (passed
     as an int32 vector). q and the new rows are bf16, as the engines'
     activations are (the wrappers widen them to f32 over an f32 cache)."""
     from llamavk_tpu_torch.ops import flash_attn as fa
 
     layers = 2
     layer = 1  # a layer past the first: the wrapper offsets into the stack
-    planes = _kv_cache(gen, (layers, b, H, s, D), quant, f32)
-    q, kn, vn = (torch.randn((b, t, H, D), device="cuda", generator=gen).to(torch.bfloat16)
+    planes = _kv_cache(gen, (layers, b, h, s, D), quant, f32)
+    q, kn, vn = (torch.randn((b, t, h, D), device="cuda", generator=gen).to(torch.bfloat16)
                  for _ in range(3))
     bk = bk or (512 if t >= 256 else 256)  # llama_forward's default KV block
     npast = (torch.tensor(n_past, dtype=torch.int32, device="cuda")
@@ -604,12 +667,12 @@ def kernel_attn(timer: Timer, gen, t: int, n_past, update: bool, main_path: bool
     ms = timer(run)
     plain_ms = timer(plain, reps=5)
     library_ms = timer(_sdpa_call(q, k, v, npast, layer, *planes[2:]))
-    b_ms, b_by = bound(*_attn_sizes(b, t, n_past, update, quant, f32),
+    b_ms, b_by = bound(*_attn_sizes(b, t, n_past, update, quant, f32, h),
                        F32_FLOP_PER_S if f32 else BF16_FLOP_PER_S)
     return {
         "kernel": ("attn_update" if update else "attn_read") + ("_i8" if quant else "")
                   + ("_f32" if f32 else ""),
-        "shape": f"B={b} T={t} n_past={n_past} H={H} D={D} S={s} block_k={bk}"
+        "shape": f"B={b} T={t} n_past={n_past} H={h} D={D} S={s} block_k={bk}"
                  + (" int8" if quant else "") + (" f32" if f32 else ""),
         "main_path": main_path,
         "max_abs_err": err, "limit": F32_ATTN_LIMIT_RULE if f32 else ATTN_LIMIT_RULE,
@@ -618,6 +681,122 @@ def kernel_attn(timer: Timer, gen, t: int, n_past, update: bool, main_path: bool
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": library_ms,
     }
+
+
+def kernel_attn_pp(timer: Timer, gen, path: str, b: int, t: int, n_past, b_cache: int,
+                   boff: int, quant: bool, main_path: bool, commit: int = 1,
+                   s: int = N_CTX, bk: int | None = None, h: int = H) -> dict:
+    """K2 (`path` "update"), K3 ("read") or K4 ("decode") on B rows at
+    `batch_offset` boff of a random flat cache of B_cache rows (bf16 or
+    int8), or K2 with commit=0: against its plain version (the limit of
+    `kernel_attn`); bit-equal, outputs and rows, to the same call on a copy
+    of just the offset rows; every other cache row unchanged; with commit=0,
+    every cache byte unchanged and the output bit-equal to K3 over the
+    same rows. n_past is one int or a list (an int32 vector); h heads."""
+    from llamavk_tpu_torch.ops import flash_attn as fa
+    from llamavk_tpu_torch.ops import flash_decode as fd
+
+    layer = 1
+    planes = _kv_cache(gen, (2, b_cache, h, s, D), quant)
+    q, kn, vn = (torch.randn((b, t, h, D), device="cuda", generator=gen).to(torch.bfloat16)
+                 for _ in range(3))
+    npast = (torch.tensor(n_past, dtype=torch.int32, device="cuda")
+             if isinstance(n_past, list) else n_past)
+    bk = bk or (512 if t >= 256 else 256)
+    if path == "read":  # K3 reads rows the caller wrote
+        rows = [x[:, boff : boff + b] for x in planes]
+        fa.write_rows(kn, vn, rows[0], rows[1], npast, layer, *rows[2:])
+
+    def call(pl, off: int, ref: bool = False):
+        sc = _scales(pl)
+        if path == "update":
+            f = fa.flash_attention_update_ref if ref else fa.flash_attention_update
+            return f(q, kn, vn, pl[0], pl[1], npast, layer, block_k=bk, commit=commit,
+                     batch_offset=off, **sc)[0]
+        if path == "read":
+            f = fa.flash_attention_ref if ref else fa.flash_attention
+            return f(q, pl[0], pl[1], npast, layer_idx=layer, block_k=bk, batch_offset=off,
+                     **sc)
+        f = fd.flash_decode_update_ref if ref else fd.flash_decode_update
+        return f(q, kn, vn, pl[0], pl[1], npast, layer, block_k=bk, batch_offset=off, **sc)[0]
+
+    before = [x.clone() for x in planes]
+    part = [x[:, boff : boff + b].clone() for x in planes]
+    plain = [x.clone() for x in planes]
+    got = call(planes, boff)
+    alone = call(part, 0)
+    want = call(plain, boff, ref=True)
+    torch.cuda.synchronize()
+    rows_equal = torch.equal(got, alone) and all(
+        torch.equal(x[:, boff : boff + b], y) for x, y in zip(planes, part))
+    others = all(torch.equal(x[:, :boff], y[:, :boff])
+                 and torch.equal(x[:, boff + b :], y[:, boff + b :])
+                 for x, y in zip(planes, before))
+    checks = {"bit_equal_to_offset_rows": rows_equal, "other_rows_unchanged": others,
+              "cache_bytes_equal_to_plain": all(torch.equal(x, y) for x, y in zip(planes, plain))}
+    if not commit:
+        checks["cache_unchanged"] = all(torch.equal(x, y) for x, y in zip(planes, before))
+        checks["bit_equal_to_read_kernel"] = torch.equal(got, fa.flash_attention(
+            q, planes[0], planes[1], npast, layer_idx=layer, block_k=bk, batch_offset=boff,
+            **_scales(planes)))
+    view = [x[:, boff : boff + b] for x in planes]
+    err, ratio = _attn_err(got, want, q, view[0], view[1], npast, layer, *view[2:])
+    ms = timer(lambda: call(planes, boff))
+    plain_ms = timer(lambda: call(plain, boff, ref=True), reps=5)
+    library_ms = timer(_sdpa_call(q, view[0], view[1], npast, layer, *view[2:]))
+    b_ms, b_by = bound(*_attn_sizes(b, t, n_past, path != "read" and bool(commit), quant,
+                                    h=h))
+    name = {"update": "attn_update", "read": "attn_read", "decode": "decode"}[path]
+    return {
+        "kernel": name + ("_boff" if commit else "_nocommit") + ("_i8" if quant else ""),
+        "shape": f"B={b} of {b_cache} at batch_offset={boff} T={t} n_past={n_past} H={h} D={D} "
+                 f"S={s} block_k={bk}" + (" int8" if quant else "")
+                 + ("" if commit else " commit=0"),
+        "main_path": main_path, "max_abs_err": err, "limit": ATTN_LIMIT_RULE,
+        "err_over_limit": ratio, **checks, "ok": ratio <= 1.0 and all(checks.values()),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": library_ms,
+    }
+
+
+def kernels_parallel(timer: Timer, gen, gen_cpu) -> list[dict]:
+    """The kernel modes of the parallel paths at 7B width: K1 over wo and
+    w2 packed in 2 chunks (tp = 2 packing run whole: parallel_7b's and
+    serve_7b_tp's single-device references) at M = 1 and the 32-token
+    prompt, K5 over them at M = 1 and 4; K1 at one tp = 2 rank's shapes
+    (GEMV, and GEMM at the 32-token prompt); K2 with batch_offset at the
+    pp = 2 microbatches' shapes (2 of 4 rows at offset 2: the prompt and a
+    decode step; int8 too), K2 with commit=0, K3 and K4 with batch_offset
+    (no path reaches them)."""
+    rows = []
+    for m in (1, 32):
+        for name in ("wo", "w2"):
+            rows.append(kernel_q4(timer, gen, name, m, True, chunks=2))
+            emit({"phase": "kernel", **rows[-1]})
+    for m in (1, 4):
+        for name in ("wo", "w2"):
+            rows.append(kernel_q4_i8(timer, gen, name, m, False, chunks=2))
+            emit({"phase": "kernel", **rows[-1]})
+    for m in (1, 32):
+        for name in K1_SHAPES_TP2:
+            if m > 1 and name == "output/tp2":
+                continue  # the logits of the last row only
+            rows.append(kernel_q4(timer, gen, name, m, True))
+            emit({"phase": "kernel", **rows[-1]})
+    npl = _decode_npast(16, N_CTX, gen_cpu)
+    for args, kw in (
+            (("update", 2, 32, 0, 4, 2, False, True), {}),
+            (("update", 2, 1, [32, 35], 4, 2, False, True), {}),
+            (("update", 2, 32, 0, 4, 2, True, False), {}),
+            (("update", 4, 1, [5, 100, 300, 480], 4, 0, False, False), {"commit": 0}),
+            (("update", 4, 32, 0, 4, 0, True, False), {"commit": 0}),
+            (("read", 2, 301, 159, 4, 2, False, False), {}),
+            (("read", 2, 301, 159, 4, 2, True, False), {}),
+            (("decode", 16, 1, npl, 32, 16, False, False), {}),
+            (("decode", 16, 1, npl, 32, 16, True, False), {})):
+        rows.append(kernel_attn_pp(timer, gen, *args, **kw))
+        emit({"phase": "kernel", **rows[-1]})
+    return rows
 
 
 def _decode_npast(b: int, s: int, gen_cpu) -> list[int]:
@@ -674,7 +853,7 @@ def kernel_decode(timer: Timer, gen, gen_cpu, b: int, quant: bool, main_path: bo
     row["plain_ms"] = timer(lambda: fd.flash_decode_update_ref(
         q, kn, vn, p2[0], p2[1], npast, layer, block_k=bk, **_scales(p2)), reps=5)
     row["library_ms"] = timer(_sdpa_call(q, p1[0], p1[1], npast, layer, *p1[2:]))
-    row["bound_ms"], row["bound_by"] = bound(*_attn_sizes(b, 1, npl, True, quant, f32),
+    row["bound_ms"], row["bound_by"] = bound(*_attn_sizes(b, 1, npl, True, quant, f32, h),
                                              F32_FLOP_PER_S if f32 else BF16_FLOP_PER_S)
     return row
 
@@ -1260,6 +1439,7 @@ def phase_kernels(reps: int) -> list[dict]:
             emit({"phase": "kernel", **rows[-1]})
     rows += kernels_f32(timer, gen, gen_cpu)
     rows += kernels_modes(timer, gen)
+    rows += kernels_parallel(timer, gen, gen_cpu)
     emit({"phase": "kernel_edges", **kernel_edges(gen, gen_cpu)})
     bad = [r["shape"] for r in rows if not r["ok"]]
     if bad:
@@ -1850,14 +2030,20 @@ def _concurrently(base: str, bodies: list[dict]) -> list[dict]:
     return out
 
 
-def _serve_cli(path: str, kv: str, bodies: list[dict], extra: list[str]) -> list[dict]:
-    """Answers to `bodies` from the serve CLI run in its own process on the
-    card (with the flags `extra`), which is stopped before returning."""
-    proc = subprocess.Popen(
+def _start_serve_cli(path: str, kv: str, extra: list[str]) -> subprocess.Popen:
+    """The serve CLI started in its own process on the card (with the flags
+    `extra`); `_serve_cli_answers` talks to it and stops it. The tiny_serve
+    phase starts all of its CLIs together, so their start-up times overlap."""
+    return subprocess.Popen(
         [sys.executable, "-m", "llamavk_tpu_torch.cli.serve", "-m", path, "--port", "0",
          "--max-batch", "4", "-c", "64", "--block", "4", "--kv-dtype", kv, "--device", "cuda",
          *extra],
         cwd=ROOT, stderr=subprocess.PIPE, text=True)
+
+
+def _serve_cli_answers(proc: subprocess.Popen, bodies: list[dict]) -> list[dict]:
+    """Answers to `bodies` from a serve CLI process, which is stopped before
+    returning."""
     try:
         for line in proc.stderr:  # the loader's line, then "llamavk serving ... on <url>"
             if " serving " in line:
@@ -1885,18 +2071,50 @@ def _cpu_streams(path: str, bcfg, n_tokens: int) -> list[str]:
 def phase_tiny_serve(work: Path) -> tuple[dict, dict]:
     """The server on the card, bf16 and int8 KV, flat and paged (pages of 8
     rows bf16, 32 int8): 4 concurrent greedy requests, to a LlamaServer in
-    this process and to the serve CLI in its own, whose streams must equal
-    the CPU batched engine's; paged, the CPU's paged streams must also equal
-    its flat engine's at kv_block = page_size."""
-    from llamavk_tpu_torch.models.loader import load_model, random_tiny_model
-    from llamavk_tpu_torch.runtime.batching import BatchConfig
-    from llamavk_tpu_torch.runtime.server import LlamaServer
+    this process and to the serve CLI in its own (flat: also with --tp 2,
+    two ranks of the CLI), whose streams must equal the CPU batched
+    engine's; paged, the CPU's paged streams must also equal its flat
+    engine's at kv_block = page_size."""
+    from llamavk_tpu_torch.models.loader import random_tiny_model
 
     path = str(work / "tiny-q4.bin")
     random_tiny_model(write_path=path, quantize=True)
     n_tokens = 6
     result, counts = {}, dict.fromkeys(KERNEL_META, 0)
-    for kv, ps in (("bfloat16", 0), ("int8", 0), ("bfloat16", 8), ("int8", 32)):
+    configs = (("bfloat16", 0), ("int8", 0), ("bfloat16", 8), ("int8", 32))
+    clis = {}  # every CLI process of the phase, started together
+    try:
+        for kv, ps in configs:
+            extra = ["--paged", "--page-size", str(ps)] if ps else []
+            runs = {"serve CLI": extra, "serve CLI --lookup-gamma": extra + ["--lookup-gamma",
+                                                                             str(GAMMA)]}
+            if not ps:  # serve --tp 2: two ranks of the CLI on the one card (gloo)
+                runs["serve CLI --tp 2"] = ["--tp", "2"]
+            for who, flags in runs.items():
+                clis[(kv, ps, who)] = _start_serve_cli(path, kv, flags)
+        _tiny_serve_checks(path, configs, clis, n_tokens, result, counts)
+    finally:
+        for proc in clis.values():
+            if proc.poll() is None:
+                proc.terminate()
+                proc.wait(timeout=60)
+    result.update(_tiny_shared(path, n_tokens, counts))
+    _require("tiny_serve", counts, ("decode", "decode_i8", "attn_update", "attn_update_i8",
+                                    "decode_paged", "decode_paged_i8", "attn_update_paged",
+                                    "attn_update_paged_i8", "attn_update_prefix",
+                                    "attn_update_prefix_i8"))
+    return result, counts
+
+
+def _tiny_serve_checks(path: str, configs, clis: dict, n_tokens: int, result: dict,
+                       counts: dict) -> None:
+    """tiny_serve's checks of each cache configuration: the in-process
+    server's streams, then each started CLI's, against the CPU's."""
+    from llamavk_tpu_torch.models.loader import load_model
+    from llamavk_tpu_torch.runtime.batching import BatchConfig
+    from llamavk_tpu_torch.runtime.server import LlamaServer
+
+    for kv, ps in configs:
         bcfg = BatchConfig(max_batch=4, n_ctx=64, block=4, kv_dtype=kv, paged=ps > 0,
                            page_size=ps or 128)
         want = _cpu_streams(path, bcfg, n_tokens)
@@ -1915,11 +2133,12 @@ def phase_tiny_serve(work: Path) -> tuple[dict, dict]:
             counts[key] += n
         srv.shutdown()
         thread.join(timeout=30)
-        extra = ["--paged", "--page-size", str(ps)] if ps else []
-        lookup = extra + ["--lookup-gamma", str(GAMMA)]
-        for who, answers in (("server", got), ("serve CLI", _serve_cli(path, kv, bodies, extra)),
-                             ("serve CLI --lookup-gamma", _serve_cli(path, kv, bodies, lookup))):
-            texts = [a["text"] for a in answers]
+        answers = {"server": got}
+        for (ckv, cps, who), proc in clis.items():
+            if (ckv, cps) == (kv, ps):
+                answers[who] = _serve_cli_answers(proc, bodies)
+        for who, ans in answers.items():
+            texts = [a["text"] for a in ans]
             if texts != want:
                 raise SystemExit(f"tiny_serve ({name}, {who}): card streams {texts} differ "
                                  f"from the CPU's {want}")
@@ -1927,12 +2146,8 @@ def phase_tiny_serve(work: Path) -> tuple[dict, dict]:
                         "lookup_cli_equal_to_cpu": True}
         if ps:
             result[name]["cpu_equal_to_flat_at_kv_block"] = ps
-    result.update(_tiny_shared(path, n_tokens, counts))
-    _require("tiny_serve", counts, ("decode", "decode_i8", "attn_update", "attn_update_i8",
-                                    "decode_paged", "decode_paged_i8", "attn_update_paged",
-                                    "attn_update_paged_i8", "attn_update_prefix",
-                                    "attn_update_prefix_i8"))
-    return result, counts
+        else:
+            result[name]["tp2_cli_equal_to_cpu"] = True
 
 
 # the tiny shared-prefix server's registered prefix: with it, each of
@@ -2451,6 +2666,7 @@ def phase_serve_7b_lookup(seed: int) -> tuple[dict, dict, dict]:
 
 
 RING_TOKENS = 700  # generate_7b_ring: one wrap of the 480 recycled rows, and 220 more
+RING_LAYERS = 16  # generate_7b_ring runs 16 of 7B's 32 layers (at full width)
 
 
 class _TimedOut(io.StringIO):
@@ -2467,8 +2683,9 @@ class _TimedOut(io.StringIO):
 
 
 def phase_generate_7b_ring(seed: int) -> tuple[dict, dict]:
-    """The generate CLI with --ctx-swap ring --n-keep 32 on synthetic 7B,
-    n_ctx 512, bf16 KV: a 32-token prompt generating 700 tokens (the ring
+    """The generate CLI with --ctx-swap ring --n-keep 32 on synthetic 7B at
+    full width and 16 of its 32 layers, n_ctx 512, bf16 KV: a 32-token
+    prompt generating 700 tokens (the ring
     wraps at the 481st), whose first 480 must equal the plain greedy CLI's
     stream (which fills the context) or part only at a near tie; ms per
     token before and after the wrap from the CLI's per-token writes; at a
@@ -2479,7 +2696,7 @@ def phase_generate_7b_ring(seed: int) -> tuple[dict, dict]:
     from llamavk_tpu_torch.runtime.engine import Engine, EngineConfig
     from llamavk_tpu_torch.runtime.sampling import SamplerParams
 
-    cfg, params = _model_7b(seed)
+    cfg, params = _model_7b(seed, RING_LAYERS)
     gen = torch.Generator().manual_seed(seed + 5)
     text = "".join(chr(ord("a") + int(i)) for i in torch.randint(0, 26, (30,), generator=gen))
     prompt = [1] + [b + 3 for b in (" " + text).encode()]  # BOS, the CLI's space, 30 letters
@@ -3204,6 +3421,323 @@ def phase_eval_7b_f32(seed: int) -> tuple[dict, dict, dict]:
     return result, counts, shapes
 
 
+# ------------------------------------------------------------------ parallel
+
+# parallel_7b: tp = 2 runs a 32-token prompt and 16 greedy decode steps at
+# B = 1; pp = 2 runs the same prompt length at B = 4 in 2 microbatches and
+# 4 greedy steps. Two ranks share cuda:0 over gloo (one card).
+PAR_PROMPT, PAR_STEPS = 32, 16
+PP_BATCH, PP_MICRO, PP_STEPS = 4, 2, 4
+PAR_DEADLINE_S = 600  # each spawn of two ranks, start to exit
+# serve_7b_tp: 8 concurrent greedy requests of 32 prompt tokens, 32 out
+TP_REQUESTS, TP_TOKENS = 8, 32
+
+
+def _par_prompts(seed: int, n_vocab: int) -> torch.Tensor:
+    """parallel_7b's seeded prompts [PP_BATCH, PAR_PROMPT]; tp runs row 0."""
+    gen = torch.Generator().manual_seed(seed + 8)
+    return torch.randint(3, n_vocab, (PP_BATCH, PAR_PROMPT), generator=gen)
+
+
+def _sync() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _timed_ms(fn):
+    """(fn's result, host ms to its end on the card)."""
+    _sync()
+    t0 = time.perf_counter()
+    out = fn()
+    _sync()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _model_cfg(config: dict | None):
+    """The ModelConfig of synthetic 7B, or of `config`'s fields."""
+    from llamavk_tpu_torch.models.llama import ModelConfig
+    from llamavk_tpu_torch.models.loader import LLAMA_CONFIGS
+
+    return ModelConfig(**(config or LLAMA_CONFIGS["7B"]))
+
+
+def _parallel_rank(rank: int, init: str, out: str, seed: int, device: str = "cuda",
+                   config: dict | None = None) -> None:
+    """One of parallel_7b's two ranks on cuda:0: tp = 2 (its shard of
+    synthetic 7B packed for tp 2; a 32-token prompt, 16 greedy decode
+    steps), then pp = 2 with 2 microbatches at B = 4 (its 16 layers; the
+    prompts, 4 greedy steps), through make_sharded_forward. Saves the
+    logits of every step, the greedy tokens, host times and launches.
+    (`device` "cpu" and a small `config` rehearse it without a card.)"""
+    import torch.distributed as dist
+
+    from llamavk_tpu_torch.models.llama import init_kv_cache
+    from llamavk_tpu_torch.models.loader import synthetic_params
+    from llamavk_tpu_torch.parallel import (make_mesh, make_sharded_forward, multihost,
+                                            shard_cache, shard_params)
+
+    torch.set_num_threads(4)
+    multihost.initialize(init, 2, rank, device=device, timeout_s=300)
+    cfg = _model_cfg(config)
+    prompts = _par_prompts(seed, cfg.n_vocab).to(device)
+    res = {"backend": dist.get_backend()}
+    for name, tp, pp, mb, b, steps in (("tp", 2, 1, 1, 1, PAR_STEPS),
+                                       ("pp", 1, 2, PP_MICRO, PP_BATCH, PP_STEPS)):
+        mesh = make_mesh(tp=tp, pp=pp, device=device)
+        params = shard_params(synthetic_params(cfg, seed=seed, device=device, tp=tp), mesh)
+        torch.cuda.empty_cache()
+        fwd = make_sharded_forward(cfg, params, mesh, pp_microbatch=mb)
+        cache = shard_cache(init_kv_cache(cfg, b, N_CTX, device=device), mesh)
+        _reset_counts()
+        _reset_shapes()
+        (logits, cache, _), prefill_ms = _timed_ms(lambda: fwd(params, prompts[:b], cache, 0))
+        rows = [logits[:, -1].float().cpu()]
+        toks = [logits[:, -1].argmax(-1)]
+        t0 = time.perf_counter()
+        for i in range(steps):
+            logits, cache, _ = fwd(params, toks[-1][:, None], cache, PAR_PROMPT + i)
+            rows.append(logits[:, -1].float().cpu())
+            toks.append(logits[:, -1].argmax(-1))
+        _sync()
+        res[name] = {"logits": torch.stack(rows), "tokens": torch.stack(toks).cpu(),
+                     "prefill_ms": prefill_ms,
+                     "decode_ms_per_step": (time.perf_counter() - t0) * 1e3 / steps,
+                     "counts": {k: n for k, n in _counts().items() if n},
+                     "shapes": _shapes(), "local_layers": cache.k.shape[0]}
+        del params, cache, fwd
+        torch.cuda.empty_cache()
+    torch.save(res, f"{out}.{rank}")
+    multihost.shutdown()
+
+
+def _near_tie_steps(single: torch.Tensor, tokens: torch.Tensor, what: str) -> list:
+    """Where greedy tokens of a sharded run differ from the single-device
+    argmax of the same step, the single-device logits must put both within
+    2 * 2^-8 of the largest logit of the top one (each run's logits lie
+    within 2^-8 of the other's, so such a flip is a near tie). Returns the
+    near ties; fails on a wider gap."""
+    ties = []
+    for step in range(tokens.shape[0]):
+        for row in range(tokens.shape[1]):
+            w, tok = single[step, row], int(tokens[step, row])
+            top = int(w.argmax())
+            if top == tok:
+                continue
+            gap = float(w[top] - w[tok]) / float(w.abs().max())
+            if gap > 2 * LOGIT_REL_LIMIT:
+                raise SystemExit(f"{what}: step {step} row {row} took {tok}, the single device "
+                                 f"{top}, {gap:.3g} apart (limit {2 * LOGIT_REL_LIMIT})")
+            ties.append({"step": step, "row": row, "gap_rel": gap})
+    return ties
+
+
+def _single_teacher_forced(cfg, params, prompts: torch.Tensor, tokens: torch.Tensor
+                           ) -> torch.Tensor:
+    """The single-device forward's last logits of the prompts' prefill and of
+    each step fed the sharded run's tokens: [steps + 1, B, n_vocab]."""
+    from llamavk_tpu_torch.models.llama import init_kv_cache, llama_forward
+
+    b = prompts.shape[0]
+    cache = init_kv_cache(cfg, b, N_CTX, device="cuda")
+    logits = llama_forward(params, prompts.cuda(), cache, 0, cfg)[0]
+    rows = [logits[:, -1].float().cpu()]
+    for i in range(tokens.shape[0] - 1):
+        logits = llama_forward(params, tokens[i].cuda()[:, None], cache, PAR_PROMPT + i, cfg)[0]
+        rows.append(logits[:, -1].float().cpu())
+    return torch.stack(rows)
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest |got - want| of each step and row over the largest
+    |want| there."""
+    return float(((got - want).abs().amax(-1) / want.abs().amax(-1)).max())
+
+
+def phase_parallel_7b(seed: int) -> tuple[dict, dict]:
+    """make_sharded_forward on synthetic 7B at full width with two ranks on
+    the one card over gloo (`_parallel_rank`): tp = 2 and pp = 2 with 2
+    microbatches, each step's logits on both ranks bit-equal, and within
+    2^-8 of the largest single-device logit of the same step, teacher-forced
+    on the sharded run's tokens; the greedy tokens equal the single-device
+    argmax or part at a near tie (`_near_tie_steps`). The tp reference runs
+    the same tp-packed weights whole (fused columns regrouped, wo/w2 in 2
+    chunks: K1's chunked launches). Not a scaling result: both ranks share
+    one card."""
+    from llamavk_tpu_torch.models.llama import ModelConfig
+    from llamavk_tpu_torch.models.loader import LLAMA_CONFIGS, regroup_fused, synthetic_params
+    from llamavk_tpu_torch.parallel import multihost
+
+    cfg = ModelConfig(**LLAMA_CONFIGS["7B"])
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        t0 = time.perf_counter()
+        multihost.spawn(_parallel_rank, 2, (f"file://{d}/init", f"{d}/res", seed),
+                        deadline_s=PAR_DEADLINE_S)
+        ranks_s = time.perf_counter() - t0
+        ranks = [torch.load(f"{d}/res.{r}") for r in range(2)]
+    prompts = _par_prompts(seed, cfg.n_vocab)
+    counts = dict.fromkeys(KERNEL_META, 0)
+    result = {"backend": ranks[0]["backend"], "ranks_wall_s": ranks_s,
+              "note": "two ranks share one card: not a scaling result"}
+    for name, tp, b in (("tp", 2, 1), ("pp", 1, PP_BATCH)):
+        got = ranks[0][name]
+        if not all(torch.equal(got[k], ranks[1][name][k]) for k in ("logits", "tokens")):
+            raise SystemExit(f"parallel_7b ({name}): the ranks' logits or tokens differ")
+        whole = synthetic_params(cfg, seed=seed, device="cuda", tp=tp)
+        whole = regroup_fused(whole, tp, 1)
+        _reset_counts()
+        if name == "tp":  # the chunked launches of the tp-packed weights run whole
+            _reset_shapes()
+        want = _single_teacher_forced(cfg, whole, prompts[:b], got["tokens"])
+        single_counts = {k: n for k, n in _counts().items() if n}
+        if name == "tp":
+            single_shapes = _shapes()
+        del whole
+        torch.cuda.empty_cache()
+        rel = _rel_err(got["logits"], want)
+        if not (math.isfinite(rel) and rel <= LOGIT_REL_LIMIT):
+            raise SystemExit(f"parallel_7b ({name}): logits {rel:.3g} of the largest "
+                             f"single-device logit from it (limit {LOGIT_REL_LIMIT})")
+        ties = _near_tie_steps(want, got["tokens"], f"parallel_7b ({name})")
+        for c in (ranks[0][name]["counts"], ranks[1][name]["counts"], single_counts):
+            for key, n in c.items():
+                counts[key] += n
+        result[name] = {
+            "batch": b, "prompt_tokens": PAR_PROMPT, "decode_steps": got["tokens"].shape[0] - 1,
+            "logit_rel_err": rel, "limit_rel": LOGIT_REL_LIMIT, "near_ties": ties,
+            "ranks_bit_equal": True, "local_layers": got["local_layers"],
+            "prefill_ms": [r[name]["prefill_ms"] for r in ranks],
+            "decode_ms_per_step": [r[name]["decode_ms_per_step"] for r in ranks],
+            "launches_per_rank": [r[name]["counts"] for r in ranks],
+            "single_device_launches": single_counts,
+        }
+    per_rank_k2 = [r["pp"]["counts"].get("attn_update_boff", 0) for r in ranks]
+    want_k2 = PP_MICRO * ranks[0]["pp"]["local_layers"] * (1 + PP_STEPS)
+    if per_rank_k2 != [want_k2, want_k2]:
+        raise SystemExit(f"parallel_7b (pp): K2 batch_offset launches {per_rank_k2} per rank, "
+                         f"not M x local layers x forwards = {want_k2}")
+    _require("parallel_7b", counts, ("q4_gemv", "q4_gemm", "attn_update", "attn_update_boff",
+                                     "q4_gemv_chunks", "q4_gemm_chunks"))
+    result["shape_rows"] = phase_serve_shapes(
+        _rank_shapes(*(r[name]["shapes"] for r in ranks for name in ("tp", "pp")),
+                     single_shapes), seed, 5, "parallel_7b")
+    return result, counts
+
+
+def _serve_tp_rank(rank: int, init: str, out: str, seed: int, bodies: list[dict],
+                   device: str = "cuda", config: dict | None = None) -> None:
+    """One of serve_7b_tp's two ranks on cuda:0, through the serve CLI's own
+    rank code (`cli.serve.run_rank`): rank 0 a LlamaServer over the mesh
+    (HTTP, the request queue) answering `bodies` at once, rank 1
+    `follow_rank`; synthetic 7B packed for tp 2 in place of a checkpoint,
+    8 slots, int8 KV. (`device` and `config` as `_parallel_rank`'s.)"""
+    import torch.distributed as dist
+
+    from llamavk_tpu_torch.cli.serve import run_rank
+    from llamavk_tpu_torch.models.loader import synthetic_params
+
+    torch.set_num_threads(4)
+    cfg = _model_cfg(config)
+    res = {}
+
+    def load():
+        whole = synthetic_params(cfg, seed=seed, device=device, tp=2)
+        _reset_counts()
+        _reset_shapes()
+        return cfg, whole, _id_tokenizer(cfg.n_vocab)
+
+    def serve(srv):
+        torch.cuda.empty_cache()
+        base, thread = _serve(srv)
+        res.update(_load(srv, base, bodies))
+        srv.shutdown()
+        thread.join(timeout=30)
+        res["backend"] = dist.get_backend()
+
+    run_rank(rank, 2, init, load, _tp_bcfg(), serve, device, timeout_s=300)
+    res["counts"] = {k: n for k, n in _counts().items() if n}
+    res["shapes"] = _shapes()
+    torch.save(res, f"{out}.{rank}")
+
+
+def _rank_shapes(*shape_sets: dict) -> dict:
+    """The shapes to hold against the plain versions after a phase of ranks:
+    every shape of the given `_shapes()` results, a rank's local shapes
+    (K1 at its weights' slices, attention at its H / tp heads) included,
+    with their launches summed."""
+    out = {key: {} for key in shape_sets[0]}
+    for shapes in shape_sets:
+        for key, counter in shapes.items():
+            for shape, n in counter.items():
+                out[key][shape] = out[key].get(shape, 0) + n
+    return out
+
+
+def _tp_bcfg():
+    from llamavk_tpu_torch.runtime.batching import BatchConfig
+
+    return BatchConfig(max_batch=TP_REQUESTS, n_ctx=N_CTX, block=8, kv_dtype="int8")
+
+
+def phase_serve_7b_tp(seed: int) -> tuple[dict, dict]:
+    """serve --tp 2's ranks (`_serve_tp_rank`) on synthetic 7B with int8 KV
+    answering 8 concurrent greedy HTTP requests; their streams against the
+    same model served by one rank (`--tp 1`: the tp-packed weights run
+    whole, wo/w2 in 2 chunks), equal or parting at a near tie (`_split_at`);
+    tok/s, ms per decode step, TTFT and the backend. Then every kernel
+    against its plain version at each shape either rank launched it at
+    (`_rank_shapes`: K1 at the weights' slices, K2 and K4 at 16 heads) and
+    at the one-rank run's chunked K1 shapes."""
+    from llamavk_tpu_torch.models.llama import ModelConfig
+    from llamavk_tpu_torch.models.loader import LLAMA_CONFIGS, regroup_fused, synthetic_params
+    from llamavk_tpu_torch.parallel import multihost
+
+    cfg = ModelConfig(**LLAMA_CONFIGS["7B"])
+    gen = torch.Generator().manual_seed(seed + 9)
+    prompts = [torch.randint(3, cfg.n_vocab, (PAR_PROMPT,), generator=gen).tolist()
+               for _ in range(TP_REQUESTS)]
+    bodies = [dict(prompt=p, max_tokens=TP_TOKENS, temperature=0.0, ignore_eos=True)
+              for p in prompts]
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        multihost.spawn(_serve_tp_rank, 2, (f"file://{d}/init", f"{d}/res", seed, bodies),
+                        deadline_s=PAR_DEADLINE_S)
+        ranks = [torch.load(f"{d}/res.{r}") for r in range(2)]
+    load = ranks[0]
+    _check_answers("serve_7b_tp", load["answers"], TP_TOKENS)
+    whole = regroup_fused(synthetic_params(cfg, seed=seed, device="cuda", tp=2), 2, 1)
+    _reset_counts()
+    _reset_shapes()
+    one = _greedy_streams(cfg, whole, _tp_bcfg(), prompts, TP_TOKENS)
+    single_counts = {k: n for k, n in _counts().items() if n}
+    shapes = _shapes()
+    splits = [_split_at(cfg, whole, p, _ids(a["text"]), w, f"serve_7b_tp request {i}",
+                        torch.int8, None)
+              for i, (p, a, w) in enumerate(zip(prompts, load["answers"], one))]
+    del whole
+    torch.cuda.empty_cache()
+    counts = dict.fromkeys(KERNEL_META, 0)
+    for c in (ranks[0]["counts"], ranks[1]["counts"], single_counts):
+        for key, n in c.items():
+            counts[key] += n
+    _require("serve_7b_tp", counts, ("q4_gemm", "attn_update_i8", "decode_i8",
+                                     "q4_gemm_chunks"))
+    chunked = {"q4": {}, "q4_f32": {}, "q4_i8": {}, "attn": {}, "decode": {},
+               "q4_modes": {k: n for k, n in shapes["q4_modes"].items() if "chunks" in k[0]}}
+    chunked = _rank_shapes(chunked, ranks[0]["shapes"], ranks[1]["shapes"])
+    result = {
+        "backend": load["backend"], "requests": TP_REQUESTS, "max_tokens": TP_TOKENS,
+        "streams_equal_to_tp1": sum(s is None for s in splits),
+        "split_at_near_tie": [s for s in splits if s is not None],
+        "tok_per_s": load["tok_per_s"], "decode_ms_per_step": load["decode_ms_per_step"],
+        "ttft_ms_p50": load["ttft_ms_p50"], "wall_s": load["wall_s"],
+        "launches_per_rank": [r["counts"] for r in ranks], "tp1_launches": single_counts,
+        "note": "two ranks share one card: not a scaling result",
+        "shape_rows": phase_serve_shapes(chunked, seed, 5, "serve_7b_tp"),
+    }
+    return result, counts
+
+
 def _attn_samples(attn: dict) -> list[tuple[tuple, int]]:
     """The attention shapes to check, with their launches: every key, except
     that keys differing only in a host-int n_past (a decode loop's one per
@@ -3240,7 +3774,7 @@ def phase_serve_shapes(shapes: dict, seed: int, reps: int, phase: str = "serve_7
     timer = Timer(reps)
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
     gen_cpu = torch.Generator().manual_seed(seed + 2)
-    names = {kn: name for name, kn in K1_SHAPES.items()}
+    names = {kn: name for name, kn in ALL_K1_SHAPES.items()}
     rows = []
 
     def add(row, launches):
@@ -3258,21 +3792,27 @@ def phase_serve_shapes(shapes: dict, seed: int, reps: int, phase: str = "serve_7
             shapes["q4_i8"][(m, k, n)])
     for key, m, k, n in sorted(shapes["q4_modes"]):
         parts = key.split("_")
-        if parts[0] == "i8":  # K5 over f32 scales
-            row = kernel_q4_i8(timer, gen, names[(k, n)], m, True, plain_reps=2, f32_scales=True)
+        chunks = 2 if "chunks" in parts else 1  # the tp = 2 packing
+        if parts[0] == "i8":  # K5 over f32 scales, or chunked
+            row = kernel_q4_i8(timer, gen, names[(k, n)], m, True, plain_reps=2,
+                               f32_scales="f32" in parts, chunks=chunks)
         else:
             row = kernel_q4(timer, gen, names[(k, n)], m, True, plain_reps=2,
                             f32_scales="f32" in parts, layout="lin" if "lin" in parts else "ilv",
                             dot="f32" if "dotf32" in parts else "bf16",
-                            mul=torch.bfloat16 if "mulbf16" in parts else torch.float32)
+                            mul=torch.bfloat16 if "mulbf16" in parts else torch.float32,
+                            chunks=chunks)
             if row["kernel"] != "q4_" + key:
                 raise SystemExit(f"serve_shapes: {key} checked as {row['kernel']}")
         add(row, shapes["q4_modes"][(key, m, k, n)])
     for key, launches in _attn_samples(shapes["attn"]):
         path, b, t, h, s, d, bk, kind, n_past, maxlb, straddle, mode = key
         quant, f32 = kind == "int8", kind == "f32"
-        if (h, d) != (H, D):
-            raise SystemExit(f"serve_shapes: attention at H={h} D={d}, not the 7B width")
+        flat = maxlb is None and (mode is None or mode[0] in ("boff", "nocommit"))
+        if d != D or H % h or h != H and not flat:
+            raise SystemExit(f"serve_shapes: attention at H={h} D={d} "
+                             f"({mode or ('paged' if maxlb else 'flat')}), "
+                             "not the 7B width or a tp rank's heads of a flat cache")
         cap = s * (maxlb or 1)
         if mode is not None and mode[0] == "ring":
             row = kernel_attn_ring(timer, gen, t, n_past, path == "update", quant, True, s=s,
@@ -3281,23 +3821,31 @@ def phase_serve_shapes(shapes: dict, seed: int, reps: int, phase: str = "serve_7
             continue
         if n_past is None:
             n_past = torch.randint(0, cap - t + 1, (b,), generator=gen_cpu).tolist()
-        if mode is not None:  # ("prefix", NP, Sp, pblock_k): seeded prefix lengths
+        if mode is not None and mode[0] in ("boff", "nocommit"):  # (mode, B_cache, offset)
+            row = kernel_attn_pp(timer, gen, path, b, t, n_past, mode[1], mode[2], quant, True,
+                                 commit=int(mode[0] == "boff"), s=s, bk=bk, h=h)
+        elif mode is not None:  # ("prefix", NP, Sp, pblock_k): seeded prefix lengths
             _, n_pool, sp, _ = mode
             plens = torch.randint(0, sp + 1, (b,), generator=gen_cpu).tolist()
             row = kernel_attn_prefix(timer, gen, gen_cpu, b, t, n_past, path == "update", quant,
                                      True, plens, sp, n_pool, s, bk=bk)
         elif maxlb is None:
-            row = kernel_attn(timer, gen, t, n_past, path == "update", True, b, quant, s, bk, f32)
+            row = kernel_attn(timer, gen, t, n_past, path == "update", True, b, quant, s, bk, f32,
+                              h)
         else:
             row = kernel_attn_paged(timer, gen, gen_cpu, t, n_past, path == "update", b, quant,
                                     cap, s, bk, main_path=True, straddle=straddle)
         add(row, launches)
     for key in sorted(shapes["decode"], key=str):
-        b, h, s, d, bk, kind, maxlb = key
+        b, h, s, d, bk, kind, maxlb, *pmode = key  # pmode: [("boff", B_cache, offset)]
         quant = kind == "int8"
-        if (h, d) != (H, D):
-            raise SystemExit(f"serve_shapes: batched decode at H={h} D={d}, not the 7B width")
-        if maxlb is None:
+        if d != D or H % h or h != H and maxlb is not None:
+            raise SystemExit(f"serve_shapes: batched decode at H={h} D={d}, not the 7B width "
+                             "or a tp rank's heads of a flat cache")
+        if pmode:
+            row = kernel_attn_pp(timer, gen, "decode", b, 1, _decode_npast(b, s, gen_cpu),
+                                 pmode[0][1], pmode[0][2], quant, True, s=s, bk=bk, h=h)
+        elif maxlb is None:
             row = kernel_decode(timer, gen, gen_cpu, b, quant, True, h, d, s, bk, kind == "f32")
         else:
             row = kernel_decode_paged(timer, gen, gen_cpu, b, quant, s * maxlb, s, bk,
@@ -3332,7 +3880,7 @@ def summary(rows: list[dict], counts: dict) -> dict:
 
 PHASES = ("env,build,kernels,tiny_cli,tiny_compat,generate_7b,generate_7b_lookup,spec_7b_self,"
           "tiny_serve,serve_7b,serve_7b_paged,serve_7b_lookup,generate_7b_ring,serve_7b_shared,"
-          "eval_7b_f32,generate_7b_modes")
+          "eval_7b_f32,generate_7b_modes,parallel_7b,serve_7b_tp")
 # phases that run in a process of their own, under the environment a parent
 # phase starts them with
 CHILD_PHASES = {
@@ -3391,6 +3939,14 @@ def main() -> int:
         with timed("kernels"):
             rows = phase_kernels(args.reps)
         report["kernels"] = rows
+    elif "kernels_parallel" in phases:  # the parallel paths' rows alone: a short check
+        with timed("kernels_parallel"):
+            rows = kernels_parallel(Timer(args.reps), torch.Generator(device="cuda").manual_seed(0),
+                                    torch.Generator().manual_seed(0))
+        bad = [r["shape"] for r in rows if not r["ok"]]
+        if bad:
+            raise SystemExit(f"kernels disagree with their plain versions: {bad}")
+        report["kernels"] = rows
     if "tiny_cli" in phases:
         (ROOT / "build").mkdir(exist_ok=True)
         with timed("tiny_cli"), tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
@@ -3400,7 +3956,9 @@ def main() -> int:
 
     def add(path_counts: dict) -> None:
         for key, n in path_counts.items():
-            counts[key] += n
+            if key not in KERNEL_META and n:
+                raise SystemExit(f"launches of {key}, which KERNEL_META does not name")
+            counts[key] = counts.get(key, 0) + n
 
     if "tiny_compat" in phases:
         (ROOT / "build").mkdir(exist_ok=True)
@@ -3448,7 +4006,8 @@ def main() -> int:
         add(path_counts)
         emit({"phase": "tiny_serve", **report["tiny_serve"]})
     for name, phase in (("generate_7b_ring", phase_generate_7b_ring),
-                        ("generate_7b_modes", phase_generate_7b_modes)):
+                        ("generate_7b_modes", phase_generate_7b_modes),
+                        ("parallel_7b", phase_parallel_7b), ("serve_7b_tp", phase_serve_7b_tp)):
         if name in phases:
             with timed(name):
                 report[name], path_counts = phase(args.seed)

@@ -38,6 +38,16 @@
 // n_past is the slot-local row. Both are `attn::attend_block`'s MODE
 // template argument, so the flat and paged kernels keep their code.
 //
+// Pipeline-parallel modes (the JAX kernels' `batch_offset` and `commit`,
+// flash_attn.py:827, :1018-1023, :275-291 there): `batch_offset` is the
+// first cache row of the call's batch, so a microbatch of B rows runs
+// against a full-batch flat cache [B_cache, H, S, D] without slicing it; here
+// it offsets the cache base pointers (data and int8 scales) once, for the
+// row-write launch and the attention launch alike. `commit` = 0 skips the
+// row write: every cache byte stays as it was and the attention reads the
+// unchanged rows, as the JAX kernel's idle pipeline hop does. Both are flat
+// only (no page table, ring or prefix).
+//
 // The score, online-softmax and PV arithmetic is `attn::attend_block` of
 // attn_common.cuh, shared with the batched decode kernel (flash_decode.cu),
 // so both give bit-equal outputs at equal block_k, and a paged call equals a
@@ -230,6 +240,26 @@ cudaError_t mode_args(const AttnModes* modes, int B, attn::Ring& ring, attn::Pre
 // Cache types of the C interface (`kv_kind`).
 enum { KV_BF16 = 0, KV_INT8 = 1, KV_F32 = 2 };
 
+namespace {
+
+// the cache layer's base pointers moved to batch row `batch_offset` of a
+// flat [B_cache, H, S, D] layer (scales [B_cache, S, H])
+template <typename P, typename SP>
+void offset_batch(P& kc, P& vc, SP& ks, SP& vs, int batch_offset, int kv_kind, int H, int S,
+                  int D) {
+  const size_t el = kv_kind == KV_INT8 ? 1 : kv_kind == KV_F32 ? 4 : 2;
+  const size_t data = (size_t)batch_offset * H * S * D * el;
+  kc = reinterpret_cast<P>(reinterpret_cast<uintptr_t>(kc) + data);
+  vc = reinterpret_cast<P>(reinterpret_cast<uintptr_t>(vc) + data);
+  if (ks) {
+    const size_t sc = (size_t)batch_offset * S * H * sizeof(float);
+    ks = reinterpret_cast<SP>(reinterpret_cast<uintptr_t>(ks) + sc);
+    vs = reinterpret_cast<SP>(reinterpret_cast<uintptr_t>(vs) + sc);
+  }
+}
+
+}  // namespace
+
 // Read path (K3). q [B, T, H, D], bf16 (f32 for an f32 cache); k_cache/v_cache:
 // one layer of type kv_kind, with k_scale/v_scale that layer's f32 scale
 // planes for int8 (else null): flat [B, H, S, D] with scales [B, S, H] when page_table is
@@ -238,11 +268,15 @@ enum { KV_BF16 = 0, KV_INT8 = 1, KV_F32 = 2 };
 // from npast_vec[B] (device) when it is not null, else npast_scalar; `modes`
 // (or null) the ring or prefix operands, on a flat cache only. An f32 cache
 // is flat, with no ring or prefix. D in {64, 128}; block_k divides S.
+// batch_offset (flat, no ring or prefix) is the cache row of batch row 0:
+// the flat layer pointers address a [B_cache, ...] layer with
+// B_cache >= batch_offset + B.
 extern "C" int attn_read_launch(const void* q, const void* k_cache, const void* v_cache,
                                 const void* k_scale, const void* v_scale, void* out,
                                 const void* npast_vec, int npast_scalar, const void* page_table,
                                 int maxlb, int B, int T, int H, int S, int D, int block_k,
-                                float scale, int kv_kind, const AttnModes* modes, void* stream) {
+                                float scale, int kv_kind, int batch_offset,
+                                const AttnModes* modes, void* stream) {
   if (block_k < 1 || S % block_k != 0) return (int)cudaErrorInvalidValue;
   if (kv_kind < KV_BF16 || kv_kind > KV_F32) return (int)cudaErrorInvalidValue;
   if (page_table && maxlb < 1) return (int)cudaErrorInvalidValue;
@@ -252,6 +286,9 @@ extern "C" int attn_read_launch(const void* q, const void* k_cache, const void* 
   if (e != cudaSuccess) return (int)e;
   if (page_table && (ring.pos || pre.k)) return (int)cudaErrorInvalidValue;
   if (kv_kind == KV_F32 && (page_table || ring.pos || pre.k)) return (int)cudaErrorInvalidValue;
+  if (batch_offset < 0 || (batch_offset && (page_table || ring.pos || pre.k)))
+    return (int)cudaErrorInvalidValue;
+  if (batch_offset) offset_batch(k_cache, v_cache, k_scale, v_scale, batch_offset, kv_kind, H, S, D);
   auto npv = static_cast<const int*>(npast_vec);
   auto st = static_cast<cudaStream_t>(stream);
   const KVMap map{static_cast<const int*>(page_table), maxlb, S};
@@ -268,17 +305,26 @@ extern "C" int attn_read_launch(const void* q, const void* k_cache, const void* 
 // Update path (K2): write k_new/v_new [B, T, H, D] (bf16; f32 for an f32
 // cache) into rows [n_past, n_past + T) of the cache layer (int8: quantized,
 // with their scales; paged: through the table; ring: rows [write_row,
-// write_row + T)), then attend (two launches).
+// write_row + T)), then attend (two launches). batch_offset as the read
+// path's; commit = 0 writes nothing and attends over the unchanged cache
+// (one launch).
 extern "C" int attn_update_launch(const void* q, const void* k_new, const void* v_new,
                                   void* k_cache, void* v_cache, void* k_scale, void* v_scale,
                                   void* out, const void* npast_vec, int npast_scalar,
                                   const void* page_table, int maxlb, int B, int T, int H, int S,
-                                  int D, int block_k, float scale, int kv_kind,
-                                  const AttnModes* modes, void* stream) {
+                                  int D, int block_k, float scale, int kv_kind, int batch_offset,
+                                  int commit, const AttnModes* modes, void* stream) {
   if (block_k < 1 || S % block_k != 0 || (D != 64 && D != 128)) return (int)cudaErrorInvalidValue;
   if (page_table && maxlb < 1) return (int)cudaErrorInvalidValue;
   if (kv_kind == KV_F32 && (page_table || (modes && (modes->pos || modes->pk))))
     return (int)cudaErrorInvalidValue;
+  if (batch_offset < 0 || (batch_offset && (page_table || (modes && (modes->pos || modes->pk)))))
+    return (int)cudaErrorInvalidValue;
+  if (batch_offset) offset_batch(k_cache, v_cache, k_scale, v_scale, batch_offset, kv_kind, H, S, D);
+  if (!commit)
+    return attn_read_launch(q, k_cache, v_cache, k_scale, v_scale, out, npast_vec, npast_scalar,
+                            page_table, maxlb, B, T, H, S, D, block_k, scale, kv_kind, 0, modes,
+                            stream);
   auto st = static_cast<cudaStream_t>(stream);
   const bool ring_write = modes && modes->has_wrow;
   auto wrv = static_cast<const int*>(ring_write ? modes->wrow_vec : npast_vec);
@@ -313,6 +359,6 @@ extern "C" int attn_update_launch(const void* q, const void* k_new, const void* 
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   return attn_read_launch(q, k_cache, v_cache, k_scale, v_scale, out, npast_vec, npast_scalar,
-                          page_table, maxlb, B, T, H, S, D, block_k, scale, kv_kind, modes,
+                          page_table, maxlb, B, T, H, S, D, block_k, scale, kv_kind, 0, modes,
                           stream);
 }

@@ -28,6 +28,11 @@
 // its row 0 in the same launch: those rows race and their outputs are
 // garbage, which nothing reads; no live row maps page 0.
 //
+// `batch_offset` (flat only; the JAX kernel's operand of the same name,
+// flash_decode.py:391 there) is the cache row of batch row 0: it offsets the
+// layer's base pointers (data and int8 scales) before the launch, so B rows
+// run against a wider [B_cache, H, S, D] layer.
+//
 // What bounds it on an H100: the bytes of every row's valid cache prefix,
 // paged or not, sum_b (n_past[b] + 1) * H * D * 2 (K and V) times 2 bytes
 // for bf16, 1 for int8 (plus 8 bytes of scales per row and head) or 4 for
@@ -112,16 +117,28 @@ cudaError_t dispatch(const void* q, const void* kn, const void* vn, void* kc, vo
 // page_table [B, maxlb] (S the page's rows); out f32 [B, 1, H, D]; n_past
 // from npast_vec[B] (device) when it is not null, else npast_scalar; every
 // n_past below the rows a batch row addresses. D in {64, 128}; block_k
-// divides S.
+// divides S. batch_offset (flat only): the cache row of batch row 0.
 extern "C" int flash_decode_launch(const void* q, const void* k_new, const void* v_new,
                                    void* k_cache, void* v_cache, void* k_scale, void* v_scale,
                                    void* out, const void* npast_vec, int npast_scalar,
                                    const void* page_table, int maxlb, int B, int H, int S, int D,
-                                   int block_k, float scale, int kv_kind, void* stream) {
+                                   int block_k, float scale, int kv_kind, int batch_offset,
+                                   void* stream) {
   if (block_k < 1 || S % block_k != 0) return (int)cudaErrorInvalidValue;
   if (page_table && maxlb < 1) return (int)cudaErrorInvalidValue;
   if (kv_kind < 0 || kv_kind > 2 || (kv_kind == 2 && page_table))
     return (int)cudaErrorInvalidValue;
+  if (batch_offset < 0 || (batch_offset && page_table)) return (int)cudaErrorInvalidValue;
+  if (batch_offset) {
+    const size_t el = kv_kind == 1 ? 1 : kv_kind == 2 ? 4 : 2;
+    const size_t data = (size_t)batch_offset * H * S * D * el;
+    k_cache = static_cast<char*>(k_cache) + data;
+    v_cache = static_cast<char*>(v_cache) + data;
+    if (k_scale) {
+      k_scale = static_cast<float*>(k_scale) + (size_t)batch_offset * S * H;
+      v_scale = static_cast<float*>(v_scale) + (size_t)batch_offset * S * H;
+    }
+  }
   auto npv = static_cast<const int*>(npast_vec);
   auto st = static_cast<cudaStream_t>(stream);
   const KVMap map{static_cast<const int*>(page_table), maxlb, S};

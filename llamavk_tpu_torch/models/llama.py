@@ -26,14 +26,37 @@ prompt prefixes once for every row: row b attends over entry
 `prefix_id[b]`'s first `prefix_len[b]` rows, then over its own cache, which
 holds only the suffix (its rows are n_past - prefix_len).
 
-Tensor/pipeline parallelism and the ggml numerics oracle raise
-NotImplementedError.
+Tensor and pipeline parallelism (llama.py:386-389, :421-431, :704-725,
+:737-856 there): `llama_forward` sees one rank's shard (`parallel/`), and
+its axes are `parallel.comm.Axis` objects where JAX names mesh axes. Under
+`tp_axis` the weights are Megatron shards: local heads n_head / tp, the
+row-parallel `wo`/`w2` products summed in f32 over the axis (an
+all-reduce; packed weights divide their `chunks` by the tp size), and the
+vocab-sharded logits all-gathered. Under `pp_axis` stage s holds layers
+[s·Ll, (s+1)·Ll) and their cache rows; with `pp_microbatch` M > 1 the batch
+splits into M microbatches of b0 rows, each run against the full-batch cache
+at cache_batch_offset + m·b0 (the kernels' `batch_offset`), and the final
+activations go from the last stage to every stage, as the JAX psum sends
+them, for the norm and the logits.
+
+The pp schedule differs from the JAX one on purpose. JAX runs M + P - 1
+lockstep waves on every stage, and a stage's idle waves compute with
+`commit=False`, because one SPMD program must. A rank here computes a
+microbatch only when it holds one: it receives it from the stage before,
+runs its layers once, and sends it on. Each microbatch's rows are still
+committed exactly once and the logits are the same; no idle wave launches a
+kernel (ROADMAP.md queue 3). Under pp a T = 1 step takes the update kernel
+(K2), never K4, as the JAX routing does (llama.py:571-573). pp with a page
+table, a prefix pool or a ring raises, as llama.py:447, :455 there do for
+the first two.
+
+The ggml numerics oracle raises NotImplementedError.
 """
 
 from __future__ import annotations
 
 import functools
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 
@@ -52,6 +75,7 @@ from ..ops.norms import rms_norm
 from ..ops.q4_matmul import q4_matmul
 from ..ops.qweight import QWeight
 from ..ops.rope import apply_rope, rope_cos_sin
+from ..parallel import comm
 
 
 @dataclass(frozen=True)
@@ -174,21 +198,23 @@ class KVCache:
 
 def init_kv_cache(
     cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16, device="cuda",
-    ring: bool = False,
+    ring: bool = False, n_head_local: int | None = None,
 ) -> KVCache:
     """A zeroed bf16, int8 or f32 cache. The JAX package pads an int8
     cache's scale planes to 128 head lanes (llama.py:161-168 there), a TPU
     DMA rule; here they keep H. `ring` adds the history ring's position
     plane [max_len, batch], every row empty (-1; llama.py:200-204 there);
-    an f32 ring is not ported yet."""
+    an f32 ring is not ported yet. `n_head_local` gives a tensor-parallel
+    rank's cache its heads (n_head / tp)."""
     if dtype not in (torch.bfloat16, torch.int8, torch.float32):
         raise NotImplementedError(f"KV cache dtype {dtype}: bf16, int8 or f32")
     if ring and dtype == torch.float32:
         raise NotImplementedError("an f32 history ring is not ported yet (ROADMAP.md queue 2)")
-    shape = (cfg.n_layer, batch, cfg.n_head, max_len, cfg.head_dim)
+    h = cfg.n_head if n_head_local is None else n_head_local
+    shape = (cfg.n_layer, batch, h, max_len, cfg.head_dim)
     planes = [torch.zeros(shape, dtype=dtype, device=device) for _ in range(2)]
     if dtype == torch.int8:
-        sshape = (cfg.n_layer, batch, max_len, cfg.n_head)
+        sshape = (cfg.n_layer, batch, max_len, h)
         planes += [torch.zeros(sshape, dtype=torch.float32, device=device) for _ in range(2)]
     pos = torch.full((max_len, batch), -1, dtype=torch.int32, device=device) if ring else None
     return KVCache(*planes, pos=pos)
@@ -272,8 +298,10 @@ def llama_forward(
     prefix_len=None,
     page_table=None,
     page_straddle: bool = False,
-    tp_axis=None,
-    pp_axis=None,
+    tp_axis: comm.Axis | None = None,
+    pp_axis: comm.Axis | None = None,
+    pp_microbatch: int = 1,
+    cache_batch_offset: int | None = None,
     ggml_rounding=None,
 ) -> tuple[torch.Tensor, KVCache, torch.Tensor]:
     """Evaluate T new tokens. Returns (logits, cache, embeddings); the cache
@@ -313,16 +341,21 @@ def llama_forward(
     holds rows n_past - prefix_len (llama.py:450-462 there). Both take the
     fused kernels K2/K3 only, never K4 (llama.py:559-574 there); the plain
     write plus K3 for T with T % min(256, T) != 0.
+
+    tp_axis / pp_axis / pp_microbatch: the parallel arms (module
+    docstring); the params and cache are this rank's shards
+    (`parallel.sharding`). cache_batch_offset: the cache row of batch row 0
+    (the microbatches' offset, as llama.py:343-345 there); None, the
+    default, takes a cache of exactly the batch's rows. The pipeline passes
+    an offset for every microbatch (its batch slice), 0 included.
     """
-    unsupported = {"tp_axis": tp_axis, "pp_axis": pp_axis, "ggml_rounding": ggml_rounding}
-    for name, val in unsupported.items():
-        if val:
-            raise NotImplementedError(f"llama_forward: {name} is not ported yet")
+    if ggml_rounding:
+        raise NotImplementedError("llama_forward: ggml_rounding is not ported yet")
     if attn_impl not in ("auto", "flash", "einsum"):
         raise ValueError(f"attn_impl {attn_impl!r}")
 
     b, t = tokens.shape
-    h, d = cfg.n_head, cfg.head_dim
+    d = cfg.head_dim
     dev = tokens.device
     matmul = functools.partial(q4_matmul, plain=use_ref)
     attn_update = flash_attention_update_ref if use_ref else flash_attention_update
@@ -336,6 +369,21 @@ def llama_forward(
             return matmul(xx, w, torch.bfloat16, layer_idx=l)
         return _linear(xx, w[l])
 
+    tp = tp_axis.size if tp_axis is not None else 1
+
+    def row_linear(xx, w, l):
+        """A row-parallel weight (wo, w2): under tp, this shard's partial
+        product in f32 (its chunks / tp chunks, llama.py:426-431 there),
+        summed over the axis, then x's dtype."""
+        if tp == 1:
+            return linear(xx, w, l)
+        if isinstance(w, QWeight):
+            w = replace(w, chunks=max(1, w.chunks // tp))
+            part = matmul(xx, w, torch.float32, layer_idx=l)
+        else:
+            part = xx.to(w.dtype).to(torch.float32) @ w[l].to(torch.float32)
+        return comm.all_reduce(part, tp_axis).to(xx.dtype)
+
     if isinstance(n_past, torch.Tensor) and n_past.dim() == 0:
         n_past = int(n_past)
     if isinstance(n_past, int):
@@ -348,8 +396,12 @@ def llama_forward(
     paged = page_table is not None
     ring = cache.ring
     prefix = prefix_kv is not None
+    pp = pp_axis is not None
     if paged and (ring or prefix):
         raise ValueError("paged KV: non-ring pools, no prefix pool")
+    if pp and (paged or prefix or ring):
+        raise ValueError("pipeline stages take a flat cache: no page table, prefix pool or "
+                         "ring (llama.py:447, :455 there)")
     mode = {}  # the ring or prefix operands of K2/K3
     local_past = n_past  # cache rows: n_past - prefix_len under a prefix
     if prefix:
@@ -391,52 +443,70 @@ def llama_forward(
     pkw = dict(page_table=page_table, block_t=min(256, cache.k.shape[3]),
                page_straddle=page_straddle) if paged else {}
 
-    for l in range(cache.k.shape[0]):
-        # --- attention block (llama.cpp:976-1070)
-        xa = rms_norm(x, lp.attn_norm[l], cfg.norm_eps)
-        if fused:
-            qkv = linear(xa, lp.wqkv, l)
-            e = qkv.shape[-1] // 3
-            q = qkv[..., :e].reshape(b, t, h, d)
-            k = qkv[..., e : 2 * e].reshape(b, t, h, d)
-            v = qkv[..., 2 * e :].reshape(b, t, h, d)
-        else:
-            q = linear(xa, lp.wq, l).reshape(b, t, h, d)
-            k = linear(xa, lp.wk, l).reshape(b, t, h, d)
-            v = linear(xa, lp.wv, l).reshape(b, t, h, d)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)  # RoPE'd K is what gets cached
-        if impl == "flash" and t == 1 and b > 1 and not (ring or prefix):
-            attn = attn_decode(q, k, v, cache.k, cache.v, n_past, l, block_k=bk,
-                               k_scale=cache.k_scale, v_scale=cache.v_scale,
-                               page_table=page_table)[0]
-        elif impl == "flash" and t % min(256, t) == 0:
-            attn = attn_update(q, k, v, cache.k, cache.v, local_past, l, block_k=bk,
-                               k_scale=cache.k_scale, v_scale=cache.v_scale, **pkw,
-                               **upd_mode)[0]
-        else:
-            write_rows(k, v, cache.k, cache.v, wrow, l, cache.k_scale, cache.v_scale)
-            if impl == "flash":
-                attn = attn_read(q, cache.k, cache.v, local_past, layer_idx=l, block_k=bk,
-                                 k_scale=cache.k_scale, v_scale=cache.v_scale, **read_mode)
+    def layers(x, npast, lpast, wrow, cos, sin, boff: int | None):
+        """This rank's layers over x [bq, T, E], whose rows sit at cache rows
+        [boff, boff + bq) (the whole cache when boff is None): n_past
+        `npast` (cache rows `lpast`, write rows `wrow`) and their RoPE
+        tables."""
+        bq = x.shape[0]
+        boff_kw = {} if boff is None else dict(batch_offset=boff)
+        planes = [cache.k, cache.v, cache.k_scale, cache.v_scale]
+        if boff_kw:  # the plain write and the einsum read take the rows' views
+            planes = [None if p is None else p[:, boff : boff + bq] for p in planes]
+        for l in range(cache.k.shape[0]):
+            # --- attention block (llama.cpp:976-1070)
+            xa = rms_norm(x, lp.attn_norm[l], cfg.norm_eps)
+            if fused:
+                qkv = linear(xa, lp.wqkv, l)
+                e = qkv.shape[-1] // 3  # local heads under tp
+                q = qkv[..., :e].reshape(bq, t, -1, d)
+                k = qkv[..., e : 2 * e].reshape(bq, t, -1, d)
+                v = qkv[..., 2 * e :].reshape(bq, t, -1, d)
             else:
-                ks, vs = (cache.k_scale[l], cache.v_scale[l]) if cache.quantized else (None, None)
-                attn = _attention(q, cache.k[l], cache.v[l], n_past, ks, vs, cache.pos)
-        attn = attn.reshape(b, t, h * d).to(dtype)
-        x = x + linear(attn, lp.wo, l)
-        # --- FFN block (llama.cpp:1073-1101)
-        xf = rms_norm(x, lp.ffn_norm[l], cfg.norm_eps)
-        if fused:
-            gu = linear(xf, lp.w13, l)
-            f = gu.shape[-1] // 2
-            gate, up = gu[..., :f], gu[..., f:]
-        else:
-            gate = linear(xf, lp.w1, l)
-            up = linear(xf, lp.w3, l)
-        act = (
-            torch.nn.functional.silu(gate.to(torch.float32)) * up.to(torch.float32)
-        ).to(dtype)
-        x = x + linear(act, lp.w2, l)
+                q = linear(xa, lp.wq, l).reshape(bq, t, -1, d)
+                k = linear(xa, lp.wk, l).reshape(bq, t, -1, d)
+                v = linear(xa, lp.wv, l).reshape(bq, t, -1, d)
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)  # RoPE'd K is what gets cached
+            if impl == "flash" and t == 1 and bq > 1 and not (ring or prefix or pp):
+                attn = attn_decode(q, k, v, cache.k, cache.v, npast, l, block_k=bk,
+                                   k_scale=cache.k_scale, v_scale=cache.v_scale,
+                                   page_table=page_table, **boff_kw)[0]
+            elif impl == "flash" and t % min(256, t) == 0:
+                attn = attn_update(q, k, v, cache.k, cache.v, lpast, l, block_k=bk,
+                                   k_scale=cache.k_scale, v_scale=cache.v_scale, **pkw,
+                                   **upd_mode, **boff_kw)[0]
+            else:
+                write_rows(k, v, planes[0], planes[1], wrow, l, planes[2], planes[3])
+                if impl == "flash":
+                    attn = attn_read(q, cache.k, cache.v, lpast, layer_idx=l, block_k=bk,
+                                     k_scale=cache.k_scale, v_scale=cache.v_scale, **read_mode,
+                                     **boff_kw)
+                else:
+                    ks, vs = ((planes[2][l], planes[3][l]) if cache.quantized
+                              else (None, None))
+                    attn = _attention(q, planes[0][l], planes[1][l], npast, ks, vs, cache.pos)
+            attn = attn.reshape(bq, t, -1).to(dtype)
+            x = x + row_linear(attn, lp.wo, l)
+            # --- FFN block (llama.cpp:1073-1101)
+            xf = rms_norm(x, lp.ffn_norm[l], cfg.norm_eps)
+            if fused:
+                gu = linear(xf, lp.w13, l)
+                f = gu.shape[-1] // 2
+                gate, up = gu[..., :f], gu[..., f:]
+            else:
+                gate = linear(xf, lp.w1, l)
+                up = linear(xf, lp.w3, l)
+            act = (
+                torch.nn.functional.silu(gate.to(torch.float32)) * up.to(torch.float32)
+            ).to(dtype)
+            x = x + row_linear(act, lp.w2, l)
+        return x
+
+    if not pp:
+        x = layers(x, n_past, local_past, wrow, cos, sin, cache_batch_offset)
+    else:
+        x = _pipeline(x, pp_axis, pp_microbatch, n_past, cos, sin, cache_batch_offset, layers)
 
     xn = rms_norm(x, params.norm, cfg.norm_eps)
     if last_idx is None or isinstance(last_idx, int):
@@ -451,4 +521,35 @@ def llama_forward(
         logits = matmul(xn, params.output, torch.float32)
     else:  # a dense output weight multiplies in f32, as llama.py:849-853 there
         logits = xn.to(torch.float32) @ params.output.to(torch.float32)
+    # vocab-sharded logits -> the full logits on every rank (llama.py:856)
+    logits = comm.all_gather(logits, tp_axis, dim=-1)
     return logits, cache, embeddings
+
+
+def _pipeline(x, axis: comm.Axis, n_micro: int, n_past, cos, sin, boff: int | None, layers):
+    """The pipeline stages' schedule (module docstring): stage s runs each
+    of the M microbatches once, as it arrives from stage s - 1 (stage 0
+    takes rows [m·b0, (m+1)·b0) of x), at cache rows boff + m·b0 (boff
+    None counts as 0; every microbatch passes its offset), and sends
+    it to stage s + 1; the last stage's outputs go to every stage. Returns
+    the full [B, T, E] activations."""
+    b = x.shape[0]
+    m_count = max(1, n_micro)
+    if b % m_count:
+        raise ValueError(f"batch {b} does not split into {m_count} microbatches")
+    b0 = b // m_count
+    stage, last = axis.index, axis.size - 1
+    vector = not isinstance(n_past, int)
+    outs = []
+    for m in range(m_count):
+        rows = slice(m * b0, (m + 1) * b0)
+        xm = x[rows] if stage == 0 else comm.recv(x[rows], axis, stage - 1)
+        npm = n_past[rows].contiguous() if vector else n_past
+        cm, sm = (cos[rows], sin[rows]) if vector else (cos, sin)
+        xm = layers(xm, npm, npm, npm, cm, sm, (boff or 0) + m * b0)
+        if stage < last:
+            comm.send(xm, axis, stage + 1)
+        else:
+            outs.append(xm)
+    x = torch.cat(outs) if stage == last else torch.empty_like(x)
+    return comm.broadcast(x, axis, last)

@@ -7,6 +7,15 @@ library is not available or LLAMAVK_NO_NATIVE is set (the two give the same
 bytes), stacks the per-layer weights and moves everything to the device
 once. Also builds synthetic 7B params on the device and carries parameters
 across from the JAX package (`params_from_arrays`).
+
+Tensor-parallel packing (`tp` > 1, loader.py:55-95, :191 there): the
+row-parallel kinds `wo` and `w2` are packed as `tp` independent K chunks,
+so that a tp shard of their K axis is whole chunks (`parallel/sharding.py`),
+and the fused `wqkv`/`w13` interleave per-shard column segments, so that
+tp shard i of the fused N axis is [q_i | k_i | v_i] (gate_i | up_i). Such
+params are the same model as tp = 1 params: `regroup_fused` takes their
+fused columns back to another tp's order, and chunked `wo`/`w2` multiply as
+they are (one K1 launch per chunk).
 """
 
 from __future__ import annotations
@@ -64,29 +73,37 @@ def _tensor(a: np.ndarray, device, dtype=None) -> torch.Tensor:
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
-def _read_packed(reader: CheckpointReader, name: str, layout: str):
-    """A 2-D matmul weight as PackedQ4 (q4) or dense f32 [K, N]: the native
-    repack straight off the mapped file where it is built, else NumPy."""
+# the row-parallel kinds: their K axis splits over tp, so they are packed in
+# tp chunks (ROW_PARALLEL_KINDS of loader.py there)
+ROW_PARALLEL_KINDS = ("wo", "w2")
+
+
+def _read_packed(reader: CheckpointReader, name: str, layout: str, chunks: int = 1):
+    """A 2-D matmul weight as PackedQ4 (q4, its K axis packed in `chunks`
+    independent slices) or dense f32 [K, N]: the native repack straight off
+    the mapped file where it is built, else NumPy."""
     t = reader.tensors[name]
     if t.ftype in (GGML_FTYPE_Q4_0, GGML_FTYPE_Q4_1):
         pk = native.repack_q4_stream(reader.raw_tensor(name), t.shape[0], t.ne[0], t.ftype,
-                                     layout)
+                                     layout, chunks)
         if pk is not None:
             return pk
     if t.ftype == GGML_FTYPE_Q4_0:
         d, q = reader.load_q4(name)
-        return repack_q4_0(d, q, layout=layout)
+        return repack_q4_0(d, q, layout=layout, chunks=chunks)
     if t.ftype == GGML_FTYPE_Q4_1:
         d, m, q = reader.load_q4(name)
-        return repack_q4_1(d, m, q, layout=layout)
+        return repack_q4_1(d, m, q, layout=layout, chunks=chunks)
     return np.ascontiguousarray(reader.load_f32(name).T)  # dense [K, N]
 
 
-def _fuse(parts):
+def _fuse(parts, tp: int = 1):
+    """Fuse column-parallel parts along N, per-tp-shard segments interleaved
+    (loader.py:91-95 there)."""
     if all(isinstance(p, PackedQ4) for p in parts):
-        return fuse_packed(parts)
+        return fuse_packed(parts, tp)
     if all(isinstance(p, np.ndarray) for p in parts):
-        return _interleave_cols(parts, 1)
+        return _interleave_cols(parts, tp)
     return None  # mixed q4/dense: caller falls back to unfused
 
 
@@ -167,10 +184,10 @@ def params_from_reader(
 ) -> tuple[ModelConfig, LlamaParams]:
     """Build the device params. `fuse` concatenates wq|wk|wv and w1|w3 (two
     launches fewer per layer). `progress_callback(frac)` runs per layer.
-    Q4_0, Q4_1, f16 and f32 tensors; tensor-parallel packing (`tp` > 1) is
-    not ported yet."""
-    if tp != 1:
-        raise NotImplementedError("params_from_reader: tensor-parallel packing is not ported yet")
+    Q4_0, Q4_1, f16 and f32 tensors. `tp` > 1 packs for tensor
+    parallelism: `wo`/`w2` in tp K chunks and the fused weights' columns
+    interleaved per shard (module docstring); the params stay whole, and
+    `parallel.sharding.shard_params` cuts a rank's shard from them."""
     device = resolve(device)
     cfg = ModelConfig.from_hparams(reader.hparams)
     # trust the tensors over the n_mult-derived n_ff
@@ -185,8 +202,8 @@ def params_from_reader(
         file=sys.stderr,
     )
 
-    def rp(name):
-        return _read_packed(reader, name, layout)
+    def rp(name, kind=""):
+        return _read_packed(reader, name, layout, tp if kind in ROW_PARALLEL_KINDS else 1)
 
     names = {
         "wq": "attention.wq.weight", "wk": "attention.wk.weight",
@@ -200,12 +217,12 @@ def params_from_reader(
         if progress_callback is not None:
             progress_callback(i / cfg.n_layer)
         p = f"layers.{i}."
-        w = {kind: rp(p + nm) for kind, nm in names.items()}
+        w = {kind: rp(p + nm, kind) for kind, nm in names.items()}
         w["attn_norm"] = reader.load_f32(p + "attention_norm.weight")
         w["ffn_norm"] = reader.load_f32(p + "ffn_norm.weight")
         if fused:
-            wqkv = _fuse([w["wq"], w["wk"], w["wv"]])
-            w13 = _fuse([w["w1"], w["w3"]])
+            wqkv = _fuse([w["wq"], w["wk"], w["wv"]], tp)
+            w13 = _fuse([w["w1"], w["w3"]], tp)
             if wqkv is None or w13 is None:
                 fused = False
                 if i:
@@ -245,14 +262,17 @@ def load_model(
 
 
 def params_from_arrays(
-    arrays: dict[str, np.ndarray], cfg: ModelConfig, device="cuda", layout: str = LAYOUT_ILV
+    arrays: dict[str, np.ndarray], cfg: ModelConfig, device="cuda", layout: str = LAYOUT_ILV,
+    tp: int = 1,
 ) -> LlamaParams:
     """Carry parameters across from the JAX package: `arrays` holds its
     LlamaParams flattened to NumPy, keyed by attribute path
     (`layers.wqkv.packed`, `tok_embeddings.scales`, `norm`, ...). Packed
     weights keep their bytes, layout and dtypes. The JAX package's static
     fields are not leaves: `layout` names the packed layout (ilv by default,
-    as its loader writes)."""
+    as its loader writes), and `tp` the packing of params its loader made
+    with `tp=` (`wo`/`w2` in tp chunks, fused columns interleaved), which
+    they keep."""
     device = resolve(device)
 
     def t(key):
@@ -260,11 +280,13 @@ def params_from_arrays(
 
     def weight(prefix):
         if prefix + ".packed" in arrays:
+            kind = prefix.split(".")[-1]
             return QWeight(
                 packed=t(prefix + ".packed"),
                 scales=t(prefix + ".scales"),
                 bias=t(prefix + ".bias") if prefix + ".bias" in arrays else None,
                 layout=layout,
+                chunks=tp if kind in ROW_PARALLEL_KINDS else 1,
             )
         return t(prefix)
 
@@ -289,14 +311,18 @@ def params_from_arrays(
 
 
 def synthetic_params(cfg: ModelConfig, seed: int = 0, device="cuda",
-                     scale_dtype=torch.bfloat16, layout: str = LAYOUT_ILV) -> LlamaParams:
+                     scale_dtype=torch.bfloat16, layout: str = LAYOUT_ILV,
+                     tp: int = 1) -> LlamaParams:
     """Random Q4_0-packed fused params made on the device from one seeded
     generator: packed bytes uniform in [-128, 128), scales uniform in
     [0.005, 0.02] then bf16, norms 1 — the distributions of the JAX
-    package's synthetic_params (loader.py:509-530). `layout` names the
+    package's synthetic_params (loader.py:509-543). `layout` names the
     weight planes' layout, ilv or lin; random bytes are a valid plane of
-    either, so the same seed gives the same bytes. For running the compute
-    path at full width without real weights."""
+    either, so the same seed gives the same bytes. `tp` > 1 marks `wo`/`w2`
+    as packed in tp chunks and the fused columns as interleaved per shard
+    (the tp packing of `params_from_reader`): the same bytes, read as that
+    packing. For running the compute path at full width without real
+    weights."""
     if layout not in (LAYOUT_ILV, LAYOUT_LIN):
         raise NotImplementedError(f"synthetic_params: layout {layout!r} (ilv or lin)")
     device = resolve(device)
@@ -310,18 +336,18 @@ def synthetic_params(cfg: ModelConfig, seed: int = 0, device="cuda",
         s = torch.empty(shape, dtype=torch.float32, device=device)
         return s.uniform_(0.005, 0.02, generator=g).to(scale_dtype)
 
-    def qw(k, n, lead=()):
+    def qw(k, n, lead=(), chunks=1):
         return QWeight(packed=packed(*lead, k // 2, n), scales=scales(*lead, k // QK, n),
-                       layout=layout)
+                       layout=layout, chunks=chunks)
 
     norm_l = torch.ones((L, e), dtype=torch.float32, device=device)
     layers = FusedLayerParams(
         attn_norm=norm_l,
         wqkv=qw(e, 3 * e, (L,)),
-        wo=qw(e, e, (L,)),
+        wo=qw(e, e, (L,), tp),
         ffn_norm=norm_l.clone(),
         w13=qw(e, 2 * f, (L,)),
-        w2=qw(f, e, (L,)),
+        w2=qw(f, e, (L,), tp),
     )
     emb = QEmbedding(packed=packed(v, e // 2), scales=scales(v, e // QK), bias=None, k=e)
     return LlamaParams(
@@ -330,6 +356,36 @@ def synthetic_params(cfg: ModelConfig, seed: int = 0, device="cuda",
         norm=torch.ones((e,), dtype=torch.float32, device=device),
         output=qw(e, v),
     )
+
+
+def regroup_fused(params: LlamaParams, tp: int, to_tp: int = 1) -> LlamaParams:
+    """The same params with the fused `wqkv`/`w13` columns moved from tp's
+    per-shard interleave (`fuse_packed(parts, tp)`) to to_tp's; `wo`/`w2`
+    and every other tensor are kept (shared, not copied). A column
+    permutation of the packed, scale and bias planes: exact. to_tp = 1
+    gives the order a single device reads ([q | k | v], [gate | up]), with
+    `wo`/`w2` still in their tp chunks."""
+    lp = params.layers
+    if not isinstance(lp, FusedLayerParams) or tp == to_tp:
+        return params
+
+    def perm(n: int, parts: int, a: int, b: int) -> torch.Tensor:
+        # interleave a -> interleave b: column (part j, shard s of a, offset c)
+        cols = torch.arange(n).reshape(a, parts, n // (a * parts))
+        seg = cols.permute(1, 0, 2).reshape(parts, n // parts)  # each part's columns
+        return seg.reshape(parts, b, -1).permute(1, 0, 2).reshape(-1)
+
+    def regroup(w, parts: int):
+        idx = perm(w.n if isinstance(w, QWeight) else w.shape[-1], parts, tp, to_tp)
+        if isinstance(w, QWeight):
+            idx = idx.to(w.packed.device)
+            return replace(w, packed=w.packed[..., idx].contiguous(),
+                           scales=w.scales[..., idx].contiguous(),
+                           bias=None if w.bias is None else w.bias[..., idx].contiguous())
+        return w[..., idx.to(w.device)].contiguous()
+
+    layers = replace(lp, wqkv=regroup(lp.wqkv, 3), w13=regroup(lp.w13, 2))
+    return replace(params, layers=layers)
 
 
 def random_tiny_model(

@@ -50,6 +50,17 @@ prefix exclude each other and a page table, as the JAX asserts do.
   CUDA tensors it launches `attn_read_launch` (replaces `_read_kernel` /
   `_attend`).
 
+Pipeline-parallel modes (flash_attn.py:827, :1018-1023, :275-291 there):
+`batch_offset` is the first cache row of the call's B rows, so a microbatch
+runs against the full-batch flat cache [L, B_cache, H, S, D] (B_cache >=
+batch_offset + B) without slicing it; `commit=0` (the update only) writes
+no row, leaving every cache byte as it was, and attends over the unchanged
+rows, as the JAX kernel's idle pipeline hop does. Both are flat only: a
+page table, a ring or a prefix pool with them raises ValueError. The batch
+slice is taken only when the caller passes `batch_offset` (the pipeline
+passes one for every microbatch, 0 included); without it a flat cache must
+hold exactly the call's B rows, or the call raises ValueError.
+
 On CPU tensors both compute their plain version (`*_ref`): the same cache
 write (paged: straight into the pool through the table), then the dense
 masked softmax of `attend_ref` (paged: over the logical view gathered
@@ -81,12 +92,17 @@ launches = {f"{path}{mode}{kind}": 0 for path, mode in (
     ("read", "_paged"), ("update", "_ring"), ("read", "_ring"), ("update", "_prefix"),
     ("read", "_prefix")) for kind in ("", "_i8")}
 launches.update(update_f32=0, read_f32=0)
+# the pipeline-parallel modes: a batch slice of a wider flat cache (`boff`),
+# and the update with commit=0 (`nocommit`), every cache type
+launches.update({f"{path}_{mode}{kind}": 0 for path, mode in (
+    ("update", "boff"), ("read", "boff"), ("update", "nocommit"))
+    for kind in ("", "_i8", "_f32")})
 # launches by shape (path, B, T, H, S, D, block_k, cache type: "bf16",
 # "int8" or "f32", n_past: the int, or None for a per-row vector, MAXLB: the
 # page table's width, or None for a flat cache, page_straddle, mode: None,
-# ("ring", ring_bounded) or ("prefix", NP, Sp, pblock_k); S is a page's rows
-# when paged), so a caller can check
-# every shape a run reached
+# ("ring", ring_bounded), ("prefix", NP, Sp, pblock_k), or ("boff" or
+# "nocommit", B_cache, batch_offset); S is a page's rows when paged), so a
+# caller can check every shape a run reached
 shapes: collections.Counter = collections.Counter()
 
 
@@ -103,6 +119,38 @@ def launch_name(path: str, kind: str, paged: bool, straddle: bool = False,
     f32)."""
     return (path + ("_paged" if paged else "") + ("_straddle" if straddle else "")
             + (f"_{mode}" if mode else "") + {"bf16": "", "int8": "_i8", "f32": "_f32"}[kind])
+
+
+def pp_mode(k: torch.Tensor, b: int, batch_offset: int | None, commit: int = 1,
+            page_table=None, ring: bool = False, prefix: bool = False):
+    """The pipeline-parallel mode of a call on the cache k with B = b rows,
+    as (launch-key mode, shape-key mode): ("nocommit", ("nocommit",
+    B_cache, offset)) for commit=0, ("boff", ("boff", B_cache,
+    batch_offset)) when the caller passes a `batch_offset` (0 included: a
+    pipeline passes one for every microbatch), else ("", None). Raises
+    ValueError where the offset rows leave the cache, where the mode meets a
+    page table, ring or prefix pool, or where a flat cache without a
+    `batch_offset` does not hold exactly the B rows (commit=0 too: without
+    an offset it runs on a cache of just the B rows)."""
+    if batch_offset is None and page_table is None and k.shape[1] != b:
+        raise ValueError(f"attention: cache {tuple(k.shape)} does not fit {b} batch rows "
+                         "(pass batch_offset to run on a slice of it)")
+    if commit and batch_offset is None:
+        return "", None
+    if page_table is not None or ring or prefix:
+        raise ValueError("batch_offset and commit=0 take a flat cache with no ring or "
+                         "prefix pool")
+    off = batch_offset or 0
+    if not 0 <= off <= k.shape[1] - b:
+        raise ValueError(f"batch rows [{off}, {off + b}) leave the cache's {k.shape[1]}")
+    name = "boff" if commit else "nocommit"
+    return name, (name, k.shape[1], off)
+
+
+def _rows_of(planes, batch_offset: int, b: int) -> list:
+    """The cache planes' views of batch rows [batch_offset, batch_offset + b)
+    (None stays None)."""
+    return [None if p is None else p[:, batch_offset : batch_offset + b] for p in planes]
 
 
 def _fit_block_k(block_k: int, s: int, step: int = 8) -> int:
@@ -277,16 +325,18 @@ def _layer_scales(k_scale, v_scale, layer_idx):
 def flash_attention_ref(q, k, v, n_past, layer_idx: int = 0, block_k: int = 256,
                         k_scale=None, v_scale=None, page_table=None, kv_pos=None,
                         ring_bounded: bool = False, prefix_k=None, prefix_v=None,
-                        prefix_id=None, prefix_len=None):
+                        prefix_id=None, prefix_len=None, batch_offset: int | None = None):
     """Plain version of `flash_attention`: dense attention over layer
-    `layer_idx` of the stacked cache, or over the logical view of the pool
-    gathered through `page_table`, or over a ring masked by `kv_pos`, after
-    the rows of a shared prefix (`attend_ref`). `ring_bounded` changes
-    nothing here: the kernels' bound only skips rows that an engine-filled
-    ring masks anyway."""
+    `layer_idx` of the stacked cache (its batch rows from `batch_offset`),
+    or over the logical view of the pool gathered through `page_table`, or
+    over a ring masked by `kv_pos`, after the rows of a shared prefix
+    (`attend_ref`). `ring_bounded` changes nothing here: the kernels' bound
+    only skips rows that an engine-filled ring masks anyway."""
     del block_k, ring_bounded  # the dense softmax has no KV blocks and no bound
     _check_modes(page_table, kv_pos, prefix_k)
     b, t = q.shape[:2]
+    if pp_mode(k, b, batch_offset, 1, page_table, kv_pos is not None, prefix_k is not None)[1]:
+        k, v, k_scale, v_scale = _rows_of([k, v, k_scale, v_scale], batch_offset or 0, b)
     planes = [k[layer_idx], v[layer_idx], *_layer_scales(k_scale, v_scale, layer_idx)]
     if page_table is not None:
         planes = [None if p is None else gather_pages(p, page_table) for p in planes]
@@ -316,18 +366,25 @@ def flash_attention_update_ref(
     q, k_new, v_new, k, v, n_past, layer_idx: int, block_t: int = 256, block_k: int = 256,
     k_scale=None, v_scale=None, page_table=None, page_straddle: bool = False, kv_pos=None,
     write_row=None, ring_bounded: bool = False, prefix_k=None, prefix_v=None, prefix_id=None,
-    prefix_len=None,
+    prefix_len=None, commit: int = 1, batch_offset: int | None = None,
 ):
     """Plain version of `flash_attention_update`: the cache write (a ring's
-    at `write_row`), then the dense attention. Returns (out, k, v), plus
-    (k_scale, v_scale) for an int8 cache, every cache plane updated in
-    place."""
+    at `write_row`; into batch rows from `batch_offset`; none when `commit`
+    is 0), then the dense attention. Returns (out, k, v), plus (k_scale,
+    v_scale) for an int8 cache, every cache plane updated in place."""
     _check_modes(page_table, kv_pos, prefix_k, write_row, update=True)
     _check_block_t(q.shape[1], block_t, n_past, k.shape[3], page_table, page_straddle)
-    write_rows(k_new, v_new, k, v, n_past if kv_pos is None else write_row, layer_idx, k_scale,
-               v_scale, page_table)
-    out = flash_attention_ref(q, k, v, n_past, layer_idx, block_k, k_scale, v_scale, page_table,
-                              kv_pos, ring_bounded, prefix_k, prefix_v, prefix_id, prefix_len)
+    b = q.shape[0]
+    planes = [k, v, k_scale, v_scale]
+    if pp_mode(k, b, batch_offset, commit, page_table, kv_pos is not None,
+               prefix_k is not None)[1]:
+        planes = _rows_of(planes, batch_offset or 0, b)
+    if commit:
+        write_rows(k_new, v_new, planes[0], planes[1], n_past if kv_pos is None else write_row,
+                   layer_idx, planes[2], planes[3], page_table)
+    out = flash_attention_ref(q, *planes[:2], n_past, layer_idx, block_k, *planes[2:],
+                              page_table, kv_pos, ring_bounded, prefix_k, prefix_v, prefix_id,
+                              prefix_len)
     return (out, k, v) if k_scale is None else (out, k, v, k_scale, v_scale)
 
 
@@ -379,11 +436,11 @@ def _lib():
     lib = _build.load("flash_attn")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     modes = ctypes.POINTER(_Modes)
-    lib.attn_read_launch.argtypes = [p, p, p, p, p, p, p, i, p, i, i, i, i, i, i, i, f, i, modes,
-                                     p]
+    lib.attn_read_launch.argtypes = [p, p, p, p, p, p, p, i, p, i, i, i, i, i, i, i, f, i, i,
+                                     modes, p]
     lib.attn_read_launch.restype = ctypes.c_int
     lib.attn_update_launch.argtypes = [p, p, p, p, p, p, p, p, p, i, p, i, i, i, i, i, i, i, f,
-                                       i, modes, p]
+                                       i, i, i, modes, p]
     lib.attn_update_launch.restype = ctypes.c_int
     return lib
 
@@ -411,18 +468,19 @@ def _query(q, k, prefix_k=None) -> torch.Tensor:
 
 
 def check_cuda(q, k, v, n_past, layer_idx, k_scale=None, v_scale=None, tensors=(),
-               page_table=None, ring: bool = False):
+               page_table=None, ring: bool = False, pp: bool = False):
     """Validate kernel operands (q and new rows bf16, f32 for an f32 cache;
     a bf16 cache, an int8 cache with f32 scale planes, or a flat f32 cache;
-    flat [L, B, H, S, D] with scales [L, B, S, H], or a pool
-    [L, NP, H, PS, D] with scales [L, NP, PS, H] and an int32 [B, MAXLB]
-    page table). Returns (npast_ptr, npast_scalar, cache type, k_scale_ptr,
-    v_scale_ptr, table_ptr, MAXLB) for layer_idx. A ring's n_past is logical
-    and may pass the cache's rows."""
+    flat [L, B, H, S, D] with scales [L, B, S, H] (with `pp`, a wider flat
+    cache that `pp_mode` has checked), or a pool [L, NP, H, PS, D] with
+    scales [L, NP, PS, H] and an int32 [B, MAXLB] page table). Returns
+    (npast_ptr, npast_scalar, cache type, k_scale_ptr, v_scale_ptr,
+    table_ptr, MAXLB) for layer_idx. A ring's n_past is logical and may pass
+    the cache's rows."""
     b, t, h, d = q.shape
     paged = page_table is not None
     if (k.dim() != 5 or k.shape != v.shape or k.shape[2] != h or k.shape[4] != d
-            or not (paged or k.shape[1] == b)):
+            or not (paged or pp or k.shape[1] == b)):
         raise ValueError(f"attention: cache {tuple(k.shape)} does not fit q {tuple(q.shape)}")
     if d not in (64, 128):
         raise ValueError(f"attention kernel: head_dim must be 64 or 128, got {d}")
@@ -526,18 +584,22 @@ def flash_attention(
     prefix_v: torch.Tensor | None = None,
     prefix_id: torch.Tensor | None = None,  # [B] int32 pool entry per row
     prefix_len: torch.Tensor | None = None,  # [B] int32 valid prefix rows
+    batch_offset: int | None = None,  # first cache row of the B rows (flat, pipeline stages)
 ) -> torch.Tensor:
     """Causal attention of T queries over layer `layer_idx` of a cache that
     already holds their rows (K3). Returns f32 [B, T, H, D]."""
     if not q.is_cuda:
         return flash_attention_ref(q, k, v, n_past, layer_idx, block_k, k_scale, v_scale,
                                    page_table, kv_pos, ring_bounded, prefix_k, prefix_v,
-                                   prefix_id, prefix_len)
+                                   prefix_id, prefix_len, batch_offset)
     _check_modes(page_table, kv_pos, prefix_k)
+    _, pmode = pp_mode(k, q.shape[0], batch_offset, 1, page_table, kv_pos is not None,
+                           prefix_k is not None)
     q = _query(q, k, prefix_k)
     npv, nps, kind, ksp, vsp, tab, maxlb = check_cuda(q, k, v, n_past, layer_idx, k_scale,
                                                       v_scale, page_table=page_table,
-                                                      ring=kv_pos is not None)
+                                                      ring=kv_pos is not None,
+                                                      pp=pmode is not None)
     b, t, h, d = q.shape
     s = k.shape[3]
     bk = _fit_block_k(block_k, s, kv_step(k.dtype))
@@ -547,9 +609,11 @@ def flash_attention(
     rc = _lib().attn_read_launch(
         q.data_ptr(), k[layer_idx].data_ptr(), v[layer_idx].data_ptr(), ksp, vsp,
         out.data_ptr(), npv, nps, tab, maxlb, b, t, h, s, d, bk, 1.0 / math.sqrt(d),
-        KV_CODES[kind], ctypes.byref(modes), torch.cuda.current_stream(q.device).cuda_stream,
+        KV_CODES[kind], batch_offset or 0, ctypes.byref(modes),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, "attn_read_launch")
+    mode = mode or pmode
     launches[launch_name("read", kind, tab is not None, mode=mode and mode[0])] += 1
     shapes[("read", b, t, h, s, d, bk, kind, n_past if npv is None else None,
             maxlb or None, False, mode)] += 1
@@ -577,10 +641,13 @@ def flash_attention_update(
     prefix_v: torch.Tensor | None = None,
     prefix_id: torch.Tensor | None = None,  # [B] int32 pool entry per row
     prefix_len: torch.Tensor | None = None,  # [B] int32 valid prefix rows
+    commit: int = 1,  # 0: write nothing, attend over the unchanged cache
+    batch_offset: int | None = None,  # first cache row of the B rows (flat, pipeline stages)
 ):
     """Writes the T new K/V rows at [n_past[b], n_past[b] + T) of layer
     `layer_idx` IN PLACE (int8: the rows of bf16(k_new) quantized, and their
-    scales; a ring: at [write_row[b], write_row[b] + T)), then attends (K2).
+    scales; a ring: at [write_row[b], write_row[b] + T); batch row b at cache
+    row batch_offset + b; nothing when `commit` is 0), then attends (K2).
     Returns (out [B, T, H, D] f32, k, v), plus (k_scale, v_scale) for an int8
     cache. Requires T % min(block_t, T) == 0, as the JAX kernel does, and,
     paged, that every block of block_t rows lies in one page (checked for a
@@ -590,9 +657,12 @@ def flash_attention_update(
         return flash_attention_update_ref(q, k_new, v_new, k, v, n_past, layer_idx,
                                           block_t, block_k, k_scale, v_scale, page_table,
                                           page_straddle, kv_pos, write_row, ring_bounded,
-                                          prefix_k, prefix_v, prefix_id, prefix_len)
+                                          prefix_k, prefix_v, prefix_id, prefix_len, commit,
+                                          batch_offset)
     _check_modes(page_table, kv_pos, prefix_k, write_row, update=True)
     _check_block_t(q.shape[1], block_t, n_past, k.shape[3], page_table, page_straddle)
+    _, pmode = pp_mode(k, q.shape[0], batch_offset, commit, page_table, kv_pos is not None,
+                           prefix_k is not None)
     q = _query(q, k, prefix_k)
     # the cast flash_attn.py:1101-1103 makes (to an f32 cache's type; an int8
     # cache quantizes bf16 rows)
@@ -601,7 +671,8 @@ def flash_attention_update(
         raise ValueError("flash_attention_update: k_new/v_new must match q's shape")
     npv, nps, kind, ksp, vsp, tab, maxlb = check_cuda(q, k, v, n_past, layer_idx, k_scale,
                                                       v_scale, (kn, vn), page_table,
-                                                      ring=kv_pos is not None)
+                                                      ring=kv_pos is not None,
+                                                      pp=pmode is not None)
     b, t, h, d = q.shape
     s = k.shape[3]
     bk = _fit_block_k(block_k, s, kv_step(k.dtype))
@@ -611,10 +682,11 @@ def flash_attention_update(
     rc = _lib().attn_update_launch(
         q.data_ptr(), kn.data_ptr(), vn.data_ptr(), k[layer_idx].data_ptr(),
         v[layer_idx].data_ptr(), ksp, vsp, out.data_ptr(), npv, nps, tab, maxlb, b, t, h, s, d,
-        bk, 1.0 / math.sqrt(d), KV_CODES[kind], ctypes.byref(modes),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        bk, 1.0 / math.sqrt(d), KV_CODES[kind], batch_offset or 0, int(bool(commit)),
+        ctypes.byref(modes), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, "attn_update_launch")
+    mode = mode or pmode
     launches[launch_name("update", kind, tab is not None, page_straddle,
                          mode and mode[0])] += 1
     shapes[("update", b, t, h, s, d, bk, kind, n_past if npv is None else None,

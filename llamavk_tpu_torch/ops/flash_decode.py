@@ -13,7 +13,9 @@ blocks. On CPU tensors it computes the plain version,
 `flash_decode_update_ref`, which is the fused update's plain version at
 T = 1: the row write, then the dense causal attention. With `page_table`
 the cache is a page pool [L, NP, H, PS, D] addressed through the table, as in
-`ops/flash_attn.py`.
+`ops/flash_attn.py`. `batch_offset` runs the B rows against batch rows
+[batch_offset, batch_offset + B) of a wider flat cache (flash_decode.py:391
+there; no path of either package passes it but its tests).
 
 Block partitioning and accumulation order equal the fused update kernel's
 (`ops/flash_attn.py`) at the same block_k: the CUDA K4 and K2 share their
@@ -38,6 +40,7 @@ from .flash_attn import (
     flash_attention_update_ref,
     kv_step,
     launch_name,
+    pp_mode,
 )
 
 # launches of the CUDA kernel (one per wrapper call on CUDA tensors), by
@@ -45,9 +48,13 @@ from .flash_attn import (
 launches = {launch_name("decode", kind, paged): 0 for paged in (False, True)
             for kind in ("bf16", "int8")}
 launches[launch_name("decode", "f32", False)] = 0
+launches.update({launch_name("decode", kind, False, mode="boff"): 0
+                 for kind in ("bf16", "int8", "f32")})
 # launches by shape (B, H, S, D, block_k, cache type: "bf16", "int8" or
 # "f32", MAXLB: the page table's width, or None for a flat cache; S is a
-# page's rows when paged), so a caller can check every shape a run reached
+# page's rows when paged), and for a batch slice of a wider cache the mode
+# ("boff", B_cache, batch_offset) after them, so a caller can check every
+# shape a run reached
 shapes: collections.Counter = collections.Counter()
 
 
@@ -70,7 +77,8 @@ def decode_work_list(n_past: torch.Tensor, b: int, cap: int, bk: int):
 
 
 def flash_decode_update_ref(q, k_new, v_new, k, v, n_past, layer_idx: int, block_k: int = 256,
-                            k_scale=None, v_scale=None, page_table=None):
+                            k_scale=None, v_scale=None, page_table=None,
+                            batch_offset: int | None = None):
     """Plain version of `flash_decode_update`: the plain fused update
     (`flash_attention_update_ref`) at T = 1. Every row a query sees lies in
     one of the blocks its work list assigns, so the causal mask alone
@@ -81,7 +89,7 @@ def flash_decode_update_ref(q, k_new, v_new, k, v, n_past, layer_idx: int, block
     _fit_block_k(block_k, k.shape[3], kv_step(k.dtype))  # the kernel's block must fit
     return flash_attention_update_ref(q, k_new, v_new, k, v, n_past, layer_idx,
                                       block_k=block_k, k_scale=k_scale, v_scale=v_scale,
-                                      page_table=page_table)
+                                      page_table=page_table, batch_offset=batch_offset)
 
 
 @functools.cache
@@ -89,7 +97,7 @@ def _lib():
     lib = _build.load("flash_decode")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_decode_launch.argtypes = [p, p, p, p, p, p, p, p, p, i, p, i, i, i, i, i, i, f, i,
-                                        p]
+                                        i, p]
     lib.flash_decode_launch.restype = ctypes.c_int
     return lib
 
@@ -106,6 +114,7 @@ def flash_decode_update(
     k_scale: torch.Tensor | None = None,  # [L, B, S, H] / [L, NP, PS, H] f32, in place
     v_scale: torch.Tensor | None = None,
     page_table: torch.Tensor | None = None,  # [B, MAXLB] int32: k/v are a page pool
+    batch_offset: int | None = None,  # first cache row of the B rows (flat)
 ):
     """Single-token fused cache insert + attention for every batch row (K4).
     Drop-in for `flash_attention_update` at t == 1, with the same
@@ -113,26 +122,29 @@ def flash_decode_update(
     v), plus (k_scale, v_scale) for an int8 cache."""
     if not q.is_cuda:
         return flash_decode_update_ref(q, k_new, v_new, k, v, n_past, layer_idx, block_k,
-                                       k_scale, v_scale, page_table)
+                                       k_scale, v_scale, page_table, batch_offset)
     b, t, h, d = q.shape
     if t != 1:
         raise ValueError("flash_decode_update is the single-token decode path")
+    pname, pmode = pp_mode(k, b, batch_offset, 1, page_table)
     q = _query(q, k)
     # the cast flash_decode.py:413-418 makes (bf16, or an f32 cache's type)
     kn, vn = (x.to(q.dtype).contiguous() for x in (k_new, v_new))
     if kn.shape != q.shape or vn.shape != q.shape:
         raise ValueError("flash_decode_update: k_new/v_new must match q's shape")
     npv, nps, kind, ksp, vsp, tab, maxlb = check_cuda(q, k, v, n_past, layer_idx, k_scale,
-                                                      v_scale, (kn, vn), page_table)
+                                                      v_scale, (kn, vn), page_table,
+                                                      pp=pmode is not None)
     s = k.shape[3]
     bk = _fit_block_k(block_k, s, kv_step(k.dtype))
     out = torch.empty((b, 1, h, d), dtype=torch.float32, device=q.device)
     rc = _lib().flash_decode_launch(
         q.data_ptr(), kn.data_ptr(), vn.data_ptr(), k[layer_idx].data_ptr(),
         v[layer_idx].data_ptr(), ksp, vsp, out.data_ptr(), npv, nps, tab, maxlb, b, h, s, d, bk,
-        1.0 / math.sqrt(d), KV_CODES[kind], torch.cuda.current_stream(q.device).cuda_stream,
+        1.0 / math.sqrt(d), KV_CODES[kind], batch_offset or 0,
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, "flash_decode_launch")
-    launches[launch_name("decode", kind, tab is not None)] += 1
-    shapes[(b, h, s, d, bk, kind, maxlb or None)] += 1
+    launches[launch_name("decode", kind, tab is not None, mode=pname)] += 1
+    shapes[(b, h, s, d, bk, kind, maxlb or None) + ((pmode,) if pmode else ())] += 1
     return (out, k, v) if k_scale is None else (out, k, v, k_scale, v_scale)

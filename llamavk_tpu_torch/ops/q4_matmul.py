@@ -29,11 +29,19 @@ there reads it):
   there); a CPU tensor takes `q4_matmul_i8_ref`. Elsewhere `i8` takes K1.
   K5 reads the scale plane in its own type, bf16 or f32.
 
+A weight packed in `chunks` > 1 contiguous K slices (the tensor-parallel
+row-split packing of `wo`/`w2`, `formats/repack.py`) runs one launch per
+chunk on the chunk's slice of x, packed rows and scale rows, and the partial
+products are summed in f32 in chunk order (q4_matmul.py:714-728 stacked,
+:776-789 flat, :522 for K5 there); the plain versions loop over the chunks
+in the same way. A chunk's x slice is copied to a contiguous [M, K/chunks]
+tensor first (no copy at M = 1): the kernels take x as a dense row-major
+pointer, and the copy is M * K * 2 bytes beside the weight's K * N / 2.
+
 The dot mode of a call is its `dot_mode` argument, else LLAMAVK_Q4_DOT. The
 JAX `_kernel_q4` reads the environment's mode for its dot type whatever the
 call's argument (q4_matmul.py:117 there); the port honours the argument
-(ROADMAP.md queue 3). An unknown mode raises NotImplementedError, as do
-weights packed in more than one chunk (tensor parallelism).
+(ROADMAP.md queue 3). An unknown mode raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -54,30 +62,39 @@ from .qweight import QWeight, dequantize_qweight
 
 
 def launch_key(m: int, lin: bool = False, f32_scales: bool = False, round_scales: bool = False,
-               w_f32: bool = False) -> str:
+               w_f32: bool = False, chunked: bool = False) -> str:
     """The launch counter of a K1 launch: `gemv` (M = 1) or `gemm`, then
     `_lin` for the lin layout, `_f32` for an f32 scale plane, `_mulbf16`
     where LLAMAVK_Q4_MUL=bf16 rounds an f32 scale plane (a bf16 plane takes
-    the default kernel) and `_dotf32` for the f32 dot's weights."""
+    the default kernel), `_dotf32` for the f32 dot's weights and `_chunks`
+    for a launch on one chunk of a weight packed in several."""
     return (("gemv" if m == 1 else "gemm") + ("_lin" if lin else "")
             + ("_f32" if f32_scales else "") + ("_mulbf16" if round_scales else "")
-            + ("_dotf32" if w_f32 else ""))
+            + ("_dotf32" if w_f32 else "") + ("_chunks" if chunked else ""))
 
 
-# launches of the CUDA kernels, one per q4_matmul call on a CUDA tensor: K1's
-# decode GEMV (M = 1) and tiled GEMM (every M > 1) by mode (`launch_key`),
-# and K5 with bf16 (`i8`) or f32 (`i8_f32`) scales
+def i8_key(f32_scales: bool = False, chunked: bool = False) -> str:
+    """The launch counter of a K5 launch: `i8`, `_f32` over f32 scales,
+    `_chunks` on one chunk of a weight packed in several."""
+    return "i8" + ("_f32" if f32_scales else "") + ("_chunks" if chunked else "")
+
+
+# launches of the CUDA kernels, one per chunk of a q4_matmul call on a CUDA
+# tensor: K1's decode GEMV (M = 1) and tiled GEMM (every M > 1) by mode
+# (`launch_key`), and K5 with bf16 (`i8`) or f32 (`i8_f32`) scales
 launches = {
-    launch_key(m, lin, f32s, rs, wf): 0
-    for m, lin, f32s, rs, wf in itertools.product((1, 2), (False, True), (False, True),
-                                                   (False, True), (False, True))
+    launch_key(m, lin, f32s, rs, wf, ch): 0
+    for m, lin, f32s, rs, wf, ch in itertools.product((1, 2), (False, True), (False, True),
+                                                       (False, True), (False, True),
+                                                       (False, True))
     if not (rs and (wf or not f32s))
 }
-launches.update(i8=0, i8_f32=0)
+launches.update({i8_key(f32s, ch): 0 for f32s in (False, True) for ch in (False, True)})
 # launches by shape (M, K, N), so a caller can check every shape a run
 # reached: K1's default ilv kernel in `shapes` (f32 scales: `shapes_f32`),
 # K5's with bf16 scales in `shapes_i8`; every other mode in `shapes_modes`,
-# keyed (launch key, M, K, N)
+# keyed (launch key, M, K, N). A chunked weight's launches count under its
+# whole K, one per chunk
 shapes: collections.Counter = collections.Counter()
 shapes_f32: collections.Counter = collections.Counter()
 shapes_i8: collections.Counter = collections.Counter()
@@ -171,20 +188,32 @@ def mode_weight(qw: QWeight, dot_mode: str = "bf16",
     return w.to(torch.bfloat16).to(torch.float32)
 
 
+def _chunk_sum(xf: torch.Tensor, qw: QWeight, part) -> torch.Tensor:
+    """sum_c part(x chunk c, weight chunk c) in f32, in chunk order: the
+    chunk loop of q4_matmul.py:714-728, :776-789 and :522 there."""
+    kc = qw.k // qw.chunks
+    y = None
+    for c in range(qw.chunks):
+        yc = part(xf[:, c * kc : (c + 1) * kc], qw.chunk(c))
+        y = yc if y is None else y + yc
+    return y
+
+
 def q4_matmul_ref(
     x: torch.Tensor, qw: QWeight, out_dtype=torch.float32, layer_idx: int | None = None,
     dot_mode: str | None = None, mul_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """Plain version of K1 on any device, in the call's dot mode and multiply
     type (defaults as `q4_matmul`): x cast to bf16, the weight of
-    `mode_weight`, products summed in f32."""
+    `mode_weight`, products summed in f32, chunk by chunk for a chunked
+    weight."""
     mode = resolve_dot_mode(dot_mode)
     mul = resolve_mul_dtype(mul_dtype)
     if layer_idx is not None:
         qw = qw.layer(layer_idx)
     lead = x.shape[:-1]
     xf = x.reshape(-1, qw.k).to(torch.bfloat16)
-    y = xf.to(torch.float32) @ mode_weight(qw, mode, mul)
+    y = _chunk_sum(xf, qw, lambda xc, wc: xc.to(torch.float32) @ mode_weight(wc, mode, mul))
     if qw.bias is not None:
         y = y + _bias_term(xf, qw)
     return y.to(out_dtype).reshape(*lead, qw.n)
@@ -226,11 +255,21 @@ _SCALE_F32, _LIN, _ROUND_SCALE, _W_F32 = 1, 2, 4, 8
 
 def q4_matmul_cuda(xf: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
                    layout: str = LAYOUT_ILV, dot_mode: str = "bf16",
-                   mul_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Launch the K1 kernel: xf bf16 [M, K], packed int8 [K/2, N] (one chunk,
-    ilv or lin), scales bf16 or f32 [G, N] → f32 [M, N], in the numerics of
-    `dot_mode` ("f32" keeps w in f32; any other is the bf16 dot) and
-    `mul_dtype`."""
+                   mul_dtype: torch.dtype = torch.float32, chunks: int = 1) -> torch.Tensor:
+    """Launch the K1 kernel: xf bf16 [M, K], packed int8 [K/2, N] (ilv or
+    lin, packed in `chunks` K slices: one launch each), scales bf16 or f32
+    [G, N] → f32 [M, N], in the numerics of `dot_mode` ("f32" keeps w in
+    f32; any other is the bf16 dot) and `mul_dtype`."""
+    if chunks > 1:
+        qw = QWeight(packed=packed, scales=scales, layout=layout, chunks=chunks)
+        return _chunk_sum(xf, qw, lambda xc, wc: _q4_launch(
+            xc.contiguous(), wc.packed, wc.scales, layout, dot_mode, mul_dtype, qw.k))
+    return _q4_launch(xf, packed, scales, layout, dot_mode, mul_dtype)
+
+
+def _q4_launch(xf, packed, scales, layout, dot_mode, mul_dtype, chunked_k: int = 0):
+    """One K1 launch on one chunk; `chunked_k` the whole weight's K when the
+    chunk is one of several (its launch key then ends in `_chunks`)."""
     m, k = xf.shape
     half, n = packed.shape
     if not (xf.is_cuda and packed.is_cuda and scales.is_cuda):
@@ -269,9 +308,11 @@ def q4_matmul_cuda(xf: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
         torch.cuda.current_stream(xf.device).cuda_stream,
     )
     _build.check(rc, "q4_matmul_launch")
-    key = launch_key(m, lin, f32s, round_s, w_f32)
+    key = launch_key(m, lin, f32s, round_s, w_f32, chunked_k > 0)
     launches[key] += 1
-    if bits & ~_SCALE_F32:
+    if chunked_k:
+        shapes_modes[(key, m, chunked_k, n)] += 1
+    elif bits & ~_SCALE_F32:
         shapes_modes[(key, m, k, n)] += 1
     else:
         (shapes_f32 if f32s else shapes)[(m, k, n)] += 1
@@ -303,10 +344,10 @@ def _nibbles(packed: torch.Tensor, g: int) -> torch.Tensor:
 
 
 def _check_i8_weight(qw: QWeight) -> None:
-    if qw.bias is not None or qw.layout != LAYOUT_ILV or qw.chunks != 1:
+    if qw.bias is not None or qw.layout != LAYOUT_ILV:
         raise NotImplementedError(
-            f"the int8 dot takes a Q4_0 ilv weight with one chunk (bias={qw.bias is not None}, "
-            f"layout={qw.layout}, chunks={qw.chunks}); chunks > 1 come with tensor parallelism")
+            f"the int8 dot takes a Q4_0 ilv weight (bias={qw.bias is not None}, "
+            f"layout={qw.layout})")
 
 
 def q4_matmul_i8_ref(
@@ -316,16 +357,20 @@ def q4_matmul_i8_ref(
     to bf16 and quantized per 32-block; d[g, b, n], the int32 sum of 32
     int8 x int4 products, computed exactly (in float64, which holds every such
     sum, so no TF32 setting can touch it); y = sum_g (f32(d) * sx[g, b]) *
-    s[g, n], multiplied in that order and summed in f32; f32 then
-    `out_dtype`."""
+    s[g, n], multiplied in that order and summed in f32, chunk by chunk for a
+    chunked weight; f32 then `out_dtype`."""
     if layer_idx is not None:
         qw = qw.layer(layer_idx)
     _check_i8_weight(qw)
     lead = x.shape[:-1]
-    xq, sx = quantize_act_blocks(x.reshape(-1, qw.k).to(torch.bfloat16))
-    d = torch.einsum("mgb,mgn->gbn", xq.to(torch.float64),
-                     _nibbles(qw.packed, qw.g).to(torch.float64)).to(torch.float32)
-    y = (d * sx[:, :, None] * qw.scales.to(torch.float32)[:, None, :]).sum(dim=0)
+
+    def part(xc, wc):
+        xq, sx = quantize_act_blocks(xc)
+        d = torch.einsum("mgb,mgn->gbn", xq.to(torch.float64),
+                         _nibbles(wc.packed, wc.g).to(torch.float64)).to(torch.float32)
+        return (d * sx[:, :, None] * wc.scales.to(torch.float32)[:, None, :]).sum(dim=0)
+
+    y = _chunk_sum(x.reshape(-1, qw.k).to(torch.bfloat16), qw, part)
     return y.to(out_dtype).reshape(*lead, qw.n)
 
 
@@ -378,11 +423,23 @@ def _check_i8_x(xf: torch.Tensor) -> None:
         raise ValueError("K5: x must be contiguous and 16-byte aligned")
 
 
-def q4_matmul_i8_cuda(xf: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
-    """Launch K5: xf bf16 [M, K] (M <= 64), packed int8 [K/2, N] (ilv, one
-    chunk, Q4_0), scales bf16 or f32 [G, N] → f32 [M, N]. Two launches: the
-    activation quantization, then the group dot (plus an in-order sum of the
-    K split's partials)."""
+def q4_matmul_i8_cuda(xf: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+                      chunks: int = 1) -> torch.Tensor:
+    """Launch K5: xf bf16 [M, K] (M <= 64), packed int8 [K/2, N] (ilv, Q4_0,
+    packed in `chunks` K slices: one pair of launches each), scales bf16 or
+    f32 [G, N] → f32 [M, N]. Two launches per chunk: the activation
+    quantization (per 32-block, so a chunk's slice quantizes as the whole x
+    does), then the group dot (plus an in-order sum of the K split's
+    partials)."""
+    if chunks > 1:
+        qw = QWeight(packed=packed, scales=scales, chunks=chunks)
+        return _chunk_sum(xf, qw, lambda xc, wc: _i8_launch(xc.contiguous(), wc.packed,
+                                                            wc.scales, qw.k))
+    return _i8_launch(xf, packed, scales)
+
+
+def _i8_launch(xf, packed, scales, chunked_k: int = 0) -> torch.Tensor:
+    """K5's launches on one chunk (`chunked_k` as `_q4_launch`'s)."""
     _check_i8_x(xf)
     m, k = xf.shape
     half, n = packed.shape
@@ -410,11 +467,11 @@ def q4_matmul_i8_cuda(xf: torch.Tensor, packed: torch.Tensor, scales: torch.Tens
         torch.cuda.current_stream(xf.device).cuda_stream,
     )
     _build.check(rc, "q4_i8_matmul_launch")
-    if f32s:
-        launches["i8_f32"] += 1
-        shapes_modes[("i8_f32", m, k, n)] += 1
+    key = i8_key(f32s, chunked_k > 0)
+    launches[key] += 1
+    if f32s or chunked_k:
+        shapes_modes[(key, m, chunked_k or k, n)] += 1
     else:
-        launches["i8"] += 1
         shapes_i8[(m, k, n)] += 1
     return out
 
@@ -446,15 +503,12 @@ def q4_matmul(
             return q4_matmul_i8_ref(x, qw, out_dtype)
         _check_i8_weight(qw)
         xf = x.reshape(-1, qw.k).to(torch.bfloat16).contiguous()
-        return q4_matmul_i8_cuda(xf, qw.packed, qw.scales).to(out_dtype).reshape(*lead, qw.n)
+        y = q4_matmul_i8_cuda(xf, qw.packed, qw.scales, qw.chunks)
+        return y.to(out_dtype).reshape(*lead, qw.n)
     if plain or not x.is_cuda:
         return q4_matmul_ref(x, qw, out_dtype, dot_mode=mode, mul_dtype=mul)
-    if qw.chunks != 1:
-        raise NotImplementedError(
-            f"q4_matmul: the CUDA kernel takes weights packed in one chunk (got "
-            f"chunks={qw.chunks}); chunks > 1 come with tensor parallelism")
     xf = x.reshape(-1, qw.k).to(torch.bfloat16).contiguous()
-    y = q4_matmul_cuda(xf, qw.packed, qw.scales, qw.layout, mode, mul)
+    y = q4_matmul_cuda(xf, qw.packed, qw.scales, qw.layout, mode, mul, qw.chunks)
     if qw.bias is not None:
         y = y + _bias_term(xf, qw)
     return y.to(out_dtype).reshape(*lead, qw.n)

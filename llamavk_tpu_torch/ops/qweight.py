@@ -51,6 +51,17 @@ class QWeight:
             chunks=self.chunks,
         )
 
+    def chunk(self, c: int) -> "QWeight":
+        """K chunk `c` of a weight packed in `chunks` slices, as a one-chunk
+        weight of views: its packed rows, scale rows and bias rows."""
+        half, gc = self.packed.shape[-2] // self.chunks, self.g // self.chunks
+        return QWeight(
+            packed=self.packed[..., c * half : (c + 1) * half, :],
+            scales=self.scales[..., c * gc : (c + 1) * gc, :],
+            bias=None if self.bias is None else self.bias[..., c * gc : (c + 1) * gc, :],
+            layout=self.layout,
+        )
+
 
 def qweight_from_packed(
     p: PackedQ4, scale_dtype=torch.bfloat16, device="cuda"

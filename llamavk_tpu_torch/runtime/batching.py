@@ -1,6 +1,6 @@
 """Continuous batching scheduler, the serving layer (twin of
-`llamavk_tpu/runtime/batching.py`, flat and paged caches, one device, no
-mesh).
+`llamavk_tpu/runtime/batching.py`, flat and paged caches, one device or a
+tensor-parallel mesh).
 
 B request slots decode in lockstep through one batched forward pass per
 step; requests join and leave between decode blocks, and each slot owns a
@@ -51,7 +51,16 @@ slot's rows are n_past - prefix_len), and a request without a prefix runs
 with prefix_len 0. It composes with an int8 slot cache and with
 `lookup_gamma`, not with `paged`.
 
-Meshes raise NotImplementedError.
+A tensor-parallel mesh (`mesh`, batching.py:168-216 there, tp only): every
+rank of the mesh runs this same engine on its shard (`parallel.sharding`:
+whole tp-packed params in, the shard kept; a cache of n_head / tp heads),
+fed the same requests in the same order (`runtime/server.py` broadcasts
+them), so the host logic decides the same on every rank. The forward's
+all-gather gives every rank the same logits bits and the slots' generators
+are seeded alike, so the sampled ids agree; each step checks it and raises
+RuntimeError on every rank if a rank's ids differ from rank 0's. dp (slot
+sharding), pp, and paged KV, the shared-prefix pool or lookup under a mesh
+raise NotImplementedError (ROADMAP.md queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -72,6 +81,7 @@ from ..models.llama import (
     init_paged_kv_cache,
     llama_forward,
 )
+from ..parallel.comm import same_on_every_rank
 from .engine import kv_dtype
 from .paged import PageAllocator, SlotPages
 from .sampling import SamplerParams, probs_batched_dyn, sample_tokens_batched
@@ -142,13 +152,18 @@ def _bucket(n: int, cap: int, floor: int = 8) -> int:
 
 class BatchedEngine:
     """Continuous-batching decode engine over one model replica on one
-    device. The cache is updated in place."""
+    device, or this rank's part of a tensor-parallel replica (`mesh`; the
+    device is then the mesh's). The cache is updated in place."""
 
     def __init__(self, cfg: ModelConfig, params: LlamaParams,
                  bcfg: BatchConfig = BatchConfig(), mesh=None, device="cuda"):
-        self.device = resolve(device)
+        self.mesh = mesh
+        self._tp_axis = None
+        self._heads = cfg.n_head
         if mesh is not None:
-            raise NotImplementedError("BatchedEngine: mesh is not ported yet")
+            params = self._mesh_params(cfg, params, bcfg, mesh)
+            device = mesh.device
+        self.device = resolve(device)
         if bcfg.shared_prefix and bcfg.paged:
             raise ValueError("paged KV excludes shared_prefix (the block table IS the "
                              "sharing mechanism)")
@@ -180,7 +195,7 @@ class BatchedEngine:
             self.pager = SlotPages(b, bcfg.n_ctx // ps, alloc)
             self._table_dev = self._dev(self.pager.table)
         else:
-            self.cache = init_kv_cache(cfg, b, bcfg.n_ctx, self.kv_dtype, self.device)
+            self.cache = self._new_cache(b, bcfg.n_ctx)
         self.n_past = np.zeros(b, np.int32)
         self.cur_tok = np.zeros(b, np.int64)
         self.last_window = np.full((b, w), -1, np.int64)
@@ -195,6 +210,7 @@ class BatchedEngine:
         self.prefixes: dict[int, tuple] = {}
         self._pid = 0
         self._pending_admits: list[tuple] = []  # (chunk requests, device ids [n])
+        self._host_ids: list[int] = []  # first tokens brought to the host this step
         self._done_waiting: list[Request] = []  # preempted ones that their first token finished
         self.stats = {
             "tokens": 0, "steps": 0, "t_decode": 0.0, "prefills": 0, "prefill_calls": 0,
@@ -222,11 +238,36 @@ class BatchedEngine:
             if self.pager is not None:
                 self.stats["straddled"] = 0  # verify writes that crossed a page
 
+    def _mesh_params(self, cfg, params, bcfg, mesh) -> LlamaParams:
+        """The checks of a mesh engine (batching.py:186-205 there) and this
+        rank's shard of the whole tp-packed params."""
+        from ..parallel.sharding import shard_params
+
+        if mesh.shape["dp"] > 1 or mesh.shape["pp"] > 1:
+            raise NotImplementedError("BatchedEngine: dp (slot sharding) and pp meshes are not "
+                                      "ported yet (ROADMAP.md queue 1, item 6)")
+        if bcfg.paged or bcfg.shared_prefix or bcfg.lookup_gamma > 0:
+            raise NotImplementedError("BatchedEngine: paged KV, the shared-prefix pool and "
+                                      "lookup under a mesh are not ported yet (ROADMAP.md "
+                                      "queue 1, item 6)")
+        tp = mesh.shape["tp"]
+        if cfg.n_head % tp:
+            raise ValueError(f"n_head {cfg.n_head} does not split over tp = {tp}")
+        if tp > 1:
+            self._tp_axis = mesh.axis("tp")
+        self._heads = cfg.n_head // tp
+        return shard_params(params, mesh)
+
     # --- helpers -------------------------------------------------------------
 
     def _fwd(self, tokens, cache, n_past, **kw):
         return llama_forward(self.params, tokens, cache, n_past, self.cfg,
-                             kv_block=self.bcfg.kv_block or None, **kw)
+                             kv_block=self.bcfg.kv_block or None, tp_axis=self._tp_axis, **kw)
+
+    def _new_cache(self, batch: int, rows: int, dtype=None) -> KVCache:
+        """A zeroed flat cache of this engine's heads (n_head / tp)."""
+        return init_kv_cache(self.cfg, batch, rows, dtype or self.kv_dtype, self.device,
+                             n_head_local=self._heads)
 
     def _dev(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(a, dtype=dtype).to(self.device)
@@ -305,7 +346,7 @@ class BatchedEngine:
         bucket = _bucket(plen, self.bcfg.n_ctx)
         padded = np.zeros((1, bucket), np.int64)
         padded[0, :plen] = tokens
-        cache1 = init_kv_cache(self.cfg, 1, self.bcfg.n_ctx, self.kv_dtype, self.device)
+        cache1 = self._new_cache(1, self.bcfg.n_ctx)
         self._fwd(self._dev(padded), cache1, 0, last_idx=self._dev([plen - 1]))
         pid = self._pid
         self._pid += 1
@@ -439,7 +480,7 @@ class BatchedEngine:
                         _rows(p, slice(None), scratch_len).expand(-1, n, *[-1] * (p.dim() - 2))
                         .clone() for p in pfx_cache.planes()))
                 else:
-                    scratch = init_kv_cache(self.cfg, n, scratch_len, self.kv_dtype, self.device)
+                    scratch = self._new_cache(n, scratch_len)
                 # shared (_admit_chunk_shared, batching.py:747-800 there): the
                 # suffix attends the pool, its rows land at 0, n_past logical
                 npast = self._dev([pfx_len] * n, torch.int32) if self.shared else pfx_len
@@ -556,6 +597,8 @@ class BatchedEngine:
         pending, self._pending_admits = self._pending_admits, []
         for chunk, ids in pending:
             ids = ids.cpu().numpy()
+            if self.mesh is not None:
+                self._host_ids.extend(int(i) for i in ids)
             for j, req in enumerate(chunk):
                 tok = int(ids[j])
                 slot = req.slot
@@ -609,6 +652,15 @@ class BatchedEngine:
             toks[:, i] = cur
             npast = npast + 1
         return toks, last
+
+    def _check_ranks(self, toks: np.ndarray) -> None:
+        """Under a mesh, every rank's step ids (the block's tokens and the
+        first tokens of this step's admissions) must equal rank 0's: raises
+        RuntimeError on every rank where one differs."""
+        ids, self._host_ids = self._host_ids, []
+        if self.mesh is not None and self.mesh.size > 1:
+            same_on_every_rank(np.concatenate([toks.ravel(), np.asarray(ids, np.int64)]),
+                               self.mesh.control, "sampled token ids")
 
     def _preempt(self, slot: int) -> None:
         """Release `slot`'s pages and return its request to the queue head
@@ -676,6 +728,7 @@ class BatchedEngine:
         toks, last = self._decode_block(cur, last, n_steps)
         self._finish_admits()  # the block is queued on the device already
         toks = toks.cpu().numpy()  # [B, n_steps]: the block's one host read
+        self._check_ranks(toks)
         self.last_window = last.cpu().numpy()
         self.stats["t_decode"] += time.perf_counter() - t0
         self.stats["steps"] += n_steps

@@ -1,5 +1,6 @@
 """HTTP serving front-end over the continuous-batching engine (twin of
-`llamavk_tpu/runtime/server.py`, one replica).
+`llamavk_tpu/runtime/server.py`, one replica on one device or over a
+tensor-parallel mesh).
 
 Stdlib only (no web framework): a `ThreadingHTTPServer` handles connections
 while ONE dedicated engine thread owns the `BatchedEngine`, so all device
@@ -32,8 +33,16 @@ Streaming emits only COMPLETE UTF-8: byte-fallback tokens can split a
 multi-byte character across tokens, so the encoder holds back trailing
 partial sequences (and the longest stop-string prefix) until resolved.
 
-Several replicas behind one front door, and a mesh, come with `parallel/`
-and raise NotImplementedError here.
+Over a tensor-parallel mesh of several ranks (`mesh`, `serve --tp N`), rank
+0 holds this server: the HTTP front door and the request queue. Each turn of
+its engine loop broadcasts that turn's messages (submissions, prefix
+registrations, cancellations, or none: a heartbeat at least every 0.5 s)
+to the other ranks, which run `follow_rank` and apply them to their own
+`BatchedEngine` in the same order before the same step, so every rank's
+scheduler decides alike. A cancellation from an HTTP thread (a stop string,
+a client gone) is such a message, never a direct write, so that no rank
+sees it mid-step. Several replicas behind one front door raise
+NotImplementedError (ROADMAP.md queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -45,6 +54,8 @@ import threading
 import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+import torch.distributed as dist
 
 from ..models.llama import ModelConfig
 from .batching import BatchConfig, BatchedEngine, Request
@@ -87,11 +98,12 @@ class _Stream:
     races). The first token's arrival reports the time to first token
     (seconds since submission) to `on_first`."""
 
-    def __init__(self, on_first=None):
+    def __init__(self, on_first=None, post=None):
         self.req: Request | None = None
         self.q: queue.Queue = queue.Queue()
         self.t_submit = time.perf_counter()
         self.on_first = on_first
+        self.post = post  # a mesh replica's `post`: cancellations go through its loop
 
     def put(self, tok: int) -> None:
         if self.on_first is not None:
@@ -101,21 +113,41 @@ class _Stream:
 
     def cancel(self):
         # the engine thread checks req.done at every emit and frees the slot
-        # at the end of the current block
-        if self.req is not None:
+        # at the end of the current block; a mesh replica marks it at the
+        # start of its next turn, on every rank
+        if self.req is None:
+            return
+        if self.post is not None:
+            self.post("cancel", self.req.rid)
+        else:
             self.req.done = True
 
 
 class _Replica:
     """The model replica: a BatchedEngine owned by one engine thread, fed
-    through a thread-safe pending list."""
+    through a thread-safe pending list; over a mesh of several ranks, rank
+    0's part, which broadcasts each turn's messages (module docstring)."""
 
-    def __init__(self, cfg, params, bcfg, device):
-        self.engine = BatchedEngine(cfg, params, bcfg, device=device)
+    def __init__(self, cfg, params, bcfg, device, mesh=None):
+        self.engine = BatchedEngine(cfg, params, bcfg, mesh=mesh, device=device)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.pending: list[tuple] = []  # (kind, payload, reply queue)
         self.cv = threading.Condition()
         self.running = False
         self.thread: threading.Thread | None = None
+
+    def _apply(self, kind: str, payload):
+        """One message, on any rank: a submission, a prefix registration or a
+        cancellation (by request id). Returns what the HTTP thread gets."""
+        eng = self.engine
+        if kind == "submit":
+            return eng.submit(**payload)
+        if kind == "prefix":
+            return eng.register_prefix(payload)
+        for req in [*eng.slots, *eng.queue]:  # "cancel"
+            if req is not None and req.rid == payload:
+                req.done = True
+        return None
 
     def loop(self):
         eng = self.engine
@@ -127,22 +159,28 @@ class _Replica:
                     and not eng.queue
                     and not any(eng.slots)
                 ):
-                    self.cv.wait(timeout=0.5)
-                if not self.running:
-                    return
+                    # a mesh's followers hear from rank 0 at least this often
+                    if not self.cv.wait(timeout=0.5) and self.mesh is not None:
+                        break
+                running = self.running
                 pending, self.pending = self.pending, []
+            if self.mesh is not None:
+                wire = [(kind, {k: v for k, v in payload.items() if k not in ("on_token",
+                                                                                "_stream")}
+                         if kind == "submit" else payload) for kind, payload, _ in pending]
+                _broadcast(wire + ([] if running else [("stop", None)]), self.mesh)
+            if not running:
+                return
             for kind, payload, reply in pending:
                 try:
-                    if kind == "submit":
-                        stream = payload.pop("_stream")
-                        req = eng.submit(**payload)
+                    stream = payload.pop("_stream") if kind == "submit" else None
+                    out = self._apply(kind, payload)
+                    if stream is not None:
                         # attach HERE (engine thread) so the finished-request
                         # sentinel below can never miss a just-submitted req
-                        stream.req = req
-                        req._stream = stream
-                        reply.put(req)
-                    elif kind == "prefix":
-                        reply.put(eng.register_prefix(payload))
+                        stream.req = out
+                        out._stream = stream
+                    reply.put(out)
                 except Exception as e:  # surface to the HTTP thread
                     reply.put(e)
             if eng.queue or any(eng.slots):
@@ -151,6 +189,21 @@ class _Replica:
                     stream = getattr(req, "_stream", None)
                     if stream is not None:
                         stream.q.put(None)  # end-of-stream sentinel
+
+    def follow(self):
+        """A follower rank's loop: apply each broadcast turn as rank 0 does,
+        then step, until rank 0 sends "stop"."""
+        eng = self.engine
+        while True:
+            for kind, payload in _broadcast(None, self.mesh):
+                if kind == "stop":
+                    return
+                try:
+                    self._apply(kind, payload)
+                except Exception:  # noqa: BLE001 - rank 0 answers the client with it
+                    pass
+            if eng.queue or any(eng.slots):
+                eng.step()
 
     def post(self, kind: str, payload) -> queue.Queue:
         reply: queue.Queue = queue.Queue()
@@ -172,23 +225,43 @@ class _Replica:
             self.thread.join(timeout=30)
 
 
+def _broadcast(msgs, mesh):
+    """Rank 0's list of (kind, payload) messages, on every rank of the mesh
+    (over its gloo control group)."""
+    box = [msgs]
+    dist.broadcast_object_list(box, src=0, group=mesh.control)
+    return box[0]
+
+
+def follow_rank(cfg: ModelConfig, params, bcfg: BatchConfig, mesh) -> None:
+    """A mesh rank other than 0: its part of the replica (whole tp-packed
+    params in, its shard kept), driven by rank 0's `LlamaServer` until that
+    shuts down."""
+    _Replica(cfg, params, bcfg, mesh.device, mesh).follow()
+
+
 class LlamaServer:
     """Serving runtime: one engine thread + an HTTP front door. `device`
-    defaults to "cuda" and raises without it unless the CPU is asked for."""
+    defaults to "cuda" and raises without it unless the CPU is asked for.
+    `mesh` (tp only): this is rank 0 of a tensor-parallel replica whose
+    other ranks run `follow_rank`; params are the whole tp-packed params."""
 
     def __init__(self, cfg: ModelConfig, params, tokenizer,
                  bcfg: BatchConfig = BatchConfig(),
                  model_name: str | None = None, mesh=None,
                  replicas: int = 1, devices=None, device="cuda"):
-        if replicas > 1 or mesh is not None or devices is not None:
+        if replicas > 1 or devices is not None:
             raise NotImplementedError(
-                "LlamaServer: replicas and meshes are not ported yet (one replica)"
+                "LlamaServer: several replicas are not ported yet (ROADMAP.md queue 1, item 6)"
             )
+        if mesh is not None and mesh.rank != 0:
+            raise ValueError("LlamaServer runs on rank 0 of its mesh; the other ranks run "
+                             "follow_rank")
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.model_name = model_name or f"llama-{cfg.type_name}"
         self.bcfg = bcfg
-        self.replica = _Replica(cfg, params, bcfg, device)
+        self.replica = _Replica(cfg, params, bcfg, device, mesh)
         self.engine = self.replica.engine
         self._httpd: ThreadingHTTPServer | None = None
         self.t_start = time.time()
@@ -199,7 +272,8 @@ class LlamaServer:
 
     def submit(self, prompt_ids, n_predict, sp: SamplerParams, seed=0,
                ignore_eos=False, prefix=-1) -> _Stream:
-        stream = _Stream(on_first=self.ttft_s.append)
+        stream = _Stream(on_first=self.ttft_s.append,
+                         post=self.replica.post if self.replica.mesh is not None else None)
         payload = dict(prompt=prompt_ids, n_predict=n_predict, sp=sp,
                        seed=seed, ignore_eos=ignore_eos, prefix=prefix,
                        on_token=stream.put, _stream=stream)

@@ -104,6 +104,7 @@ def test_serve_rejects_unported_flags(tiny, flag, capsys):
     assert f"{flag} is not ported yet" in capsys.readouterr().err
     args = serve.build_argparser().parse_args(["-m", tiny, "--kv-dtype", "int8", "--port", "0"])
     assert (args.kv_dtype, args.port, args.device) == ("int8", 0, "cuda")
+    assert serve.build_argparser().parse_args(["-m", tiny, "--tp", "2"]).tp == 2  # ported
 
 
 def test_serve_paged_flags(tiny):

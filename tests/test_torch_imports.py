@@ -15,6 +15,7 @@ from llamavk_tpu_torch.cli import perplexity
 from llamavk_tpu_torch.cli import quantize_stats
 from llamavk_tpu_torch.cli import serve
 from llamavk_tpu_torch.models import loader as tl
+from llamavk_tpu_torch.parallel import make_mesh, multihost
 from llamavk_tpu_torch.runtime.batching import BatchedEngine
 from llamavk_tpu_torch.runtime.engine import Engine
 from llamavk_tpu_torch.runtime.server import LlamaServer
@@ -33,6 +34,12 @@ def _imported(path: Path) -> set[str]:
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             names.add(node.module)
     return names
+
+
+def test_sources_include_parallel():
+    names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
+    for mod in ("comm", "mesh", "multihost", "sharding", "tp"):
+        assert f"llamavk_tpu_torch/parallel/{mod}.py" in names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -66,6 +73,10 @@ def test_entry_points_default_to_cuda(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["-m", path])
     with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        multihost.local_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
         compat.llama_init_from_file(path)
     with pytest.raises(RuntimeError, match="CUDA"):
         embedding.main(["-m", path])
@@ -78,6 +89,7 @@ def test_entry_points_default_to_cuda(no_cuda, tmp_path):
             quantize_stats.main(["-m", path, *argv])
     assert cli.build_argparser().parse_args(["-m", path]).device == "cuda"
     assert serve.build_argparser().parse_args(["-m", path]).device == "cuda"
+    assert make_mesh(device="cpu").device.type == "cpu"
     assert embedding.build_argparser().parse_args(["-m", path]).device == "cuda"
     assert perplexity.build_argparser().parse_args(["-m", path, "-f", "t"]).device == "cuda"
     assert quantize_stats.build_argparser().parse_args(["-m", path]).device == "cuda"
