@@ -18,6 +18,13 @@ Phases, each printing one JSON line (any failure exits non-zero):
               update kernel's at T = 1, row by row; then correctness alone
               at row counts, group counts, ragged widths and head sizes off
               those shapes
+  probes      the Hopper probes of `llamavk_tpu_torch/tools/` (the TPU
+              probes P1-P5 of `tools/`) through their entry points, at the
+              TPU probes' shapes on seeded random bytes: every probe kernel
+              against its plain version (unpacked weights bit-equal, the
+              magic-number unpack's to the shift unpack's; integer dots
+              exact; the one-launch prefill's cache rows byte-equal),
+              timed beside K1 or K2, its bound and one PyTorch call
   tiny_cli    the generate CLI on a tiny GGJT file, greedy, bf16 and int8
               KV, on the card and on the CPU: the token streams must be
               equal; also an interactive session (-i -r, two scripted
@@ -173,12 +180,12 @@ from pathlib import Path
 
 import torch
 
+# the timer, the bound and the card's peaks are the probes' (tools/_common.py)
+from llamavk_tpu_torch.tools._common import BF16_OP_PER_S, INT8_OP_PER_S, Timer, bound
+
 ROOT = Path(__file__).resolve().parent
-# published peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W)
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOP_PER_S = 989e12
-INT8_OP_PER_S = 1979e12
-F32_FLOP_PER_S = 67e12  # float32 outside the tensor cores
+# float32 outside the tensor cores (NVIDIA's H100 SXM data sheet, at 700 W)
+F32_FLOP_PER_S = 67e12
 
 # 7B matmul shapes (K, N) of the main path and their calls per forward
 K1_SHAPES = {
@@ -287,47 +294,6 @@ TINY_SERVE_PROMPTS = [[10, 177, 191], [95, 126, 17], [60, 51, 246, 212, 166],
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-# ------------------------------------------------------------------ timing
-
-
-class Timer:
-    """Median device time of a call: CUDA events around each launch, and a
-    write of 2x the L2 cache between launches so every call finds its
-    inputs in device memory, as the main path does (each layer's weights
-    and cache rows are read once per step). A spin of ~1 ms on the device
-    before the first event keeps the device busy while the host enqueues
-    the call, so the time is the device's, not the host's launch latency."""
-
-    SPIN_CYCLES = 2_000_000  # ~1 ms at the H100's 1.98 GHz boost clock
-
-    def __init__(self, reps: int):
-        self.reps = reps
-        self.flush = torch.empty(100 * 2**20, dtype=torch.uint8, device="cuda")
-
-    def __call__(self, fn, reps: int | None = None) -> float:
-        fn()  # warm-up
-        times = []
-        for _ in range(reps or self.reps):
-            self.flush.zero_()
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(self.SPIN_CYCLES)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return statistics.median(times)
-
-
-def bound(n_bytes: float, n_flops: float, peak: float = BF16_FLOP_PER_S) -> tuple[float, str]:
-    """The least time on the card (ms) and what sets it: bytes over the
-    memory rate, or operations over `peak` (bf16 unless given)."""
-    tb = n_bytes / HBM_BYTES_PER_S * 1e3
-    tf = n_flops / peak * 1e3
-    return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
 # ------------------------------------------------------------------ phases
@@ -571,7 +537,8 @@ def _attn_sizes(b: int, t: int, n_past, update: bool, quant: bool,
 # online softmax (kernel) against a dense softmax (plain version), both on
 # the same bf16-rounded scaled q: each side rounds every probability (times
 # its value scale, int8) to bf16 (relative error <= 2^-8, an 8-bit
-# significand), at different scales, before the PV product, so an output
+# significand), relative to the running max (kernel) or the row's max
+# (plain version), before the PV product, so an output
 # element may differ by 2^-7 of sum_j p_j |v_j| / l. The f32 differences in
 # the scores and sums are orders of magnitude smaller; the limit is twice the
 # bound, element by element.
@@ -668,7 +635,7 @@ def kernel_attn(timer: Timer, gen, t: int, n_past, update: bool, main_path: bool
     plain_ms = timer(plain, reps=5)
     library_ms = timer(_sdpa_call(q, k, v, npast, layer, *planes[2:]))
     b_ms, b_by = bound(*_attn_sizes(b, t, n_past, update, quant, f32, h),
-                       F32_FLOP_PER_S if f32 else BF16_FLOP_PER_S)
+                       F32_FLOP_PER_S if f32 else BF16_OP_PER_S)
     return {
         "kernel": ("attn_update" if update else "attn_read") + ("_i8" if quant else "")
                   + ("_f32" if f32 else ""),
@@ -854,7 +821,7 @@ def kernel_decode(timer: Timer, gen, gen_cpu, b: int, quant: bool, main_path: bo
         q, kn, vn, p2[0], p2[1], npast, layer, block_k=bk, **_scales(p2)), reps=5)
     row["library_ms"] = timer(_sdpa_call(q, p1[0], p1[1], npast, layer, *p1[2:]))
     row["bound_ms"], row["bound_by"] = bound(*_attn_sizes(b, 1, npl, True, quant, f32, h),
-                                             F32_FLOP_PER_S if f32 else BF16_FLOP_PER_S)
+                                             F32_FLOP_PER_S if f32 else BF16_OP_PER_S)
     return row
 
 
@@ -1503,6 +1470,51 @@ def kernels_modes(timer: Timer, gen) -> list[dict]:
             rows.append(kernel_q4_i8(timer, gen, name, m, m == 64, f32_scales=True))
             emit({"phase": "kernel", **rows[-1]})
     return rows
+
+
+# the probes' entry points as `phase_probes` drives them: (module, argv)
+PROBE_RUNS = (("bench_unpack_trick", []), ("bench_int8_mxu", []),
+              ("bench_unpack2", ["--batch", "8"]), ("bench_unpack2", ["--batch", "1"]),
+              ("bench_unpack2", ["--perm-probe"]), ("bench_i4_stacked", []),
+              ("bench_prefill_ownrows", []))
+
+
+def phase_probes(reps: int) -> tuple[dict, dict, list[dict]]:
+    """The Hopper probes of `llamavk_tpu_torch/tools/` (P1-P5) through their
+    entry points (`main`, as `python -m` runs them), every probe kernel at
+    each of its TPU probe's shapes on seeded random bytes and scales: each
+    against its plain version (the bf16-weight variants within K1's limit
+    and with their unpacked weights bit-equal to the plain ones, trick's to
+    the shift unpack's; the int8 dots exact at unit scales and within the
+    fold's sum-order bound; the prefill's cache rows byte-equal, the rows
+    past a call unchanged, its output within 2^-6 attention(q, k, |v|)),
+    timed beside the production kernel (K1, K2), its bound and one PyTorch
+    call. Every probe kernel must launch. Returns the summary, the probes'
+    launch counts and the rows."""
+    import importlib
+
+    from llamavk_tpu_torch import tools
+
+    KERNEL_META.update(tools.KERNELS)
+    tools.reset_counts()
+    rows = []
+    for name, argv in PROBE_RUNS:
+        mod = importlib.import_module(f"llamavk_tpu_torch.tools.{name}")
+        for row in mod.main(argv + ["--reps", str(reps)]):
+            emit({"phase": "probe", "probe": name, **row})
+            rows.append(row)
+    counts = tools.launch_counts()
+    idle = [k for k in tools.KERNELS if counts[k] == 0]
+    if idle:
+        raise SystemExit(f"probes: kernels never launched: {idle}")
+    bad = [f"{r['kernel']} {r['shape']}" for r in rows if not r["ok"]]
+    if bad:
+        raise SystemExit(f"probes: kernels disagree with their plain versions at {bad}")
+    # an integer product's library call must compute that exact product
+    inexact = [f"{r['kernel']} {r['shape']}" for r in rows if r.get("library_exact") is False]
+    if inexact:
+        raise SystemExit(f"probes: library calls not exact at {inexact}")
+    return {"rows": len(rows), "launches": counts}, counts, rows
 
 
 def phase_tiny_cli(work: Path) -> dict:
@@ -3878,9 +3890,9 @@ def summary(rows: list[dict], counts: dict) -> dict:
     return {"kernels": out}
 
 
-PHASES = ("env,build,kernels,tiny_cli,tiny_compat,generate_7b,generate_7b_lookup,spec_7b_self,"
-          "tiny_serve,serve_7b,serve_7b_paged,serve_7b_lookup,generate_7b_ring,serve_7b_shared,"
-          "eval_7b_f32,generate_7b_modes,parallel_7b,serve_7b_tp")
+PHASES = ("env,build,kernels,probes,tiny_cli,tiny_compat,generate_7b,generate_7b_lookup,"
+          "spec_7b_self,tiny_serve,serve_7b,serve_7b_paged,serve_7b_lookup,generate_7b_ring,"
+          "serve_7b_shared,eval_7b_f32,generate_7b_modes,parallel_7b,serve_7b_tp")
 # phases that run in a process of their own, under the environment a parent
 # phase starts them with
 CHILD_PHASES = {
@@ -3947,11 +3959,6 @@ def main() -> int:
         if bad:
             raise SystemExit(f"kernels disagree with their plain versions: {bad}")
         report["kernels"] = rows
-    if "tiny_cli" in phases:
-        (ROOT / "build").mkdir(exist_ok=True)
-        with timed("tiny_cli"), tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
-            report["tiny_cli"] = phase_tiny_cli(Path(work))
-        emit({"phase": "tiny_cli", **report["tiny_cli"]})
     counts = dict.fromkeys(KERNEL_META, 0)  # launches summed over the main paths
 
     def add(path_counts: dict) -> None:
@@ -3959,6 +3966,19 @@ def main() -> int:
             if key not in KERNEL_META and n:
                 raise SystemExit(f"launches of {key}, which KERNEL_META does not name")
             counts[key] = counts.get(key, 0) + n
+
+    if "probes" in phases:
+        with timed("probes"):
+            report["probes"], path_counts, probe_rows = phase_probes(args.reps)
+        add(path_counts)
+        rows += probe_rows
+        report["probe_rows"] = probe_rows
+        emit({"phase": "probes", **report["probes"]})
+    if "tiny_cli" in phases:
+        (ROOT / "build").mkdir(exist_ok=True)
+        with timed("tiny_cli"), tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+            report["tiny_cli"] = phase_tiny_cli(Path(work))
+        emit({"phase": "tiny_cli", **report["tiny_cli"]})
 
     if "tiny_compat" in phases:
         (ROOT / "build").mkdir(exist_ok=True)

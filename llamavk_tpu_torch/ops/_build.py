@@ -28,7 +28,8 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
-SOURCES = ("q4_matmul", "q4_matmul_i8", "flash_attn", "flash_decode")
+SOURCES = ("q4_matmul", "q4_matmul_i8", "flash_attn", "flash_decode", "probe_q4_unpack",
+           "probe_q4_i8", "probe_prefill_direct")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

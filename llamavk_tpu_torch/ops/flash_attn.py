@@ -66,10 +66,14 @@ write (paged: straight into the pool through the table), then the dense
 masked softmax of `attend_ref` (paged: over the logical view gathered
 through the table, `gather_pages`) with the kernels'
 rounding points (q scaled and rounded to bf16; int8 scores times the key
-scale; probabilities times the value scale, rounded to bf16; none of these
-roundings for an f32 cache). The kernels use the online softmax over KV
-blocks of `block_k` rows; `_fit_block_k` picks that block exactly as the JAX
-package does, so pinning `block_k` pins the accumulation order.
+scale; the probabilities exp(s - max), unnormalized, times the value scale,
+rounded to bf16, and the PV sum divided by the f32 sum of the unscaled
+probabilities at the end; none of these roundings for an f32 cache). The
+kernels use the online softmax over KV blocks of `block_k` rows, whose
+running max is the row's max once the block that holds it is reached (all
+of it for a cache of one block, where the plain version rounds the same
+values); `_fit_block_k` picks that block exactly as the JAX package does, so
+pinning `block_k` pins the accumulation order.
 """
 
 from __future__ import annotations
@@ -235,8 +239,10 @@ def attend_ref(q, k_l, v_l, visible, k_scale_l=None, v_scale_l=None, prefix=None
     `prefix` (pk, pv, mask) bf16 pool rows [B, H, Sp, D] in the same softmax
     (`prefix_rows`). q is scaled by 1/sqrt(D) in f32 and rounded to bf16
     before the QK product (flash_attn.py:545 there); an int8 score is
-    multiplied by its key's scale; the probabilities are multiplied by the
-    value scales (cache rows only) and rounded to bf16 before the PV product.
+    multiplied by its key's scale; the probabilities exp(s - max) are
+    multiplied by the value scales (cache rows only) and rounded to bf16
+    before the PV product, and the sum is divided by l, the f32 sum of the
+    unscaled probabilities, at the end (:783-808 there).
     An f32 cache rounds neither q nor the probabilities (the products are in
     the cache's type there, :749, :798). Returns f32 [B, T, H, D]."""
     d = q.shape[-1]
@@ -252,17 +258,16 @@ def attend_ref(q, k_l, v_l, visible, k_scale_l=None, v_scale_l=None, prefix=None
         pscores = torch.einsum("bthd,bhsd->bhts", qs, pk.to(torch.float32))
         scores = torch.cat([pscores.masked_fill(~pvis[:, None], float("-inf")), scores], dim=-1)
         sp = pk.shape[2]
-    probs = torch.softmax(scores, dim=-1)
-    pprobs, probs = probs[..., :sp], probs[..., sp:]
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)  # [B, H, T, 1], before the value scales
+    pp, p = p[..., :sp], p[..., sp:]
     if v_scale_l is not None:
-        probs = probs * v_scale_l.transpose(1, 2)[:, :, None, :]
-    out = torch.einsum(
-        "bhts,bhsd->bthd", probs.to(rnd).to(torch.float32), v_l.to(torch.float32)
-    )
+        p = p * v_scale_l.transpose(1, 2)[:, :, None, :]
+    out = torch.einsum("bhts,bhsd->bhtd", p.to(rnd).to(torch.float32), v_l.to(torch.float32))
     if prefix is not None:
-        out = out + torch.einsum("bhts,bhsd->bthd", pprobs.to(torch.bfloat16).to(torch.float32),
+        out = out + torch.einsum("bhts,bhsd->bhtd", pp.to(torch.bfloat16).to(torch.float32),
                                  pv.to(torch.float32))
-    return out
+    return (out / l).transpose(1, 2)
 
 
 def gather_pages(plane_l: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:

@@ -18,9 +18,10 @@ L, B, H, S, D = 2, 1, 2, 64, 64
 LAYER = 1
 
 # The JAX kernel runs an online softmax over KV blocks and feeds the PV
-# product unnormalized probabilities rounded to bf16; the plain version
-# rounds the normalized ones. Outputs are O(1) averages of N(0,1) values, so
-# the gap is a few bf16 ulps (2^-8 relative): the JAX package's own
+# product probabilities relative to its running max, rounded to bf16; the
+# plain version rounds them relative to the row's max, which differ where
+# the walk rescales. Outputs are O(1) averages of N(0,1) values, so the gap
+# is a few bf16 ulps (2^-8 relative): the JAX package's own
 # kernel-vs-reference tolerance (tests/test_flash_attn.py).
 ATTN_TOL = dict(rtol=2e-2, atol=2e-2)
 
@@ -77,7 +78,8 @@ def test_read_matches_jax_head_dim_128():
     """At D = 128 the scale 1/sqrt(D) is not a power of two, so rounding the
     scaled q to bf16, as the JAX kernel does, moves the scores; the plain
     version rounds it the same way. What is left is each side's bf16 rounding
-    of the probabilities (2^-8 relative each), so an output element lies
+    of the probabilities (2^-8 relative each, relative to another max where
+    the kernel's walk rescales), so an output element lies
     within 2^-7 of attention(q, k, |v|); the limit takes twice that. q and K
     have std 4, so the scores spread (std ~16) as a trained model's do and
     an unrounded q would miss the limit."""

@@ -1,8 +1,9 @@
 """The port stands alone: no module of `llamavk_tpu_torch` and not
-`chip_smoke.py` imports JAX or the JAX package, and the entry points run on
-CUDA unless the caller asks for the CPU."""
+`chip_smoke.py` imports JAX, the JAX package or the TPU probes of `tools/`,
+and the entry points run on CUDA unless the caller asks for the CPU."""
 
 import ast
+import importlib
 from pathlib import Path
 
 import pytest
@@ -24,6 +25,8 @@ torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parent.parent
 SOURCES = sorted((ROOT / "llamavk_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PROBES = ("bench_unpack_trick", "bench_int8_mxu", "bench_unpack2", "bench_i4_stacked",
+          "bench_prefill_ownrows")
 
 
 def _imported(path: Path) -> set[str]:
@@ -47,6 +50,20 @@ def test_no_jax_imports(path):
     for name in _imported(path):
         top = name.split(".")[0]
         assert top not in ("jax", "jaxlib", "llamavk_tpu"), f"{path.name} imports {name}"
+
+
+def test_sources_include_probes():
+    names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
+    for mod in PROBES:
+        assert f"llamavk_tpu_torch/tools/{mod}.py" in names
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_tools_imports(path):
+    """The Hopper probes keep their own code: nothing imports the TPU probes
+    (`tools`, `tools.*`)."""
+    for name in _imported(path):
+        assert name.split(".")[0] != "tools", f"{path.name} imports {name}"
 
 
 @pytest.fixture
@@ -102,3 +119,14 @@ def test_entry_points_default_to_cuda(no_cuda, tmp_path):
     p = compat.llama_context_default_params()
     p.device, p.n_ctx = "cpu", 32
     assert compat.llama_init_from_file(path, p).engine.cache.k.device.type == "cpu"
+
+
+@pytest.mark.parametrize("name", PROBES)
+def test_probes_refuse_without_cuda(no_cuda, capsys, name):
+    """A probe's entry point times CUDA kernels: without CUDA it refuses to
+    start, unless given --device cpu, which runs its plain versions."""
+    mod = importlib.import_module(f"llamavk_tpu_torch.tools.{name}")
+    with pytest.raises(SystemExit, match="GPU"):
+        mod.main([])
+    rows = mod.main(["--device", "cpu"])
+    assert rows and all(r["ok"] and r["ms"] is None for r in rows)

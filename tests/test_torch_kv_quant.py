@@ -42,9 +42,10 @@ def _int8_cache(rng, b):
 
 def _limit(q, k, v, n_past, ks, vs):
     """2^-6 * attention(q, k, |v|) per element: the JAX kernel rounds its
-    unnormalized probabilities times the value scales to bf16, the plain
-    version the normalized ones, each within 2^-8 of itself (an 8-bit
-    significand), so an output element moves by at most 2^-7 of
+    probabilities (relative to the running max of its KV block walk) times
+    the value scales to bf16, the plain version the same relative to the
+    row's max, each within 2^-8 of itself (an 8-bit significand), so where
+    the walk rescales an output element moves by at most 2^-7 of
     sum_j p_j |v_j| / l; the limit takes twice that (the f32 score and sum
     differences are orders of magnitude smaller)."""
     return 2.0**-6 * tfa.flash_attention(q, k, v.abs(), n_past, layer_idx=LAYER,
@@ -110,4 +111,39 @@ def test_read_int8_matches_jax():
                               k_scale=kst, v_scale=vst)
     err = np.abs(got.numpy() - np.asarray(want))
     limit = _limit(qt, kt, vt, n_past, kst, vst)
+    assert (err <= limit).all(), float((err / limit).max())
+
+
+# One KV block (block_k = S): the JAX kernel's running max is the row's max,
+# so the plain version rounds the same probabilities exp(s - max) * v_scale
+# to bf16 and divides by the same f32 sum l at the end; what is left is the
+# f32 summation order of the products and sums and the two exp routines (a
+# few f32 ulps). The plain version once rounded the normalized
+# probabilities and missed this limit by ~1000x (2^-8 relative per term).
+ONE_BLOCK_REL = 2.0**-18
+
+
+@pytest.mark.parametrize("path", ["update", "read"])
+def test_int8_rounding_point_matches_jax(path):
+    """The plain int8 attention rounds where the JAX kernel rounds: with the
+    cache in one KV block, it agrees with the kernel to f32 rounding."""
+    b, t, n_past = 2, 8, 13
+    rng = np.random.default_rng(31)
+    qj, qt = _bf16(rng, (b, t, H, D), std=2.0)
+    knj, knt = _bf16(rng, (b, t, H, D), std=2.0)
+    vnj, vnt = _bf16(rng, (b, t, H, D), std=2.0)
+    (kj, vj, ksj, vsj), (kt, vt, kst, vst) = _int8_cache(rng, b)
+    kw = dict(block_k=S)
+    if path == "update":
+        want = jfa.flash_attention_update(qj, knj, vnj, kj, vj, jnp.int32(n_past),
+                                          jnp.int32(LAYER), k_scale=ksj, v_scale=vsj, **kw)[0]
+        got = tfa.flash_attention_update(qt, knt, vnt, kt, vt, n_past, LAYER, k_scale=kst,
+                                         v_scale=vst, **kw)[0]
+    else:
+        want = jfa.flash_attention(qj, kj, vj, jnp.int32(n_past), layer_idx=jnp.int32(LAYER),
+                                   k_scale=ksj, v_scale=vsj, **kw)
+        got = tfa.flash_attention(qt, kt, vt, n_past, layer_idx=LAYER, k_scale=kst,
+                                  v_scale=vst, **kw)
+    err = np.abs(got.numpy() - np.asarray(want))
+    limit = ONE_BLOCK_REL / 2.0**-6 * _limit(qt, kt, vt, n_past, kst, vst)
     assert (err <= limit).all(), float((err / limit).max())

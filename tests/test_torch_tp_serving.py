@@ -1,9 +1,11 @@
 """Tensor-parallel serving in the port: `BatchedEngine(mesh=...)` at tp = 2
 against a greedy loop over the port's `make_sharded_forward` with the same
-tp (the oracle of JAX tests/test_tp_serving.py: identical math, so the
-streams must be equal), for bf16 and int8 KV; the int8 engine's greedy
-streams against the JAX single-device int8 `BatchedEngine`'s (its Pallas
-kernels in interpret mode); a seeded sampled run that
+tp (the oracle of JAX tests/test_tp_serving.py: the same math in another
+summation order, so the streams must be equal, or part only at a token
+whose top-2 logit gap is under one bf16 ulp), for bf16 and int8 KV; the
+int8 engine's greedy streams against the JAX single-device int8
+`BatchedEngine`'s (its Pallas kernels in interpret mode), by the same
+rule; a seeded sampled run that
 gives the same streams on every rank and on a rerun, and the check that
 raises on every rank when a rank's ids differ; `LlamaServer` on rank 0
 with `follow_rank` on rank 1 over HTTP; and the serve CLI's argument
@@ -13,6 +15,7 @@ kernel versions), within a deadline."""
 from __future__ import annotations
 
 import json
+import math
 import threading
 import urllib.request
 
@@ -39,9 +42,18 @@ N_PRED = [6, 6, 5]
 SAMPLED = SamplerParams(temp=0.8, top_p=0.95, repeat_penalty=1.1)
 
 
-def _oracle(cfg, params, mesh, kv: str, n_ctx: int = 64) -> list[list[int]]:
+def _near_tie(row: torch.Tensor) -> bool:
+    """Whether a logit row's top-2 gap is under one bf16 ulp of its largest
+    logit: a greedy pick that any f32 summation order may flip."""
+    top2 = row.float().topk(2).values
+    ulp = 2.0 ** (math.floor(math.log2(float(row.float().abs().max()))) - 7)
+    return float(top2[0] - top2[1]) < ulp
+
+
+def _oracle(cfg, params, mesh, kv: str, n_ctx: int = 64) -> list[tuple[list[int], list[bool]]]:
     """Greedy streams of a loop over the sharded forward, one prompt at a
-    time in a one-row cache."""
+    time in a one-row cache, each with its near ties (`_near_tie`) per
+    token."""
     dtype = torch.int8 if kv == "int8" else torch.bfloat16
     fwd = make_sharded_forward(cfg, params, mesh, quantized_kv=kv == "int8")
     outs = []
@@ -49,14 +61,25 @@ def _oracle(cfg, params, mesh, kv: str, n_ctx: int = 64) -> list[list[int]]:
         cache = shard_cache(tm.init_kv_cache(cfg, 1, n_ctx, dtype, device="cpu"), mesh)
         logits, cache, _ = fwd(params, torch.tensor([p]), cache, 0)
         tok = int(logits[0, -1].argmax())
-        stream, n_past = [tok], len(p)
+        stream, ties, n_past = [tok], [_near_tie(logits[0, -1])], len(p)
         for _ in range(n - 1):
             logits, cache, _ = fwd(params, torch.tensor([[tok]]), cache, n_past)
             tok = int(logits[0, -1].argmax())
             stream.append(tok)
+            ties.append(_near_tie(logits[0, -1]))
             n_past += 1
-        outs.append(stream)
+        outs.append((stream, ties))
     return outs
+
+
+def _agree(got: list[list[int]], oracle: list[tuple[list[int], list[bool]]]) -> None:
+    """Each stream equals the oracle's, or parts from it only at a token
+    where the oracle's top-2 logit gap is under one bf16 ulp (the tokens
+    after a parting have other histories and are not compared)."""
+    for j, (g, (want, ties)) in enumerate(zip(got, oracle)):
+        assert len(g) == len(want), (j, g, want)
+        i = next((i for i, (a, b) in enumerate(zip(g, want)) if a != b), None)
+        assert i is None or ties[i], f"prompt {j} parts at token {i} on a clear gap: {g} vs {want}"
 
 
 def _engine_streams(cfg, whole, mesh, bcfg, sp, seeds) -> list[list[int]]:
@@ -136,8 +159,9 @@ def ranks(tiny_tp, tmp_path_factory):
 
 @pytest.mark.parametrize("kv", ["bfloat16", "int8"])
 def test_tp_engine_matches_sharded_forward(ranks, kv):
+    """Equal to the oracle's streams, or parting only at a near tie."""
     for res in ranks:
-        assert res[f"engine_{kv}"] == res[f"oracle_{kv}"]
+        _agree(res[f"engine_{kv}"], res[f"oracle_{kv}"])
     assert ranks[0][f"engine_{kv}"] == ranks[1][f"engine_{kv}"]
 
 
@@ -145,7 +169,9 @@ def test_tp_engine_int8_matches_jax(ranks, tiny_tp):
     """The tp = 2 engine over int8 KV (shard_cache splitting the scale
     planes on H, the int8 K2/K4 over each rank's 4 heads) gives the JAX
     single-device int8 engine's greedy streams on every rank: token ids,
-    compared exactly."""
+    compared exactly up to a near tie of the tp oracle's logits, where the
+    two may part (`_agree`: the engine's stream must then equal the oracle's
+    up to that token)."""
     from llamavk_tpu.models import loader as jl
     from llamavk_tpu.runtime import batching as jb
     from llamavk_tpu.runtime import sampling as js
@@ -156,8 +182,16 @@ def test_tp_engine_int8_matches_jax(ranks, tiny_tp):
     jreqs = [jbe.submit(p, n, js.SamplerParams(temp=0.0), ignore_eos=True)
              for p, n in zip(PROMPTS, N_PRED)]
     jbe.run()
+    jax_streams = [r.generated for r in jreqs]
     for res in ranks:
-        assert res["engine_int8"] == [r.generated for r in jreqs]
+        for j, (mine, theirs) in enumerate(zip(res["engine_int8"], jax_streams)):
+            i = next((i for i, (a, b) in enumerate(zip(mine, theirs)) if a != b), None)
+            if i is None:
+                assert len(mine) == len(theirs)
+                continue
+            stream, ties = res["oracle_int8"][j]
+            assert mine[:i] == stream[:i] and ties[i], (
+                f"prompt {j} parts from JAX at token {i} on a clear gap: {mine} vs {theirs}")
 
 
 def test_tp_engine_sampled_deterministic(ranks):
