@@ -17,7 +17,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
               the batched decode kernel's outputs bit-equal to the fused
               update kernel's at T = 1, row by row; then correctness alone
               at row counts, group counts, ragged widths and head sizes off
-              those shapes
+              those shapes. K2 and K3 take the route `attn_route` picks
+              (the tensor cores for bf16 and int8 caches at T >= 16, named
+              with `_tc`; the CUDA cores below and for f32 caches); a
+              tensor-core row also times the same call on the CUDA-core
+              route (`cuda_core_ms`)
   probes      the Hopper probes of `llamavk_tpu_torch/tools/` (the TPU
               probes P1-P5 of `tools/`) through their entry points, at the
               TPU probes' shapes on seeded random bytes: every probe kernel
@@ -139,7 +143,8 @@ scale plane (GEMV and GEMM at M = 512) and the f32 cache of K2, K3 and K4
 (limit 2^-12 of attention(q, k, |v|), K4 bit-equal to K2); and the history
 ring and shared-prefix modes of K2 and K3 (bf16 and int8, caches
 byte-equal, the position plane and the pool unchanged; ring K2 before a wrap
-and prefix K2 at prefix_len 0 bit-equal to flat K2); K1's lin layout (GEMV,
+and prefix K2 at prefix_len 0 bit-equal to flat K2; the f32 ring's decode
+step before and after a wrap); K1's lin layout (GEMV,
 GEMM at M = 32 and 512), f32 dot (GEMV, GEMM at M = 32 and at 512 over bf16
 and f32 scales) and bf16 multiply (M = 512 over f32 scales; over bf16
 scales it is the default kernel's launch), and K5 over f32 scales at M = 1,
@@ -280,6 +285,20 @@ KERNEL_META = {
            ("attn_update_nocommit", "llamavk_tpu_torch/csrc/flash_attn.cu", "flash_attn.py:120"),
            ("decode_boff", "llamavk_tpu_torch/csrc/flash_decode.cu", "flash_decode.py:67"))
        for kind in ("", "_i8", "_f32")},
+    # the f32 history ring of K2 and K3 (the CUDA-core route)
+    **{f"attn_{path}_ring_f32": ("llamavk_tpu_torch/csrc/flash_attn.cu",
+                                 f"llamavk_tpu/ops/flash_attn.py:{line}")
+       for path, line in (("update", 120), ("read", 474))},
+    # the tensor-core route of K2 and K3 (bf16 and int8 caches at T >= 16,
+    # ops/flash_attn.py::attn_route), in every mode, named as
+    # flash_attn.launch_name names it (`_tc` before the cache type)
+    **{f"attn_{path}{mode}_tc{kind}": ("llamavk_tpu_torch/csrc/attn_mma.cuh",
+                                       f"llamavk_tpu/ops/flash_attn.py:{line}")
+       for path, line, modes in (
+           ("update", 120, ("", "_paged", "_paged_straddle", "_ring", "_prefix", "_boff",
+                            "_nocommit")),
+           ("read", 474, ("", "_paged", "_ring", "_prefix", "_boff")))
+       for mode in modes for kind in ("", "_i8")},
 }
 
 # the tiny model's prompt for the CLI phase: its greedy stream keeps every
@@ -511,6 +530,33 @@ def _sdpa_call(q, k, v, n_past, layer: int, k_scale=None, v_scale=None):
                                                                     attn_mask=mask[:, None])
 
 
+@contextlib.contextmanager
+def _cuda_core_route():
+    """K2 and K3 on the CUDA-core route at every T (the route every prefill
+    took before the tensor-core route), to time it beside the tensor-core
+    route in the same call: the wrappers read `attn_route` at each call."""
+    from llamavk_tpu_torch.ops import flash_attn as fa
+
+    route = fa.attn_route
+    fa.attn_route = lambda t, kind: "cuda_core"
+    try:
+        yield
+    finally:
+        fa.attn_route = route
+
+
+def _route_times(timer, run, row: dict, t: int, kind: str) -> None:
+    """The attention route a call at T over a `kind` cache takes
+    (`attn_route`), and on the tensor-core route the same call's time on
+    the CUDA-core route (`cuda_core_ms`)."""
+    from llamavk_tpu_torch.ops import flash_attn as fa
+
+    row["attn_route"] = fa.attn_route(t, kind)
+    if row["attn_route"] == "tensor_core":
+        with _cuda_core_route():
+            row["cuda_core_ms"] = timer(run)
+
+
 def _attn_sizes(b: int, t: int, n_past, update: bool, quant: bool,
                 f32: bool = False, h: int = H) -> tuple[float, float]:
     """Bytes and operations one call needs: q read, the f32 output written,
@@ -631,23 +677,23 @@ def kernel_attn(timer: Timer, gen, t: int, n_past, update: bool, main_path: bool
         plain = lambda: fa.flash_attention_ref(q, k, v, npast, layer_idx=layer,  # noqa: E731
                                                **sc)
     err, ratio = _attn_err(got, want, q, k, v, npast, layer, *planes[2:])
-    ms = timer(run)
-    plain_ms = timer(plain, reps=5)
-    library_ms = timer(_sdpa_call(q, k, v, npast, layer, *planes[2:]))
-    b_ms, b_by = bound(*_attn_sizes(b, t, n_past, update, quant, f32, h),
-                       F32_FLOP_PER_S if f32 else BF16_OP_PER_S)
-    return {
-        "kernel": ("attn_update" if update else "attn_read") + ("_i8" if quant else "")
-                  + ("_f32" if f32 else ""),
+    kind = "int8" if quant else "f32" if f32 else "bf16"
+    row = {
+        "kernel": "attn_" + fa.launch_name("update" if update else "read", kind, False,
+                                           route=fa.attn_route(t, kind)),
         "shape": f"B={b} T={t} n_past={n_past} H={h} D={D} S={s} block_k={bk}"
                  + (" int8" if quant else "") + (" f32" if f32 else ""),
         "main_path": main_path,
         "max_abs_err": err, "limit": F32_ATTN_LIMIT_RULE if f32 else ATTN_LIMIT_RULE,
         "err_over_limit": ratio,
         "cache_bytes_equal": cache_equal, "ok": ratio <= 1.0 and cache_equal,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": library_ms,
+        "ms": timer(run), "plain_ms": timer(plain, reps=5),
     }
+    _route_times(timer, run, row, t, kind)
+    row["library_ms"] = timer(_sdpa_call(q, k, v, npast, layer, *planes[2:]))
+    row["bound_ms"], row["bound_by"] = bound(*_attn_sizes(b, t, n_past, update, quant, f32, h),
+                                             F32_FLOP_PER_S if f32 else BF16_OP_PER_S)
+    return row
 
 
 def kernel_attn_pp(timer: Timer, gen, path: str, b: int, t: int, n_past, b_cache: int,
@@ -708,22 +754,26 @@ def kernel_attn_pp(timer: Timer, gen, path: str, b: int, t: int, n_past, b_cache
             **_scales(planes)))
     view = [x[:, boff : boff + b] for x in planes]
     err, ratio = _attn_err(got, want, q, view[0], view[1], npast, layer, *view[2:])
-    ms = timer(lambda: call(planes, boff))
-    plain_ms = timer(lambda: call(plain, boff, ref=True), reps=5)
-    library_ms = timer(_sdpa_call(q, view[0], view[1], npast, layer, *view[2:]))
-    b_ms, b_by = bound(*_attn_sizes(b, t, n_past, path != "read" and bool(commit), quant,
-                                    h=h))
-    name = {"update": "attn_update", "read": "attn_read", "decode": "decode"}[path]
-    return {
-        "kernel": name + ("_boff" if commit else "_nocommit") + ("_i8" if quant else ""),
+    kind = "int8" if quant else "bf16"
+    mode = "boff" if commit else "nocommit"
+    row = {
+        "kernel": ("decode_" + mode + ("_i8" if quant else "")) if path == "decode"
+                  else "attn_" + fa.launch_name(path, kind, False, mode=mode,
+                                                route=fa.attn_route(t, kind)),
         "shape": f"B={b} of {b_cache} at batch_offset={boff} T={t} n_past={n_past} H={h} D={D} "
                  f"S={s} block_k={bk}" + (" int8" if quant else "")
                  + ("" if commit else " commit=0"),
         "main_path": main_path, "max_abs_err": err, "limit": ATTN_LIMIT_RULE,
         "err_over_limit": ratio, **checks, "ok": ratio <= 1.0 and all(checks.values()),
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": library_ms,
+        "ms": timer(lambda: call(planes, boff)),
+        "plain_ms": timer(lambda: call(plain, boff, ref=True), reps=5),
     }
+    if path != "decode":
+        _route_times(timer, lambda: call(planes, boff), row, t, kind)
+    row["library_ms"] = timer(_sdpa_call(q, view[0], view[1], npast, layer, *view[2:]))
+    row["bound_ms"], row["bound_by"] = bound(
+        *_attn_sizes(b, t, n_past, path != "read" and bool(commit), quant, h=h))
+    return row
 
 
 def kernels_parallel(timer: Timer, gen, gen_cpu) -> list[dict]:
@@ -912,9 +962,10 @@ def kernel_attn_paged(timer, gen, gen_cpu, t: int, n_past, update: bool, b: int 
         plain = lambda: fa.flash_attention_ref(q, k, v, npast, layer_idx=layer,  # noqa: E731
                                                page_table=table, **sc)
     err, ratio = _attn_err(got, want, q, k, v, npast, layer, *planes[2:], page_table=table)
+    kind = "int8" if quant else "bf16"
     row = {
-        "kernel": fa.launch_name("attn_update" if update else "attn_read",
-                                 "int8" if quant else "bf16", True, straddle),
+        "kernel": fa.launch_name("attn_update" if update else "attn_read", kind, True, straddle,
+                                 route=fa.attn_route(t, kind)),
         "shape": f"B={b} T={t} n_past={n_past} H={h} D={d} PS={ps} MAXLB={s // ps} "
                  f"block_k={bk}" + (" int8" if quant else ""),
         "main_path": main_path,
@@ -925,6 +976,7 @@ def kernel_attn_paged(timer, gen, gen_cpu, t: int, n_past, update: bool, b: int 
     if timer is not None:
         row["ms"] = timer(run)
         row["plain_ms"] = timer(plain, reps=5)
+        _route_times(timer, run, row, t, kind)
         row["library_ms"] = timer(_sdpa_call(q, flat[0], flat[1], npast, layer, *flat[2:]))
         row["bound_ms"], row["bound_by"] = bound(*_attn_sizes(b, t, n_past, update, quant))
     return row
@@ -1003,8 +1055,8 @@ def _ring_plane(n_logical: int, s: int, keep: int, holes=()) -> torch.Tensor:
 
 
 def _dense_rows(planes, layer: int, rows=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """Layer `layer`'s K and V [B, H, S', D] in bf16 (an int8 cache
-    dequantized), at physical rows `rows` (all when None)."""
+    """Layer `layer`'s K and V [B, H, S', D] in the cache's type (an int8
+    cache dequantized to bf16), at physical rows `rows` (all when None)."""
     from llamavk_tpu_torch.ops.kv_quant import dequantize_rows
 
     kl, vl = planes[0][layer], planes[1][layer]
@@ -1024,27 +1076,29 @@ def _masked_sdpa(q, kl, vl, visible):
     return lambda: torch.nn.functional.scaled_dot_product_attention(qh, kl, vl, attn_mask=mask)
 
 
-def _row_bytes(quant: bool, h: int = H, d: int = D) -> int:
+def _row_bytes(quant: bool, h: int = H, d: int = D, f32: bool = False) -> int:
     """Bytes of one cached position of K or V: H * D values, and H f32
     scales for int8."""
-    return h * d * (1 if quant else 2) + (h * 4 if quant else 0)
+    return h * d * (1 if quant else 4 if f32 else 2) + (h * 4 if quant else 0)
 
 
 def kernel_attn_ring(timer, gen, t: int, n_past: int, update: bool, quant: bool,
                      main_path: bool = False, holes=(), keep: int = RING_KEEP, s: int = N_CTX,
-                     h: int = H, d: int = D, bk: int | None = None) -> dict:
+                     h: int = H, d: int = D, bk: int | None = None, f32: bool = False) -> dict:
     """K2 (update, ring_bounded as llama_forward passes it) or K3 (read,
-    the whole ring) in history-ring mode, B = 1, on a random cache and the
-    plane the engine leaves at logical n_past + T (rows in `holes` emptied),
-    against its plain version: cache bytes equal, the plane unchanged by the
-    kernel. Before the first wrap the ring kernel must equal the flat one bit
-    for bit (outputs and caches). Timed unless `timer` is None; the library
-    call attends over the visible rows, gathered."""
+    the whole ring) in history-ring mode, B = 1, on a random cache (bf16,
+    int8, or `f32`) and the plane the engine leaves at logical n_past + T
+    (rows in `holes` emptied), against its plain version: cache bytes equal,
+    the plane unchanged by the kernel. Before the first wrap the ring kernel
+    must equal the flat one bit for bit (outputs and caches). Timed unless
+    `timer` is None; the library call attends over the visible rows,
+    gathered."""
     from llamavk_tpu_torch.models.llama import ring_phys
     from llamavk_tpu_torch.ops import flash_attn as fa
 
     layer = 1
-    planes = _kv_cache(gen, (2, 1, h, s, d), quant)
+    kind = "int8" if quant else "f32" if f32 else "bf16"
+    planes = _kv_cache(gen, (2, 1, h, s, d), quant, f32)
     q, kn, vn = (torch.randn((1, t, h, d), device="cuda", generator=gen).to(torch.bfloat16)
                  for _ in range(3))
     bk = bk or (512 if t >= 256 else 256)
@@ -1078,8 +1132,8 @@ def kernel_attn_ring(timer, gen, t: int, n_past: int, update: bool, quant: bool,
     torch.cuda.synchronize()
     cache_equal = all(torch.equal(x, y) for x, y in zip(planes, p2))
     pos_equal = torch.equal(pos, pos0)
-    row = {"kernel": fa.launch_name("attn_update" if update else "attn_read",
-                                    "int8" if quant else "bf16", False, mode="ring")}
+    row = {"kernel": fa.launch_name("attn_update" if update else "attn_read", kind, False,
+                                    mode="ring", route=fa.attn_route(t, kind))}
     if n_past + t <= s and not holes:  # before the first wrap: the flat kernel's result
         fsc = _scales(flat_planes)
         if update:
@@ -1096,9 +1150,10 @@ def kernel_attn_ring(timer, gen, t: int, n_past: int, update: bool, quant: bool,
     row.update({
         "shape": f"B=1 T={t} n_past={n_past} write_row={wrow} keep={keep} H={h} D={d} S={s} "
                  f"block_k={bk}" + (f" holes={len(holes)}" if holes else "")
-                 + (" int8" if quant else ""),
+                 + (" int8" if quant else "") + (" f32" if f32 else ""),
         "main_path": main_path,
-        "max_abs_err": err, "limit": ATTN_LIMIT_RULE, "err_over_limit": ratio,
+        "max_abs_err": err, "limit": F32_ATTN_LIMIT_RULE if f32 else ATTN_LIMIT_RULE,
+        "err_over_limit": ratio,
         "cache_bytes_equal": cache_equal, "pos_plane_unchanged": pos_equal,
         "ok": ratio <= 1.0 and cache_equal and pos_equal
               and row.get("bit_equal_to_flat_kernel", True),
@@ -1112,17 +1167,21 @@ def kernel_attn_ring(timer, gen, t: int, n_past: int, update: bool, quant: bool,
     visible = pos[idx, 0][None, None, :] <= (n_past + torch.arange(t, device="cuda"))[None, :, None]
     row["ms"] = timer(run)
     row["plain_ms"] = timer(plain, reps=5)
-    row["library_ms"] = timer(_masked_sdpa(q, kl, vl, visible))
+    _route_times(timer, run, row, t, kind)
+    row["library_ms"] = timer(_masked_sdpa(q.to(kl.dtype), kl, vl, visible))
     # bytes: q read, out written, the plane read, the visible rows read once
     # (update: the earlier ones from the cache, the new ones read from
     # k_new/v_new and written); operations: QK and PV over each query's
-    # visible rows
+    # visible rows (f32 ones on the CUDA cores for an f32 cache, whose q and
+    # new rows arrive as f32)
     nv = int(valid.sum())
-    n_bytes = t * h * d * (2 + 4) + s * 4 + 2 * nv * _row_bytes(quant, h, d)
+    qb = 4 if f32 else 2
+    n_bytes = t * h * d * (qb + 4) + s * 4 + 2 * nv * _row_bytes(quant, h, d, f32)
     if update:
-        n_bytes += 2 * t * h * d * 2
+        n_bytes += 2 * t * h * d * qb
     ops = 4.0 * h * d * sum(int(((pc >= 0) & (pc <= n_past + i)).sum()) for i in range(t))
-    row["bound_ms"], row["bound_by"] = bound(n_bytes, ops)
+    row["bound_ms"], row["bound_by"] = bound(n_bytes, ops,
+                                             F32_FLOP_PER_S if f32 else BF16_OP_PER_S)
     return row
 
 
@@ -1191,9 +1250,10 @@ def kernel_attn_prefix(timer, gen, gen_cpu, b: int, t: int, npl: list[int], upda
         torch.equal(x, y) for x, y in zip(za, zb))
     del za, zb, pool0
     err, ratio = _attn_err(got, want, q, k, v, npast, layer, *planes[2:], **pkw)
+    kind = "int8" if quant else "bf16"
     row = {
-        "kernel": fa.launch_name("attn_update" if update else "attn_read",
-                                 "int8" if quant else "bf16", False, mode="prefix"),
+        "kernel": fa.launch_name("attn_update" if update else "attn_read", kind, False,
+                                 mode="prefix", route=fa.attn_route(t, kind)),
         "shape": f"B={b} T={t} n_past={min(npl)}..{max(npl)} prefix_len="
                  f"{int(plens.min())}..{int(plens.max())} of Sp={sp} x {n_pool} H={h} D={d} "
                  f"S={s} block_k={bk}" + (" int8" if quant else ""),
@@ -1216,6 +1276,7 @@ def kernel_attn_prefix(timer, gen, gen_cpu, b: int, t: int, npl: list[int], upda
     visible = torch.cat([pvis[:, None, :].expand(-1, t, -1), svis], -1)
     row["ms"] = timer(run)
     row["plain_ms"] = timer(plain, reps=5)
+    _route_times(timer, run, row, t, kind)
     row["library_ms"] = timer(_masked_sdpa(q, kl, vl, visible))
     # the slot part as `_attn_sizes`; each pool entry's rows read once (L2
     # holds a layer's pool for every row that shares it), QK and PV over
@@ -1252,7 +1313,11 @@ def kernel_edges(gen, gen_cpu) -> dict:
         worst[f"q4 M={m} K={k} N={n}"] = (err, limit, err / limit)
     h, d, s = 2, 64, 64
     for quant in (False, True):
-        for b, t, n_past, update in ((1, 8, 13, True), (1, 5, 20, False), (2, 1, None, True)):
+        # T < 16 on the CUDA cores; T 16-40 on the tensor cores, with rows
+        # past T in the last 64-row block and a KV block of 32 (two ragged
+        # sub-tiles), a vector n_past
+        for b, t, n_past, update in ((1, 8, 13, True), (1, 5, 20, False), (2, 1, None, True),
+                                     (1, 24, 13, True), (1, 40, 20, False), (2, 16, None, True)):
             planes = _kv_cache(gen, (2, b, h, s, d), quant)
             q, kn, vn = (torch.randn((b, t, h, d), device="cuda", generator=gen)
                          .to(torch.bfloat16) for _ in range(3))
@@ -1285,6 +1350,10 @@ def kernel_edges(gen, gen_cpu) -> dict:
         for r in (kernel_attn_paged(None, gen, gen_cpu, 8, [ps, 16], True, 2, quant, s, ps, 32,
                                     h, d),
                   kernel_attn_paged(None, gen, gen_cpu, 5, 20, False, 1, quant, s, ps, 32, h, d),
+                  kernel_attn_paged(None, gen, gen_cpu, 16, [ps, 16], True, 2, quant, s, ps, 32,
+                                    h, d),
+                  kernel_attn_paged(None, gen, gen_cpu, 21, 20, False, 1, quant, s, ps, 32, h,
+                                    d),
                   kernel_decode_paged(None, gen, gen_cpu, 4, quant, s, ps, 32, h, d)):
             if not r["ok"]:
                 raise SystemExit(f"kernel edges: paged kernel at D={d} disagrees: {r}")
@@ -1300,6 +1369,17 @@ def kernel_edges(gen, gen_cpu) -> dict:
                   kernel_attn_prefix(None, gen, gen_cpu, 3, 8, [3, 9, 40], True, quant,
                                      plen=[33, 0, 256], s=s, h=h, d=d, bk=32),
                   kernel_attn_prefix(None, gen, gen_cpu, 2, 5, [0, 20], False, quant,
+                                     plen=[100, 7], s=s, h=h, d=d, bk=32),
+                  # the tensor-core route: a wrapped ring, one before the
+                  # wrap (bit-equal to flat), a read over empty rows, the
+                  # pool pre-pass (bit-equal to flat at prefix_len 0)
+                  kernel_attn_ring(None, gen, 16, 92, True, quant, keep=4, s=s, h=h, d=d, bk=32),
+                  kernel_attn_ring(None, gen, 16, 8, True, quant, keep=4, s=s, h=h, d=d, bk=32),
+                  kernel_attn_ring(None, gen, 21, 70, False, quant, holes=range(20, 30), keep=4,
+                                   s=s, h=h, d=d, bk=32),
+                  kernel_attn_prefix(None, gen, gen_cpu, 3, 16, [3, 9, 40], True, quant,
+                                     plen=[33, 0, 256], s=s, h=h, d=d, bk=32),
+                  kernel_attn_prefix(None, gen, gen_cpu, 2, 20, [0, 20], False, quant,
                                      plen=[100, 7], s=s, h=h, d=d, bk=32)):
             if not r["ok"]:
                 raise SystemExit(f"kernel edges: ring/prefix kernel at D={d} disagrees: {r}")
@@ -1337,8 +1417,11 @@ def phase_kernels(reps: int) -> list[dict]:
     # admits them into a smaller scratch cache), a full-context prefill, the
     # second-turn shape, and the serving path's prefixed request (a 300-token
     # suffix at n_past 100 in a 412-row bucket, the read route); the bf16
-    # lookup verify (generate_7b_lookup: B=1, T=4, a vector n_past)
+    # lookup verify (generate_7b_lookup: B=1, T=4, a vector n_past); T = 16,
+    # the least T of the tensor-core route, bf16 and int8 (the CUDA-core
+    # route's time beside it: the routes' crossover)
     for t, n_past, update, main, b, quant in (
+            (16, 0, True, False, 1, False), (16, 0, True, False, 4, True),
             (4, [100], True, True, 1, False), (1, 0, True, False, 1, False),
             (1, 37, True, True, 1, False), (1, 480, True, True, 1, False),
             (1, 511, True, False, 1, False),
@@ -1357,12 +1440,13 @@ def phase_kernels(reps: int) -> list[dict]:
             emit({"phase": "kernel", **rows[-1]})
     # page-table modes through scrambled tables of 128-row pages: K2 at T=1
     # and at admission chunks' T (B=4 from page 0 and 1, B=1 at n_past 256
-    # as a request continuing two shared prefix pages), K3 at the second
+    # as a request continuing two shared prefix pages, B=2 at T=512 as a
+    # re-admission of two preempted requests), K3 at the second
     # turn's shape (no engine path reaches it: paged llama_forward refuses
     # the read route), K4 at the serving path's 32 slots. serve_shapes
     # checks every paged shape serve_7b_paged launches.
     for quant in (False, True):
-        for t, n_past, b in ((1, 300, 1), (32, 0, 4), (128, 128, 4), (256, 256, 1)):
+        for t, n_past, b in ((1, 300, 1), (32, 0, 4), (128, 128, 4), (256, 256, 1), (512, 0, 2)):
             rows.append(kernel_attn_paged(timer, gen, gen_cpu, t, n_past, True, b, quant))
             emit({"phase": "kernel", **rows[-1]})
         rows.append(kernel_attn_paged(timer, gen, gen_cpu, 301, 159, False, 1, quant))
@@ -1393,6 +1477,11 @@ def phase_kernels(reps: int) -> list[dict]:
             emit({"phase": "kernel", **rows[-1]})
         rows.append(kernel_attn_ring(timer, gen, 301, 580, False, quant,
                                      holes=range(450, 470)))
+        emit({"phase": "kernel", **rows[-1]})
+    # the f32 ring (Engine(kv_dtype="float32", ctx_ring=True)): K2's decode
+    # step before the wrap (bit-equal to flat K2) and after it
+    for n_past in (300, 700):
+        rows.append(kernel_attn_ring(timer, gen, 1, n_past, True, False, f32=True))
         emit({"phase": "kernel", **rows[-1]})
     # shared-prefix pool (4 entries of 256 rows, 200-row prefixes): K2 at the
     # B = 32 decode step (suffix n_past seeded in 0..300) and at admission
@@ -1773,7 +1862,11 @@ def phase_generate_7b(seed: int) -> tuple[dict, dict]:
     k1_1 = counts1["q4_gemv"] + counts1["q4_gemm"]
     if k1_1 != (4 * cfg.n_layer + 1) * forwards1:
         raise SystemExit(f"generate_7b: {k1_1} K1 launches for {forwards1} forward passes")
-    _require("generate_7b", counts, ("q4_gemv", "q4_gemm", "attn_update", "attn_read"))
+    # decode on the CUDA cores; the prompt (T 32) and the second turn's read
+    # (T 301 in a 353-row bucket) on the tensor cores
+    _require("generate_7b", counts1, ("q4_gemv", "q4_gemm", "attn_update", "attn_update_tc"))
+    _require("generate_7b (turn 2)", {k: n - counts1[k] for k, n in counts.items()},
+             ("q4_gemm", "attn_read_tc"))
     result = {
         "params_s": round(t_params, 3), "kernel_vs_plain": cmp, "limit_rel": LOGIT_REL_LIMIT,
         "prefill_tokens": len(prompt1), "prefill_ms": prefill_ms,
@@ -2421,7 +2514,8 @@ def phase_serve_7b(seed: int) -> tuple[dict, dict, dict]:
     if status != 200:
         raise SystemExit("serve_7b: the prefix was not registered")
     _check_answers("serve_7b", load.pop("answers") + [prefixed])
-    _require("serve_7b", counts, ("q4_gemm", "attn_update_i8", "attn_read_i8", "decode_i8"))
+    # admissions (T >= 16) and the prefixed request's read on the tensor cores
+    _require("serve_7b", counts, ("q4_gemm", "attn_update_tc_i8", "attn_read_tc_i8", "decode_i8"))
     idle = _idle_window(srv.engine, cfg.n_vocab, gen)
     shapes = _shapes()
     load["requests"] += 1  # the prefixed one
@@ -2581,7 +2675,7 @@ def phase_serve_7b_paged(seed: int) -> tuple[dict, dict, dict]:
                           qanswers[i]["text"], f"serve_7b_paged: greedy request {i}")
             for i in greedy]
     ties = [t for t in ties if t is not None]
-    _require("serve_7b_paged", counts, ("q4_gemm", "attn_update_paged_i8", "decode_paged_i8"))
+    _require("serve_7b_paged", counts, ("q4_gemm", "attn_update_paged_tc_i8", "decode_paged_i8"))
     shapes = _shapes()
     result = {
         "paged_equal_to_flat_kv_block_128": {"requests": len(prompts), "tokens": 32},
@@ -2765,7 +2859,8 @@ def phase_generate_7b_ring(seed: int) -> tuple[dict, dict]:
                                                                       ignore_eos=True))
     del eng
     torch.cuda.empty_cache()
-    _require("generate_7b_ring", counts, ("q4_gemv", "q4_gemm", "attn_update_ring"))
+    _require("generate_7b_ring", counts, ("q4_gemv", "q4_gemm", "attn_update_ring",
+                                          "attn_update_ring_tc"))
     em = re.search(r"^eval += +([\d.]+) ms / +(\d+) tokens", err, re.M)
     result = {
         "prompt_tokens": len(prompt), "tokens": len(got), "ring_keep": RING_KEEP,
@@ -3023,7 +3118,10 @@ def phase_serve_7b_shared(seed: int) -> tuple[dict, dict, dict]:
     del srv, eng
     gc.collect()
     torch.cuda.empty_cache()
-    _require("serve_7b_shared", counts, ("q4_gemm", "attn_update_prefix_i8"))
+    # decode over the prefix on the CUDA cores, admissions (T >= 16) on the
+    # tensor cores
+    _require("serve_7b_shared", counts, ("q4_gemm", "attn_update_prefix_i8",
+                                         "attn_update_prefix_tc_i8"))
     shapes = _shapes()
     # a per-slot copy of the prefix (serve_7b's registered prefix) puts its
     # rows in every slot that continues it: 32 slots x 200 rows of int8 K
@@ -3428,7 +3526,9 @@ def phase_eval_7b_f32(seed: int) -> tuple[dict, dict, dict]:
     shapes = _shapes()
     result["launches"] = counts
     result.update(_shape_report(shapes))
-    _require("eval_7b_f32", counts, ("q4_gemv", "q4_gemm", "q4_gemm_f32", "attn_update",
+    # the bf16 perplexity chunk (T 512) on the tensor cores, every f32 cache
+    # on the CUDA cores
+    _require("eval_7b_f32", counts, ("q4_gemv", "q4_gemm", "q4_gemm_f32", "attn_update_tc",
                                      "attn_update_f32", "attn_read_f32", "decode_f32"))
     return result, counts, shapes
 
@@ -3623,12 +3723,14 @@ def phase_parallel_7b(seed: int) -> tuple[dict, dict]:
             "launches_per_rank": [r[name]["counts"] for r in ranks],
             "single_device_launches": single_counts,
         }
-    per_rank_k2 = [r["pp"]["counts"].get("attn_update_boff", 0) for r in ranks]
+    per_rank_k2 = [r["pp"]["counts"].get("attn_update_boff", 0)
+                   + r["pp"]["counts"].get("attn_update_boff_tc", 0) for r in ranks]
     want_k2 = PP_MICRO * ranks[0]["pp"]["local_layers"] * (1 + PP_STEPS)
     if per_rank_k2 != [want_k2, want_k2]:
         raise SystemExit(f"parallel_7b (pp): K2 batch_offset launches {per_rank_k2} per rank, "
                          f"not M x local layers x forwards = {want_k2}")
-    _require("parallel_7b", counts, ("q4_gemv", "q4_gemm", "attn_update", "attn_update_boff",
+    _require("parallel_7b", counts, ("q4_gemv", "q4_gemm", "attn_update", "attn_update_tc",
+                                     "attn_update_boff", "attn_update_boff_tc",
                                      "q4_gemv_chunks", "q4_gemm_chunks"))
     result["shape_rows"] = phase_serve_shapes(
         _rank_shapes(*(r[name]["shapes"] for r in ranks for name in ("tp", "pp")),
@@ -3732,7 +3834,7 @@ def phase_serve_7b_tp(seed: int) -> tuple[dict, dict]:
     for c in (ranks[0]["counts"], ranks[1]["counts"], single_counts):
         for key, n in c.items():
             counts[key] += n
-    _require("serve_7b_tp", counts, ("q4_gemm", "attn_update_i8", "decode_i8",
+    _require("serve_7b_tp", counts, ("q4_gemm", "attn_update_tc_i8", "decode_i8",
                                      "q4_gemm_chunks"))
     chunked = {"q4": {}, "q4_f32": {}, "q4_i8": {}, "attn": {}, "decode": {},
                "q4_modes": {k: n for k, n in shapes["q4_modes"].items() if "chunks" in k[0]}}

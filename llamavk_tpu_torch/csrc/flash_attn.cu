@@ -3,9 +3,10 @@
 // f32 caches.
 //
 // Replaces two TPU kernels of llamavk_tpu/ops/flash_attn.py, in their flat
-// and page-table cache modes (bf16 and int8), and their flat f32 mode (q
-// and the new rows arrive as f32, and nothing is rounded to bf16: the JAX
-// kernels multiply in the cache's type, flash_attn.py:749, :798 there):
+// and page-table cache modes (bf16 and int8), and their flat and ring f32
+// modes (q and the new rows arrive as f32, and nothing is rounded to bf16:
+// the JAX kernels multiply in the cache's type, flash_attn.py:749, :798
+// there):
 //  * `_update_kernel` (:120, entry `flash_attention_update`): write T new
 //    K/V rows at [n_past, n_past+T) of layer l (int8: quantize each row and
 //    write its scale), then attend;
@@ -33,10 +34,11 @@
 // :191, :555-563, :763-786 there): the write lands row t at physical row
 // write_row[b] + t while n_past stays the logical query position, and the
 // attention masks by the position plane [S, B] (int32, compared as
-// integers). Prefix mode (`prefix_k/v/id/len`, :643-735 there): the
-// attention first walks the row's entry of the bf16 shared-prefix pool, and
-// n_past is the slot-local row. Both are `attn::attend_block`'s MODE
-// template argument, so the flat and paged kernels keep their code.
+// integers); bf16, int8 and f32 caches. Prefix mode (`prefix_k/v/id/len`,
+// :643-735 there): the attention first walks the row's entry of the bf16
+// shared-prefix pool, and n_past is the slot-local row; bf16 and int8 slots.
+// Both are the MODE template argument of either route, so the flat and
+// paged kernels keep their code.
 //
 // Pipeline-parallel modes (the JAX kernels' `batch_offset` and `commit`,
 // flash_attn.py:827, :1018-1023, :275-291 there): `batch_offset` is the
@@ -48,25 +50,32 @@
 // unchanged rows, as the JAX kernel's idle pipeline hop does. Both are flat
 // only (no page table, ring or prefix).
 //
-// The score, online-softmax and PV arithmetic is `attn::attend_block` of
-// attn_common.cuh, shared with the batched decode kernel (flash_decode.cu),
-// so both give bit-equal outputs at equal block_k, and a paged call equals a
-// flat one at block_k = PS. Blocks past a row's last
-// visible column contribute exactly zero, so reading only up to the tile's
-// last visible column does not change the result.
+// The attention launch takes one of two routes, which the caller picks from
+// T and the cache type alone (`route`; ops/flash_attn.py::attn_route):
+//  * the CUDA-core route, `attn::attend_block` of attn_common.cuh, shared
+//    with the batched decode kernel (flash_decode.cu), so both give bit-equal
+//    outputs at equal block_k: T < 16 (decode, the lookup verify) and every
+//    f32 cache. A block owns 8 query rows of one (batch, head), one per warp;
+//    lane j scores key j of a 64-row shared tile, then the warp's 32 lanes
+//    own D/32 output dims each for the PV sum;
+//  * the tensor-core route, `attn::mma::attend_tc` of attn_mma.cuh: bf16 and
+//    int8 caches at T >= 16 (prefill, admission chunks). A block owns 64
+//    query rows (16 a warp); QK^T and PV run on `mma.sync` m16n8k16 with the
+//    scores in registers, over K/V sub-tiles double-buffered by `cp.async`.
+// Both give a paged call equal to a flat one at block_k = PS bit for bit,
+// and keep every mode's bit-equalities. Blocks past a row's last visible
+// column contribute exactly zero, so reading only up to the tile's last
+// visible column does not change the result.
 //
 // What bounds it on an H100: decode (T = 1) reads the valid cache prefix of
 // one layer, paged or not (2 * H * n_past * D bytes of int8, twice that of
 // bf16, four times that of f32, plus 8 * n_past * H bytes of int8 scales),
 // plus the new rows, and is bound by those bytes; prefill is bound by its
-// operations (4 * T * S_visible * D per head). This first
-// design uses CUDA cores only: a block owns 8 query rows of one (batch,
-// head), one per warp; K and V arrive in 64-row shared tiles (rows padded so
-// lane j reading key j is free of bank conflicts); lane j scores key j of
-// the tile, then the warp's 32 lanes own D/32 output dims each for the PV
-// sum. Tensor-core (wgmma) attention and split-KV decode are later work.
+// operations (4 * T * S_visible * D per head), which the tensor-core route
+// puts on the tensor cores. wgmma/TMA attention and split-KV decode are
+// later work.
 
-#include "attn_common.cuh"
+#include "attn_mma.cuh"
 
 namespace {
 
@@ -140,6 +149,38 @@ attn_kernel(const attn::QType<KV>* __restrict__ q, const KV* kc, const KV* vc, c
                                   T, H, map, block_k, scale, ring, pre);
 }
 
+// The tensor-core route: 64 query rows a block (attn_mma.cuh)
+template <int D, typename KV, int MODE>
+__global__ void __launch_bounds__(attn::mma::THREADS)
+attn_tc_kernel(const __nv_bfloat16* __restrict__ q, const KV* kc, const KV* vc, const float* ks,
+               const float* vs, float* __restrict__ out, const int* __restrict__ npast_vec,
+               int npast_scalar, KVMap map, int T, int H, int block_k, float scale,
+               attn::Ring ring, attn::Prefix pre) {
+  extern __shared__ __align__(16) uint8_t tc_smem[];
+  const int b = blockIdx.z;
+  const int np = npast_vec ? npast_vec[b] : npast_scalar;
+  attn::mma::attend_tc<D, KV, MODE>(tc_smem, q, kc, vc, ks, vs, out, b, blockIdx.y,
+                                    blockIdx.x * attn::mma::QT, np, T, H, map, block_k, scale,
+                                    ring, pre);
+}
+
+template <int D, typename KV, int MODE>
+cudaError_t launch_tc(const void* q, const void* kc, const void* vc, const float* ks,
+                      const float* vs, void* out, const int* npast_vec, int npast_scalar,
+                      KVMap map, int B, int T, int H, int block_k, float scale,
+                      const attn::Ring& ring, const attn::Prefix& pre, cudaStream_t stream) {
+  static size_t dyn_done = 0;
+  constexpr size_t dyn = attn::mma::smem_bytes<D, KV, MODE>();
+  cudaError_t e = attn::allow_dyn_smem(attn_tc_kernel<D, KV, MODE>, dyn, dyn_done);
+  if (e != cudaSuccess) return e;
+  dim3 grid((T + attn::mma::QT - 1) / attn::mma::QT, H, B);
+  attn_tc_kernel<D, KV, MODE><<<grid, attn::mma::THREADS, dyn, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(kc),
+      static_cast<const KV*>(vc), ks, vs, static_cast<float*>(out), npast_vec, npast_scalar,
+      map, T, H, block_k, scale, ring, pre);
+  return cudaGetLastError();
+}
+
 template <int D, typename KV, int MODE>
 cudaError_t launch_attn(const void* q, const void* kc, const void* vc, const float* ks,
                         const float* vs, void* out, const int* npast_vec, int npast_scalar,
@@ -157,40 +198,61 @@ cudaError_t launch_attn(const void* q, const void* kc, const void* vc, const flo
   return cudaGetLastError();
 }
 
-template <int D, typename KV>
-cudaError_t launch_mode(const void* q, const void* kc, const void* vc, const float* ks,
-                        const float* vs, void* out, const int* npast_vec, int npast_scalar,
-                        KVMap map, int B, int T, int H, int block_k, float scale,
-                        const attn::Ring& ring, const attn::Prefix& pre, cudaStream_t st) {
-  // an f32 cache is flat with no ring or prefix (checked by the caller), so
-  // those modes are not built for it
+// The attention launches of the K2/K3 routes (`route`, checked by the
+// caller: the tensor-core route for a bf16 or int8 cache at T >= 16 only)
+enum { ROUTE_CUDA_CORE = 0, ROUTE_TENSOR_CORE = 1 };
+
+template <int D, typename KV, int MODE>
+cudaError_t launch_route(int route, const void* q, const void* kc, const void* vc,
+                         const float* ks, const float* vs, void* out, const int* npast_vec,
+                         int npast_scalar, KVMap map, int B, int T, int H, int block_k,
+                         float scale, const attn::Ring& ring, const attn::Prefix& pre,
+                         cudaStream_t st) {
   if constexpr (!std::is_same<KV, float>::value) {
-    if (ring.pos)
-      return launch_attn<D, KV, attn::MODE_RING>(q, kc, vc, ks, vs, out, npast_vec,
-                                                 npast_scalar, map, B, T, H, block_k, scale,
-                                                 ring, pre, st);
-    if (pre.k)
-      return launch_attn<D, KV, attn::MODE_PREFIX>(q, kc, vc, ks, vs, out, npast_vec,
-                                                   npast_scalar, map, B, T, H, block_k, scale,
-                                                   ring, pre, st);
+    if (route == ROUTE_TENSOR_CORE)
+      return launch_tc<D, KV, MODE>(q, kc, vc, ks, vs, out, npast_vec, npast_scalar, map, B, T,
+                                    H, block_k, scale, ring, pre, st);
   }
-  return launch_attn<D, KV, attn::MODE_PLAIN>(q, kc, vc, ks, vs, out, npast_vec, npast_scalar,
-                                              map, B, T, H, block_k, scale, ring, pre, st);
+  return launch_attn<D, KV, MODE>(q, kc, vc, ks, vs, out, npast_vec, npast_scalar, map, B, T, H,
+                                  block_k, scale, ring, pre, st);
+}
+
+template <int D, typename KV>
+cudaError_t launch_mode(int route, const void* q, const void* kc, const void* vc,
+                        const float* ks, const float* vs, void* out, const int* npast_vec,
+                        int npast_scalar, KVMap map, int B, int T, int H, int block_k,
+                        float scale, const attn::Ring& ring, const attn::Prefix& pre,
+                        cudaStream_t st) {
+  if (ring.pos)
+    return launch_route<D, KV, attn::MODE_RING>(route, q, kc, vc, ks, vs, out, npast_vec,
+                                                npast_scalar, map, B, T, H, block_k, scale, ring,
+                                                pre, st);
+  // an f32 cache has no prefix mode (checked by the caller), so it is not
+  // built for it
+  if constexpr (!std::is_same<KV, float>::value) {
+    if (pre.k)
+      return launch_route<D, KV, attn::MODE_PREFIX>(route, q, kc, vc, ks, vs, out, npast_vec,
+                                                    npast_scalar, map, B, T, H, block_k, scale,
+                                                    ring, pre, st);
+  }
+  return launch_route<D, KV, attn::MODE_PLAIN>(route, q, kc, vc, ks, vs, out, npast_vec,
+                                               npast_scalar, map, B, T, H, block_k, scale, ring,
+                                               pre, st);
 }
 
 template <typename KV>
-cudaError_t attend(const void* q, const void* kc, const void* vc, const void* ks, const void* vs,
-                   void* out, const int* npast_vec, int npast_scalar, KVMap map, int B, int T,
-                   int H, int D, int block_k, float scale, const attn::Ring& ring,
+cudaError_t attend(int route, const void* q, const void* kc, const void* vc, const void* ks,
+                   const void* vs, void* out, const int* npast_vec, int npast_scalar, KVMap map,
+                   int B, int T, int H, int D, int block_k, float scale, const attn::Ring& ring,
                    const attn::Prefix& pre, cudaStream_t st) {
   auto kss = static_cast<const float*>(ks);
   auto vss = static_cast<const float*>(vs);
   if (D == 128)
-    return launch_mode<128, KV>(q, kc, vc, kss, vss, out, npast_vec, npast_scalar, map, B, T, H,
-                                block_k, scale, ring, pre, st);
+    return launch_mode<128, KV>(route, q, kc, vc, kss, vss, out, npast_vec, npast_scalar, map, B,
+                                T, H, block_k, scale, ring, pre, st);
   if (D == 64)
-    return launch_mode<64, KV>(q, kc, vc, kss, vss, out, npast_vec, npast_scalar, map, B, T, H,
-                               block_k, scale, ring, pre, st);
+    return launch_mode<64, KV>(route, q, kc, vc, kss, vss, out, npast_vec, npast_scalar, map, B,
+                               T, H, block_k, scale, ring, pre, st);
   return cudaErrorInvalidValue;
 }
 
@@ -267,25 +329,29 @@ void offset_batch(P& kc, P& vc, SP& ks, SP& vs, int batch_offset, int kv_kind, i
 // page_table [B, maxlb] (S the page's rows); out f32 [B, T, H, D]; n_past
 // from npast_vec[B] (device) when it is not null, else npast_scalar; `modes`
 // (or null) the ring or prefix operands, on a flat cache only. An f32 cache
-// is flat, with no ring or prefix. D in {64, 128}; block_k divides S.
+// is flat or a ring, with no prefix. D in {64, 128}; block_k divides S.
 // batch_offset (flat, no ring or prefix) is the cache row of batch row 0:
 // the flat layer pointers address a [B_cache, ...] layer with
-// B_cache >= batch_offset + B.
+// B_cache >= batch_offset + B. route: ROUTE_CUDA_CORE, or ROUTE_TENSOR_CORE
+// for a bf16 or int8 cache at T >= 16 (refused otherwise).
 extern "C" int attn_read_launch(const void* q, const void* k_cache, const void* v_cache,
                                 const void* k_scale, const void* v_scale, void* out,
                                 const void* npast_vec, int npast_scalar, const void* page_table,
                                 int maxlb, int B, int T, int H, int S, int D, int block_k,
                                 float scale, int kv_kind, int batch_offset,
-                                const AttnModes* modes, void* stream) {
+                                const AttnModes* modes, int route, void* stream) {
   if (block_k < 1 || S % block_k != 0) return (int)cudaErrorInvalidValue;
   if (kv_kind < KV_BF16 || kv_kind > KV_F32) return (int)cudaErrorInvalidValue;
+  if (route != ROUTE_CUDA_CORE &&
+      (route != ROUTE_TENSOR_CORE || kv_kind == KV_F32 || T < attn::mma::MIN_T))
+    return (int)cudaErrorInvalidValue;
   if (page_table && maxlb < 1) return (int)cudaErrorInvalidValue;
   attn::Ring ring;
   attn::Prefix pre;
   cudaError_t e = mode_args(modes, B, ring, pre);
   if (e != cudaSuccess) return (int)e;
   if (page_table && (ring.pos || pre.k)) return (int)cudaErrorInvalidValue;
-  if (kv_kind == KV_F32 && (page_table || ring.pos || pre.k)) return (int)cudaErrorInvalidValue;
+  if (kv_kind == KV_F32 && (page_table || pre.k)) return (int)cudaErrorInvalidValue;
   if (batch_offset < 0 || (batch_offset && (page_table || ring.pos || pre.k)))
     return (int)cudaErrorInvalidValue;
   if (batch_offset) offset_batch(k_cache, v_cache, k_scale, v_scale, batch_offset, kv_kind, H, S, D);
@@ -293,38 +359,40 @@ extern "C" int attn_read_launch(const void* q, const void* k_cache, const void* 
   auto st = static_cast<cudaStream_t>(stream);
   const KVMap map{static_cast<const int*>(page_table), maxlb, S};
   if (kv_kind == KV_INT8)
-    return (int)attend<int8_t>(q, k_cache, v_cache, k_scale, v_scale, out, npv, npast_scalar, map,
-                               B, T, H, D, block_k, scale, ring, pre, st);
+    return (int)attend<int8_t>(route, q, k_cache, v_cache, k_scale, v_scale, out, npv,
+                               npast_scalar, map, B, T, H, D, block_k, scale, ring, pre, st);
   if (kv_kind == KV_F32)
-    return (int)attend<float>(q, k_cache, v_cache, nullptr, nullptr, out, npv, npast_scalar, map,
-                              B, T, H, D, block_k, scale, ring, pre, st);
-  return (int)attend<__nv_bfloat16>(q, k_cache, v_cache, nullptr, nullptr, out, npv,
+    return (int)attend<float>(route, q, k_cache, v_cache, nullptr, nullptr, out, npv,
+                              npast_scalar, map, B, T, H, D, block_k, scale, ring, pre, st);
+  return (int)attend<__nv_bfloat16>(route, q, k_cache, v_cache, nullptr, nullptr, out, npv,
                                     npast_scalar, map, B, T, H, D, block_k, scale, ring, pre, st);
 }
 
 // Update path (K2): write k_new/v_new [B, T, H, D] (bf16; f32 for an f32
 // cache) into rows [n_past, n_past + T) of the cache layer (int8: quantized,
 // with their scales; paged: through the table; ring: rows [write_row,
-// write_row + T)), then attend (two launches). batch_offset as the read
-// path's; commit = 0 writes nothing and attends over the unchanged cache
-// (one launch).
+// write_row + T)), then attend (two launches) by `route`, as the read path.
+// batch_offset as the read path's; commit = 0 writes nothing and attends
+// over the unchanged cache (one launch).
 extern "C" int attn_update_launch(const void* q, const void* k_new, const void* v_new,
                                   void* k_cache, void* v_cache, void* k_scale, void* v_scale,
                                   void* out, const void* npast_vec, int npast_scalar,
                                   const void* page_table, int maxlb, int B, int T, int H, int S,
                                   int D, int block_k, float scale, int kv_kind, int batch_offset,
-                                  int commit, const AttnModes* modes, void* stream) {
+                                  int commit, const AttnModes* modes, int route, void* stream) {
   if (block_k < 1 || S % block_k != 0 || (D != 64 && D != 128)) return (int)cudaErrorInvalidValue;
-  if (page_table && maxlb < 1) return (int)cudaErrorInvalidValue;
-  if (kv_kind == KV_F32 && (page_table || (modes && (modes->pos || modes->pk))))
+  if (route != ROUTE_CUDA_CORE &&
+      (route != ROUTE_TENSOR_CORE || kv_kind == KV_F32 || T < attn::mma::MIN_T))
     return (int)cudaErrorInvalidValue;
+  if (page_table && maxlb < 1) return (int)cudaErrorInvalidValue;
+  if (kv_kind == KV_F32 && (page_table || (modes && modes->pk))) return (int)cudaErrorInvalidValue;
   if (batch_offset < 0 || (batch_offset && (page_table || (modes && (modes->pos || modes->pk)))))
     return (int)cudaErrorInvalidValue;
   if (batch_offset) offset_batch(k_cache, v_cache, k_scale, v_scale, batch_offset, kv_kind, H, S, D);
   if (!commit)
     return attn_read_launch(q, k_cache, v_cache, k_scale, v_scale, out, npast_vec, npast_scalar,
                             page_table, maxlb, B, T, H, S, D, block_k, scale, kv_kind, 0, modes,
-                            stream);
+                            route, stream);
   auto st = static_cast<cudaStream_t>(stream);
   const bool ring_write = modes && modes->has_wrow;
   auto wrv = static_cast<const int*>(ring_write ? modes->wrow_vec : npast_vec);
@@ -360,5 +428,5 @@ extern "C" int attn_update_launch(const void* q, const void* k_new, const void* 
   if (e != cudaSuccess) return (int)e;
   return attn_read_launch(q, k_cache, v_cache, k_scale, v_scale, out, npast_vec, npast_scalar,
                           page_table, maxlb, B, T, H, S, D, block_k, scale, kv_kind, 0, modes,
-                          stream);
+                          route, stream);
 }

@@ -203,13 +203,11 @@ def init_kv_cache(
     """A zeroed bf16, int8 or f32 cache. The JAX package pads an int8
     cache's scale planes to 128 head lanes (llama.py:161-168 there), a TPU
     DMA rule; here they keep H. `ring` adds the history ring's position
-    plane [max_len, batch], every row empty (-1; llama.py:200-204 there);
-    an f32 ring is not ported yet. `n_head_local` gives a tensor-parallel
-    rank's cache its heads (n_head / tp)."""
+    plane [max_len, batch], every row empty (-1; llama.py:200-204 there),
+    over a cache of any of the three types. `n_head_local` gives a
+    tensor-parallel rank's cache its heads (n_head / tp)."""
     if dtype not in (torch.bfloat16, torch.int8, torch.float32):
         raise NotImplementedError(f"KV cache dtype {dtype}: bf16, int8 or f32")
-    if ring and dtype == torch.float32:
-        raise NotImplementedError("an f32 history ring is not ported yet (ROADMAP.md queue 2)")
     h = cfg.n_head if n_head_local is None else n_head_local
     shape = (cfg.n_layer, batch, h, max_len, cfg.head_dim)
     planes = [torch.zeros(shape, dtype=dtype, device=device) for _ in range(2)]
@@ -228,8 +226,9 @@ def init_paged_kv_cache(
     (H kept, no 128-lane pad, as `init_kv_cache`). The page's rows must be a
     multiple of 8, and of 32 for int8 (the KV block step)."""
     if dtype not in (torch.bfloat16, torch.int8):
-        raise NotImplementedError(f"KV pool dtype {dtype}: bf16 or int8 (an f32 pool is not "
-                                  f"ported yet, ROADMAP.md queue 2)")
+        raise NotImplementedError(f"KV pool dtype {dtype}: bf16 or int8 (an f32 pool is refused, "
+                                  f"as the JAX package's init_paged_kv_cache refuses one; "
+                                  f"ROADMAP.md queue 2)")
     step = 32 if dtype == torch.int8 else 8
     if page_size % step:
         raise ValueError(f"page_size {page_size} must be a multiple of {step} for {dtype}")

@@ -23,10 +23,13 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "llamavk_tpu_torch"
+# --split-compile=0 spreads one source's device-code optimisation over every
+# core (flash_attn.cu's 32 kernels built in 19 s alone, 10 s split, on the
+# card's 8-core host)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+    "-Xptxas", "-v", "--split-compile=0",
 ]
 SOURCES = ("q4_matmul", "q4_matmul_i8", "flash_attn", "flash_decode", "probe_q4_unpack",
            "probe_q4_i8", "probe_prefill_direct")

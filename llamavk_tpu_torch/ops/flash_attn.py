@@ -1,5 +1,5 @@
 """Attention over the KV cache (twin of `llamavk_tpu/ops/flash_attn.py`, flat
-and page-table modes, bf16 and int8, and the flat f32 mode).
+and page-table modes, bf16 and int8, and the flat and ring f32 modes).
 
 q: [B, T, H, D] (new queries), cache: STACKED [L, B, H, S, D] bf16, int8 or
 f32, n_past: int or [B] int32 tensor. An int8 cache comes with f32 scale
@@ -10,8 +10,9 @@ An f32 cache (the llama.h API's `f16_kv = false`, perplexity's f32 mode)
 multiplies in f32 throughout, as the JAX kernels multiply in the cache's
 own type (flash_attn.py:749, :798 there): q * scale and the probabilities
 are not rounded to bf16, and the new rows are stored as they arrive. The
-CUDA kernels take it flat only; an f32 page pool, ring or prefix-pool slot
-cache raises NotImplementedError (ROADMAP.md queue 2).
+CUDA kernels take it flat or as a history ring; an f32 page pool or
+prefix-pool slot cache raises NotImplementedError, as the JAX package's
+own asserts refuse both (flash_attn.py:877, :1073 there).
 
 With `page_table` (int32 [B, MAXLB]) the cache is a PAGE POOL
 [L, NP, H, PS, D] (int8 scales [L, NP, PS, H]) and logical row j of batch
@@ -49,6 +50,14 @@ prefix exclude each other and a page table, as the JAX asserts do.
 * `flash_attention` attends over a cache that already holds the rows. On
   CUDA tensors it launches `attn_read_launch` (replaces `_read_kernel` /
   `_attend`).
+
+Both launch their attention by one of two routes, picked by `attn_route`
+from T and the cache type alone (never B or the mode, so the single-stream
+and batched engines route a given T alike): the tensor-core route
+(`csrc/attn_mma.cuh`, `mma.sync`) for bf16 and int8 caches at T >= 16, the
+CUDA-core route (`attend_block` of `csrc/attn_common.cuh`) for T < 16 and
+every f32 cache. Each route has its own launch counters (`_tc` in the
+name); no call falls back from one to the other.
 
 Pipeline-parallel modes (flash_attn.py:827, :1018-1023, :275-291 there):
 `batch_offset` is the first cache row of the call's B rows, so a microbatch
@@ -89,18 +98,19 @@ from . import _build
 from .kv_quant import quantize_rows
 
 # launches of the CUDA kernels (one per wrapper call on CUDA tensors), by
-# path, cache mode and cache type; the update path's page_straddle mode on its
-# own; an f32 cache is flat only
-launches = {f"{path}{mode}{kind}": 0 for path, mode in (
+# path, cache mode, route (`_tc`: the tensor-core route) and cache type; the
+# update path's page_straddle mode on its own; an f32 cache is flat or a
+# ring, on the CUDA-core route
+launches = {f"{path}{mode}{route}{kind}": 0 for path, mode in (
     ("update", ""), ("update", "_paged"), ("update", "_paged_straddle"), ("read", ""),
     ("read", "_paged"), ("update", "_ring"), ("read", "_ring"), ("update", "_prefix"),
-    ("read", "_prefix")) for kind in ("", "_i8")}
-launches.update(update_f32=0, read_f32=0)
+    ("read", "_prefix")) for route in ("", "_tc") for kind in ("", "_i8")}
+launches.update(update_f32=0, read_f32=0, update_ring_f32=0, read_ring_f32=0)
 # the pipeline-parallel modes: a batch slice of a wider flat cache (`boff`),
 # and the update with commit=0 (`nocommit`), every cache type
-launches.update({f"{path}_{mode}{kind}": 0 for path, mode in (
+launches.update({f"{path}_{mode}{route}{kind}": 0 for path, mode in (
     ("update", "boff"), ("read", "boff"), ("update", "nocommit"))
-    for kind in ("", "_i8", "_f32")})
+    for route, kind in (("", ""), ("", "_i8"), ("", "_f32"), ("_tc", ""), ("_tc", "_i8"))})
 # launches by shape (path, B, T, H, S, D, block_k, cache type: "bf16",
 # "int8" or "f32", n_past: the int, or None for a per-row vector, MAXLB: the
 # page table's width, or None for a flat cache, page_straddle, mode: None,
@@ -114,15 +124,37 @@ shapes: collections.Counter = collections.Counter()
 # C interfaces take (`kv_kind` of csrc/flash_attn.cu and flash_decode.cu)
 KV_KINDS = {torch.bfloat16: "bf16", torch.int8: "int8", torch.float32: "f32"}
 KV_CODES = {"bf16": 0, "int8": 1, "f32": 2}
+# the attention routes of csrc/flash_attn.cu (`route` of its C interface)
+ROUTE_CODES = {"cuda_core": 0, "tensor_core": 1}
+TC_MIN_T = 16  # the least T of the tensor-core route (attn::mma::MIN_T)
+
+
+def attn_route(t: int, kind: str) -> str:
+    """The route of K2/K3's attention launch for T query rows over a cache
+    of type `kind`: "tensor_core" (`csrc/attn_mma.cuh`) for a bf16 or int8
+    cache at T >= 16, else "cuda_core" (`attend_block`). It depends on T and
+    the cache type alone."""
+    return "tensor_core" if kind != "f32" and t >= TC_MIN_T else "cuda_core"
 
 
 def launch_name(path: str, kind: str, paged: bool, straddle: bool = False,
-                mode: str = "") -> str:
+                mode: str = "", route: str = "cuda_core") -> str:
     """The `launches` key of one call: update/read/decode, paged (and
-    straddling), ring or prefix (`mode`), cache type `kind` (bf16, int8,
-    f32)."""
+    straddling), ring or prefix (`mode`), the tensor-core route (`_tc`),
+    cache type `kind` (bf16, int8, f32)."""
     return (path + ("_paged" if paged else "") + ("_straddle" if straddle else "")
-            + (f"_{mode}" if mode else "") + {"bf16": "", "int8": "_i8", "f32": "_f32"}[kind])
+            + (f"_{mode}" if mode else "") + ("_tc" if route == "tensor_core" else "")
+            + {"bf16": "", "int8": "_i8", "f32": "_f32"}[kind])
+
+
+def call_launch(path: str, q: torch.Tensor, k: torch.Tensor, paged: bool,
+                straddle: bool = False, mode: str = "") -> tuple[str, str]:
+    """(route, `launches` key) of a K2 (`path` "update") or K3 ("read")
+    call with queries q [B, T, H, D] over the cache k: the route from T and
+    the cache type (`attn_route`), whatever B and the mode."""
+    kind = KV_KINDS[k.dtype]
+    route = attn_route(q.shape[1], kind)
+    return route, launch_name(path, kind, paged, straddle, mode, route)
 
 
 def pp_mode(k: torch.Tensor, b: int, batch_offset: int | None, commit: int = 1,
@@ -442,10 +474,10 @@ def _lib():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     modes = ctypes.POINTER(_Modes)
     lib.attn_read_launch.argtypes = [p, p, p, p, p, p, p, i, p, i, i, i, i, i, i, i, f, i, i,
-                                     modes, p]
+                                     modes, i, p]
     lib.attn_read_launch.restype = ctypes.c_int
     lib.attn_update_launch.argtypes = [p, p, p, p, p, p, p, p, p, i, p, i, i, i, i, i, i, i, f,
-                                       i, i, i, modes, p]
+                                       i, i, i, modes, i, p]
     lib.attn_update_launch.restype = ctypes.c_int
     return lib
 
@@ -468,15 +500,16 @@ def _query(q, k, prefix_k=None) -> torch.Tensor:
         return q
     if prefix_k is not None:
         raise NotImplementedError("attention kernel: an f32 slot cache under a shared-prefix "
-                                  "pool is not ported (ROADMAP.md queue 2)")
+                                  "pool is refused, as the JAX kernels refuse one (ROADMAP.md "
+                                  "queue 2)")
     return q.to(torch.float32).contiguous()
 
 
 def check_cuda(q, k, v, n_past, layer_idx, k_scale=None, v_scale=None, tensors=(),
                page_table=None, ring: bool = False, pp: bool = False):
     """Validate kernel operands (q and new rows bf16, f32 for an f32 cache;
-    a bf16 cache, an int8 cache with f32 scale planes, or a flat f32 cache;
-    flat [L, B, H, S, D] with scales [L, B, S, H] (with `pp`, a wider flat
+    a bf16 cache, an int8 cache with f32 scale planes, or a flat or ring f32
+    cache; flat [L, B, H, S, D] with scales [L, B, S, H] (with `pp`, a wider flat
     cache that `pp_mode` has checked), or a pool [L, NP, H, PS, D] with
     scales [L, NP, PS, H] and an int32 [B, MAXLB] page table). Returns
     (npast_ptr, npast_scalar, cache type, k_scale_ptr, v_scale_ptr,
@@ -495,9 +528,10 @@ def check_cuda(q, k, v, n_past, layer_idx, k_scale=None, v_scale=None, tensors=(
         raise ValueError(f"attention kernel: cache must be bf16, int8 or f32, got "
                          f"{k.dtype}/{v.dtype}")
     kind = KV_KINDS[k.dtype]
-    if kind == "f32" and (paged or ring):
-        raise NotImplementedError("attention kernel: an f32 cache is flat only; f32 page pools "
-                                  "and rings are not ported yet (ROADMAP.md queue 2)")
+    if kind == "f32" and paged:
+        raise NotImplementedError("attention kernel: an f32 cache is flat or a ring; an f32 page "
+                                  "pool is refused, as the JAX package's init_paged_kv_cache "
+                                  "refuses one (ROADMAP.md queue 2)")
     quant = kind == "int8"
     qtype = torch.float32 if kind == "f32" else torch.bfloat16
     scales = (k_scale, v_scale) if quant else ()
@@ -610,16 +644,17 @@ def flash_attention(
     bk = _fit_block_k(block_k, s, kv_step(k.dtype))
     modes, mode = _modes(q, k, layer_idx, bk, kv_pos, None, ring_bounded, prefix_k, prefix_v,
                          prefix_id, prefix_len)
+    mode = mode or pmode
+    route, key = call_launch("read", q, k, tab is not None, mode=mode and mode[0])
     out = torch.empty((b, t, h, d), dtype=torch.float32, device=q.device)
     rc = _lib().attn_read_launch(
         q.data_ptr(), k[layer_idx].data_ptr(), v[layer_idx].data_ptr(), ksp, vsp,
         out.data_ptr(), npv, nps, tab, maxlb, b, t, h, s, d, bk, 1.0 / math.sqrt(d),
-        KV_CODES[kind], batch_offset or 0, ctypes.byref(modes),
+        KV_CODES[kind], batch_offset or 0, ctypes.byref(modes), ROUTE_CODES[route],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, "attn_read_launch")
-    mode = mode or pmode
-    launches[launch_name("read", kind, tab is not None, mode=mode and mode[0])] += 1
+    launches[key] += 1
     shapes[("read", b, t, h, s, d, bk, kind, n_past if npv is None else None,
             maxlb or None, False, mode)] += 1
     return out
@@ -683,17 +718,17 @@ def flash_attention_update(
     bk = _fit_block_k(block_k, s, kv_step(k.dtype))
     modes, mode = _modes(q, k, layer_idx, bk, kv_pos, write_row, ring_bounded, prefix_k,
                          prefix_v, prefix_id, prefix_len)
+    mode = mode or pmode
+    route, key = call_launch("update", q, k, tab is not None, page_straddle, mode and mode[0])
     out = torch.empty((b, t, h, d), dtype=torch.float32, device=q.device)
     rc = _lib().attn_update_launch(
         q.data_ptr(), kn.data_ptr(), vn.data_ptr(), k[layer_idx].data_ptr(),
         v[layer_idx].data_ptr(), ksp, vsp, out.data_ptr(), npv, nps, tab, maxlb, b, t, h, s, d,
         bk, 1.0 / math.sqrt(d), KV_CODES[kind], batch_offset or 0, int(bool(commit)),
-        ctypes.byref(modes), torch.cuda.current_stream(q.device).cuda_stream,
+        ctypes.byref(modes), ROUTE_CODES[route], torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, "attn_update_launch")
-    mode = mode or pmode
-    launches[launch_name("update", kind, tab is not None, page_straddle,
-                         mode and mode[0])] += 1
+    launches[key] += 1
     shapes[("update", b, t, h, s, d, bk, kind, n_past if npv is None else None,
             maxlb or None, page_straddle, mode)] += 1
     return (out, k, v) if k_scale is None else (out, k, v, k_scale, v_scale)

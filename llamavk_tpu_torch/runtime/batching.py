@@ -176,9 +176,9 @@ class BatchedEngine:
         if self.kv_dtype == torch.float32 and (bcfg.paged or bcfg.shared_prefix):
             # JAX asserts bf16/int8 pools and a bf16 prefix pool over bf16 or
             # int8 slots (batching.py:180-183, flash_attn.py:877 there)
-            raise NotImplementedError("BatchedEngine: an f32 cache is flat only; paged and "
-                                      "shared-prefix f32 caches are not ported yet (ROADMAP.md "
-                                      "queue 2)")
+            raise NotImplementedError("BatchedEngine: an f32 cache is flat; paged and "
+                                      "shared-prefix f32 caches are refused, as the JAX "
+                                      "package refuses them (ROADMAP.md queue 2)")
         b, w = bcfg.max_batch, bcfg.repeat_last_n
         self.pager: SlotPages | None = None
         if bcfg.paged:

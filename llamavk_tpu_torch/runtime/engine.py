@@ -7,7 +7,7 @@ never a per-step `.item()`. The KV cache is updated in place. The API mirrors
 llama.h: eval / sample / get-set-kv-cache / timings.
 
 The KV cache is bf16, int8 or f32 (`EngineConfig.kv_dtype`; f32 is the
-llama.h API's `f16_kv = false`). With `ctx_ring` (bf16 or int8)
+llama.h API's `f16_kv = false`). With `ctx_ring` (any of the three)
 it is a history ring (engine.py:149-185 there): the first `ring_keep` rows
 stay pinned and the rest recycle, so generation runs past n_ctx with no
 swap and no re-evaluation; each eval chunk stops at the ring's end.

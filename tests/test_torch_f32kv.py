@@ -269,16 +269,17 @@ def test_batched_f32_matches_single(models):
 
 
 def test_f32_modes_still_refused(models):
-    """f32 page pools, rings and prefix-pool slot caches are not ported:
-    they raise NotImplementedError (ROADMAP.md queue 2)."""
+    """f32 page pools and prefix-pool slot caches raise NotImplementedError,
+    as the JAX package's own asserts refuse both (ROADMAP.md queue 2); an
+    f32 history ring is built (its streams: tests/test_torch_ring.py)."""
     (cfg, params), _ = models
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tm.init_paged_kv_cache(cfg, 4, 8, torch.float32, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.init_kv_cache(cfg, 1, 32, torch.float32, "cpu", ring=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(cfg, params, EngineConfig(n_ctx=32, kv_dtype="float32", ctx_ring=True),
-               device="cpu")
+    ring = tm.init_kv_cache(cfg, 1, 32, torch.float32, "cpu", ring=True)
+    assert ring.k.dtype == torch.float32 and ring.pos is not None
+    eng = Engine(cfg, params, EngineConfig(n_ctx=32, kv_dtype="float32", ctx_ring=True),
+                 device="cpu")
+    assert eng.cache.k.dtype == torch.float32 and eng.cache.pos is not None
     for kw in (dict(paged=True, page_size=8), dict(shared_prefix=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             BatchedEngine(cfg, params, BatchConfig(max_batch=2, n_ctx=N_CTX,

@@ -111,3 +111,37 @@ def test_vector_n_past_matches_scalar():
             int(n_past[b]), layer_idx=0,
         )
         torch.testing.assert_close(got[b : b + 1], row, rtol=0, atol=0)
+
+
+# every launch-key mode of K2 (update) and K3 (read): (path, paged, straddle,
+# mode); an f32 cache is flat or a ring
+ROUTE_MODES = [("update", False, False, ""), ("update", True, False, ""),
+               ("update", True, True, ""), ("update", False, False, "ring"),
+               ("update", False, False, "prefix"), ("update", False, False, "boff"),
+               ("update", False, False, "nocommit"), ("read", False, False, ""),
+               ("read", True, False, ""), ("read", False, False, "ring"),
+               ("read", False, False, "prefix"), ("read", False, False, "boff")]
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "f32"])
+@pytest.mark.parametrize("t", [1, 4, 15, 16, 32, 353])
+def test_attn_route(t, kind):
+    """`attn_route` takes the CUDA cores below T = 16 and for every f32
+    cache, the tensor cores otherwise; the key a wrapper call counts its
+    launch under (`call_launch`) follows T and the cache type alone,
+    whatever B and the mode, and every key is one of `launches`, with `_tc`
+    exactly on the tensor-core route."""
+    want = "tensor_core" if kind != "f32" and t >= 16 else "cuda_core"
+    assert tfa.attn_route(t, kind) == want
+    dtype = {"bf16": torch.bfloat16, "int8": torch.int8, "f32": torch.float32}[kind]
+    for path, paged, straddle, mode in ROUTE_MODES:
+        if kind == "f32" and (paged or mode == "prefix"):
+            continue
+        for b in (1, 4, 32):
+            q = torch.zeros((b, t, H, D), dtype=torch.bfloat16)
+            k = torch.zeros((L, b, H, S, D), dtype=dtype)
+            route, key = tfa.call_launch(path, q, k, paged, straddle, mode)
+            assert route == want
+            assert key == tfa.launch_name(path, kind, paged, straddle, mode, want)
+            assert key in tfa.launches
+            assert ("_tc" in key) == (want == "tensor_core")

@@ -109,12 +109,15 @@ def test_ring_read_matches_jax(case):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATTN_TOL)
 
 
-@pytest.mark.parametrize("quant", [False, True])
-def test_ring_update_matches_jax(quant):
+# the bf16 and int8 cases keep the ids they had as quant=False/True
+@pytest.mark.parametrize("kv", ["bfloat16", "int8", "float32"], ids=["False", "True", "float32"])
+def test_ring_update_matches_jax(kv):
     """K2's ring mode: T = 4 rows written at physical rows [write_row,
     write_row + 4) of a wrapped 64-row ring while n_past stays logical; the
-    caches (int8: data and scales) byte-equal to the JAX kernel's."""
-    rng = np.random.default_rng(11 + quant)
+    caches (int8: data and scales; f32: the rows as they arrive) byte-equal
+    to the JAX kernel's."""
+    quant = kv == "int8"
+    rng = np.random.default_rng(11 + quant + 2 * (kv == "float32"))
     L, b, t, h, s, d, keep = 2, 1, 4, 2, 64, 32, 8
     n_past = 100
     wrow = int(jm.ring_phys(jnp.int32(n_past), keep, s))
@@ -136,6 +139,11 @@ def test_ring_update_matches_jax(quant):
         tc = [torch.from_numpy(np.array(x)) for x in (kq, vq, ks, vs)]
         got = tfa.flash_attention_update(qt, knt, vnt, tc[0], tc[1], n_past, 1,
                                          k_scale=tc[2], v_scale=tc[3], **kw_t)
+    elif kv == "float32":  # an f32 ring: the JAX kernel widens q and the rows
+        kf, vf = kj.astype(jnp.float32), vj.astype(jnp.float32)
+        want = jfa.flash_attention_update(qj, knj, vnj, kf, vf, jnp.int32(n_past), jnp.int32(1),
+                                          **kw_j)
+        got = tfa.flash_attention_update(qt, knt, vnt, kt.float(), vt.float(), n_past, 1, **kw_t)
     else:
         want = jfa.flash_attention_update(qj, knj, vnj, kj, vj, jnp.int32(n_past), jnp.int32(1),
                                           **kw_j)
@@ -171,10 +179,10 @@ def test_ring_forward_across_wrap(models):
 @pytest.fixture(scope="module")
 def jax_ring_streams(models):
     """The JAX Engine's greedy streams past the wrap (n_ctx 32, keep 4),
-    bf16 and int8 KV."""
+    bf16, int8 and f32 KV."""
     jcfg, jparams, _, _ = models
     out = {}
-    for kv in ("bfloat16", "int8"):
+    for kv in ("bfloat16", "int8", "float32"):
         eng = je.Engine(jcfg, jparams, je.EngineConfig(n_ctx=N_CTX, ctx_ring=True,
                                                        ring_keep=KEEP, kv_dtype=kv,
                                                        decode_block=8))
@@ -183,7 +191,7 @@ def jax_ring_streams(models):
     return out
 
 
-@pytest.mark.parametrize("kv", ["bfloat16", "int8"])
+@pytest.mark.parametrize("kv", ["bfloat16", "int8", "float32"])
 def test_ring_engine_matches_jax(models, jax_ring_streams, kv):
     _, _, tcfg, tparams = models
     eng = te.Engine(tcfg, tparams, te.EngineConfig(n_ctx=N_CTX, ctx_ring=True, ring_keep=KEEP,
