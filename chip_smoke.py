@@ -134,27 +134,32 @@ Phases, each printing one JSON line (any failure exits non-zero):
               another, NLL against plain; --mtest -b 32 on the lin weights;
               then, in each process, every kernel at every shape it launched
 
-The kernels phase also holds the page-table modes of K2, K3 and K4 (bf16
-and int8, scrambled tables of 128-row pages; K2 also in page_straddle mode)
-against their plain versions, with written pages byte-equal and the others
+The kernels phase holds K1's GEMM (M >= 2) in every mode (ilv and lin,
+bf16 and f32 scales, LLAMAVK_Q4_DOT=f32, LLAMAVK_Q4_MUL=bf16) at the five
+7B shapes and M = 2, 4, 8, 16, 32, 64, 353, 512, 1024, each row beside the
+time of the WMMA GEMM it replaced on the same row (`wmma_ms`, from
+tools/bench_gemm_wmma.jsonl),
+and its dequantized weights bit for bit against `mode_weight`'s on both of
+its routes; the page-table modes of K2, K3 and K4 (bf16, int8 and f32,
+scrambled tables of 128-row pages; K2 also in page_straddle mode) against
+their plain versions, with written pages byte-equal and the others
 unchanged, and bit for bit against the flat kernels on the gathered view at
-block_k = 128, and K5 (the int8 dot) at M = 1, 4 and 32; K1 with an f32
-scale plane (GEMV and GEMM at M = 512) and the f32 cache of K2, K3 and K4
-(limit 2^-12 of attention(q, k, |v|), K4 bit-equal to K2); and the history
-ring and shared-prefix modes of K2 and K3 (bf16 and int8, caches
-byte-equal, the position plane and the pool unchanged; ring K2 before a wrap
-and prefix K2 at prefix_len 0 bit-equal to flat K2; the f32 ring's decode
-step before and after a wrap); K1's lin layout (GEMV,
-GEMM at M = 32 and 512), f32 dot (GEMV, GEMM at M = 32 and at 512 over bf16
-and f32 scales) and bf16 multiply (M = 512 over f32 scales; over bf16
-scales it is the default kernel's launch), and K5 over f32 scales at M = 1,
-4 and 64; and the parallel paths' modes: K1 and K5 over wo/w2 packed in 2
-chunks, K1 at one tp = 2 rank's shapes, K2 with batch_offset (pp
-microbatches) and commit=0, K3 and K4 with batch_offset (each bit-equal to
-the call on a copy of the offset rows, the other rows unchanged; commit=0
-leaves every byte). tiny_cli also runs --ctx-swap ring, and tiny_serve
-serves the tiny file with `serve --tp 2` (flat bf16 and int8), paged (page_size 8 bf16, 32 int8) and with --shared-prefix (bf16
-and int8, with and without --lookup-gamma 4). Each phase's wall time is
+block_k = 128 (K4 also against the paged K2 at T = 1), and K5 (the int8
+dot) at M = 1, 4 and 32; K1's GEMV over an f32 scale plane and the f32
+cache of K2, K3 and K4 (limit 2^-12 of attention(q, k, |v|), K4 bit-equal
+to K2); and the history ring and shared-prefix modes of K2 and K3 (bf16 and
+int8, and f32 slots under the bf16 pool, caches byte-equal, the position
+plane and the pool unchanged; ring K2 before a wrap and prefix K2 at
+prefix_len 0 bit-equal to flat K2; the f32 ring's decode step before and
+after a wrap); K1's GEMV on the lin layout and under the f32 dot, and K5
+over f32 scales at M = 1, 4 and 64; and the parallel paths' modes: K1 and
+K5 over wo/w2 packed in 2 chunks, K1 at one tp = 2 rank's shapes, K2 with
+batch_offset (pp microbatches) and commit=0, K3 and K4 with batch_offset
+(each bit-equal to the call on a copy of the offset rows, the other rows
+unchanged; commit=0 leaves every byte). tiny_cli also runs --ctx-swap ring, and tiny_serve
+serves the tiny file with `serve --tp 2` (flat bf16 and int8), paged
+(page_size 8 bf16, 32 int8) and with --shared-prefix (bf16 and int8, with
+and without --lookup-gamma 4; f32 slots without). Each phase's wall time is
 printed on a line of its own.
 
 The line before the last is `{"kernels": [...]}`; the last line is
@@ -185,21 +190,17 @@ from pathlib import Path
 
 import torch
 
-# the timer, the bound and the card's peaks are the probes' (tools/_common.py)
+# the timer, the bound and the card's peaks are the probes' (tools/_common.py);
+# K1's GEMM grid (modes, M, the 7B shapes) is tools/bench_gemm.py's
+from llamavk_tpu_torch.tools import bench_gemm
 from llamavk_tpu_torch.tools._common import BF16_OP_PER_S, INT8_OP_PER_S, Timer, bound
 
 ROOT = Path(__file__).resolve().parent
 # float32 outside the tensor cores (NVIDIA's H100 SXM data sheet, at 700 W)
 F32_FLOP_PER_S = 67e12
 
-# 7B matmul shapes (K, N) of the main path and their calls per forward
-K1_SHAPES = {
-    "wqkv": (4096, 12288),
-    "wo": (4096, 4096),
-    "w13": (4096, 22016),
-    "w2": (11008, 4096),
-    "output": (4096, 32000),
-}
+# 7B matmul shapes (K, N) of the main path
+K1_SHAPES = bench_gemm.SHAPES
 # the local shapes of the same matmuls on one rank of tp = 2: column-parallel
 # N halved, row-parallel K halved
 K1_SHAPES_TP2 = {
@@ -214,9 +215,12 @@ N_CTX = 512
 H, D = 32, 128
 PAGE = 128  # the serving page size (BatchConfig.page_size)
 
+# K1's sources: the GEMV in q4_matmul.cu, the GEMM (M >= 2) in q4_gemm.cuh
+K1_SOURCES = {"gemv": "llamavk_tpu_torch/csrc/q4_matmul.cu",
+              "gemm": "llamavk_tpu_torch/csrc/q4_gemm.cuh"}
 KERNEL_META = {
     "q4_gemv": ("llamavk_tpu_torch/csrc/q4_matmul.cu", "llamavk_tpu/ops/q4_matmul.py:96"),
-    "q4_gemm": ("llamavk_tpu_torch/csrc/q4_matmul.cu", "llamavk_tpu/ops/q4_matmul.py:96"),
+    "q4_gemm": ("llamavk_tpu_torch/csrc/q4_gemm.cuh", "llamavk_tpu/ops/q4_matmul.py:96"),
     "attn_update": ("llamavk_tpu_torch/csrc/flash_attn.cu", "llamavk_tpu/ops/flash_attn.py:120"),
     "attn_read": ("llamavk_tpu_torch/csrc/flash_attn.cu", "llamavk_tpu/ops/flash_attn.py:474"),
     "attn_update_i8": ("llamavk_tpu_torch/csrc/flash_attn.cu",
@@ -245,7 +249,7 @@ KERNEL_META = {
                                       "llamavk_tpu/ops/flash_attn.py:120"),
     # the f32 scale plane of K1 and the flat f32 cache of K2, K3 and K4
     "q4_gemv_f32": ("llamavk_tpu_torch/csrc/q4_matmul.cu", "llamavk_tpu/ops/q4_matmul.py:96"),
-    "q4_gemm_f32": ("llamavk_tpu_torch/csrc/q4_matmul.cu", "llamavk_tpu/ops/q4_matmul.py:96"),
+    "q4_gemm_f32": ("llamavk_tpu_torch/csrc/q4_gemm.cuh", "llamavk_tpu/ops/q4_matmul.py:96"),
     "attn_update_f32": ("llamavk_tpu_torch/csrc/flash_attn.cu",
                         "llamavk_tpu/ops/flash_attn.py:120"),
     "attn_read_f32": ("llamavk_tpu_torch/csrc/flash_attn.cu", "llamavk_tpu/ops/flash_attn.py:474"),
@@ -259,7 +263,7 @@ KERNEL_META = {
     # K1's lin layout (its branch at q4_matmul.py:190), the bf16 multiply over
     # f32 scales (LLAMAVK_Q4_MUL=bf16) and the f32 dot (LLAMAVK_Q4_DOT=f32),
     # named as q4_matmul.launch_key names them; K5 over f32 scales
-    **{f"q4_{base}{mode}": ("llamavk_tpu_torch/csrc/q4_matmul.cu",
+    **{f"q4_{base}{mode}": (K1_SOURCES[base],
                             "llamavk_tpu/ops/q4_matmul.py:" + ("190" if "lin" in mode else "96"))
        for base in ("gemv", "gemm")
        for mode in ("_lin", "_lin_f32", "_lin_f32_mulbf16", "_lin_dotf32", "_lin_f32_dotf32",
@@ -267,7 +271,7 @@ KERNEL_META = {
     "q4_i8_f32": ("llamavk_tpu_torch/csrc/q4_matmul_i8.cu", "llamavk_tpu/ops/q4_matmul.py:226"),
     # weights packed in 2 K chunks (tp packing run whole): one launch per
     # chunk, every K1 mode and K5 (q4_matmul.py:714-728, :776-789, :522)
-    **{f"q4_{base}{mode}_chunks": ("llamavk_tpu_torch/csrc/q4_matmul.cu",
+    **{f"q4_{base}{mode}_chunks": (K1_SOURCES[base],
                                    "llamavk_tpu/ops/q4_matmul.py:" + ("190" if "lin" in mode
                                                                        else "96"))
        for base in ("gemv", "gemm")
@@ -285,10 +289,15 @@ KERNEL_META = {
            ("attn_update_nocommit", "llamavk_tpu_torch/csrc/flash_attn.cu", "flash_attn.py:120"),
            ("decode_boff", "llamavk_tpu_torch/csrc/flash_decode.cu", "flash_decode.py:67"))
        for kind in ("", "_i8", "_f32")},
-    # the f32 history ring of K2 and K3 (the CUDA-core route)
-    **{f"attn_{path}_ring_f32": ("llamavk_tpu_torch/csrc/flash_attn.cu",
-                                 f"llamavk_tpu/ops/flash_attn.py:{line}")
-       for path, line in (("update", 120), ("read", 474))},
+    # the f32 history ring, page pool and prefix-pool slots of K2 and K3, and
+    # K4's f32 page pool (the CUDA-core route)
+    **{f"attn_{path}_{mode}_f32": ("llamavk_tpu_torch/csrc/flash_attn.cu",
+                                   f"llamavk_tpu/ops/flash_attn.py:{line}")
+       for path, line, modes in (("update", 120, ("ring", "paged", "paged_straddle", "prefix")),
+                                 ("read", 474, ("ring", "paged", "prefix")))
+       for mode in modes},
+    "decode_paged_f32": ("llamavk_tpu_torch/csrc/flash_decode.cu",
+                         "llamavk_tpu/ops/flash_decode.py:67"),
     # the tensor-core route of K2 and K3 (bf16 and int8 caches at T >= 16,
     # ops/flash_attn.py::attn_route), in every mode, named as
     # flash_attn.launch_name names it (`_tc` before the cache type)
@@ -439,6 +448,47 @@ def kernel_q4(timer: Timer, gen, name: str, m: int, main_path: bool, reps: int |
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": library_ms,
     }
+
+
+# K1's modes as (layout, f32 scales, dot, multiply type)
+K1_MODES = [(layout, f32s, dot, torch.bfloat16 if mul == "bf16" else torch.float32)
+            for layout, f32s, dot, mul in bench_gemm.MODES]
+
+
+def kernel_q4_weight_bits(gen) -> dict:
+    """The GEMM's dequantized weights against `mode_weight`'s, bit for bit,
+    in every mode on both routes: x one-hot rows, so out[i] is row k_i of
+    the weight the kernel fed the tensor cores (one nonzero product a sum,
+    exact). M = 64 (the split-K route) takes every k of the first and the
+    last 32-k group (both lin halves); M = K = 4096 (the large route) every
+    k. The f32 dot over f32 scales feeds three bf16 parts (w to 2^-27 |w|),
+    whose f32 sum on the tensor cores rounds once more (2^-23 |w| if it
+    truncates): that mode is held to 2^-22 max |w|."""
+    from llamavk_tpu_torch.ops import q4_matmul as q4
+
+    k, n = K1_SHAPES["wo"]
+    out = {}
+    for layout, f32s, dot, mul in K1_MODES:
+        _, qw = _q4_case(gen, 1, k, n, f32s, layout)
+        w = q4.mode_weight(qw, dot, mul)
+        exact = not (dot == "f32" and f32s and mul == torch.float32)
+        for m in (64, k):
+            rows = (torch.arange(k, device="cuda") if m == k else
+                    torch.cat([torch.arange(32), torch.arange(k - 32, k)]).cuda())
+            x = torch.zeros((m, k), device="cuda", dtype=torch.bfloat16)
+            x[torch.arange(m, device="cuda"), rows] = 1
+            got = q4.q4_matmul_cuda(x, qw.packed, qw.scales, layout, dot, mul)
+            want = w[rows]
+            diff = float((got - want).abs().max())
+            lim = 0.0 if exact else float(want.abs().max()) * 2.0**-22
+            name = f"{layout} {'f32' if f32s else 'bf16'} scales dot {dot} mul {mul} M={m}"
+            out[name] = {"max_abs_diff": diff, "bit_equal": bool(torch.equal(got, want)),
+                         "ok": diff <= lim}
+    torch.cuda.synchronize()
+    bad = [name for name, r in out.items() if not r["ok"]]
+    if bad:
+        raise SystemExit(f"K1's dequantized weights differ from mode_weight's: {bad}")
+    return out
 
 
 def kernel_q4_i8(timer: Timer, gen, name: str, m: int, main_path: bool,
@@ -609,7 +659,8 @@ def _attn_err(got, want, q, k, v, n_past, layer: int, k_scale=None,
 
     if "prefix_v" in mode:
         mode = {**mode, "prefix_v": mode["prefix_v"].abs()}
-    rel = F32_ATTN_REL if k.dtype == torch.float32 else ATTN_REL
+    # f32 slots under a bf16 pool: the pool's rows round q and p to bf16
+    rel = F32_ATTN_REL if k.dtype == torch.float32 and "prefix_v" not in mode else ATTN_REL
     lim = rel * fa.flash_attention_ref(q, k, v.abs(), n_past, layer_idx=layer,
                                             k_scale=k_scale, v_scale=v_scale,
                                             page_table=page_table, **mode)
@@ -876,13 +927,13 @@ def kernel_decode(timer: Timer, gen, gen_cpu, b: int, quant: bool, main_path: bo
 
 
 def _paged_case(gen, gen_cpu, b: int, quant: bool, s: int, ps: int, h: int = H,
-                d: int = D) -> tuple[list, torch.Tensor]:
-    """Random two-layer pool planes of b * s/ps pages and 3 more, and a
-    scrambled [B, s/ps] table that maps no page twice and never page 0 (the
-    serving engine's trash page)."""
+                d: int = D, f32: bool = False) -> tuple[list, torch.Tensor]:
+    """Random two-layer pool planes (bf16, int8 or f32) of b * s/ps pages and
+    3 more, and a scrambled [B, s/ps] table that maps no page twice and
+    never page 0 (the serving engine's trash page)."""
     maxlb = s // ps
     n_pages = b * maxlb + 3
-    planes = _kv_cache(gen, (2, n_pages, h, ps, d), quant)
+    planes = _kv_cache(gen, (2, n_pages, h, ps, d), quant, f32)
     pages = torch.randperm(n_pages - 1, generator=gen_cpu)[: b * maxlb] + 1
     return planes, pages.reshape(b, maxlb).to(torch.int32).cuda()
 
@@ -909,17 +960,18 @@ def _untouched_equal(planes, before, table, n_past, t: int, ps: int) -> bool:
 def kernel_attn_paged(timer, gen, gen_cpu, t: int, n_past, update: bool, b: int = 1,
                       quant: bool = False, s: int = N_CTX, ps: int = PAGE, bk: int | None = None,
                       h: int = H, d: int = D, main_path: bool = False,
-                      straddle: bool = False) -> dict:
-    """K2 (update) or K3 (read) in page-table mode, on a random pool through
-    a scrambled table, against its plain version (pool bytes equal, pages it
-    does not write unchanged), and bit for bit against the flat kernel on
-    the gathered view at the same KV block (llama_forward's default fitted
-    to the page: block_k = PS at 7B). `straddle`: K2's page_straddle mode,
-    whose writes may cross into the next page. Timed unless `timer` is None."""
+                      straddle: bool = False, f32: bool = False) -> dict:
+    """K2 (update) or K3 (read) in page-table mode, on a random pool (bf16,
+    int8, or `f32`) through a scrambled table, against its plain version
+    (pool bytes equal, pages it does not write unchanged), and bit for bit
+    against the flat kernel on the gathered view at the same KV block
+    (llama_forward's default fitted to the page: block_k = PS at 7B).
+    `straddle`: K2's page_straddle mode, whose writes may cross into the
+    next page. Timed unless `timer` is None."""
     from llamavk_tpu_torch.ops import flash_attn as fa
 
     layer = 1
-    planes, table = _paged_case(gen, gen_cpu, b, quant, s, ps, h, d)
+    planes, table = _paged_case(gen, gen_cpu, b, quant, s, ps, h, d, f32)
     q, kn, vn = (torch.randn((b, t, h, d), device="cuda", generator=gen).to(torch.bfloat16)
                  for _ in range(3))
     bk = fa._fit_block_k(bk or (512 if t >= 256 else 256), ps, fa.kv_step(planes[0].dtype))
@@ -962,14 +1014,16 @@ def kernel_attn_paged(timer, gen, gen_cpu, t: int, n_past, update: bool, b: int 
         plain = lambda: fa.flash_attention_ref(q, k, v, npast, layer_idx=layer,  # noqa: E731
                                                page_table=table, **sc)
     err, ratio = _attn_err(got, want, q, k, v, npast, layer, *planes[2:], page_table=table)
-    kind = "int8" if quant else "bf16"
+    kind = "f32" if f32 else "int8" if quant else "bf16"
+    past = f"{min(n_past)}..{max(n_past)}" if isinstance(n_past, list) and b > 4 else n_past
     row = {
         "kernel": fa.launch_name("attn_update" if update else "attn_read", kind, True, straddle,
                                  route=fa.attn_route(t, kind)),
-        "shape": f"B={b} T={t} n_past={n_past} H={h} D={d} PS={ps} MAXLB={s // ps} "
-                 f"block_k={bk}" + (" int8" if quant else ""),
+        "shape": f"B={b} T={t} n_past={past} H={h} D={d} PS={ps} MAXLB={s // ps} "
+                 f"block_k={bk}" + ("" if kind == "bf16" else f" {kind}"),
         "main_path": main_path,
-        "max_abs_err": err, "limit": ATTN_LIMIT_RULE, "err_over_limit": ratio,
+        "max_abs_err": err, "limit": F32_ATTN_LIMIT_RULE if f32 else ATTN_LIMIT_RULE,
+        "err_over_limit": ratio,
         "cache_bytes_equal": pool_equal, "bit_equal_to_flat_kernel": flat_equal,
         "ok": ratio <= 1.0 and pool_equal and flat_equal,
     }
@@ -978,24 +1032,27 @@ def kernel_attn_paged(timer, gen, gen_cpu, t: int, n_past, update: bool, b: int 
         row["plain_ms"] = timer(plain, reps=5)
         _route_times(timer, run, row, t, kind)
         row["library_ms"] = timer(_sdpa_call(q, flat[0], flat[1], npast, layer, *flat[2:]))
-        row["bound_ms"], row["bound_by"] = bound(*_attn_sizes(b, t, n_past, update, quant))
+        row["bound_ms"], row["bound_by"] = bound(*_attn_sizes(b, t, n_past, update, quant, f32),
+                                                 F32_FLOP_PER_S if f32 else BF16_OP_PER_S)
     return row
 
 
 def kernel_decode_paged(timer, gen, gen_cpu, b: int, quant: bool, s: int = N_CTX,
                         ps: int = PAGE, bk: int = 256, h: int = H, d: int = D,
-                        main_path: bool = False) -> dict:
-    """K4 in page-table mode at n_past seeded over [0, s), against its plain
-    version (pool bytes equal, pages it does not write unchanged), and bit
-    for bit against the flat K4 on the gathered view at the KV block fitted
-    to the page. Timed unless `timer` is None."""
+                        main_path: bool = False, f32: bool = False) -> dict:
+    """K4 in page-table mode at n_past seeded over [0, s), bf16, int8 or
+    `f32` pools, against its plain version (pool bytes equal, pages it does
+    not write unchanged), and bit for bit against the flat K4 on the
+    gathered view at the KV block fitted to the page and against the paged
+    K2 at T = 1 (outputs and pool). Timed unless `timer` is None."""
     from llamavk_tpu_torch.ops import flash_attn as fa
     from llamavk_tpu_torch.ops import flash_decode as fd
 
     layer = 1
     npl = _decode_npast(b, s, gen_cpu)
     npast = torch.tensor(npl, dtype=torch.int32, device="cuda")
-    planes, table = _paged_case(gen, gen_cpu, b, quant, s, ps, h, d)
+    planes, table = _paged_case(gen, gen_cpu, b, quant, s, ps, h, d, f32)
+    p3 = [x.clone() for x in planes]
     q, kn, vn = (torch.randn((b, 1, h, d), device="cuda", generator=gen).to(torch.bfloat16)
                  for _ in range(3))
     bkf = fa._fit_block_k(bk, ps, fa.kv_step(planes[0].dtype))
@@ -1012,17 +1069,24 @@ def kernel_decode_paged(timer, gen, gen_cpu, b: int, quant: bool, s: int = N_CTX
                   and _untouched_equal(planes, before, table, npl, 1, ps))
     flat_equal = torch.equal(flat_out, got) and all(
         torch.equal(x, y) for x, y in zip(flat, _gathered(planes, table)))
-    del before
+    k2_out = fa.flash_attention_update(q, kn, vn, p3[0], p3[1], npast, layer, block_k=bk,
+                                       block_t=1, page_table=table, **_scales(p3))[0]
+    torch.cuda.synchronize()
+    k2_equal = torch.equal(k2_out, got) and all(torch.equal(x, y) for x, y in zip(p3, planes))
+    del before, p3
     err, ratio = _attn_err(got, want, q, planes[0], planes[1], npast, layer, *planes[2:],
                            page_table=table)
+    kind = "f32" if f32 else "int8" if quant else "bf16"
     row = {
-        "kernel": "decode_paged_i8" if quant else "decode_paged",
+        "kernel": fa.launch_name("decode", kind, True),
         "shape": f"B={b} n_past={min(npl)}..{max(npl)} H={h} D={d} PS={ps} MAXLB={s // ps} "
-                 f"block_k={bkf}" + (" int8" if quant else ""),
+                 f"block_k={bkf}" + ("" if kind == "bf16" else f" {kind}"),
         "main_path": main_path,
-        "max_abs_err": err, "limit": ATTN_LIMIT_RULE, "err_over_limit": ratio,
+        "max_abs_err": err, "limit": F32_ATTN_LIMIT_RULE if f32 else ATTN_LIMIT_RULE,
+        "err_over_limit": ratio,
         "cache_bytes_equal": pool_equal, "bit_equal_to_flat_kernel": flat_equal,
-        "ok": ratio <= 1.0 and pool_equal and flat_equal,
+        "bit_equal_to_paged_update_kernel": k2_equal,
+        "ok": ratio <= 1.0 and pool_equal and flat_equal and k2_equal,
     }
     if timer is None:
         return row
@@ -1033,7 +1097,8 @@ def kernel_decode_paged(timer, gen, gen_cpu, b: int, quant: bool, s: int = N_CTX
         q, kn, vn, p2[0], p2[1], npast, layer, block_k=bk, page_table=table, **_scales(p2)),
         reps=5)
     row["library_ms"] = timer(_sdpa_call(q, flat[0], flat[1], npast, layer, *flat[2:]))
-    row["bound_ms"], row["bound_by"] = bound(*_attn_sizes(b, 1, npl, True, quant))
+    row["bound_ms"], row["bound_by"] = bound(*_attn_sizes(b, 1, npl, True, quant, f32),
+                                             F32_FLOP_PER_S if f32 else BF16_OP_PER_S)
     return row
 
 
@@ -1070,8 +1135,9 @@ def _dense_rows(planes, layer: int, rows=None) -> tuple[torch.Tensor, torch.Tens
 
 def _masked_sdpa(q, kl, vl, visible):
     """One PyTorch call for an attention with an explicit mask: kl/vl
-    [B, H, S', D] bf16, visible [B, T, S'] bool, both made before the call."""
-    qh = q.transpose(1, 2)
+    [B, H, S', D] bf16 (f32 where f32 slots join a bf16 pool; q is cast to
+    their type), visible [B, T, S'] bool, all made before the call."""
+    qh = q.transpose(1, 2).to(kl.dtype)
     mask = visible[:, None]
     return lambda: torch.nn.functional.scaled_dot_product_attention(qh, kl, vl, attn_mask=mask)
 
@@ -1188,11 +1254,12 @@ def kernel_attn_ring(timer, gen, t: int, n_past: int, update: bool, quant: bool,
 def kernel_attn_prefix(timer, gen, gen_cpu, b: int, t: int, npl: list[int], update: bool,
                        quant: bool, main_path: bool = False, plen=PLEN, sp: int = POOL_CTX,
                        n_pool: int = POOL, s: int = N_CTX, h: int = H, d: int = D,
-                       bk: int | None = None) -> dict:
+                       bk: int | None = None, f32: bool = False) -> dict:
     """K2 (update) or K3 (read) in prefix-pool mode: B rows at slot-local
     n_past `npl`, each continuing a seeded entry of a random bf16 pool of
     `n_pool` x `sp` rows over `plen` rows (an int, or one per row), over a
-    bf16 or int8 slot cache, against its plain version: cache bytes equal,
+    bf16, int8 or (`f32`) f32 slot cache, against its plain version: cache
+    bytes equal,
     the pool unchanged; with prefix_len 0 on every row, bit-equal to the
     flat kernel (outputs and caches). Timed unless `timer` is None; the
     library call attends over the pool rows and the visible slot rows,
@@ -1200,7 +1267,7 @@ def kernel_attn_prefix(timer, gen, gen_cpu, b: int, t: int, npl: list[int], upda
     from llamavk_tpu_torch.ops import flash_attn as fa
 
     layer = 1
-    planes = _kv_cache(gen, (2, b, h, s, d), quant)
+    planes = _kv_cache(gen, (2, b, h, s, d), quant, f32)
     pool = [torch.randn((2, n_pool, h, sp, d), device="cuda", generator=gen).to(torch.bfloat16)
             for _ in range(2)]
     pool0 = [x.clone() for x in pool]
@@ -1250,13 +1317,13 @@ def kernel_attn_prefix(timer, gen, gen_cpu, b: int, t: int, npl: list[int], upda
         torch.equal(x, y) for x, y in zip(za, zb))
     del za, zb, pool0
     err, ratio = _attn_err(got, want, q, k, v, npast, layer, *planes[2:], **pkw)
-    kind = "int8" if quant else "bf16"
+    kind = "f32" if f32 else "int8" if quant else "bf16"
     row = {
         "kernel": fa.launch_name("attn_update" if update else "attn_read", kind, False,
                                  mode="prefix", route=fa.attn_route(t, kind)),
         "shape": f"B={b} T={t} n_past={min(npl)}..{max(npl)} prefix_len="
                  f"{int(plens.min())}..{int(plens.max())} of Sp={sp} x {n_pool} H={h} D={d} "
-                 f"S={s} block_k={bk}" + (" int8" if quant else ""),
+                 f"S={s} block_k={bk}" + ("" if kind == "bf16" else f" {kind} slots"),
         "main_path": main_path,
         "max_abs_err": err, "limit": ATTN_LIMIT_RULE, "err_over_limit": ratio,
         "cache_bytes_equal": cache_equal, "pool_unchanged": pool_equal,
@@ -1281,13 +1348,14 @@ def kernel_attn_prefix(timer, gen, gen_cpu, b: int, t: int, npl: list[int], upda
     # the slot part as `_attn_sizes`; each pool entry's rows read once (L2
     # holds a layer's pool for every row that shares it), QK and PV over
     # every row's prefix
-    n_bytes, ops = _attn_sizes(b, t, npl, update, quant)
+    n_bytes, ops = _attn_sizes(b, t, npl, update, quant, f32)
     used = {}
     for i, pl in zip(pid.tolist(), plens.tolist()):
         used[i] = max(used.get(i, 0), pl)
     n_bytes += sum(used.values()) * 2 * h * d * 2
     ops += 4.0 * h * d * t * int(plens.sum())
-    row["bound_ms"], row["bound_by"] = bound(n_bytes, ops)
+    row["bound_ms"], row["bound_by"] = bound(n_bytes, ops, F32_FLOP_PER_S if f32
+                                             else BF16_OP_PER_S)
     return row
 
 
@@ -1385,6 +1453,18 @@ def kernel_edges(gen, gen_cpu) -> dict:
                 raise SystemExit(f"kernel edges: ring/prefix kernel at D={d} disagrees: {r}")
             worst[f"{r['kernel']} {r['shape']}"] = (r["max_abs_err"], ATTN_LIMIT_RULE,
                                                    r["err_over_limit"])
+    # an f32 page pool of 8-row pages and f32 slots under the prefix pool
+    for r in (kernel_attn_paged(None, gen, gen_cpu, 8, [8, 16], True, 2, False, s, 8, 32, h, d,
+                                f32=True),
+              kernel_attn_paged(None, gen, gen_cpu, 5, 20, False, 1, False, s, 8, 32, h, d,
+                                f32=True),
+              kernel_decode_paged(None, gen, gen_cpu, 4, False, s, 8, 32, h, d, f32=True),
+              kernel_attn_prefix(None, gen, gen_cpu, 3, 8, [3, 9, 40], True, False,
+                                 plen=[33, 0, 256], s=s, h=h, d=d, bk=32, f32=True)):
+        if not r["ok"]:
+            raise SystemExit(f"kernel edges: f32 paged/prefix kernel at D={d} disagrees: {r}")
+        worst[f"{r['kernel']} {r['shape']}"] = (r["max_abs_err"], r["limit"],
+                                               r["err_over_limit"])
     torch.cuda.synchronize()
     bad = {name: e for name, e in worst.items() if not e[2] <= 1.0}
     if bad:
@@ -1398,17 +1478,16 @@ def phase_kernels(reps: int) -> list[dict]:
     gen = torch.Generator(device="cuda").manual_seed(0)
     gen_cpu = torch.Generator().manual_seed(0)
     rows = []
-    # (M, on the main path of generate_7b): decode and the output matmul at
-    # M = 1, the layers' matmuls in the 32-token prefill and the second
-    # turn's 353-row bucket; M = 512 is a full-context prefill. Every shape
-    # serve_7b launches K1, K2, K3 or K4 at is checked after it, from the
-    # wrappers' shape counters (`phase_serve_shapes`).
-    for m, main in ((1, True), (32, True), (353, True), (512, False)):
-        for name in K1_SHAPES:
-            if m > 1 and main and name == "output":
-                continue  # the main path takes logits of the last row only
-            rows.append(kernel_q4(timer, gen, name, m, main))
-            emit({"phase": "kernel", **rows[-1]})
+    # K1's decode GEMV (M = 1) at the five shapes; the GEMM (M >= 2) over
+    # every mode in `kernels_gemm`, its dequantized weights bit for bit in
+    # `kernel_q4_weight_bits`. Every shape serve_7b launches K1, K2, K3 or
+    # K4 at is checked after it, from the wrappers' shape counters
+    # (`phase_serve_shapes`).
+    for name in K1_SHAPES:
+        rows.append(kernel_q4(timer, gen, name, 1, True))
+        emit({"phase": "kernel", **rows[-1]})
+    rows += kernels_gemm(timer, gen)
+    emit({"phase": "kernel_weight_bits", **kernel_q4_weight_bits(gen)})
     # (T, n_past, update kernel, on a main path, B, int8): bf16 decode steps,
     # the first prompt, the second turn (301 tokens at n_past 159 in a
     # 353-row bucket, which takes the read route), a full-context and an
@@ -1504,60 +1583,100 @@ def phase_kernels(reps: int) -> list[dict]:
 
 
 def kernels_f32(timer: Timer, gen, gen_cpu) -> list[dict]:
-    """The f32 modes at 7B shapes. K1 with an f32 scale plane: the GEMV
-    (M = 1; no main path loads f32 scales and decodes) and the GEMM at
-    perplexity --f32's 512-token chunk. The f32 cache of K2 (the llama.h
-    API's f16_kv = false: decode at n_past 480, the 32-token prompt; a
-    full-context prefill), K3 (its 300-token second turn in a 353-row
-    bucket at n_past 159) and K4 (BatchedEngine(kv_dtype="float32") at 32
-    slots, ragged n_past, bit-equal to K2 row by row)."""
+    """The f32 modes at 7B shapes. K1's GEMV over an f32 scale plane (M = 1;
+    no main path loads f32 scales and decodes; the GEMM's f32-scale rows are
+    `kernels_gemm`'s). The f32 cache of K2 (the llama.h API's f16_kv =
+    false: decode at n_past 480, the 32-token prompt; a full-context
+    prefill), K3 (its 300-token second turn in a 353-row bucket at n_past
+    159) and K4 (BatchedEngine(kv_dtype="float32") at 32 slots, ragged
+    n_past, bit-equal to K2 row by row). An f32 page pool (PS = 128, B = 32,
+    n_past 0..511 seeded): K2 and K3 at T = 1, bit-equal to the flat kernels
+    on the gathered view, and K4, bit-equal to flat K4 and to the paged K2.
+    f32 slots under the bf16 prefix pool (200-row prefixes): K2 at the B = 32
+    decode step and at a B = 4, T = 64 admission, K3 at T = 301, each
+    bit-equal to flat f32 at prefix_len 0."""
     rows = []
-    for m, main in ((1, False), (512, True)):
-        for name in K1_SHAPES:
-            rows.append(kernel_q4(timer, gen, name, m, main, f32_scales=True))
-            emit({"phase": "kernel", **rows[-1]})
+    for name in K1_SHAPES:
+        rows.append(kernel_q4(timer, gen, name, 1, False, f32_scales=True))
+        emit({"phase": "kernel", **rows[-1]})
     for t, n_past, update, main in ((1, 480, True, True), (32, 0, True, True),
                                     (512, 0, True, False), (353, 159, False, True)):
         rows.append(kernel_attn(timer, gen, t, n_past, update, main, f32=True))
         emit({"phase": "kernel", **rows[-1]})
     rows.append(kernel_decode(timer, gen, gen_cpu, 32, False, True, f32=True))
     emit({"phase": "kernel", **rows[-1]})
+    npl = _decode_npast(32, N_CTX, gen_cpu)
+    for update in (True, False):
+        rows.append(kernel_attn_paged(timer, gen, gen_cpu, 1, npl, update, 32, f32=True))
+        emit({"phase": "kernel", **rows[-1]})
+    rows.append(kernel_decode_paged(timer, gen, gen_cpu, 32, False, f32=True))
+    emit({"phase": "kernel", **rows[-1]})
+    npl = torch.randint(0, 301, (32,), generator=gen_cpu).tolist()
+    for b, t, pasts, update in ((32, 1, npl, True), (4, 64, [0] * 4, True), (1, 301, [0], False)):
+        rows.append(kernel_attn_prefix(timer, gen, gen_cpu, b, t, pasts, update, False, f32=True))
+        emit({"phase": "kernel", **rows[-1]})
     return rows
 
 
 def kernels_modes(timer: Timer, gen) -> list[dict]:
-    """K1's lin layout (GEMV at the five M = 1 shapes, GEMM at the 32-token
-    prompt's M = 32 and a 512-token chunk's M = 512: generate_7b_modes runs
-    the first two), the f32 dot (GEMV, GEMM at M = 32, and at M = 512 over
-    bf16 and f32 scales), the bf16 multiply at M = 512 over f32 scales
-    (perplexity --f32's chunk under LLAMAVK_Q4_MUL=bf16), and K5 over f32
-    scales at M = 1 and 4, and at perplexity --f32 -c 64's M = 64 (where w2
-    takes K1). Over bf16 scales the bf16 multiply is the default kernel's
-    launch (its mode bits are 0: f32(q) f32(s) of a bf16 s is exact and
-    rounds once either way), so it has no row of its own;
-    tests/test_torch_q4_modes.py::test_mul_bf16_weight_bits holds the
-    weight bits equal on the CPU."""
+    """K1's GEMV (M = 1) on the lin layout (generate_7b_modes decodes on it)
+    and under the f32 dot, at the five shapes, and K5 over f32 scales at
+    M = 1 and 4, and at perplexity --f32 -c 64's M = 64 (where w2 takes K1).
+    The GEMM's rows of every mode are `kernels_gemm`'s. Over bf16 scales
+    the bf16 multiply is the default kernel's launch (its mode bits are 0:
+    f32(q) f32(s) of a bf16 s is exact and rounds once either way), so it
+    has no row of its own; `kernel_q4_weight_bits` and
+    tests/test_torch_q4_modes.py::test_mul_bf16_weight_bits hold the weight
+    bits equal."""
     rows = []
-    lin = [(m, name) for m in (1, 32, 512) for name in K1_SHAPES
-           if not (m == 32 and name == "output")]
-    f32dot = [(m, name, False) for m in (1, 32) for name in K1_SHAPES
-              if not (m == 32 and name == "output")]
-    f32dot += [(512, name, f32s) for f32s in (False, True) for name in K1_SHAPES]
-    for m, name in lin:
-        rows.append(kernel_q4(timer, gen, name, m, m < 512, plain_reps=3, layout="lin"))
-        emit({"phase": "kernel", **rows[-1]})
-    for m, name, f32s in f32dot:
-        rows.append(kernel_q4(timer, gen, name, m, m < 512, plain_reps=3, f32_scales=f32s,
-                              dot="f32"))
-        emit({"phase": "kernel", **rows[-1]})
-    for name in K1_SHAPES:
-        rows.append(kernel_q4(timer, gen, name, 512, True, plain_reps=3, f32_scales=True,
-                              mul=torch.bfloat16))
-        emit({"phase": "kernel", **rows[-1]})
+    for layout, dot in (("lin", "bf16"), ("ilv", "f32")):
+        for name in K1_SHAPES:
+            rows.append(kernel_q4(timer, gen, name, 1, True, plain_reps=3, layout=layout,
+                                  dot=dot))
+            emit({"phase": "kernel", **rows[-1]})
     for m in (1, 4, 64):
         for name in K1_SHAPES:
             rows.append(kernel_q4_i8(timer, gen, name, m, m == 64, f32_scales=True))
             emit({"phase": "kernel", **rows[-1]})
+    return rows
+
+
+# K1's GEMM rows at bench_gemm.MS: M of serving (2-64: decode, verify,
+# lookup, admissions), the second turn (353), a perplexity chunk (512) and
+# 4 x 256-token admissions (1024); for each mode the M its main paths
+# launch it at
+GEMM_MAIN = {("ilv", False, "bf16", torch.float32): (4, 32, 353, 512, 1024),
+             ("ilv", True, "bf16", torch.float32): (64, 512),
+             ("lin", False, "bf16", torch.float32): (32,),
+             ("ilv", False, "f32", torch.float32): (32,),
+             ("ilv", True, "bf16", torch.bfloat16): (512,)}
+# the replaced WMMA GEMM's time of each row: tools/bench_gemm.py run on
+# commit b0ec59f (NVIDIA H100 80GB HBM3, 700.00 W), keyed (mode, shape, M)
+GEMM_WMMA = ROOT / "llamavk_tpu_torch" / "tools" / "bench_gemm_wmma.jsonl"
+
+
+def kernels_gemm(timer: Timer, gen) -> list[dict]:
+    """K1's GEMM (M >= 2, csrc/q4_gemm.cuh) in every mode (K1_MODES) at the
+    five 7B shapes and bench_gemm.MS, each against its plain version, its bound
+    and torch.matmul, with the replaced WMMA GEMM's time of the same row
+    (`wmma_ms`, None where that file has none). 10 launches timed a row."""
+    wmma = {}
+    if GEMM_WMMA.exists():
+        for line in GEMM_WMMA.read_text().splitlines():
+            r = json.loads(line)
+            wmma[(r["mode"], r["shape"], r["m"])] = r["ms"]
+    rows = []
+    for layout, f32s, dot, mul in K1_MODES:
+        name_mode = bench_gemm.mode_name(layout, f32s, dot,
+                                         "bf16" if mul == torch.bfloat16 else "f32")
+        for m in bench_gemm.MS:
+            main = m in GEMM_MAIN.get((layout, f32s, dot, mul), ())
+            for name in K1_SHAPES:
+                row = kernel_q4(timer, gen, name, m, main and name != "output", reps=10,
+                                plain_reps=2, f32_scales=f32s, layout=layout, dot=dot, mul=mul)
+                row["wmma_ms"] = wmma.get((name_mode, name, m))
+                rows.append(row)
+                emit({"phase": "kernel", **row})
     return rows
 
 
@@ -2207,7 +2326,7 @@ def phase_tiny_serve(work: Path) -> tuple[dict, dict]:
     _require("tiny_serve", counts, ("decode", "decode_i8", "attn_update", "attn_update_i8",
                                     "decode_paged", "decode_paged_i8", "attn_update_paged",
                                     "attn_update_paged_i8", "attn_update_prefix",
-                                    "attn_update_prefix_i8"))
+                                    "attn_update_prefix_i8", "attn_update_prefix_f32"))
     return result, counts
 
 
@@ -2272,8 +2391,8 @@ def _tiny_shared(path: str, n_tokens: int, counts: dict) -> dict:
     from llamavk_tpu_torch.runtime.server import LlamaServer
 
     result = {}
-    for kv in ("bfloat16", "int8"):
-        for gamma in (0, GAMMA):
+    for kv in ("bfloat16", "int8", "float32"):
+        for gamma in (0, GAMMA) if kv != "float32" else (0,):
             bcfg = BatchConfig(max_batch=4, n_ctx=64, block=4, kv_dtype=kv, shared_prefix=True,
                                prefix_pool=2, lookup_gamma=gamma)
             cfg, params, tok = load_model(path, device="cpu")

@@ -11,7 +11,7 @@
 // KV element types: `__nv_bfloat16` (bf16 cache, no scales), `int8_t`
 // (int8 cache with one f32 scale per (position, head) row, scale planes
 // [B, S, H] per layer, as ops/kv_quant.py lays them out) or `float` (f32
-// cache, no scales; flat only). q is bf16 for a bf16 or int8 cache and f32
+// cache, no scales). q is bf16 for a bf16 or int8 cache and f32
 // for an f32 one (`QType`).
 //
 // Cache modes (`KVMap`): a flat layer [B, H, S, D], or a page pool layer
@@ -216,7 +216,9 @@ inline size_t dyn_smem(int block_k) { return (size_t)WARPS * block_k * sizeof(fl
 //    layer, KV blocks of `block_k` rows that divide `rows`), unmasked but for
 //    col < len, and its (m, l, acc) carry flows into the slot loop, whose
 //    n_past is the slot-local one (:643-735). The pool is bf16 whatever the
-//    slot cache holds, so the pre-pass has its own bf16 tile.
+//    slot cache holds, so the pre-pass has its own bf16 tile (an f32 slot
+//    cache lends it its own), and it rounds q to bf16 and p to bf16 over
+//    every slot type, an f32 one included (flash_attn.py:697-713 there).
 enum { MODE_PLAIN = 0, MODE_RING = 1, MODE_PREFIX = 2 };
 
 struct Ring {
@@ -331,10 +333,21 @@ __device__ __forceinline__ void attend_block(const QType<KV>* q, const KV* kc, c
                                                        : min(np + t_last + 1, map.cap());
   float* sc = sc_all + warp * block_k;
 
-  if (active)
-    for (int d = lane; d < D; d += 32)
-      q_s[warp][d] =
-          op_round<KV>(__fmul_rn(to_float(q[(((size_t)b * T + t) * H + h) * D + d]), scale));
+  // q * scale, rounded as the KV type R multiplies it, into the warp's row
+  // (read after the block barrier that starts each KV tile)
+  auto stage_q = [&](auto round_as) {
+    using R = decltype(round_as);
+    if (active)
+      for (int d = lane; d < D; d += 32)
+        q_s[warp][d] =
+            op_round<R>(__fmul_rn(to_float(q[(((size_t)b * T + t) * H + h) * D + d]), scale));
+  };
+  // the bf16 pool's pre-pass rounds q to bf16 over any slot type
+  // (flash_attn.py:697-713 there); the slots then take it as their type does
+  if constexpr (MODE == MODE_PREFIX)
+    stage_q(__nv_bfloat16());
+  else
+    stage_q(KV());
 
   float m = NEG, l = 0.f;
   float acc[DPL];
@@ -342,7 +355,11 @@ __device__ __forceinline__ void attend_block(const QType<KV>* q, const KV* kc, c
   for (int e = 0; e < DPL; ++e) acc[e] = 0.f;
 
   if constexpr (MODE == MODE_PREFIX) {
-    __shared__ __align__(16) uint8_t ptile[KT * Row<D, __nv_bfloat16>::BYTES];
+    // an f32 slot tile holds a bf16 pool tile: the pre-pass reuses it, as
+    // the two would pass the 48 KB of static shared memory at D = 128
+    constexpr bool SHARE = sizeof(KV) == 4;
+    __shared__ __align__(16) uint8_t own[SHARE ? 16 : KT * Row<D, __nv_bfloat16>::BYTES];
+    uint8_t* ptile = SHARE ? tile : own;
     const int plen = pre.len[b];
     const size_t base = ((size_t)pre.id[b] * H + h) * pre.rows * D;
     for (int kb0 = 0; kb0 < plen; kb0 += pre.block_k) {
@@ -352,6 +369,7 @@ __device__ __forceinline__ void attend_block(const QType<KV>* q, const KV* kc, c
                                      kb1, active, lane, m, l, acc,
                                      [plen](int col) { return col < plen; });
     }
+    if constexpr (SHARE) stage_q(KV());  // the f32 slots keep q unrounded (:749-753)
   }
 
   const int nblocks = (limit + block_k - 1) / block_k;

@@ -3,10 +3,9 @@
 // f32 caches.
 //
 // Replaces two TPU kernels of llamavk_tpu/ops/flash_attn.py, in their flat
-// and page-table cache modes (bf16 and int8), and their flat and ring f32
-// modes (q and the new rows arrive as f32, and nothing is rounded to bf16:
-// the JAX kernels multiply in the cache's type, flash_attn.py:749, :798
-// there):
+// and page-table cache modes, over bf16, int8 and f32 caches (an f32 cache:
+// q and the new rows arrive as f32, and nothing is rounded to bf16, as the
+// JAX kernels multiply in the cache's type, flash_attn.py:749, :798 there):
 //  * `_update_kernel` (:120, entry `flash_attention_update`): write T new
 //    K/V rows at [n_past, n_past+T) of layer l (int8: quantize each row and
 //    write its scale), then attend;
@@ -36,7 +35,8 @@
 // attention masks by the position plane [S, B] (int32, compared as
 // integers); bf16, int8 and f32 caches. Prefix mode (`prefix_k/v/id/len`,
 // :643-735 there): the attention first walks the row's entry of the bf16
-// shared-prefix pool, and n_past is the slot-local row; bf16 and int8 slots.
+// shared-prefix pool, and n_past is the slot-local row; bf16, int8 and f32
+// slots (the pool pass rounds q and p to bf16 over every slot type).
 // Both are the MODE template argument of either route, so the flat and
 // paged kernels keep their code.
 //
@@ -227,14 +227,10 @@ cudaError_t launch_mode(int route, const void* q, const void* kc, const void* vc
     return launch_route<D, KV, attn::MODE_RING>(route, q, kc, vc, ks, vs, out, npast_vec,
                                                 npast_scalar, map, B, T, H, block_k, scale, ring,
                                                 pre, st);
-  // an f32 cache has no prefix mode (checked by the caller), so it is not
-  // built for it
-  if constexpr (!std::is_same<KV, float>::value) {
-    if (pre.k)
-      return launch_route<D, KV, attn::MODE_PREFIX>(route, q, kc, vc, ks, vs, out, npast_vec,
-                                                    npast_scalar, map, B, T, H, block_k, scale,
-                                                    ring, pre, st);
-  }
+  if (pre.k)
+    return launch_route<D, KV, attn::MODE_PREFIX>(route, q, kc, vc, ks, vs, out, npast_vec,
+                                                  npast_scalar, map, B, T, H, block_k, scale,
+                                                  ring, pre, st);
   return launch_route<D, KV, attn::MODE_PLAIN>(route, q, kc, vc, ks, vs, out, npast_vec,
                                                npast_scalar, map, B, T, H, block_k, scale, ring,
                                                pre, st);
@@ -328,8 +324,8 @@ void offset_batch(P& kc, P& vc, SP& ks, SP& vs, int batch_offset, int kv_kind, i
 // null, else a pool [NP, H, S, D] with scales [NP, S, H] read through
 // page_table [B, maxlb] (S the page's rows); out f32 [B, T, H, D]; n_past
 // from npast_vec[B] (device) when it is not null, else npast_scalar; `modes`
-// (or null) the ring or prefix operands, on a flat cache only. An f32 cache
-// is flat or a ring, with no prefix. D in {64, 128}; block_k divides S.
+// (or null) the ring or prefix operands, on a flat cache only; every cache
+// type takes every mode. D in {64, 128}; block_k divides S.
 // batch_offset (flat, no ring or prefix) is the cache row of batch row 0:
 // the flat layer pointers address a [B_cache, ...] layer with
 // B_cache >= batch_offset + B. route: ROUTE_CUDA_CORE, or ROUTE_TENSOR_CORE
@@ -351,7 +347,6 @@ extern "C" int attn_read_launch(const void* q, const void* k_cache, const void* 
   cudaError_t e = mode_args(modes, B, ring, pre);
   if (e != cudaSuccess) return (int)e;
   if (page_table && (ring.pos || pre.k)) return (int)cudaErrorInvalidValue;
-  if (kv_kind == KV_F32 && (page_table || pre.k)) return (int)cudaErrorInvalidValue;
   if (batch_offset < 0 || (batch_offset && (page_table || ring.pos || pre.k)))
     return (int)cudaErrorInvalidValue;
   if (batch_offset) offset_batch(k_cache, v_cache, k_scale, v_scale, batch_offset, kv_kind, H, S, D);
@@ -385,7 +380,6 @@ extern "C" int attn_update_launch(const void* q, const void* k_new, const void* 
       (route != ROUTE_TENSOR_CORE || kv_kind == KV_F32 || T < attn::mma::MIN_T))
     return (int)cudaErrorInvalidValue;
   if (page_table && maxlb < 1) return (int)cudaErrorInvalidValue;
-  if (kv_kind == KV_F32 && (page_table || (modes && modes->pk))) return (int)cudaErrorInvalidValue;
   if (batch_offset < 0 || (batch_offset && (page_table || (modes && (modes->pos || modes->pk)))))
     return (int)cudaErrorInvalidValue;
   if (batch_offset) offset_batch(k_cache, v_cache, k_scale, v_scale, batch_offset, kv_kind, H, S, D);

@@ -1,8 +1,8 @@
 // Batched single-token decode attention for Hopper (sm_90a): insert each
 // row's new K/V row into the cache, then attend, in one launch per layer;
-// bf16 caches, int8 caches with per-row scales, and flat f32 caches (q and
-// the new rows f32, nothing rounded to bf16, as flash_decode.py:326, :356
-// there multiply in the cache's type).
+// bf16 caches, int8 caches with per-row scales, and f32 caches, flat or
+// paged (q and the new rows f32, nothing rounded to bf16, as
+// flash_decode.py:326, :356 there multiply in the cache's type).
 //
 // Replaces the TPU kernel `_flat_kernel` of llamavk_tpu/ops/flash_decode.py
 // (:67, entry `flash_decode_update` :380), flat and page-table modes. The TPU kernel runs one
@@ -112,7 +112,7 @@ cudaError_t dispatch(const void* q, const void* kn, const void* vn, void* kc, vo
 // q, k_new, v_new [B, 1, H, D], bf16 (f32 for an f32 cache); k_cache/v_cache
 // one layer of type kv_kind (0 bf16, 1 int8, 2 f32), with k_scale/v_scale
 // that layer's f32 scale planes for int8 (else null): flat [B, H, S, D] with
-// scales [B, S, H] when page_table is null (always for f32), else a pool
+// scales [B, S, H] when page_table is null, else a pool
 // [NP, H, S, D] with scales [NP, S, H] read through
 // page_table [B, maxlb] (S the page's rows); out f32 [B, 1, H, D]; n_past
 // from npast_vec[B] (device) when it is not null, else npast_scalar; every
@@ -126,8 +126,7 @@ extern "C" int flash_decode_launch(const void* q, const void* k_new, const void*
                                    void* stream) {
   if (block_k < 1 || S % block_k != 0) return (int)cudaErrorInvalidValue;
   if (page_table && maxlb < 1) return (int)cudaErrorInvalidValue;
-  if (kv_kind < 0 || kv_kind > 2 || (kv_kind == 2 && page_table))
-    return (int)cudaErrorInvalidValue;
+  if (kv_kind < 0 || kv_kind > 2) return (int)cudaErrorInvalidValue;
   if (batch_offset < 0 || (batch_offset && page_table)) return (int)cudaErrorInvalidValue;
   if (batch_offset) {
     const size_t el = kv_kind == 1 ? 1 : kv_kind == 2 ? 4 : 2;

@@ -37,20 +37,17 @@
 //    (lin: the 32-row units) of the block's K range; x is staged once per
 //    block in shared memory; K is also split across blocks (enough blocks to
 //    fill 132 SMs) and the partial sums are added by a second,
-//    deterministic pass in a fixed order.
-//  * prefill (M > 1): tensor-core operations (989 TFLOP/s bf16 dense; the
-//    f32 dot takes two or three passes). Design: 64x128 output tiles, 64-deep
-//    k steps (ilv: two quantization groups; lin: one 32-row unit, whose low
-//    nibbles are 32 k of the first half and high nibbles 32 k of the
-//    second); the next step's global loads are in registers while the tensor
-//    cores (WMMA bf16 16x16x16, f32 accumulate) work on the current shared
-//    tiles; the weight tile is dequantized to bf16 on its way into shared
-//    memory. wgmma/TMA are later work.
+//    deterministic pass in a fixed order (split_sum.cuh).
+//  * M > 1: q4_gemm.cuh (the weight bytes at M <= 64, the tensor-core
+//    operations above; `mma.sync` with the weights dequantized straight
+//    into A fragments, a `cp.async` ring, split-K at M <= 64).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include "q4_gemm.cuh"
+#include "split_sum.cuh"
 
 namespace {
 
@@ -200,16 +197,6 @@ q4_gemv_kernel(const __nv_bfloat16* __restrict__ x,   // [K]
   }
 }
 
-// partial [splits, M*N] -> out [M*N], summed in split order (deterministic)
-__global__ void splitk_reduce_kernel(const float* __restrict__ partial,
-                                     float* __restrict__ out, int splits, int mn) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= mn) return;
-  float sum = 0.f;
-  for (int s = 0; s < splits; ++s) sum += partial[(size_t)s * mn + i];
-  out[i] = sum;
-}
-
 template <typename ST, bool LIN, bool RS, bool WF32>
 cudaError_t launch_gemv(const __nv_bfloat16* x, const int8_t* packed,
                         const ST* scales, float* out, float* partial,
@@ -225,202 +212,8 @@ cudaError_t launch_gemv(const __nv_bfloat16* x, const int8_t* packed,
   float* dst = splits == 1 ? out : partial;
   q4_gemv_kernel<ST, LIN, RS, WF32><<<grid, GV_WARPS * 32, smem, stream>>>(
       x, packed, scales, dst, K, N, gps);
-  if (splits > 1)
-    splitk_reduce_kernel<<<(N + 255) / 256, 256, 0, stream>>>(partial, out, splits, N);
+  if (splits > 1) launch_split_sum<float, float>(partial, out, splits, N, stream);
   return cudaGetLastError();
-}
-
-// ------------------------------------------------------------- prefill GEMM
-constexpr int BM = 64, BN = 128, BKT = 64;  // BKT: two ilv groups, or one lin unit
-constexpr int XS_LD = BKT + 8;   // bf16 elements, keeps WMMA rows 32-byte aligned
-constexpr int WS_LD = BN + 8;
-
-template <typename ST>
-struct GemmRegs {
-  static constexpr int SW = (int)sizeof(ST) / 2;  // 16-byte words of 8 scales
-  uint4 xv[2];      // two 8-element x chunks
-  uint2 pk[2];      // two 8-column packed words
-  uint4 sc[2][SW];  // 8 scales: ilv of group i; lin of the low (0) and high (1) half
-};
-
-// scale j (0..7) of 8 held in 16-byte words
-__device__ __forceinline__ float scale_at(const uint4* w, int j, __nv_bfloat16) {
-  const uint32_t sw[4] = {w[0].x, w[0].y, w[0].z, w[0].w};
-  return bf16_bits_to_float((sw[j >> 1] >> (16 * (j & 1))) & 0xffffu);
-}
-
-__device__ __forceinline__ float scale_at(const uint4* w, int j, float) {
-  const uint4 q = w[j >> 2];
-  const uint32_t sw[4] = {q.x, q.y, q.z, q.w};
-  return __uint_as_float(sw[j & 3]);
-}
-
-// Step `st` of the k loop: ilv groups 2st, 2st+1; lin unit st (packed rows
-// 32st..32st+31, k = 32st.. and K/2 + 32st..).
-template <typename ST, bool LIN>
-__device__ __forceinline__ void gemm_load(GemmRegs<ST>& rg, const __nv_bfloat16* x,
-                                          const int8_t* packed, const ST* scales,
-                                          int M, int K, int N, int G, int m_blk, int n_blk,
-                                          int st, int tid) {
-  const int n = n_blk + (tid & 15) * 8;
-  const int mrow = tid >> 4;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    // x tile [BM][BKT]: row r, 8-element chunk c
-    const int r = (tid >> 3) + 32 * i, c = (tid & 7) * 8;
-    const int m = m_blk + r;
-    rg.xv[i] = make_uint4(0, 0, 0, 0);
-    if (LIN) {
-      const int k = c < 32 ? st * 32 + c : K / 2 + st * 32 + c - 32;
-      if (m < M) rg.xv[i] = *reinterpret_cast<const uint4*>(x + (size_t)m * K + k);
-    } else if (m < M && 2 * st + c / 32 < G) {
-      rg.xv[i] = *reinterpret_cast<const uint4*>(x + (size_t)m * K + st * 64 + c);
-    }
-    // packed tile: ilv row mrow of group 2st+i; lin row 32st + 16i + mrow
-    const int gw = LIN ? st : 2 * st + i;
-    const size_t row = LIN ? (size_t)(32 * st + 16 * i + mrow) : (size_t)(mrow * G + gw);
-    rg.pk[i] = make_uint2(0, 0);
-    if (gw < G && n < N) rg.pk[i] = __ldg(reinterpret_cast<const uint2*>(packed + row * N + n));
-    // scales: ilv those of group 2st+i; lin the low (i = 0) and high (i = 1) halves'
-    const int gs = LIN ? (i ? G / 2 + st : st) : gw;
-#pragma unroll
-    for (int w = 0; w < GemmRegs<ST>::SW; ++w) {
-      rg.sc[i][w] = make_uint4(0, 0, 0, 0);
-      if (gs < G && n < N)
-        rg.sc[i][w] = __ldg(reinterpret_cast<const uint4*>(scales + (size_t)gs * N + n) + w);
-    }
-  }
-}
-
-// bf16 part p of w: w itself (NP = 1), else the p-th term of w0 + w1 (+ w2)
-template <int NP>
-__device__ __forceinline__ __nv_bfloat16 part(float w, int p) {
-  if (NP == 1) return __float2bfloat16(w);
-  __nv_bfloat16 h = __float2bfloat16(w);
-  for (int i = 0; i < p; ++i) {
-    w = __fsub_rn(w, __bfloat162float(h));
-    h = __float2bfloat16(w);
-  }
-  return h;
-}
-
-template <typename ST, bool LIN, bool RS, int NP>
-__device__ __forceinline__ void gemm_store(const GemmRegs<ST>& rg, __nv_bfloat16* xs,
-                                           __nv_bfloat16* ws, int tid, int p) {
-  const int mrow = tid >> 4, cc = (tid & 15) * 8;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (p == 0) {
-      const int r = (tid >> 3) + 32 * i, c = (tid & 7) * 8;
-      *reinterpret_cast<uint4*>(xs + r * XS_LD + c) = rg.xv[i];
-    }
-    const uint32_t pw[2] = {rg.pk[i].x, rg.pk[i].y};
-    // ilv: group i's rows 32i + mrow (low) and 32i + mrow + 16 (high);
-    // lin: rows 16i + mrow of the low half and 32 + 16i + mrow of the high
-    const int lo_row = LIN ? 16 * i + mrow : 32 * i + mrow;
-    const int hi_row = LIN ? 32 + 16 * i + mrow : 32 * i + mrow + 16;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int b = (int)(int8_t)((pw[j >> 2] >> (8 * (j & 3))) & 0xffu);
-      float s_lo = scale_at(rg.sc[LIN ? 0 : i], j, ST());
-      float s_hi = LIN ? scale_at(rg.sc[1], j, ST()) : s_lo;
-      if (RS) {
-        s_lo = bf16_round(s_lo);
-        s_hi = bf16_round(s_hi);
-      }
-      const float w_lo = NP == 1 ? (float)nib_lo(b) * s_lo : __fmul_rn((float)nib_lo(b), s_lo);
-      const float w_hi = NP == 1 ? (float)nib_hi(b) * s_hi : __fmul_rn((float)nib_hi(b), s_hi);
-      ws[lo_row * WS_LD + cc + j] = part<NP>(w_lo, p);
-      ws[hi_row * WS_LD + cc + j] = part<NP>(w_hi, p);
-    }
-  }
-}
-
-template <typename ST, bool LIN, bool RS, int NP>
-__device__ __forceinline__ void q4_gemm_body(const __nv_bfloat16* __restrict__ x,
-                                             const int8_t* __restrict__ packed,
-                                             const ST* __restrict__ scales,
-                                             float* __restrict__ out, int M, int K, int N) {
-  using namespace nvcuda;
-  __shared__ __align__(32) __nv_bfloat16 xs[BM * XS_LD];
-  __shared__ __align__(32) __nv_bfloat16 ws[BKT * WS_LD];
-  __shared__ __align__(32) float stage[8][16 * 16];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int m_blk = blockIdx.y * BM, n_blk = blockIdx.x * BN;
-  const int G = K / 32;
-  const int steps = LIN ? G / 2 : (G + 1) / 2;
-  const int wm = warp >> 2, wn = warp & 3;  // warp tile: rows wm*32, cols wn*32
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  GemmRegs<ST> rg;
-  gemm_load<ST, LIN>(rg, x, packed, scales, M, K, N, G, m_blk, n_blk, 0, tid);
-  for (int st = 0; st < steps; ++st) {
-    for (int p = 0; p < NP; ++p) {
-      gemm_store<ST, LIN, RS, NP>(rg, xs, ws, tid, p);
-      __syncthreads();
-      if (p == NP - 1 && st + 1 < steps)
-        gemm_load<ST, LIN>(rg, x, packed, scales, M, K, N, G, m_blk, n_blk, st + 1, tid);
-#pragma unroll
-      for (int kk = 0; kk < BKT; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(a[i], xs + (wm * 32 + i * 16) * XS_LD + kk, XS_LD);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(b[j], ws + kk * WS_LD + wn * 32 + j * 16, WS_LD);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(stage[warp], acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int m = m_blk + wm * 32 + i * 16 + (e >> 4);
-        const int n = n_blk + wn * 32 + j * 16 + (e & 15);
-        if (m < M && n < N) out[(size_t)m * N + n] = stage[warp][e];
-      }
-      __syncwarp();
-    }
-}
-
-template <typename ST, bool LIN, bool RS, int NP>
-__global__ void __launch_bounds__(256)
-q4_gemm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ packed,
-               const ST* __restrict__ scales, float* __restrict__ out, int M, int K, int N) {
-  q4_gemm_body<ST, LIN, RS, NP>(x, packed, scales, out, M, K, N);
-}
-
-// The one-pass kernel over f32 scales, bounded to two blocks per SM (128
-// registers a thread): left to itself the compiler gives it 130 registers,
-// one block per SM and 1.33x the two-block time. Bounding the bf16-scale
-// kernel so (from its own 97) cost it 10%, and the f32 dot's passes more.
-// The bound has a kernel of its own: an explicit min-blocks of 1 is not the
-// same as no bound to the compiler. One kernel templated on it (1 for the
-// others) gave the bf16-scale GEMM 1.3-1.6x and the f32 dot's three passes
-// 1.6-1.7x their unbounded time (NVIDIA H100 80GB HBM3, chip_smoke.py).
-template <bool LIN, bool RS>
-__global__ void __launch_bounds__(256, 2)
-q4_gemm_f32s_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ packed,
-                    const float* __restrict__ scales, float* __restrict__ out, int M, int K,
-                    int N) {
-  q4_gemm_body<float, LIN, RS, 1>(x, packed, scales, out, M, K, N);
 }
 
 template <typename ST, bool LIN, bool RS, bool WF32>
@@ -431,12 +224,8 @@ cudaError_t launch(const __nv_bfloat16* x, const int8_t* packed, const ST* scale
   // the f32 dot's bf16 parts: two hold q * s exactly for a bf16 scale, three
   // for an f32 one
   constexpr int NP = WF32 ? (sizeof(ST) == 4 ? 3 : 2) : 1;
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  if constexpr (sizeof(ST) == 4 && NP == 1)
-    q4_gemm_f32s_kernel<LIN, RS><<<grid, 256, 0, st>>>(x, packed, scales, out, M, K, N);
-  else
-    q4_gemm_kernel<ST, LIN, RS, NP><<<grid, 256, 0, st>>>(x, packed, scales, out, M, K, N);
-  return cudaGetLastError();
+  return q4gemm::launch_gemm<ST, LIN, RS, NP>(x, packed, scales, out, partial, M, K, N, ksplit,
+                                               st);
 }
 
 template <typename ST, bool LIN>
@@ -459,6 +248,7 @@ enum { Q4_SCALE_F32 = 1, Q4_LIN = 2, Q4_ROUND_SCALE = 4, Q4_W_F32 = 8 };
 // x bf16 [M, K], packed int8 [K/2, N] (one chunk; ilv, or lin with
 // Q4_LIN), scales [G, N] (bf16, or f32 with Q4_SCALE_F32), out f32 [M, N];
 // partial f32 [ksplit, N] scratch for the decode split (M = 1).
+// partial f32 [ksplit, M, N] scratch for the GEMM's split (M > 1).
 // Q4_ROUND_SCALE rounds an f32 scale to bf16 (LLAMAVK_Q4_MUL=bf16);
 // Q4_W_F32 keeps w = q * s in f32 (LLAMAVK_Q4_DOT=f32); not both.
 // Requires K % 32 == 0 (lin: K % 64 == 0), N % 8 == 0 and 16-byte aligned

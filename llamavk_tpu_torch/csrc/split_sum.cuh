@@ -1,4 +1,5 @@
-// The split-K sum of the probe kernels (probe_q4_unpack.cu, probe_q4_i8.cu):
+// The split-K sum of K1 (q4_matmul.cu: the GEMV's and the GEMM's) and of the
+// probe kernels (probe_q4_unpack.cu, probe_q4_i8.cu):
 // partial [splits, mn] -> out [mn], each element summed over the splits in
 // split order (deterministic), in the accumulator type `Acc` (float, or int
 // for an exact integer product), then converted once to `Out`.

@@ -166,7 +166,7 @@ class LlamaParams:
 @dataclass
 class KVCache:
     """Dense per-layer KV slabs [L, B, H, S, D], heads-major, bf16, int8 or
-    f32 (flat only).
+    f32.
     An int8 cache carries one f32 scale per (layer, batch, position, head)
     row in k_scale/v_scale [L, B, S, H] (`ops/kv_quant.py`). A page pool has
     the same fields with pages in place of batch rows: [L, NP, H, PS, D] and
@@ -222,13 +222,11 @@ def init_paged_kv_cache(
     cfg: ModelConfig, n_pages: int, page_size: int, dtype=torch.bfloat16, device="cuda"
 ) -> KVCache:
     """A zeroed page pool [L, NP, H, PS, D] (llama.py:200-229 there), bf16,
-    or int8 with scale pools [L, NP, PS, H] paged through the same tables
-    (H kept, no 128-lane pad, as `init_kv_cache`). The page's rows must be a
-    multiple of 8, and of 32 for int8 (the KV block step)."""
-    if dtype not in (torch.bfloat16, torch.int8):
-        raise NotImplementedError(f"KV pool dtype {dtype}: bf16 or int8 (an f32 pool is refused, "
-                                  f"as the JAX package's init_paged_kv_cache refuses one; "
-                                  f"ROADMAP.md queue 2)")
+    f32, or int8 with scale pools [L, NP, PS, H] paged through the same
+    tables (H kept, no 128-lane pad, as `init_kv_cache`). The page's rows
+    must be a multiple of 8, and of 32 for int8 (the KV block step)."""
+    if dtype not in (torch.bfloat16, torch.int8, torch.float32):
+        raise NotImplementedError(f"KV pool dtype {dtype}: bf16, int8 or f32")
     step = 32 if dtype == torch.int8 else 8
     if page_size % step:
         raise ValueError(f"page_size {page_size} must be a multiple of {step} for {dtype}")

@@ -9,10 +9,11 @@ planes k_scale/v_scale [L, B, S, H] (`ops/kv_quant.py`). Outputs are
 An f32 cache (the llama.h API's `f16_kv = false`, perplexity's f32 mode)
 multiplies in f32 throughout, as the JAX kernels multiply in the cache's
 own type (flash_attn.py:749, :798 there): q * scale and the probabilities
-are not rounded to bf16, and the new rows are stored as they arrive. The
-CUDA kernels take it flat or as a history ring; an f32 page pool or
-prefix-pool slot cache raises NotImplementedError, as the JAX package's
-own asserts refuse both (flash_attn.py:877, :1073 there).
+are not rounded to bf16, and the new rows are stored as they arrive. It is
+flat, a history ring, a page pool, or the slot cache under a bf16 prefix
+pool, whose pre-pass rounds q and p to bf16 as over any slot type
+(flash_attn.py:697-713 there; the JAX asserts at :877 and :1073 check only
+that the pool is bf16).
 
 With `page_table` (int32 [B, MAXLB]) the cache is a PAGE POOL
 [L, NP, H, PS, D] (int8 scales [L, NP, PS, H]) and logical row j of batch
@@ -38,7 +39,7 @@ Shared-prefix pool (`prefix_k/v` [L, NP, H, Sp, D] bf16, `prefix_id/len`
 [B] int32; :643-735 there): before the cache, each row attends over rows
 [0, prefix_len[b]) of pool entry prefix_id[b] with no causal mask, and
 n_past is the SLOT-LOCAL row (logical position minus prefix_len). The pool
-is bf16 over a bf16 or int8 cache; its KV block `pblock_k` is fitted to Sp
+is bf16 over a bf16, int8 or f32 cache; its KV block `pblock_k` is fitted to Sp
 on its own (`_fit_block_k(min(block_k, Sp), Sp)`, :880 there). Ring and
 prefix exclude each other and a page table, as the JAX asserts do.
 
@@ -99,13 +100,14 @@ from .kv_quant import quantize_rows
 
 # launches of the CUDA kernels (one per wrapper call on CUDA tensors), by
 # path, cache mode, route (`_tc`: the tensor-core route) and cache type; the
-# update path's page_straddle mode on its own; an f32 cache is flat or a
-# ring, on the CUDA-core route
-launches = {f"{path}{mode}{route}{kind}": 0 for path, mode in (
-    ("update", ""), ("update", "_paged"), ("update", "_paged_straddle"), ("read", ""),
-    ("read", "_paged"), ("update", "_ring"), ("read", "_ring"), ("update", "_prefix"),
-    ("read", "_prefix")) for route in ("", "_tc") for kind in ("", "_i8")}
-launches.update(update_f32=0, read_f32=0, update_ring_f32=0, read_ring_f32=0)
+# update path's page_straddle mode on its own; an f32 cache in every mode,
+# on the CUDA-core route
+_MODES = (("update", ""), ("update", "_paged"), ("update", "_paged_straddle"), ("read", ""),
+          ("read", "_paged"), ("update", "_ring"), ("read", "_ring"), ("update", "_prefix"),
+          ("read", "_prefix"))
+launches = {f"{path}{mode}{route}{kind}": 0 for path, mode in _MODES
+            for route in ("", "_tc") for kind in ("", "_i8")}
+launches.update({f"{path}{mode}_f32": 0 for path, mode in _MODES})
 # the pipeline-parallel modes: a batch slice of a wider flat cache (`boff`),
 # and the update with commit=0 (`nocommit`), every cache type
 launches.update({f"{path}_{mode}{route}{kind}": 0 for path, mode in (
@@ -276,10 +278,12 @@ def attend_ref(q, k_l, v_l, visible, k_scale_l=None, v_scale_l=None, prefix=None
     before the PV product, and the sum is divided by l, the f32 sum of the
     unscaled probabilities, at the end (:783-808 there).
     An f32 cache rounds neither q nor the probabilities (the products are in
-    the cache's type there, :749, :798). Returns f32 [B, T, H, D]."""
+    the cache's type there, :749, :798); the bf16 pool's rows take q and p
+    rounded to bf16 over any cache (:697-713). Returns f32 [B, T, H, D]."""
     d = q.shape[-1]
     rnd = torch.float32 if k_l.dtype == torch.float32 else torch.bfloat16
-    qs = (q.to(torch.float32) * (1.0 / math.sqrt(d))).to(rnd).to(torch.float32)
+    qf = q.to(torch.float32) * (1.0 / math.sqrt(d))
+    qs = qf.to(rnd).to(torch.float32)
     scores = torch.einsum("bthd,bhsd->bhts", qs, k_l.to(torch.float32))
     if k_scale_l is not None:
         scores = scores * k_scale_l.transpose(1, 2)[:, :, None, :]
@@ -287,7 +291,8 @@ def attend_ref(q, k_l, v_l, visible, k_scale_l=None, v_scale_l=None, prefix=None
     sp = 0
     if prefix is not None:
         pk, pv, pvis = prefix
-        pscores = torch.einsum("bthd,bhsd->bhts", qs, pk.to(torch.float32))
+        qb = qf.to(torch.bfloat16).to(torch.float32)
+        pscores = torch.einsum("bthd,bhsd->bhts", qb, pk.to(torch.float32))
         scores = torch.cat([pscores.masked_fill(~pvis[:, None], float("-inf")), scores], dim=-1)
         sp = pk.shape[2]
     p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
@@ -491,25 +496,19 @@ def _on_device(x, q, what: str, dtype=torch.int32, shape=None) -> None:
                          f"of shape {shape} on q's device")
 
 
-def _query(q, k, prefix_k=None) -> torch.Tensor:
+def _query(q, k) -> torch.Tensor:
     """q as the kernels take it: f32 over an f32 cache (exact for bf16
-    activations; the JAX kernel widens q to f32 there), else as given. An
-    f32 slot cache under a prefix pool is refused, as the JAX kernels assert
-    a bf16 pool over bf16 or int8 slots (flash_attn.py:877, :1073 there)."""
+    activations; the JAX kernel widens q to f32 there), else as given."""
     if k.dtype != torch.float32:
         return q
-    if prefix_k is not None:
-        raise NotImplementedError("attention kernel: an f32 slot cache under a shared-prefix "
-                                  "pool is refused, as the JAX kernels refuse one (ROADMAP.md "
-                                  "queue 2)")
     return q.to(torch.float32).contiguous()
 
 
 def check_cuda(q, k, v, n_past, layer_idx, k_scale=None, v_scale=None, tensors=(),
                page_table=None, ring: bool = False, pp: bool = False):
     """Validate kernel operands (q and new rows bf16, f32 for an f32 cache;
-    a bf16 cache, an int8 cache with f32 scale planes, or a flat or ring f32
-    cache; flat [L, B, H, S, D] with scales [L, B, S, H] (with `pp`, a wider flat
+    a bf16 cache, an int8 cache with f32 scale planes, or an f32 cache;
+    flat [L, B, H, S, D] with scales [L, B, S, H] (with `pp`, a wider flat
     cache that `pp_mode` has checked), or a pool [L, NP, H, PS, D] with
     scales [L, NP, PS, H] and an int32 [B, MAXLB] page table). Returns
     (npast_ptr, npast_scalar, cache type, k_scale_ptr, v_scale_ptr,
@@ -528,10 +527,6 @@ def check_cuda(q, k, v, n_past, layer_idx, k_scale=None, v_scale=None, tensors=(
         raise ValueError(f"attention kernel: cache must be bf16, int8 or f32, got "
                          f"{k.dtype}/{v.dtype}")
     kind = KV_KINDS[k.dtype]
-    if kind == "f32" and paged:
-        raise NotImplementedError("attention kernel: an f32 cache is flat or a ring; an f32 page "
-                                  "pool is refused, as the JAX package's init_paged_kv_cache "
-                                  "refuses one (ROADMAP.md queue 2)")
     quant = kind == "int8"
     qtype = torch.float32 if kind == "f32" else torch.bfloat16
     scales = (k_scale, v_scale) if quant else ()
@@ -634,7 +629,7 @@ def flash_attention(
     _check_modes(page_table, kv_pos, prefix_k)
     _, pmode = pp_mode(k, q.shape[0], batch_offset, 1, page_table, kv_pos is not None,
                            prefix_k is not None)
-    q = _query(q, k, prefix_k)
+    q = _query(q, k)
     npv, nps, kind, ksp, vsp, tab, maxlb = check_cuda(q, k, v, n_past, layer_idx, k_scale,
                                                       v_scale, page_table=page_table,
                                                       ring=kv_pos is not None,
@@ -703,7 +698,7 @@ def flash_attention_update(
     _check_block_t(q.shape[1], block_t, n_past, k.shape[3], page_table, page_straddle)
     _, pmode = pp_mode(k, q.shape[0], batch_offset, commit, page_table, kv_pos is not None,
                            prefix_k is not None)
-    q = _query(q, k, prefix_k)
+    q = _query(q, k)
     # the cast flash_attn.py:1101-1103 makes (to an f32 cache's type; an int8
     # cache quantizes bf16 rows)
     kn, vn = (x.to(q.dtype).contiguous() for x in (k_new, v_new))

@@ -1,6 +1,6 @@
 """Batched single-token decode attention (twin of
-`llamavk_tpu/ops/flash_decode.py`, flat and page-table modes, bf16 and int8,
-and the flat f32 mode: q and the new rows f32, no bf16 rounding, as
+`llamavk_tpu/ops/flash_decode.py`, flat and page-table modes, over bf16,
+int8 and f32 caches; f32: q and the new rows f32, no bf16 rounding, as
 flash_decode.py:326, :356 there multiply in the cache's type).
 
 `flash_decode_update` inserts each row's new K/V row at n_past[b] of layer
@@ -44,10 +44,9 @@ from .flash_attn import (
 )
 
 # launches of the CUDA kernel (one per wrapper call on CUDA tensors), by
-# cache mode and type (f32: flat only)
+# cache mode and type
 launches = {launch_name("decode", kind, paged): 0 for paged in (False, True)
-            for kind in ("bf16", "int8")}
-launches[launch_name("decode", "f32", False)] = 0
+            for kind in ("bf16", "int8", "f32")}
 launches.update({launch_name("decode", kind, False, mode="boff"): 0
                  for kind in ("bf16", "int8", "f32")})
 # launches by shape (B, H, S, D, block_k, cache type: "bf16", "int8" or

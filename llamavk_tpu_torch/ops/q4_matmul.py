@@ -9,10 +9,11 @@ there reads it):
 * K1 (`bf16`, the default; `i4`, which on the TPU is an int4-bitcast
   unpack of the same bytes with the same numerics as the shift unpack,
   q4_matmul.py:648-651 there, so here it is the same kernel; and `f32`). On
-  a CUDA tensor `q4_matmul` launches the kernel of `csrc/q4_matmul.cu` (it
-  replaces `_kernel_q4`, q4_matmul.py:96 there), for the ilv and the lin
-  layout; on a CPU tensor it computes the plain version, `q4_matmul_ref`: x
-  cast to bf16, w = f32(q) * f32(scale) rounded to bf16 (the `f32` dot keeps
+  a CUDA tensor `q4_matmul` launches the kernel of `csrc/q4_matmul.cu` (the
+  GEMV at M = 1; the GEMM of `csrc/q4_gemm.cuh` above; they replace
+  `_kernel_q4`, q4_matmul.py:96 there), for the ilv and the lin layout; on
+  a CPU tensor it computes the plain version, `q4_matmul_ref`: x cast to
+  bf16, w = f32(q) * f32(scale) rounded to bf16 (the `f32` dot keeps
   it f32), products summed in f32, out f32 then `out_dtype`. `mul_dtype`
   bf16 (LLAMAVK_Q4_MUL=bf16) does the nibble-scale multiply in bf16: the
   scale is rounded to bf16 and w = bf16(f32(q) * s) under either dot
@@ -234,19 +235,52 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _ksplit(m: int, k: int, n: int, index: int) -> int:
+def gemv_ksplit(k: int, n: int, sms: int) -> int:
     """Decode (M = 1) K split: enough blocks for two per SM, at least 16
     groups per split, and an x slice that fits the kernel's 40 KB stage (a
     lin split takes whole 32-row units, two groups each, and stages the same
     bytes)."""
-    if m != 1:
-        return 1
     g = k // QK
     nblk = -(-n // 128)
-    want = -(-2 * _sm_count(index) // nblk)
+    want = -(-2 * sms // nblk)
     want = max(1, min(want, g // 16))
     gps_max = 40960 // (QK * 2)
     return max(want, -(-g // gps_max))
+
+
+# the GEMM's route threshold and its routes' block columns and token tile
+# (csrc/q4_gemm.cuh: SMALL_M, `Small`, `Large`)
+GEMM_SMALL_M = 64
+GEMM_SMALL_BN = 256
+GEMM_LARGE_BN = 128
+GEMM_LARGE_TILE_M = 128
+
+
+def gemm_ksplit(m: int, k: int, n: int, sms: int) -> int:
+    """The GEMM's (M >= 2) K split into ranges of whole 32-k units (16
+    packed rows), at least 16 units each. M <= 64: enough 256-column blocks
+    for two per SM, from (K, N) and the SM count alone, so an output row's
+    float order does not depend on M. Above, the 128 x 128 tiles fill the
+    card at large M; K is split only while the grid has fewer blocks than
+    SMs."""
+    units = k // QK
+    if m <= GEMM_SMALL_M:
+        nblk = -(-n // GEMM_SMALL_BN)
+    else:
+        nblk = -(-n // GEMM_LARGE_BN) * -(-m // GEMM_LARGE_TILE_M)
+        if nblk >= sms:
+            return 1
+    return max(1, min(-(-2 * sms // nblk), units // 16))
+
+
+def scratch_shape(m: int, k: int, n: int, sms: int) -> tuple[int, ...] | None:
+    """The partial sums' scratch of a K1 launch on a card of `sms` SMs:
+    [splits, N] for the GEMV, [splits, M, N] for the GEMM, None for one
+    split (the kernel writes the output)."""
+    split = gemv_ksplit(k, n, sms) if m == 1 else gemm_ksplit(m, k, n, sms)
+    if split == 1:
+        return None
+    return (split, n) if m == 1 else (split, m, n)
 
 
 # mode bits of q4_matmul_launch (csrc/q4_matmul.cu)
@@ -297,11 +331,10 @@ def _q4_launch(xf, packed, scales, layout, dot_mode, mul_dtype, chunked_k: int =
             raise ValueError("q4_matmul_cuda: operands must be contiguous and 16-byte aligned")
     dev = xf.device.index if xf.device.index is not None else torch.cuda.current_device()
     out = torch.empty((m, n), dtype=torch.float32, device=xf.device)
-    ksplit = _ksplit(m, k, n, dev)
-    partial = (
-        torch.empty((ksplit, n), dtype=torch.float32, device=xf.device)
-        if ksplit > 1 else out
-    )
+    scratch = scratch_shape(m, k, n, _sm_count(dev))
+    ksplit = 1 if scratch is None else scratch[0]
+    partial = out if scratch is None else torch.empty(scratch, dtype=torch.float32,
+                                                      device=xf.device)
     rc = _lib().q4_matmul_launch(
         xf.data_ptr(), packed.data_ptr(), scales.data_ptr(), out.data_ptr(),
         partial.data_ptr(), m, k, n, ksplit, bits,

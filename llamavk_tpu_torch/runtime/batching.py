@@ -115,7 +115,7 @@ class BatchConfig:
     block: int = 8  # decode steps per host round-trip
     top_k: int = 64  # shared sampler pool (the per-request top_k is not read)
     repeat_last_n: int = 64
-    kv_dtype: str = "bfloat16"  # or "int8", or "float32" (flat, no shared prefix)
+    kv_dtype: str = "bfloat16"  # or "int8", or "float32" (not paged)
     admit_chunk: int = 4  # max requests per batched admission prefill
     paged: bool = False  # block-table paged KV (runtime/paged.py)
     page_size: int = 128  # pool page rows: a power of two dividing n_ctx
@@ -173,12 +173,12 @@ class BatchedEngine:
         self.params = params
         self.bcfg = bcfg
         self.kv_dtype = kv_dtype(bcfg.kv_dtype, bcfg.n_ctx)
-        if self.kv_dtype == torch.float32 and (bcfg.paged or bcfg.shared_prefix):
-            # JAX asserts bf16/int8 pools and a bf16 prefix pool over bf16 or
-            # int8 slots (batching.py:180-183, flash_attn.py:877 there)
-            raise NotImplementedError("BatchedEngine: an f32 cache is flat; paged and "
-                                      "shared-prefix f32 caches are refused, as the JAX "
-                                      "package refuses them (ROADMAP.md queue 2)")
+        if self.kv_dtype == torch.float32 and bcfg.paged:
+            # the JAX engine asserts bf16 or int8 pools (batching.py:180-183
+            # there); its forward and kernels take an f32 pool, and so do the
+            # port's
+            raise NotImplementedError("BatchedEngine: paged KV takes bf16 or int8 pools, as the "
+                                      "JAX engine asserts (batching.py:180-183 there)")
         b, w = bcfg.max_batch, bcfg.repeat_last_n
         self.pager: SlotPages | None = None
         if bcfg.paged:

@@ -1,12 +1,15 @@
 """The port's f32 KV cache and f32 scale planes on the CPU, against the JAX
 package: the plain versions of the f32 modes of K2, K3 and K4 against the
 JAX kernels in interpret mode (new rows stored as they arrive, nothing
-rounded to bf16), K1 with f32 scales, `llama_forward` over an f32 cache
-(flash and einsum, the latter as `perplexity --f32` runs it), the
-single-stream engine and its embeddings against the JAX engine, the batched
-engine against the port's own single stream, and the modes that stay
-refused. Inputs come from seeded NumPy."""
+rounded to bf16), over flat caches, f32 page pools through a scrambled
+table, and f32 slots under the bf16 prefix pool; K1 with f32 scales,
+`llama_forward` over an f32 cache (flash and einsum, the latter as
+`perplexity --f32` runs it) and an f32 page pool, the single-stream engine
+and its embeddings and the shared-prefix batched engine over f32 slots
+against the JAX engines, the batched engine against the port's own single
+stream, and the modes that stay refused. Inputs come from seeded NumPy."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +20,7 @@ from llamavk_tpu.models import loader as jl
 from llamavk_tpu.ops import flash_attn as jfa
 from llamavk_tpu.ops import flash_decode as jfd
 from llamavk_tpu import ops as jops
+from llamavk_tpu.runtime import batching as jb
 from llamavk_tpu.formats.q4 import quantize_q4_0, quantize_q4_1
 from llamavk_tpu.formats.repack import repack_q4_0, repack_q4_1
 from llamavk_tpu.runtime import engine as je
@@ -269,20 +273,203 @@ def test_batched_f32_matches_single(models):
 
 
 def test_f32_modes_still_refused(models):
-    """f32 page pools and prefix-pool slot caches raise NotImplementedError,
-    as the JAX package's own asserts refuse both (ROADMAP.md queue 2); an
-    f32 history ring is built (its streams: tests/test_torch_ring.py)."""
+    """What stays refused over f32: the paged BatchedEngine, as the JAX
+    engine asserts bf16 or int8 pools (batching.py:180-183 there; its
+    forward and kernels take an f32 pool, and so do the port's, below), and
+    a float16 cache; an f32 history ring is built (its streams:
+    tests/test_torch_ring.py)."""
     (cfg, params), _ = models
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.init_paged_kv_cache(cfg, 4, 8, torch.float32, "cpu")
     ring = tm.init_kv_cache(cfg, 1, 32, torch.float32, "cpu", ring=True)
     assert ring.k.dtype == torch.float32 and ring.pos is not None
     eng = Engine(cfg, params, EngineConfig(n_ctx=32, kv_dtype="float32", ctx_ring=True),
                  device="cpu")
     assert eng.cache.k.dtype == torch.float32 and eng.cache.pos is not None
-    for kw in (dict(paged=True, page_size=8), dict(shared_prefix=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            BatchedEngine(cfg, params, BatchConfig(max_batch=2, n_ctx=N_CTX,
-                                                   kv_dtype="float32", **kw), device="cpu")
+    with pytest.raises(NotImplementedError, match="batching.py:180-183"):
+        BatchedEngine(cfg, params, BatchConfig(max_batch=2, n_ctx=N_CTX, kv_dtype="float32",
+                                               paged=True, page_size=8), device="cpu")
     with pytest.raises(NotImplementedError):
         Engine(cfg, params, EngineConfig(n_ctx=32, kv_dtype="float16"), device="cpu")
+
+
+# --- f32 page pools and f32 slots under the prefix pool -----------------------
+
+PS, MAXLB = 8, 4  # 8-row pages (the f32 KV block step), 4 a table row
+
+
+def _pool(rng, b: int, d: int, h: int = 2):
+    """f32 pool planes [L, NP, H, PS, D] for both frameworks and a scrambled
+    [B, MAXLB] table that maps no page twice and never page 0."""
+    n_pages = b * MAXLB + 3
+    kj, kt = _f32(rng, (L, n_pages, h, PS, d))
+    vj, vt = _f32(rng, (L, n_pages, h, PS, d))
+    table = (rng.permutation(n_pages - 1)[: b * MAXLB] + 1).reshape(b, MAXLB).astype(np.int32)
+    return (kj, vj), (kt, vt), table
+
+
+@pytest.mark.parametrize("kernel", ["read", "update", "decode"])
+def test_f32_pool_matches_jax(kernel):
+    """K3 (T = 5), K2 (T = 4) and K4 over an f32 page pool through a
+    scrambled table, bf16 queries and rows, against the JAX kernels in
+    interpret mode: the pool bytes equal the JAX pool's (the new rows stored
+    as they arrive), the outputs within F32_REL; K4 equals the plain K2 at
+    T = 1 bit for bit, pool included."""
+    b, d = 2, 64
+    t = {"read": 5, "update": 4, "decode": 1}[kernel]
+    rng = np.random.default_rng(40 + t)
+    (kj, vj), (kt, vt), table = _pool(rng, b, d)
+    npast = np.array([4, 19] if kernel != "read" else [3, 20], np.int32)
+    qj, qt = _bf16(rng, (b, t, 2, d), std=2.0)
+    knj, knt = _bf16(rng, (b, t, 2, d), std=2.0)
+    vnj, vnt = _bf16(rng, (b, t, 2, d))
+    tab_j, tab_t, np_t = jnp.asarray(table), torch.from_numpy(table), torch.from_numpy(npast)
+    if kernel == "read":
+        tfa.write_rows(knt, vnt, kt, vt, np_t, LAYER, page_table=tab_t)
+        kj, vj = jnp.asarray(kt.numpy()), jnp.asarray(vt.numpy())
+        want = jfa.flash_attention(qj, kj, vj, jnp.asarray(npast), block_k=PS,
+                                   layer_idx=jnp.int32(LAYER), page_table=tab_j)
+        got = tfa.flash_attention(qt, kt, vt, np_t, layer_idx=LAYER, block_k=PS,
+                                  page_table=tab_t)
+    elif kernel == "update":
+        want, kj, vj = jfa.flash_attention_update(qj, knj, vnj, kj, vj, jnp.asarray(npast),
+                                                  jnp.int32(LAYER), block_t=PS, block_k=PS,
+                                                  page_table=tab_j)
+        got, kt, vt = tfa.flash_attention_update(qt, knt, vnt, kt, vt, np_t, LAYER,
+                                                 block_t=PS, block_k=PS, page_table=tab_t)
+    else:
+        k0, v0 = kt.clone(), vt.clone()
+        want, kj, vj = jfd.flash_decode_update(qj, knj, vnj, kj, vj, jnp.asarray(npast),
+                                               jnp.int32(LAYER), block_k=PS, page_table=tab_j)
+        got, kt, vt = tfd.flash_decode_update(qt, knt, vnt, kt, vt, np_t, LAYER, block_k=PS,
+                                              page_table=tab_t)
+        k2 = tfa.flash_attention_update(qt, knt, vnt, k0, v0, np_t, LAYER, block_t=PS,
+                                        block_k=PS, page_table=tab_t)
+        assert torch.equal(k2[0], got) and torch.equal(k0, kt) and torch.equal(v0, vt)
+    assert kt.dtype == torch.float32
+    np.testing.assert_array_equal(kt.numpy(), np.asarray(kj))
+    np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+    err = np.abs(got.numpy() - np.asarray(want))
+    assert (err <= _limit(qt, kt, vt, np_t, page_table=tab_t)).all()
+
+
+def test_paged_forward_f32_pool_matches_jax(tiny_path, models):
+    """llama_forward over an f32 page pool through a scrambled table: an
+    8-token prefill that fills each row's first page (K2), then a decode
+    step into the second page (K4), against the JAX forward. Logits within
+    LOGIT_TOL with equal argmax, the pools within as much, every page off
+    the table still zero."""
+    (cfg, params), (jcfg, jparams) = models
+    rng = np.random.default_rng(11)
+    b = 2
+    n_pages = b * MAXLB + 3
+    jpool = jm.init_paged_kv_cache(jcfg, n_pages, PS, dtype=jnp.float32)
+    pool = tm.init_paged_kv_cache(cfg, n_pages, PS, torch.float32, device="cpu")
+    assert pool.k.dtype == torch.float32 and pool.k.shape[3] == PS
+    table = rng.permutation(n_pages)[: b * MAXLB].reshape(b, MAXLB).astype(np.int32)
+    fwd = jax.jit(jm.llama_forward, static_argnames=("cfg", "kv_block"))
+    toks, n_past = rng.integers(0, cfg.n_vocab, (b, PS)), np.zeros(b, np.int32)
+    for _ in range(2):
+        want, jpool, _ = fwd(jparams, jnp.asarray(toks, jnp.int32), jpool, jnp.asarray(n_past),
+                             jcfg, kv_block=PS, page_table=jnp.asarray(table))
+        got, _, _ = tm.llama_forward(params, torch.from_numpy(toks), pool,
+                                     torch.from_numpy(n_past), cfg, kv_block=PS,
+                                     page_table=torch.from_numpy(table))
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=LOGIT_TOL)
+        assert (got[:, -1].argmax(-1).numpy() == want[:, -1].argmax(-1)).all()
+        n_past = n_past + toks.shape[1]
+        toks = want[:, -1].argmax(-1)[:, None]  # the JAX stream's tokens
+    for g, w in ((pool.k, jpool.k), (pool.v, jpool.v)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=LOGIT_TOL)
+    off_table = sorted(set(range(n_pages)) - set(table.ravel().tolist()))
+    assert not any(p[:, off_table].any() for p in pool.planes())
+
+
+# the pool's rows round q and p to bf16 over f32 slots too (flash_attn.py:
+# 697-713 there), so an output takes the bf16 mode's limit
+PREFIX_REL = 2.0**-6
+
+
+@pytest.mark.parametrize("update", [False, True], ids=["read", "update"])
+def test_prefix_f32_slots_match_jax(update):
+    """K3 (T = 5) and K2 (T = 4) over f32 slots under a bf16 prefix pool of
+    ragged entries (prefix_len 0 = none), against the JAX kernels in
+    interpret mode: the slot rows (K2) equal the JAX cache, the pool
+    untouched, the outputs within PREFIX_REL of attention(q, k, |v|); at
+    prefix_len 0 on every row the port equals its flat f32 call bit for
+    bit."""
+    b, h, d, sp = 3, 2, 32, 64
+    t = 4 if update else 5
+    rng = np.random.default_rng(60 + update)
+    npast = np.array([3, 9, 5], np.int32)
+    qj, qt = _bf16(rng, (b, t, h, d), std=2.0)
+    knj, knt = _bf16(rng, (b, t, h, d), std=2.0)
+    vnj, vnt = _bf16(rng, (b, t, h, d))
+    kj, kt = _f32(rng, (L, b, h, S, d))
+    vj, vt = _f32(rng, (L, b, h, S, d))
+    pkj, pkt = _bf16(rng, (L, 3, h, sp, d))
+    pvj, pvt = _bf16(rng, (L, 3, h, sp, d))
+    pid, plen = np.array([2, 0, 1], np.int32), np.array([33, 0, 64], np.int32)
+    jkw = dict(prefix_k=pkj, prefix_v=pvj, prefix_id=jnp.asarray(pid),
+               prefix_len=jnp.asarray(plen))
+    tkw = dict(prefix_k=pkt, prefix_v=pvt, prefix_id=torch.from_numpy(pid),
+               prefix_len=torch.from_numpy(plen))
+    np_t = torch.from_numpy(npast)
+    flat = (kt.clone(), vt.clone())
+    pool = (pkt.clone(), pvt.clone())
+    if update:
+        want, kj, vj = jfa.flash_attention_update(qj, knj, vnj, kj, vj, jnp.asarray(npast),
+                                                  jnp.int32(LAYER), block_t=4, block_k=32,
+                                                  **jkw)
+        got, kt, vt = tfa.flash_attention_update(qt, knt, vnt, kt, vt, np_t, LAYER, block_t=4,
+                                                 block_k=32, **tkw)
+        np.testing.assert_array_equal(kt.numpy(), np.asarray(kj))
+        np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+        zero = tfa.flash_attention_update(qt, knt, vnt, *flat, np_t, LAYER, block_t=4,
+                                          block_k=32, **{**tkw, "prefix_len": np_t * 0})[0]
+        plain = tfa.flash_attention_update(qt, knt, vnt, kt.clone(), vt.clone(), np_t, LAYER,
+                                           block_t=4, block_k=32)[0]
+    else:
+        tfa.write_rows(knt, vnt, kt, vt, np_t, LAYER)
+        kj, vj = jnp.asarray(kt.numpy()), jnp.asarray(vt.numpy())
+        want = jfa.flash_attention(qj, kj, vj, jnp.asarray(npast), block_k=32,
+                                   layer_idx=jnp.int32(LAYER), **jkw)
+        got = tfa.flash_attention(qt, kt, vt, np_t, layer_idx=LAYER, block_k=32, **tkw)
+        zero = tfa.flash_attention(qt, kt, vt, np_t, layer_idx=LAYER, block_k=32,
+                                   **{**tkw, "prefix_len": np_t * 0})
+        plain = tfa.flash_attention(qt, kt, vt, np_t, layer_idx=LAYER, block_k=32)
+    assert torch.equal(zero, plain)
+    assert torch.equal(pkt, pool[0]) and torch.equal(pvt, pool[1])
+    lim = PREFIX_REL * tfa.flash_attention_ref(qt, kt, vt.abs(), np_t, layer_idx=LAYER,
+                                               **{**tkw, "prefix_v": pvt.abs()}).numpy()
+    assert (np.abs(got.numpy() - np.asarray(want)) <= lim).all()
+
+
+# the shared-prefix engines' prefix and requests over f32 slots (model seed
+# 219): the port's and the JAX engine's streams agree token for token
+F32_PREFIX = [1, 28, 171, 252, 203, 125, 195]
+F32_SUFFIXES = [([227, 5], 4), ([61, 40, 167], 3)]
+
+
+def test_shared_prefix_f32_engine_matches_jax(models):
+    """BatchedEngine(shared_prefix=True, kv_dtype="float32") at kv_block 32:
+    the greedy streams of two requests continuing one registered prefix
+    equal the JAX engine's (interpret mode); the pool is bf16 (its rows
+    rounded, unlike a flat f32 cache's), the slots f32 and hold only the
+    suffix."""
+    (cfg, params), (jcfg, jparams) = models
+    kw = dict(max_batch=2, n_ctx=N_CTX, block=4, shared_prefix=True, prefix_ctx=256,
+              kv_dtype="float32", kv_block=32)
+    streams = []
+    for be, greedy in ((BatchedEngine(cfg, params, BatchConfig(**kw), device="cpu"),
+                        ts.SamplerParams(temp=0.0)),
+                       (jb.BatchedEngine(jcfg, jparams, jb.BatchConfig(**kw)),
+                        js.SamplerParams(temp=0.0))):
+        pid = be.register_prefix(F32_PREFIX)
+        reqs = [be.submit(sfx, n, greedy, ignore_eos=True, prefix=pid)
+                for sfx, n in F32_SUFFIXES]
+        be.run()
+        streams.append([r.generated for r in reqs])
+    port = BatchedEngine(cfg, params, BatchConfig(**kw), device="cpu")
+    assert port.cache.k.dtype == torch.float32 and port.pfx_k.dtype == torch.bfloat16
+    assert streams[0] == streams[1]
+    assert [len(x) for x in streams[0]] == [n for _, n in F32_SUFFIXES]
