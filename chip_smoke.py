@@ -145,7 +145,9 @@ scrambled tables of 128-row pages; K2 also in page_straddle mode) against
 their plain versions, with written pages byte-equal and the others
 unchanged, and bit for bit against the flat kernels on the gathered view at
 block_k = 128 (K4 also against the paged K2 at T = 1), and K5 (the int8
-dot) at M = 1, 4 and 32; K1's GEMV over an f32 scale plane and the f32
+dot, on the int8 tensor cores) at M = 1, 4, 8, 16 and 32, beside the time
+of the dp4a kernel it replaced on the same row (`parent_ms`, from
+tools/bench_i8_runs.jsonl); K1's GEMV over an f32 scale plane and the f32
 cache of K2, K3 and K4 (limit 2^-12 of attention(q, k, |v|), K4 bit-equal
 to K2); and the history ring and shared-prefix modes of K2 and K3 (bf16 and
 int8, and f32 slots under the bf16 pool, caches byte-equal, the position
@@ -373,7 +375,31 @@ def phase_build() -> dict:
              if "registers" in ln or "spill" in ln or "Function properties" in ln]
     lib = native.get_lib()
     return {"seconds": round(secs, 2), "sources": sorted(logs), "ptxas": usage,
+            "k5_sass_imma": _k5_sass_imma(),
             "host_repack": f"native ({lib._name})" if lib is not None else "numpy fallback"}
+
+
+def _k5_sass_imma() -> dict:
+    """The IMMA (int8 tensor-core) instructions in the SASS of each K5 group
+    dot kernel (`cuobjdump -sass` of the built library), keyed by the
+    kernel's mangled name; fails if a variant has none."""
+    from llamavk_tpu_torch.ops import _build
+
+    _build.load("q4_matmul_i8")
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build._lib_path("q4_matmul_i8"))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :")[1].strip()
+            if "i8_mma_kernel" in name:
+                counts[name] = 0
+        elif name in counts and re.search(r"\bIMMA\b", ln):
+            counts[name] += 1
+    if len(counts) != 8 or not all(counts.values()):
+        raise SystemExit(f"build: K5's kernels must run on IMMA, SASS shows {counts}")
+    return counts
 
 
 def _q4_case(gen, m: int, k: int, n: int, f32_scales: bool = False, layout: str = "ilv",
@@ -499,8 +525,11 @@ def kernel_q4_i8(timer: Timer, gen, name: str, m: int, main_path: bool,
     plain quantization on the card, the output within the sum-order bound
     G 2^-24 sum_g |d sx s| per element (d is exact on both sides; each
     chunk's groups with their own nibbles), each row bit-equal to the same
-    row computed alone (M = 1); where the route sends the shape to K1 (w2
-    past 16 rows), the check is that q4_matmul launched K1 and not K5."""
+    row computed alone (M = 1) at the edges of the kernel's 8-row token
+    tiles (rows 0, 7, 8 and M - 1); where the route sends the shape to K1
+    (w2 past 16 rows), the check is that q4_matmul launched K1 and not K5.
+    `parent_ms` is the replaced dp4a kernel's time of the row
+    (tools/bench_i8_runs.jsonl), None where that file has none."""
     from llamavk_tpu_torch.ops import q4_matmul as q4
     from llamavk_tpu_torch.ops.qweight import dequantize_qweight
 
@@ -526,7 +555,7 @@ def kernel_q4_i8(timer: Timer, gen, name: str, m: int, main_path: bool,
     quant_equal = torch.equal(xq, pxq) and torch.equal(sx, psx)
     rows_equal = all(torch.equal(q4.q4_matmul_i8_cuda(x[r : r + 1].contiguous(), qw.packed,
                                                       qw.scales, chunks)[0], got[r])
-                     for r in sorted({0, m - 1}))
+                     for r in sorted({r for r in (0, 7, 8, m - 1) if r < m}))
     gc = qw.g // chunks
     terms = sum(
         (torch.einsum("mgb,mgn->gbn", pxq[:, c * gc : (c + 1) * gc].double(),
@@ -549,14 +578,34 @@ def kernel_q4_i8(timer: Timer, gen, name: str, m: int, main_path: bool,
     b_ms, b_by = bound(n_bytes, 2.0 * m * k * n, INT8_OP_PER_S)
     return {
         "kernel": "q4_" + q4.i8_key(f32_scales, chunks > 1), "shape": shape,
-        "main_path": main_path, "route": "K5",
-        "ksplit": q4.ksplit_i8(k, n), "max_abs_err": err,
+        "main_path": main_path, "route": "K5", "token_tiles": q4.i8_token_tiles(m),
+        "ksplit": q4.i8_splits(k, n), "max_abs_err": err,
         "limit": "G * 2^-24 * sum_g |d * sx * s| per element", "err_over_limit": ratio,
         "xq_sx_bit_equal": quant_equal, "rows_bit_equal_to_m1": rows_equal,
         "ok": ratio <= 1.0 and quant_equal and rows_equal,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": library_ms,
+        "library_ms": library_ms, "library_factor": ms / library_ms,
+        "parent_ms": None if chunks > 1 else _i8_parent().get(
+            ("f32 scales" if f32_scales else "bf16 scales", name, m)),
     }
+
+
+# the replaced dp4a K5's time of each row: tools/bench_i8.py run on the
+# parent commit 2fd3b78 and on this kernel, alternated in one call (NVIDIA
+# H100 80GB HBM3, 700.00 W), keyed (mode, shape, M)
+I8_RUNS = ROOT / "llamavk_tpu_torch" / "tools" / "bench_i8_runs.jsonl"
+
+
+@functools.cache
+def _i8_parent() -> dict:
+    """The median over the file's parent runs of each (mode, shape, M)."""
+    runs: dict = {}
+    if I8_RUNS.exists():
+        for line in I8_RUNS.read_text().splitlines():
+            r = json.loads(line)
+            if r["tree"] == "parent":
+                runs.setdefault((r["mode"], r["shape"], r["m"]), []).append(r["ms"])
+    return {key: statistics.median(v) for key, v in runs.items()}
 
 
 def _sdpa_call(q, k, v, n_past, layer: int, k_scale=None, v_scale=None):
@@ -1532,9 +1581,10 @@ def phase_kernels(reps: int) -> list[dict]:
         emit({"phase": "kernel", **rows[-1]})
         rows.append(kernel_decode_paged(timer, gen, gen_cpu, 32, quant))
         emit({"phase": "kernel", **rows[-1]})
-    # K5 (LLAMAVK_Q4_DOT=i8) at decode (M = 1), the lookup verify (M = 4)
-    # and the batched decode step (M = 32, where w2 takes K1)
-    for m in (1, 4, 32):
+    # K5 (LLAMAVK_Q4_DOT=i8) at decode (M = 1), the lookup verify (M = 4),
+    # one and two token tiles (M = 8, 16) and the batched decode step
+    # (M = 32, where w2 takes K1)
+    for m in (1, 4, 8, 16, 32):
         for name in K1_SHAPES:
             rows.append(kernel_q4_i8(timer, gen, name, m, m < 32))
             emit({"phase": "kernel", **rows[-1]})
@@ -1863,11 +1913,11 @@ def _require(phase: str, counts: dict, kernels) -> None:
 LOGIT_REL_LIMIT = 2.0**-8
 
 
-def _device_busy(fn) -> tuple[float, float | None, int, dict]:
+def _device_busy(fn, keep: int | None = 8) -> tuple[float, float | None, int, dict]:
     """Host wall time (ms) of fn, the device time inside it from
     torch.profiler (None when the profiler sees no device activity), the
     number of device activities (kernels and copies), and the device ms of
-    the 8 activities that took most, by name."""
+    the `keep` activities that took most (None: all), by name."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1885,8 +1935,20 @@ def _device_busy(fn) -> tuple[float, float | None, int, dict]:
     dev = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
                  key=dev_ms, reverse=True)
     busy = sum(map(dev_ms, dev))
-    top = {e.key[:80]: dev_ms(e) for e in dev[:8]}
+    top: dict = {}
+    for e in dev[:keep]:
+        top[e.key[:80]] = top.get(e.key[:80], 0.0) + dev_ms(e)
     return wall, (busy if busy > 0 else None), sum(e.count for e in dev), top
+
+
+def _k5_device_ms(fn) -> dict:
+    """The device ms of one call of fn in K5's launches by kernel (the
+    quantization, the group dot; the split sums, which K1's launches
+    share), and in all kernels."""
+    _, busy, _, by_name = _device_busy(fn, keep=None)
+    out = {name: sum(ms for key, ms in by_name.items() if name in key)
+           for name in ("quantize_kernel", "i8_mma_kernel", "split_sum_kernel")}
+    return {**out, "all": busy or 0.0}
 
 
 def phase_generate_7b(seed: int) -> tuple[dict, dict]:
@@ -2430,8 +2492,10 @@ def _decode_step_check(params, cfg, seed: int, kvs=("int8", "bfloat16"),
     kernel's route) through the kernels and through the plain versions,
     over a seeded cache of each type in `kvs` (int8, bfloat16, float32):
     logits within 2^-8 of the largest, and equal argmax wherever the top-2
-    gap is wider."""
+    gap is wider. Under LLAMAVK_Q4_DOT=i8 also K5's device ms in one
+    kernel step over the int8 cache."""
     from llamavk_tpu_torch.models.llama import KVCache, llama_forward
+    from llamavk_tpu_torch.ops import q4_matmul as q4
 
     b, out = 32, {}
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
@@ -2454,6 +2518,11 @@ def _decode_step_check(params, cfg, seed: int, kvs=("int8", "bfloat16"),
             cache = KVCache(*(p.clone() for p in planes))
             logits[ref] = llama_forward(params, toks, cache, npast, cfg, use_ref=ref)[0][:, -1]
             del cache
+        device_ms = None
+        if q4.resolve_dot_mode() == "i8" and quant:  # K5's device time in the step
+            cache = KVCache(*(p.clone() for p in planes))
+            device_ms = _k5_device_ms(lambda: llama_forward(params, toks, cache, npast, cfg))
+            del cache
         del planes
         a, w = logits[False], logits[True]
         scale = float(w.abs().max())
@@ -2466,6 +2535,8 @@ def _decode_step_check(params, cfg, seed: int, kvs=("int8", "bfloat16"),
                              f"argmax on clear gaps equal: {argmax_ok}")
         out[kv] = {"rel": rel, "limit_rel": LOGIT_REL_LIMIT, "argmax_equal_on_clear_gaps": True,
                    "rows_with_clear_gap": int(clear.sum())}
+        if device_ms is not None:
+            out[kv]["device_ms_by_name"] = device_ms
     return out
 
 
@@ -3467,17 +3538,21 @@ def _perplexity_f32(cfg, seed: int, n_ctx: int, what: str) -> tuple[dict, dict]:
     """One seeded n_ctx-token chunk of perplexity --f32 (f32 scale planes,
     f32 activations and KV, einsum attention) through make_chunk_nll against
     the plain versions, in this process's dot and multiply modes; with the
-    chunk's launches."""
+    chunk's launches (under LLAMAVK_Q4_DOT=i8 also K5's device ms in one
+    chunk)."""
     from llamavk_tpu_torch.cli.perplexity import make_chunk_nll
     from llamavk_tpu_torch.models.loader import synthetic_params
+    from llamavk_tpu_torch.ops import q4_matmul as q4
 
     p32 = synthetic_params(cfg, seed=seed, device="cuda", scale_dtype=torch.float32)
     toks = torch.randint(3, cfg.n_vocab, (1, n_ctx),
                          generator=torch.Generator().manual_seed(seed + 9)).cuda()
     _reset_counts()
-    res = _nll_check(make_chunk_nll(cfg, n_ctx, dtype=torch.float32, attn_impl="einsum"),
-                     _plain_nll(cfg, n_ctx, torch.float32, "einsum"), p32, toks, what)
+    chunk_nll = make_chunk_nll(cfg, n_ctx, dtype=torch.float32, attn_impl="einsum")
+    res = _nll_check(chunk_nll, _plain_nll(cfg, n_ctx, torch.float32, "einsum"), p32, toks, what)
     counts = _counts()
+    if q4.resolve_dot_mode() == "i8":  # K5's device time in one chunk
+        res["device_ms_by_name"] = _k5_device_ms(lambda: chunk_nll(p32, toks))
     del p32
     torch.cuda.empty_cache()
     res["launches"] = {key: n for key, n in counts.items() if n}
@@ -4108,6 +4183,8 @@ def summary(rows: list[dict], counts: dict) -> dict:
             "bound_by": worst["bound_by"], "library_ms": worst["library_ms"],
             "shape": worst["shape"],
         })
+        if worst["library_ms"]:
+            out[-1]["library_factor"] = worst["ms"] / worst["library_ms"]
     return {"kernels": out}
 
 

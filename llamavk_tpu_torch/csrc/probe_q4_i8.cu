@@ -1,5 +1,5 @@
-// Probes of the int8 tensor cores for Hopper (sm_90a): the precursor of an
-// int8 K5 (csrc/q4_matmul_i8.cu runs on dp4a today).
+// Probes of the int8 tensor cores for Hopper (sm_90a): the precursor of K5's
+// tensor-core group dot (csrc/q4_matmul_i8.cu).
 //
 // Replaces the TPU probe kernels `tools/bench_int8_mxu.py::kernel_i8_batched`
 // :66 (P2, int8 and bf16 dots) and `tools/bench_unpack2.py::kernel_i8dot2d`

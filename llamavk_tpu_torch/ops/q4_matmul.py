@@ -26,8 +26,9 @@ there reads it):
   JAX package's tile fit): activations quantized per 32-block to int8
   (`quantize_act_blocks`), an exact int32 dot per group against the int4
   weights, both scales folded in after. A CUDA tensor launches the kernel of
-  `csrc/q4_matmul_i8.cu` (it replaces `_kernel_q4_i8`, q4_matmul.py:226
-  there); a CPU tensor takes `q4_matmul_i8_ref`. Elsewhere `i8` takes K1.
+  `csrc/q4_matmul_i8.cu` (`mma.sync` m16n8k32 on the int8 tensor cores, one
+  Q4_0 group an MMA; it replaces `_kernel_q4_i8`, q4_matmul.py:226 there); a
+  CPU tensor takes `q4_matmul_i8_ref`. Elsewhere `i8` takes K1.
   K5 reads the scale plane in its own type, bf16 or f32.
 
 A weight packed in `chunks` > 1 contiguous K slices (the tensor-parallel
@@ -413,21 +414,49 @@ def _lib_i8():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.q4_i8_quantize_launch.argtypes = [p, p, p, i, i, p]
     lib.q4_i8_quantize_launch.restype = ctypes.c_int
-    lib.q4_i8_matmul_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.q4_i8_matmul_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.q4_i8_matmul_launch.restype = ctypes.c_int
     return lib
 
 
-# K5 splits K into enough blocks for two per SM of a 132-SM card, at least 16
-# groups each. The split is a function of (K, N) alone, so an output row's
-# float order never depends on M (nor on the card).
+# K5's token tile variants (csrc/q4_matmul_i8.cu: the kernel's NT template
+# argument, 8 token rows a tile)
+I8_TILES = (1, 2, 4, 8)
+# K5 splits K so that 256-column blocks number about two per SM of a 132-SM
+# card (the nearest whole split), at least 16 groups each. The split is a
+# function of (K, N) alone, so an output row's float order never depends on
+# M (nor on the card).
 _I8_BLOCKS = 264
+_I8_SPLIT_BN = 256
 
 
 def ksplit_i8(k: int, n: int) -> int:
     g = k // QK
-    want = -(-_I8_BLOCKS // -(-n // 128))
-    return max(1, min(want, g // 16))
+    nblk = -(-n // _I8_SPLIT_BN)
+    return max(1, min((2 * _I8_BLOCKS + nblk) // (2 * nblk), g // 16))
+
+
+def i8_splits(k: int, n: int) -> int:
+    """The K ranges K5's launch makes of `ksplit_i8` (whole groups each)."""
+    g = k // QK
+    gps = -(-g // ksplit_i8(k, n))
+    return -(-g // gps)
+
+
+def i8_token_tiles(m: int) -> int:
+    """K5's kernel variant for M rows: the fewest n8 token tiles (1, 2, 4 or
+    8) that hold them. Every variant folds an output's groups in the same
+    order, so the choice moves no bit of a row."""
+    if not 1 <= m <= I8_MAX_B:
+        raise ValueError(f"K5 takes 1 to {I8_MAX_B} rows, not {m}")
+    return next(t for t in I8_TILES if m <= 8 * t)
+
+
+def i8_scratch_shape(m: int, k: int, n: int) -> tuple[int, int, int] | None:
+    """The split partials' scratch of a K5 launch, [splits, M, N], or None for
+    one split (the kernel writes the output)."""
+    splits = i8_splits(k, n)
+    return None if splits == 1 else (splits, m, n)
 
 
 def _quantize_cuda(xf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -462,8 +491,8 @@ def q4_matmul_i8_cuda(xf: torch.Tensor, packed: torch.Tensor, scales: torch.Tens
     packed in `chunks` K slices: one pair of launches each), scales bf16 or
     f32 [G, N] → f32 [M, N]. Two launches per chunk: the activation
     quantization (per 32-block, so a chunk's slice quantizes as the whole x
-    does), then the group dot (plus an in-order sum of the K split's
-    partials)."""
+    does), then the group dot on the int8 tensor cores in the variant of
+    `i8_token_tiles(M)` (plus an in-order sum of the K split's partials)."""
     if chunks > 1:
         qw = QWeight(packed=packed, scales=scales, chunks=chunks)
         return _chunk_sum(xf, qw, lambda xc, wc: _i8_launch(xc.contiguous(), wc.packed,
@@ -491,12 +520,12 @@ def _i8_launch(xf, packed, scales, chunked_k: int = 0) -> torch.Tensor:
             raise ValueError("q4_matmul_i8_cuda: weights must be contiguous and 16-byte aligned")
     xq, sx = _quantize_cuda(xf)
     out = torch.empty((m, n), dtype=torch.float32, device=xf.device)
-    ksplit = ksplit_i8(k, n)
-    partial = (torch.empty((ksplit, m, n), dtype=torch.float32, device=xf.device)
-               if ksplit > 1 else out)
+    scratch = i8_scratch_shape(m, k, n)
+    partial = out if scratch is None else torch.empty(scratch, dtype=torch.float32,
+                                                      device=xf.device)
     rc = _lib_i8().q4_i8_matmul_launch(
         xq.data_ptr(), sx.data_ptr(), packed.data_ptr(), scales.data_ptr(), out.data_ptr(),
-        partial.data_ptr(), m, k, n, ksplit, int(f32s),
+        partial.data_ptr(), m, k, n, ksplit_i8(k, n), i8_token_tiles(m), int(f32s),
         torch.cuda.current_stream(xf.device).cuda_stream,
     )
     _build.check(rc, "q4_i8_matmul_launch")

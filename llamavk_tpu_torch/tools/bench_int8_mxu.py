@@ -1,5 +1,4 @@
-"""P2 on Hopper: does a per-block int8 tensor-core dot beat K1, and K5's
-dp4a?
+"""P2 on Hopper: does a per-block int8 tensor-core dot beat K1, and K5?
 
 The port of `tools/bench_int8_mxu.py` (its kernels `kernel_current` :46 and
 `kernel_i8_batched` :66). With activations quantized per 32-block,
@@ -21,7 +20,8 @@ each on stderr:
   i8       the group dot on the int8 tensor cores, gm-order bytes
   bf16     the same structure on the bf16 tensor cores (m16n8k16)
 
-and K5 (`q4_matmul_i8_cuda`, dp4a) on the ilv bytes beside them. xq and sx
+and K5 (`q4_matmul_i8_cuda`, which since this probe runs the group dot on
+the int8 tensor cores too) on the ilv bytes beside them. xq and sx
 are K5's quantization of the same x (`ops.q4_matmul.quantize_act_blocks`).
 `--device cpu` runs the plain versions at K = N = 256.
 """
@@ -178,7 +178,7 @@ def run(device, reps: int = 20) -> list[dict]:
         head = f"B={B} K={k:5d} N={n:5d}"
         if cuda:
             head += f"  current {line[0]['production_ms'] * 1e3:7.1f}us"
-            tail = f"  (K5 dp4a {line[0]['k5_ms'] * 1e3:.1f}us)"
+            tail = f"  (K5 {line[0]['k5_ms'] * 1e3:.1f}us)"
         else:
             tail = ""
         _common.log(_common.shape_line(head, line) + tail)
