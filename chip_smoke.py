@@ -18,10 +18,16 @@ Phases, each printing one JSON line (any failure exits non-zero):
               update kernel's at T = 1, row by row; then correctness alone
               at row counts, group counts, ragged widths and head sizes off
               those shapes. K2 and K3 take the route `attn_route` picks
-              (the tensor cores for bf16 and int8 caches at T >= 16, named
-              with `_tc`; the CUDA cores below and for f32 caches); a
-              tensor-core row also times the same call on the CUDA-core
-              route (`cuda_core_ms`)
+              (split-KV decode at T = 1 over every cache type, named with
+              `_split`, K4's kernel too; the tensor cores for bf16 and int8
+              caches at T >= 16, named with `_tc`; the CUDA cores for T 2-15
+              and f32 caches past T = 1); a split-route row (K4's too)
+              carries its split count (`splits`, `split_rows`) and the
+              CUDA kernels one call launches (the attention libraries'
+              counters; must be 1: K2's row write is in the same launch),
+              and a
+              split-route or tensor-core row also times the same call on
+              the CUDA-core route (`cuda_core_ms`)
   probes      the Hopper probes of `llamavk_tpu_torch/tools/` (the TPU
               probes P1-P5 of `tools/`) through their entry points, at the
               TPU probes' shapes on seeded random bytes: every probe kernel
@@ -193,7 +199,9 @@ from pathlib import Path
 import torch
 
 # the timer, the bound and the card's peaks are the probes' (tools/_common.py);
-# K1's GEMM grid (modes, M, the 7B shapes) is tools/bench_gemm.py's
+# K1's GEMM grid (modes, M, the 7B shapes) is tools/bench_gemm.py's; the
+# attention routes' launch keys are ops/flash_attn.py's
+from llamavk_tpu_torch.ops import flash_attn as _fa
 from llamavk_tpu_torch.tools import bench_gemm
 from llamavk_tpu_torch.tools._common import BF16_OP_PER_S, INT8_OP_PER_S, Timer, bound
 
@@ -217,6 +225,8 @@ N_CTX = 512
 H, D = 32, 128
 PAGE = 128  # the serving page size (BatchConfig.page_size)
 
+# the split-KV decode kernel of K2/K3 at T = 1 and of K4
+SPLIT_SOURCE = "llamavk_tpu_torch/csrc/attn_split.cuh"
 # K1's sources: the GEMV in q4_matmul.cu, the GEMM (M >= 2) in q4_gemm.cuh
 K1_SOURCES = {"gemv": "llamavk_tpu_torch/csrc/q4_matmul.cu",
               "gemm": "llamavk_tpu_torch/csrc/q4_gemm.cuh"}
@@ -228,8 +238,8 @@ KERNEL_META = {
     "attn_update_i8": ("llamavk_tpu_torch/csrc/flash_attn.cu",
                        "llamavk_tpu/ops/flash_attn.py:120"),
     "attn_read_i8": ("llamavk_tpu_torch/csrc/flash_attn.cu", "llamavk_tpu/ops/flash_attn.py:474"),
-    "decode": ("llamavk_tpu_torch/csrc/flash_decode.cu", "llamavk_tpu/ops/flash_decode.py:67"),
-    "decode_i8": ("llamavk_tpu_torch/csrc/flash_decode.cu", "llamavk_tpu/ops/flash_decode.py:67"),
+    "decode": (SPLIT_SOURCE, "llamavk_tpu/ops/flash_decode.py:67"),
+    "decode_i8": (SPLIT_SOURCE, "llamavk_tpu/ops/flash_decode.py:67"),
     # page-table modes (the TPU kernels' `page_table` operand)
     "attn_update_paged": ("llamavk_tpu_torch/csrc/flash_attn.cu",
                           "llamavk_tpu/ops/flash_attn.py:120"),
@@ -239,10 +249,8 @@ KERNEL_META = {
                         "llamavk_tpu/ops/flash_attn.py:474"),
     "attn_read_paged_i8": ("llamavk_tpu_torch/csrc/flash_attn.cu",
                            "llamavk_tpu/ops/flash_attn.py:474"),
-    "decode_paged": ("llamavk_tpu_torch/csrc/flash_decode.cu",
-                     "llamavk_tpu/ops/flash_decode.py:67"),
-    "decode_paged_i8": ("llamavk_tpu_torch/csrc/flash_decode.cu",
-                        "llamavk_tpu/ops/flash_decode.py:67"),
+    "decode_paged": (SPLIT_SOURCE, "llamavk_tpu/ops/flash_decode.py:67"),
+    "decode_paged_i8": (SPLIT_SOURCE, "llamavk_tpu/ops/flash_decode.py:67"),
     # K5, the int8 dot (LLAMAVK_Q4_DOT=i8), and K2's page_straddle mode
     "q4_i8": ("llamavk_tpu_torch/csrc/q4_matmul_i8.cu", "llamavk_tpu/ops/q4_matmul.py:226"),
     "attn_update_paged_straddle": ("llamavk_tpu_torch/csrc/flash_attn.cu",
@@ -255,7 +263,7 @@ KERNEL_META = {
     "attn_update_f32": ("llamavk_tpu_torch/csrc/flash_attn.cu",
                         "llamavk_tpu/ops/flash_attn.py:120"),
     "attn_read_f32": ("llamavk_tpu_torch/csrc/flash_attn.cu", "llamavk_tpu/ops/flash_attn.py:474"),
-    "decode_f32": ("llamavk_tpu_torch/csrc/flash_decode.cu", "llamavk_tpu/ops/flash_decode.py:67"),
+    "decode_f32": (SPLIT_SOURCE, "llamavk_tpu/ops/flash_decode.py:67"),
     # the history-ring (`kv_pos`/`write_row`) and shared-prefix pool
     # (`prefix_k/v/id/len`) modes of K2 and K3
     **{f"attn_{path}_{mode}{kind}": ("llamavk_tpu_torch/csrc/flash_attn.cu",
@@ -289,17 +297,16 @@ KERNEL_META = {
            ("attn_update_boff", "llamavk_tpu_torch/csrc/flash_attn.cu", "flash_attn.py:120"),
            ("attn_read_boff", "llamavk_tpu_torch/csrc/flash_attn.cu", "flash_attn.py:474"),
            ("attn_update_nocommit", "llamavk_tpu_torch/csrc/flash_attn.cu", "flash_attn.py:120"),
-           ("decode_boff", "llamavk_tpu_torch/csrc/flash_decode.cu", "flash_decode.py:67"))
+           ("decode_boff", SPLIT_SOURCE, "flash_decode.py:67"))
        for kind in ("", "_i8", "_f32")},
-    # the f32 history ring, page pool and prefix-pool slots of K2 and K3, and
-    # K4's f32 page pool (the CUDA-core route)
+    # the f32 history ring, page pool and prefix-pool slots of K2 and K3
+    # (the CUDA-core route), and K4's f32 page pool
     **{f"attn_{path}_{mode}_f32": ("llamavk_tpu_torch/csrc/flash_attn.cu",
                                    f"llamavk_tpu/ops/flash_attn.py:{line}")
        for path, line, modes in (("update", 120, ("ring", "paged", "paged_straddle", "prefix")),
                                  ("read", 474, ("ring", "paged", "prefix")))
        for mode in modes},
-    "decode_paged_f32": ("llamavk_tpu_torch/csrc/flash_decode.cu",
-                         "llamavk_tpu/ops/flash_decode.py:67"),
+    "decode_paged_f32": (SPLIT_SOURCE, "llamavk_tpu/ops/flash_decode.py:67"),
     # the tensor-core route of K2 and K3 (bf16 and int8 caches at T >= 16,
     # ops/flash_attn.py::attn_route), in every mode, named as
     # flash_attn.launch_name names it (`_tc` before the cache type)
@@ -310,6 +317,12 @@ KERNEL_META = {
                             "_nocommit")),
            ("read", 474, ("", "_paged", "_ring", "_prefix", "_boff")))
        for mode in modes for kind in ("", "_i8")},
+    # the split route of K2 and K3 (T = 1, every cache type, ops/flash_attn.py::
+    # attn_route), in every mode, named as flash_attn.launch_name names it
+    # (`_split` before the cache type)
+    **{f"attn_{key}": (SPLIT_SOURCE, "llamavk_tpu/ops/flash_attn.py:"
+                       + ("120" if key.startswith("update") else "474"))
+       for key in _fa.launches if "_split" in key},
 }
 
 # the tiny model's prompt for the CLI phase: its greedy stream keeps every
@@ -631,9 +644,10 @@ def _sdpa_call(q, k, v, n_past, layer: int, k_scale=None, v_scale=None):
 
 @contextlib.contextmanager
 def _cuda_core_route():
-    """K2 and K3 on the CUDA-core route at every T (the route every prefill
-    took before the tensor-core route), to time it beside the tensor-core
-    route in the same call: the wrappers read `attn_route` at each call."""
+    """K2, K3 and K4 on the CUDA-core route at every T (the route every
+    prefill took before the tensor-core route, and every decode step before
+    the split route), to time it beside the other routes in the same call:
+    the wrappers read `attn_route` at each call."""
     from llamavk_tpu_torch.ops import flash_attn as fa
 
     route = fa.attn_route
@@ -646,14 +660,44 @@ def _cuda_core_route():
 
 def _route_times(timer, run, row: dict, t: int, kind: str) -> None:
     """The attention route a call at T over a `kind` cache takes
-    (`attn_route`), and on the tensor-core route the same call's time on
-    the CUDA-core route (`cuda_core_ms`)."""
+    (`attn_route`), and on the tensor-core and split routes the same call's
+    time on the CUDA-core route (`cuda_core_ms`)."""
     from llamavk_tpu_torch.ops import flash_attn as fa
 
     row["attn_route"] = fa.attn_route(t, kind)
-    if row["attn_route"] == "tensor_core":
+    if row["attn_route"] in ("tensor_core", "split"):
         with _cuda_core_route():
             row["cuda_core_ms"] = timer(run)
+    if row["attn_route"] == "split":  # the row write and the attention: one launch
+        row["attention_launches_per_call"] = n = _attention_launches(run)
+        row["ok"] = row["ok"] and n == 1
+
+
+def _attention_launches(run) -> int:
+    """The CUDA kernels one call of `run` launches from the attention
+    libraries (`cuda_launches` of ops/flash_attn.py and flash_decode.py)."""
+    from llamavk_tpu_torch.ops import flash_attn as fa
+    from llamavk_tpu_torch.ops import flash_decode as fd
+
+    before = fa.cuda_launches() + fd.cuda_launches()
+    run()
+    return fa.cuda_launches() + fd.cuda_launches() - before
+
+
+def _splits(row: dict, t: int, n_past, b: int, cap: int, bk: int, plens=None,
+            pool_bk: int = 0, ring_rows: int | None = None) -> None:
+    """On the split route (T = 1), the row's `split_rows` and `splits`: the
+    split blocks that attend, per head, summed over the batch rows (the
+    pool's splits of `plens` included; an unbounded ring's `ring_rows`)."""
+    from llamavk_tpu_torch.ops import flash_attn as fa
+
+    if t != 1:
+        return
+    pasts = n_past if isinstance(n_past, list) else [n_past] * b
+    n = sum(len(fa.split_schedule(ring_rows or min(p + 1, cap), bk)) for p in pasts)
+    if plens is not None:
+        n += sum(len(fa.split_schedule(pl, pool_bk)) for pl in plens)
+    row["split_rows"], row["splits"] = fa.split_rows(bk), n
 
 
 def _attn_sizes(b: int, t: int, n_past, update: bool, quant: bool,
@@ -790,6 +834,7 @@ def kernel_attn(timer: Timer, gen, t: int, n_past, update: bool, main_path: bool
         "ms": timer(run), "plain_ms": timer(plain, reps=5),
     }
     _route_times(timer, run, row, t, kind)
+    _splits(row, t, n_past, b, s, bk)
     row["library_ms"] = timer(_sdpa_call(q, k, v, npast, layer, *planes[2:]))
     row["bound_ms"], row["bound_by"] = bound(*_attn_sizes(b, t, n_past, update, quant, f32, h),
                                              F32_FLOP_PER_S if f32 else BF16_OP_PER_S)
@@ -868,8 +913,8 @@ def kernel_attn_pp(timer: Timer, gen, path: str, b: int, t: int, n_past, b_cache
         "ms": timer(lambda: call(planes, boff)),
         "plain_ms": timer(lambda: call(plain, boff, ref=True), reps=5),
     }
-    if path != "decode":
-        _route_times(timer, lambda: call(planes, boff), row, t, kind)
+    _route_times(timer, lambda: call(planes, boff), row, t, kind)
+    _splits(row, t, n_past, b, s, bk)
     row["library_ms"] = timer(_sdpa_call(q, view[0], view[1], npast, layer, *view[2:]))
     row["bound_ms"], row["bound_by"] = bound(
         *_attn_sizes(b, t, n_past, path != "read" and bool(commit), quant, h=h))
@@ -965,10 +1010,13 @@ def kernel_decode(timer: Timer, gen, gen_cpu, b: int, quant: bool, main_path: bo
     }
     if timer is None:
         return row
-    row["ms"] = timer(lambda: fd.flash_decode_update(q, kn, vn, p1[0], p1[1], npast, layer,
-                                                     block_k=bk, **_scales(p1)))
+    run = lambda: fd.flash_decode_update(q, kn, vn, p1[0], p1[1], npast, layer,  # noqa: E731
+                                         block_k=bk, **_scales(p1))
+    row["ms"] = timer(run)
     row["plain_ms"] = timer(lambda: fd.flash_decode_update_ref(
         q, kn, vn, p2[0], p2[1], npast, layer, block_k=bk, **_scales(p2)), reps=5)
+    _route_times(timer, run, row, 1, "int8" if quant else "f32" if f32 else "bf16")
+    _splits(row, 1, npl, b, s, bk)
     row["library_ms"] = timer(_sdpa_call(q, p1[0], p1[1], npast, layer, *p1[2:]))
     row["bound_ms"], row["bound_by"] = bound(*_attn_sizes(b, 1, npl, True, quant, f32, h),
                                              F32_FLOP_PER_S if f32 else BF16_OP_PER_S)
@@ -1080,6 +1128,7 @@ def kernel_attn_paged(timer, gen, gen_cpu, t: int, n_past, update: bool, b: int 
         row["ms"] = timer(run)
         row["plain_ms"] = timer(plain, reps=5)
         _route_times(timer, run, row, t, kind)
+        _splits(row, t, n_past, b, s, bk)
         row["library_ms"] = timer(_sdpa_call(q, flat[0], flat[1], npast, layer, *flat[2:]))
         row["bound_ms"], row["bound_by"] = bound(*_attn_sizes(b, t, n_past, update, quant, f32),
                                                  F32_FLOP_PER_S if f32 else BF16_OP_PER_S)
@@ -1140,8 +1189,11 @@ def kernel_decode_paged(timer, gen, gen_cpu, b: int, quant: bool, s: int = N_CTX
     if timer is None:
         return row
     sc = _scales(planes)
-    row["ms"] = timer(lambda: fd.flash_decode_update(q, kn, vn, planes[0], planes[1], npast, layer,
-                                                     block_k=bk, page_table=table, **sc))
+    run = lambda: fd.flash_decode_update(q, kn, vn, planes[0], planes[1], npast,  # noqa: E731
+                                         layer, block_k=bk, page_table=table, **sc)
+    row["ms"] = timer(run)
+    _route_times(timer, run, row, 1, kind)
+    _splits(row, 1, npl, b, s, bkf)
     row["plain_ms"] = timer(lambda: fd.flash_decode_update_ref(
         q, kn, vn, p2[0], p2[1], npast, layer, block_k=bk, page_table=table, **_scales(p2)),
         reps=5)
@@ -1283,6 +1335,7 @@ def kernel_attn_ring(timer, gen, t: int, n_past: int, update: bool, quant: bool,
     row["ms"] = timer(run)
     row["plain_ms"] = timer(plain, reps=5)
     _route_times(timer, run, row, t, kind)
+    _splits(row, t, n_past, 1, s, bk, ring_rows=None if update else s)
     row["library_ms"] = timer(_masked_sdpa(q.to(kl.dtype), kl, vl, visible))
     # bytes: q read, out written, the plane read, the visible rows read once
     # (update: the earlier ones from the cache, the new ones read from
@@ -1393,6 +1446,7 @@ def kernel_attn_prefix(timer, gen, gen_cpu, b: int, t: int, npl: list[int], upda
     row["ms"] = timer(run)
     row["plain_ms"] = timer(plain, reps=5)
     _route_times(timer, run, row, t, kind)
+    _splits(row, t, npl, b, s, bk, plens.tolist(), fa._fit_block_k(min(bk, sp), sp))
     row["library_ms"] = timer(_masked_sdpa(q, kl, vl, visible))
     # the slot part as `_attn_sizes`; each pool entry's rows read once (L2
     # holds a layer's pool for every row that shares it), QK and PV over
@@ -1430,7 +1484,8 @@ def kernel_edges(gen, gen_cpu) -> dict:
         worst[f"q4 M={m} K={k} N={n}"] = (err, limit, err / limit)
     h, d, s = 2, 64, 64
     for quant in (False, True):
-        # T < 16 on the CUDA cores; T 16-40 on the tensor cores, with rows
+        # T = 1 on the split route (splits of 32 rows), T 2-15 on the CUDA
+        # cores; T 16-40 on the tensor cores, with rows
         # past T in the last 64-row block and a KV block of 32 (two ragged
         # sub-tiles), a vector n_past
         for b, t, n_past, update in ((1, 8, 13, True), (1, 5, 20, False), (2, 1, None, True),
@@ -2043,9 +2098,10 @@ def phase_generate_7b(seed: int) -> tuple[dict, dict]:
     k1_1 = counts1["q4_gemv"] + counts1["q4_gemm"]
     if k1_1 != (4 * cfg.n_layer + 1) * forwards1:
         raise SystemExit(f"generate_7b: {k1_1} K1 launches for {forwards1} forward passes")
-    # decode on the CUDA cores; the prompt (T 32) and the second turn's read
+    # decode on the split route; the prompt (T 32) and the second turn's read
     # (T 301 in a 353-row bucket) on the tensor cores
-    _require("generate_7b", counts1, ("q4_gemv", "q4_gemm", "attn_update", "attn_update_tc"))
+    _require("generate_7b", counts1, ("q4_gemv", "q4_gemm", "attn_update_split",
+                                      "attn_update_tc"))
     _require("generate_7b (turn 2)", {k: n - counts1[k] for k, n in counts.items()},
              ("q4_gemm", "attn_read_tc"))
     result = {
@@ -2250,7 +2306,8 @@ def phase_spec_7b_self(seed: int, plain: list[int] | None) -> tuple[dict, dict]:
     rate = accepted / (rounds * (GAMMA - 1))
     if split is None and rate < 1.0:
         raise SystemExit(f"spec_7b_self: acceptance {rate:.3f} with the plain greedy stream")
-    _require("spec_7b_self", counts, ("q4_gemv", "q4_gemm", "attn_update"))
+    _require("spec_7b_self", counts, ("q4_gemv", "q4_gemm", "attn_update",
+                                      "attn_update_split"))
     return {"tokens": emitted, "rounds": rounds, "accepted": accepted, "acceptance_rate": rate,
             "ms_per_round": ms_round, "tok_per_s": emitted / (rounds * ms_round / 1e3),
             "equal_to_plain_greedy": split is None, "split_at_near_tie": split,
@@ -2388,7 +2445,9 @@ def phase_tiny_serve(work: Path) -> tuple[dict, dict]:
     _require("tiny_serve", counts, ("decode", "decode_i8", "attn_update", "attn_update_i8",
                                     "decode_paged", "decode_paged_i8", "attn_update_paged",
                                     "attn_update_paged_i8", "attn_update_prefix",
-                                    "attn_update_prefix_i8", "attn_update_prefix_f32"))
+                                    "attn_update_prefix_i8", "attn_update_prefix_f32",
+                                    "attn_update_prefix_split", "attn_update_prefix_split_i8",
+                                    "attn_update_prefix_split_f32"))
     return result, counts
 
 
@@ -3049,7 +3108,7 @@ def phase_generate_7b_ring(seed: int) -> tuple[dict, dict]:
                                                                       ignore_eos=True))
     del eng
     torch.cuda.empty_cache()
-    _require("generate_7b_ring", counts, ("q4_gemv", "q4_gemm", "attn_update_ring",
+    _require("generate_7b_ring", counts, ("q4_gemv", "q4_gemm", "attn_update_ring_split",
                                           "attn_update_ring_tc"))
     em = re.search(r"^eval += +([\d.]+) ms / +(\d+) tokens", err, re.M)
     result = {
@@ -3308,9 +3367,9 @@ def phase_serve_7b_shared(seed: int) -> tuple[dict, dict, dict]:
     del srv, eng
     gc.collect()
     torch.cuda.empty_cache()
-    # decode over the prefix on the CUDA cores, admissions (T >= 16) on the
+    # decode over the prefix on the split route, admissions (T >= 16) on the
     # tensor cores
-    _require("serve_7b_shared", counts, ("q4_gemm", "attn_update_prefix_i8",
+    _require("serve_7b_shared", counts, ("q4_gemm", "attn_update_prefix_split_i8",
                                          "attn_update_prefix_tc_i8"))
     shapes = _shapes()
     # a per-slot copy of the prefix (serve_7b's registered prefix) puts its
@@ -3470,6 +3529,7 @@ def phase_tiny_compat(work: Path) -> tuple[dict, dict]:
     result["perplexity_cli"] = ppl
     result["embedding_cli"] = {"n": 128, "max_abs_diff_to_cpu": emb_drift, "limit": 0.032}
     _require("tiny_compat", counts, ("q4_gemv", "q4_gemm", "attn_update", "attn_update_f32",
+                                     "attn_update_split", "attn_update_split_f32",
                                      "decode_f32"))
     return result, counts
 
@@ -3720,10 +3780,11 @@ def phase_eval_7b_f32(seed: int) -> tuple[dict, dict, dict]:
     shapes = _shapes()
     result["launches"] = counts
     result.update(_shape_report(shapes))
-    # the bf16 perplexity chunk (T 512) on the tensor cores, every f32 cache
-    # on the CUDA cores
+    # the bf16 perplexity chunk (T 512) on the tensor cores, f32 caches on
+    # the CUDA cores past T = 1 and on the split route at T = 1
     _require("eval_7b_f32", counts, ("q4_gemv", "q4_gemm", "q4_gemm_f32", "attn_update_tc",
-                                     "attn_update_f32", "attn_read_f32", "decode_f32"))
+                                     "attn_update_f32", "attn_update_split_f32", "attn_read_f32",
+                                     "decode_f32"))
     return result, counts, shapes
 
 
@@ -3917,14 +3978,15 @@ def phase_parallel_7b(seed: int) -> tuple[dict, dict]:
             "launches_per_rank": [r[name]["counts"] for r in ranks],
             "single_device_launches": single_counts,
         }
-    per_rank_k2 = [r["pp"]["counts"].get("attn_update_boff", 0)
-                   + r["pp"]["counts"].get("attn_update_boff_tc", 0) for r in ranks]
+    per_rank_k2 = [sum(r["pp"]["counts"].get(f"attn_update_boff{route}", 0)
+                       for route in ("", "_split", "_tc")) for r in ranks]
     want_k2 = PP_MICRO * ranks[0]["pp"]["local_layers"] * (1 + PP_STEPS)
     if per_rank_k2 != [want_k2, want_k2]:
         raise SystemExit(f"parallel_7b (pp): K2 batch_offset launches {per_rank_k2} per rank, "
                          f"not M x local layers x forwards = {want_k2}")
-    _require("parallel_7b", counts, ("q4_gemv", "q4_gemm", "attn_update", "attn_update_tc",
-                                     "attn_update_boff", "attn_update_boff_tc",
+    _require("parallel_7b", counts, ("q4_gemv", "q4_gemm", "attn_update_split",
+                                     "attn_update_tc", "attn_update_boff_split",
+                                     "attn_update_boff_tc",
                                      "q4_gemv_chunks", "q4_gemm_chunks"))
     result["shape_rows"] = phase_serve_shapes(
         _rank_shapes(*(r[name]["shapes"] for r in ranks for name in ("tp", "pp")),

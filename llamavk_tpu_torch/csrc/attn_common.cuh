@@ -42,9 +42,23 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
 namespace attn {
+
+// The kernel launches a library built from these sources has made: every
+// `<<<>>>` of the attention kernels and their row writes adds one (read
+// through flash_attn.cu's `attn_launch_count` and flash_decode.cu's
+// `decode_launch_count`), so a caller can count a call's launches. Internal
+// linkage: each library keeps its own count, where an inline function's
+// static would be one object shared by both libraries once both are loaded.
+namespace {
+inline std::atomic<long>& launch_count() {
+  static std::atomic<long> n{0};
+  return n;
+}
+}  // namespace
 
 constexpr int WARPS = 8;  // query rows per block, one per warp
 constexpr int KT = 64;    // keys per shared tile

@@ -50,32 +50,43 @@
 // unchanged rows, as the JAX kernel's idle pipeline hop does. Both are flat
 // only (no page table, ring or prefix).
 //
-// The attention launch takes one of two routes, which the caller picks from
-// T and the cache type alone (`route`; ops/flash_attn.py::attn_route):
-//  * the CUDA-core route, `attn::attend_block` of attn_common.cuh, shared
-//    with the batched decode kernel (flash_decode.cu), so both give bit-equal
-//    outputs at equal block_k: T < 16 (decode, the lookup verify) and every
-//    f32 cache. A block owns 8 query rows of one (batch, head), one per warp;
-//    lane j scores key j of a 64-row shared tile, then the warp's 32 lanes
-//    own D/32 output dims each for the PV sum;
+// The attention launch takes one of three routes, which the caller picks
+// from T and the cache type alone (`route`; ops/flash_attn.py::attn_route):
+//  * the split route, attn_split.cuh, for T = 1 over every cache type and
+//    mode (decode steps): the split-KV decode kernel shared with the batched
+//    decode kernel (flash_decode.cu), so K4 and K2 at T = 1 give bit-equal
+//    outputs and caches at equal block_k. A (batch row, head)'s visible rows
+//    are cut into splits of `split_rows(block_k)` rows, a block each, their
+//    partials merged in the same launch in ascending split order; the
+//    update's row write is fused into the launch (the block whose split
+//    holds the row writes it, then reads it), so K2 at T = 1 is one launch;
+//  * the CUDA-core route, `attn::attend_block` of attn_common.cuh, for T
+//    from 2 to 15 (the lookup verify) and f32 caches at T >= 2. A block owns
+//    8 query rows of one (batch, head), one per warp; lane j scores key j of
+//    a 64-row shared tile, then the warp's 32 lanes own D/32 output dims each
+//    for the PV sum;
 //  * the tensor-core route, `attn::mma::attend_tc` of attn_mma.cuh: bf16 and
 //    int8 caches at T >= 16 (prefill, admission chunks). A block owns 64
 //    query rows (16 a warp); QK^T and PV run on `mma.sync` m16n8k16 with the
 //    scores in registers, over K/V sub-tiles double-buffered by `cp.async`.
-// Both give a paged call equal to a flat one at block_k = PS bit for bit,
-// and keep every mode's bit-equalities. Blocks past a row's last visible
-// column contribute exactly zero, so reading only up to the tile's last
-// visible column does not change the result.
+// Every route gives a paged call equal to a flat one at block_k = PS bit for
+// bit, and keeps every mode's bit-equalities. Blocks past a row's last
+// visible column contribute exactly zero, so reading only up to the tile's
+// last visible column does not change the result. The CUDA-core and
+// tensor-core routes write the rows of an update in a launch of their own
+// first (`kv_write_kernel`, `kv_quant_kernel`).
 //
 // What bounds it on an H100: decode (T = 1) reads the valid cache prefix of
 // one layer, paged or not (2 * H * n_past * D bytes of int8, twice that of
 // bf16, four times that of f32, plus 8 * n_past * H bytes of int8 scales),
-// plus the new rows, and is bound by those bytes; prefill is bound by its
-// operations (4 * T * S_visible * D per head), which the tensor-core route
-// puts on the tensor cores. wgmma/TMA attention and split-KV decode are
-// later work.
+// plus the new rows, and is bound by those bytes, which the split route
+// spreads over (split, head, row) blocks with every load in flight;
+// prefill is bound by its operations (4 * T * S_visible * D per head),
+// which the tensor-core route puts on the tensor cores. wgmma/TMA attention
+// is later work.
 
 #include "attn_mma.cuh"
+#include "attn_split.cuh"
 
 namespace {
 
@@ -178,6 +189,7 @@ cudaError_t launch_tc(const void* q, const void* kc, const void* vc, const float
       static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(kc),
       static_cast<const KV*>(vc), ks, vs, static_cast<float*>(out), npast_vec, npast_scalar,
       map, T, H, block_k, scale, ring, pre);
+  ++attn::launch_count();
   return cudaGetLastError();
 }
 
@@ -195,12 +207,15 @@ cudaError_t launch_attn(const void* q, const void* kc, const void* vc, const flo
       static_cast<const attn::QType<KV>*>(q), static_cast<const KV*>(kc),
       static_cast<const KV*>(vc), ks, vs, static_cast<float*>(out), npast_vec, npast_scalar, map,
       T, H, block_k, scale, ring, pre);
+  ++attn::launch_count();
   return cudaGetLastError();
 }
 
 // The attention launches of the K2/K3 routes (`route`, checked by the
-// caller: the tensor-core route for a bf16 or int8 cache at T >= 16 only)
-enum { ROUTE_CUDA_CORE = 0, ROUTE_TENSOR_CORE = 1 };
+// caller: the tensor-core route for a bf16 or int8 cache at T >= 16 only,
+// the split route at T = 1 only; the split route launches through
+// `split_route`)
+enum { ROUTE_CUDA_CORE = 0, ROUTE_TENSOR_CORE = 1, ROUTE_SPLIT = 2 };
 
 template <int D, typename KV, int MODE>
 cudaError_t launch_route(int route, const void* q, const void* kc, const void* vc,
@@ -318,6 +333,54 @@ void offset_batch(P& kc, P& vc, SP& ks, SP& vs, int batch_offset, int kv_kind, i
 
 }  // namespace
 
+namespace {
+
+// a route the C interfaces take for a call at T over a kv_kind cache
+bool route_ok(int route, int T, int kv_kind) {
+  if (route == ROUTE_SPLIT) return T == 1;
+  if (route == ROUTE_TENSOR_CORE) return kv_kind != KV_F32 && T >= attn::mma::MIN_T;
+  return route == ROUTE_CUDA_CORE;
+}
+
+// The split route's one launch at T = 1 (attn_split.cuh): with `write`, the
+// new rows k_new/v_new go to rows wrv[b] (or wrs) first; split_ws/split_cnt
+// the partials and counters, split_nx the splits a row can address.
+int split_route(const void* q, const void* k_new, const void* v_new, const void* kc,
+                const void* vc, const void* ks, const void* vs, void* out, const int* npv,
+                int nps, const int* wrv, int wrs, int write, const KVMap& map, int B, int H,
+                int D, int block_k, float scale, int kv_kind, const attn::Ring& ring,
+                const attn::Prefix& pre, void* split_ws, void* split_cnt, int split_nx,
+                cudaStream_t st) {
+  attn::split::Args a{};
+  a.q = q;
+  a.knew = k_new;
+  a.vnew = v_new;
+  a.kc = const_cast<void*>(kc);
+  a.vc = const_cast<void*>(vc);
+  a.ks = kv_kind == KV_INT8 ? static_cast<float*>(const_cast<void*>(ks)) : nullptr;
+  a.vs = kv_kind == KV_INT8 ? static_cast<float*>(const_cast<void*>(vs)) : nullptr;
+  a.out = static_cast<float*>(out);
+  a.npast_vec = npv;
+  a.npast_scalar = nps;
+  a.wrow_vec = wrv;
+  a.wrow_scalar = wrs;
+  a.write = write;
+  a.map = map;
+  a.H = H;
+  a.block_k = block_k;
+  a.scale = scale;
+  a.ring = ring;
+  a.pre = pre;
+  a.ws = static_cast<float*>(split_ws);
+  a.cnt = static_cast<int*>(split_cnt);
+  a.nx = split_nx;
+  if (kv_kind == KV_INT8) return (int)attn::split::launch<int8_t, true>(a, B, D, st);
+  if (kv_kind == KV_F32) return (int)attn::split::launch<float, true>(a, B, D, st);
+  return (int)attn::split::launch<__nv_bfloat16, true>(a, B, D, st);
+}
+
+}  // namespace
+
 // Read path (K3). q [B, T, H, D], bf16 (f32 for an f32 cache); k_cache/v_cache:
 // one layer of type kv_kind, with k_scale/v_scale that layer's f32 scale
 // planes for int8 (else null): flat [B, H, S, D] with scales [B, S, H] when page_table is
@@ -328,19 +391,21 @@ void offset_batch(P& kc, P& vc, SP& ks, SP& vs, int batch_offset, int kv_kind, i
 // type takes every mode. D in {64, 128}; block_k divides S.
 // batch_offset (flat, no ring or prefix) is the cache row of batch row 0:
 // the flat layer pointers address a [B_cache, ...] layer with
-// B_cache >= batch_offset + B. route: ROUTE_CUDA_CORE, or ROUTE_TENSOR_CORE
-// for a bf16 or int8 cache at T >= 16 (refused otherwise).
+// B_cache >= batch_offset + B. route: ROUTE_CUDA_CORE, ROUTE_TENSOR_CORE
+// for a bf16 or int8 cache at T >= 16, or ROUTE_SPLIT at T = 1 (refused
+// otherwise), with split_ws [B, H, split_nx, D + 2] f32 and split_cnt
+// [B * H] int32 zeros (null on the other routes), split_nx the pool's and
+// the cache's splits a row can address (attn_split.cuh).
 extern "C" int attn_read_launch(const void* q, const void* k_cache, const void* v_cache,
                                 const void* k_scale, const void* v_scale, void* out,
                                 const void* npast_vec, int npast_scalar, const void* page_table,
                                 int maxlb, int B, int T, int H, int S, int D, int block_k,
                                 float scale, int kv_kind, int batch_offset,
-                                const AttnModes* modes, int route, void* stream) {
+                                const AttnModes* modes, int route, void* split_ws,
+                                void* split_cnt, int split_nx, void* stream) {
   if (block_k < 1 || S % block_k != 0) return (int)cudaErrorInvalidValue;
   if (kv_kind < KV_BF16 || kv_kind > KV_F32) return (int)cudaErrorInvalidValue;
-  if (route != ROUTE_CUDA_CORE &&
-      (route != ROUTE_TENSOR_CORE || kv_kind == KV_F32 || T < attn::mma::MIN_T))
-    return (int)cudaErrorInvalidValue;
+  if (!route_ok(route, T, kv_kind)) return (int)cudaErrorInvalidValue;
   if (page_table && maxlb < 1) return (int)cudaErrorInvalidValue;
   attn::Ring ring;
   attn::Prefix pre;
@@ -353,6 +418,10 @@ extern "C" int attn_read_launch(const void* q, const void* k_cache, const void* 
   auto npv = static_cast<const int*>(npast_vec);
   auto st = static_cast<cudaStream_t>(stream);
   const KVMap map{static_cast<const int*>(page_table), maxlb, S};
+  if (route == ROUTE_SPLIT)
+    return split_route(q, nullptr, nullptr, k_cache, v_cache, k_scale, v_scale, out, npv,
+                       npast_scalar, nullptr, 0, 0, map, B, H, D, block_k, scale, kv_kind, ring,
+                       pre, split_ws, split_cnt, split_nx, st);
   if (kv_kind == KV_INT8)
     return (int)attend<int8_t>(route, q, k_cache, v_cache, k_scale, v_scale, out, npv,
                                npast_scalar, map, B, T, H, D, block_k, scale, ring, pre, st);
@@ -366,19 +435,20 @@ extern "C" int attn_read_launch(const void* q, const void* k_cache, const void* 
 // Update path (K2): write k_new/v_new [B, T, H, D] (bf16; f32 for an f32
 // cache) into rows [n_past, n_past + T) of the cache layer (int8: quantized,
 // with their scales; paged: through the table; ring: rows [write_row,
-// write_row + T)), then attend (two launches) by `route`, as the read path.
-// batch_offset as the read path's; commit = 0 writes nothing and attends
-// over the unchanged cache (one launch).
+// write_row + T)), then attend by `route`, as the read path: one launch on
+// the split route (T = 1), two on the others. batch_offset as the read
+// path's; commit = 0 writes nothing and attends over the unchanged cache
+// (one launch).
 extern "C" int attn_update_launch(const void* q, const void* k_new, const void* v_new,
                                   void* k_cache, void* v_cache, void* k_scale, void* v_scale,
                                   void* out, const void* npast_vec, int npast_scalar,
                                   const void* page_table, int maxlb, int B, int T, int H, int S,
                                   int D, int block_k, float scale, int kv_kind, int batch_offset,
-                                  int commit, const AttnModes* modes, int route, void* stream) {
+                                  int commit, const AttnModes* modes, int route,
+                                  void* split_ws, void* split_cnt, int split_nx, void* stream) {
   if (block_k < 1 || S % block_k != 0 || (D != 64 && D != 128)) return (int)cudaErrorInvalidValue;
-  if (route != ROUTE_CUDA_CORE &&
-      (route != ROUTE_TENSOR_CORE || kv_kind == KV_F32 || T < attn::mma::MIN_T))
-    return (int)cudaErrorInvalidValue;
+  if (kv_kind < KV_BF16 || kv_kind > KV_F32) return (int)cudaErrorInvalidValue;
+  if (!route_ok(route, T, kv_kind)) return (int)cudaErrorInvalidValue;
   if (page_table && maxlb < 1) return (int)cudaErrorInvalidValue;
   if (batch_offset < 0 || (batch_offset && (page_table || (modes && (modes->pos || modes->pk)))))
     return (int)cudaErrorInvalidValue;
@@ -386,12 +456,22 @@ extern "C" int attn_update_launch(const void* q, const void* k_new, const void* 
   if (!commit)
     return attn_read_launch(q, k_cache, v_cache, k_scale, v_scale, out, npast_vec, npast_scalar,
                             page_table, maxlb, B, T, H, S, D, block_k, scale, kv_kind, 0, modes,
-                            route, stream);
+                            route, split_ws, split_cnt, split_nx, stream);
   auto st = static_cast<cudaStream_t>(stream);
   const bool ring_write = modes && modes->has_wrow;
   auto wrv = static_cast<const int*>(ring_write ? modes->wrow_vec : npast_vec);
   const int wrs = ring_write ? modes->wrow_scalar : npast_scalar;
   const KVMap map{static_cast<const int*>(page_table), maxlb, S};
+  if (route == ROUTE_SPLIT) {  // the write and the attention in one launch
+    attn::Ring ring;
+    attn::Prefix pre;
+    cudaError_t e = mode_args(modes, B, ring, pre);
+    if (e != cudaSuccess) return (int)e;
+    if (page_table && (ring.pos || pre.k)) return (int)cudaErrorInvalidValue;
+    return split_route(q, k_new, v_new, k_cache, v_cache, k_scale, v_scale, out,
+                       static_cast<const int*>(npast_vec), npast_scalar, wrv, wrs, 1, map, B, H,
+                       D, block_k, scale, kv_kind, ring, pre, split_ws, split_cnt, split_nx, st);
+  }
   auto kn = static_cast<const __nv_bfloat16*>(k_new);
   auto vn = static_cast<const __nv_bfloat16*>(v_new);
   if (kv_kind == KV_INT8) {
@@ -418,9 +498,13 @@ extern "C" int attn_update_launch(const void* q, const void* k_new, const void* 
         kn, vn, static_cast<__nv_bfloat16*>(k_cache), static_cast<__nv_bfloat16*>(v_cache), wrv,
         wrs, map, B, T, H, D);
   }
+  ++attn::launch_count();
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   return attn_read_launch(q, k_cache, v_cache, k_scale, v_scale, out, npast_vec, npast_scalar,
                           page_table, maxlb, B, T, H, S, D, block_k, scale, kv_kind, 0, modes,
-                          route, stream);
+                          route, nullptr, nullptr, 0, stream);
 }
+
+// The kernel launches this library has made (`attn::launch_count`).
+extern "C" long attn_launch_count() { return attn::launch_count().load(); }

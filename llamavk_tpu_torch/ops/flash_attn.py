@@ -52,13 +52,19 @@ prefix exclude each other and a page table, as the JAX asserts do.
   CUDA tensors it launches `attn_read_launch` (replaces `_read_kernel` /
   `_attend`).
 
-Both launch their attention by one of two routes, picked by `attn_route`
+Both launch their attention by one of three routes, picked by `attn_route`
 from T and the cache type alone (never B or the mode, so the single-stream
-and batched engines route a given T alike): the tensor-core route
-(`csrc/attn_mma.cuh`, `mma.sync`) for bf16 and int8 caches at T >= 16, the
-CUDA-core route (`attend_block` of `csrc/attn_common.cuh`) for T < 16 and
-every f32 cache. Each route has its own launch counters (`_tc` in the
-name); no call falls back from one to the other.
+and batched engines route a given T alike): the split route
+(`csrc/attn_split.cuh`, split-KV decode, the kernel of
+`ops/flash_decode.py` too) at T = 1 over every cache type, the update's row
+write fused into its one launch; the tensor-core route (`csrc/attn_mma.cuh`,
+`mma.sync`) for bf16 and int8 caches at T >= 16; the CUDA-core route
+(`attend_block` of `csrc/attn_common.cuh`) for T from 2 to 15 and f32
+caches past T = 1. Each route has its own launch counters (`_split` or `_tc`
+in the name); no call falls back from one to another. The split route cuts
+each row's visible rows into splits of `split_rows(block_k)` rows
+(`split_schedule`), sizes its grid and workspace by `split_grid`, and
+merges the splits' partials in the launch, in ascending split order.
 
 Pipeline-parallel modes (flash_attn.py:827, :1018-1023, :275-291 there):
 `batch_offset` is the first cache row of the call's B rows, so a microbatch
@@ -99,20 +105,22 @@ from . import _build
 from .kv_quant import quantize_rows
 
 # launches of the CUDA kernels (one per wrapper call on CUDA tensors), by
-# path, cache mode, route (`_tc`: the tensor-core route) and cache type; the
-# update path's page_straddle mode on its own; an f32 cache in every mode,
-# on the CUDA-core route
+# path, cache mode, route (`_split`: the split route, `_tc`: the tensor-core
+# route) and cache type; the update path's page_straddle mode on its own; an
+# f32 cache in every mode, on the split and CUDA-core routes
 _MODES = (("update", ""), ("update", "_paged"), ("update", "_paged_straddle"), ("read", ""),
           ("read", "_paged"), ("update", "_ring"), ("read", "_ring"), ("update", "_prefix"),
           ("read", "_prefix"))
 launches = {f"{path}{mode}{route}{kind}": 0 for path, mode in _MODES
-            for route in ("", "_tc") for kind in ("", "_i8")}
-launches.update({f"{path}{mode}_f32": 0 for path, mode in _MODES})
+            for route in ("", "_split", "_tc") for kind in ("", "_i8")}
+launches.update({f"{path}{mode}{route}_f32": 0 for path, mode in _MODES
+                 for route in ("", "_split")})
 # the pipeline-parallel modes: a batch slice of a wider flat cache (`boff`),
 # and the update with commit=0 (`nocommit`), every cache type
 launches.update({f"{path}_{mode}{route}{kind}": 0 for path, mode in (
     ("update", "boff"), ("read", "boff"), ("update", "nocommit"))
-    for route, kind in (("", ""), ("", "_i8"), ("", "_f32"), ("_tc", ""), ("_tc", "_i8"))})
+    for route in ("", "_split", "_tc") for kind in ("", "_i8", "_f32")
+    if not (route == "_tc" and kind == "_f32")})
 # launches by shape (path, B, T, H, S, D, block_k, cache type: "bf16",
 # "int8" or "f32", n_past: the int, or None for a per-row vector, MAXLB: the
 # page table's width, or None for a flat cache, page_straddle, mode: None,
@@ -126,27 +134,98 @@ shapes: collections.Counter = collections.Counter()
 # C interfaces take (`kv_kind` of csrc/flash_attn.cu and flash_decode.cu)
 KV_KINDS = {torch.bfloat16: "bf16", torch.int8: "int8", torch.float32: "f32"}
 KV_CODES = {"bf16": 0, "int8": 1, "f32": 2}
-# the attention routes of csrc/flash_attn.cu (`route` of its C interface)
-ROUTE_CODES = {"cuda_core": 0, "tensor_core": 1}
+# the attention routes of csrc/flash_attn.cu and csrc/flash_decode.cu
+# (`route` of their C interfaces)
+ROUTE_CODES = {"cuda_core": 0, "tensor_core": 1, "split": 2}
+ROUTE_SUFFIX = {"cuda_core": "", "tensor_core": "_tc", "split": "_split"}
 TC_MIN_T = 16  # the least T of the tensor-core route (attn::mma::MIN_T)
+SPLIT_ROWS = 64  # a split's rows where they divide block_k (attn::split::split_rows)
+SPLIT_MAX_ROWS = 512  # attn::split::MAX_ROWS
+SPLIT_MAX_GRID = 256  # attn::split::MAX_SPLITS
 
 
 def attn_route(t: int, kind: str) -> str:
-    """The route of K2/K3's attention launch for T query rows over a cache
-    of type `kind`: "tensor_core" (`csrc/attn_mma.cuh`) for a bf16 or int8
-    cache at T >= 16, else "cuda_core" (`attend_block`). It depends on T and
-    the cache type alone."""
+    """The route of K2/K3's attention launch (and K4's, at T = 1) for T
+    query rows over a cache of type `kind`: "split" (`csrc/attn_split.cuh`)
+    at T = 1 over every cache type, "tensor_core" (`csrc/attn_mma.cuh`) for
+    a bf16 or int8 cache at T >= 16, else "cuda_core" (`attend_block`). It
+    depends on T and the cache type alone."""
+    if t == 1:
+        return "split"
     return "tensor_core" if kind != "f32" and t >= TC_MIN_T else "cuda_core"
 
 
 def launch_name(path: str, kind: str, paged: bool, straddle: bool = False,
                 mode: str = "", route: str = "cuda_core") -> str:
     """The `launches` key of one call: update/read/decode, paged (and
-    straddling), ring or prefix (`mode`), the tensor-core route (`_tc`),
-    cache type `kind` (bf16, int8, f32)."""
+    straddling), ring or prefix (`mode`), the split or tensor-core route
+    (`_split`, `_tc`), cache type `kind` (bf16, int8, f32)."""
     return (path + ("_paged" if paged else "") + ("_straddle" if straddle else "")
-            + (f"_{mode}" if mode else "") + ("_tc" if route == "tensor_core" else "")
+            + (f"_{mode}" if mode else "") + ROUTE_SUFFIX[route]
             + {"bf16": "", "int8": "_i8", "f32": "_f32"}[kind])
+
+
+def split_rows(block_k: int) -> int:
+    """Rows of one split of the split route: 64 where 64 divides block_k,
+    else block_k. A function of block_k alone, so a row's splits are the
+    same in K2 and K4, flat and paged at block_k = PS (block_k divides the
+    page, so no split crosses one), in a ring before its wrap and a flat
+    cache, under a prefix of length 0 and without one."""
+    return SPLIT_ROWS if block_k % SPLIT_ROWS == 0 else block_k
+
+
+def split_schedule(limit: int, block_k: int) -> list[tuple[int, int]]:
+    """The splits [start, end) of rows [0, limit), in ascending order (the
+    order the kernel merges their partials in)."""
+    r = split_rows(block_k)
+    return [(s, min(s + r, limit)) for s in range(0, limit, r)]
+
+
+def split_grid(cap: int, block_k: int, pool_rows: int = 0, pool_block_k: int = 0) -> int:
+    """The splits of a split-route grid: those of a prefix pool's `pool_rows`
+    (by its own block) ahead of those of the `cap` rows a batch row can
+    address (S, MAXLB * PS). The kernel refuses any other count."""
+    n = len(split_schedule(cap, block_k))
+    if pool_rows:
+        n += len(split_schedule(pool_rows, pool_block_k))
+    return n
+
+
+# the split route's arrival counters, one zeroed int32 tensor per device,
+# grown when a call needs more; each merge sets its counters back to 0 (the
+# launches of a device share them in stream order)
+_split_counters: dict[str, torch.Tensor] = {}
+
+
+def split_workspace(q: torch.Tensor, nx: int):
+    """(partials, counters) for a split-route launch with queries q [B, 1,
+    H, D] over `nx` splits: partials [B, H, nx, D + 2] f32 (torch.empty),
+    the device's counters (at least B * H). Raises past the kernel's
+    limits."""
+    b, _, h, d = q.shape
+    if nx > SPLIT_MAX_GRID:
+        raise ValueError(f"split decode: {nx} splits a row, more than {SPLIT_MAX_GRID}")
+    ws = torch.empty(b * h * nx * (d + 2), dtype=torch.float32, device=q.device)
+    cnt = _split_counters.get(str(q.device))
+    if cnt is None or cnt.numel() < b * h:
+        cnt = torch.zeros(max(b * h, 1024), dtype=torch.int32, device=q.device)
+        _split_counters[str(q.device)] = cnt
+    return ws, cnt
+
+
+def split_args(route: str, q: torch.Tensor, cap: int, bk: int, mode=None) -> tuple:
+    """(workspace pointer, counters pointer, nx) of a launch: nulls off the
+    split route; `mode` the shape-key mode, whose ("prefix", NP, Sp,
+    pblock_k) adds the pool's splits."""
+    if route != "split":
+        return None, None, 0
+    if split_rows(bk) > SPLIT_MAX_ROWS:
+        raise ValueError(f"split decode: block_k {bk} makes splits of more than "
+                         f"{SPLIT_MAX_ROWS} rows")
+    pool = (mode[2], mode[3]) if mode is not None and mode[0] == "prefix" else (0, 0)
+    nx = split_grid(cap, bk, *pool)
+    ws, cnt = split_workspace(q, nx)
+    return ws.data_ptr(), cnt.data_ptr(), nx
 
 
 def call_launch(path: str, q: torch.Tensor, k: torch.Tensor, paged: bool,
@@ -479,12 +558,21 @@ def _lib():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     modes = ctypes.POINTER(_Modes)
     lib.attn_read_launch.argtypes = [p, p, p, p, p, p, p, i, p, i, i, i, i, i, i, i, f, i, i,
-                                     modes, i, p]
+                                     modes, i, p, p, i, p]
     lib.attn_read_launch.restype = ctypes.c_int
     lib.attn_update_launch.argtypes = [p, p, p, p, p, p, p, p, p, i, p, i, i, i, i, i, i, i, f,
-                                       i, i, i, modes, i, p]
+                                       i, i, i, modes, i, p, p, i, p]
     lib.attn_update_launch.restype = ctypes.c_int
+    lib.attn_launch_count.argtypes = []
+    lib.attn_launch_count.restype = ctypes.c_long
     return lib
+
+
+def cuda_launches() -> int:
+    """The CUDA kernels `csrc/flash_attn.cu` has launched in this process
+    (every attention kernel and row write), where `launches` counts wrapper
+    calls: the difference over one call is that call's kernel launches."""
+    return _lib().attn_launch_count()
 
 
 def _on_device(x, q, what: str, dtype=torch.int32, shape=None) -> None:
@@ -642,10 +730,11 @@ def flash_attention(
     mode = mode or pmode
     route, key = call_launch("read", q, k, tab is not None, mode=mode and mode[0])
     out = torch.empty((b, t, h, d), dtype=torch.float32, device=q.device)
+    split = split_args(route, q, s * (maxlb or 1), bk, mode)
     rc = _lib().attn_read_launch(
         q.data_ptr(), k[layer_idx].data_ptr(), v[layer_idx].data_ptr(), ksp, vsp,
         out.data_ptr(), npv, nps, tab, maxlb, b, t, h, s, d, bk, 1.0 / math.sqrt(d),
-        KV_CODES[kind], batch_offset or 0, ctypes.byref(modes), ROUTE_CODES[route],
+        KV_CODES[kind], batch_offset or 0, ctypes.byref(modes), ROUTE_CODES[route], *split,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, "attn_read_launch")
@@ -716,11 +805,13 @@ def flash_attention_update(
     mode = mode or pmode
     route, key = call_launch("update", q, k, tab is not None, page_straddle, mode and mode[0])
     out = torch.empty((b, t, h, d), dtype=torch.float32, device=q.device)
+    split = split_args(route, q, s * (maxlb or 1), bk, mode)
     rc = _lib().attn_update_launch(
         q.data_ptr(), kn.data_ptr(), vn.data_ptr(), k[layer_idx].data_ptr(),
         v[layer_idx].data_ptr(), ksp, vsp, out.data_ptr(), npv, nps, tab, maxlb, b, t, h, s, d,
         bk, 1.0 / math.sqrt(d), KV_CODES[kind], batch_offset or 0, int(bool(commit)),
-        ctypes.byref(modes), ROUTE_CODES[route], torch.cuda.current_stream(q.device).cuda_stream,
+        ctypes.byref(modes), ROUTE_CODES[route], *split,
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, "attn_update_launch")
     launches[key] += 1

@@ -8,8 +8,10 @@ flash_decode.py:326, :356 there multiply in the cache's type).
 every batch row of a t == 1 step. On CUDA tensors it launches
 `flash_decode_launch` of `csrc/flash_decode.cu`, which replaces the TPU kernel
 `_flat_kernel`: one launch per layer for the insert and the attention of
-every row, each row reading only its ceil((n_past[b] + 1) / block_k) KV
-blocks. On CPU tensors it computes the plain version,
+every row, the split-KV decode kernel of `csrc/attn_split.cuh` (the split
+route of `ops/flash_attn.py`), each row reading only its rows [0,
+n_past[b]], cut into splits of `split_rows(block_k)` rows whose partials
+merge in the launch. On CPU tensors it computes the plain version,
 `flash_decode_update_ref`, which is the fused update's plain version at
 T = 1: the row write, then the dense causal attention. With `page_table`
 the cache is a page pool [L, NP, H, PS, D] addressed through the table, as in
@@ -17,7 +19,7 @@ the cache is a page pool [L, NP, H, PS, D] addressed through the table, as in
 [batch_offset, batch_offset + B) of a wider flat cache (flash_decode.py:391
 there; no path of either package passes it but its tests).
 
-Block partitioning and accumulation order equal the fused update kernel's
+Splits and accumulation order equal the fused update kernel's at T = 1
 (`ops/flash_attn.py`) at the same block_k: the CUDA K4 and K2 share their
 attention code, and their outputs and caches are bit-equal at T = 1.
 """
@@ -32,8 +34,10 @@ import math
 import torch
 
 from . import _build
+from . import flash_attn as _fa
 from .flash_attn import (
     KV_CODES,
+    ROUTE_CODES,
     _fit_block_k,
     _query,
     check_cuda,
@@ -41,6 +45,7 @@ from .flash_attn import (
     kv_step,
     launch_name,
     pp_mode,
+    split_args,
 )
 
 # launches of the CUDA kernel (one per wrapper call on CUDA tensors), by
@@ -96,9 +101,17 @@ def _lib():
     lib = _build.load("flash_decode")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_decode_launch.argtypes = [p, p, p, p, p, p, p, p, p, i, p, i, i, i, i, i, i, f, i,
-                                        i, p]
+                                        i, i, p, p, i, p]
     lib.flash_decode_launch.restype = ctypes.c_int
+    lib.decode_launch_count.argtypes = []
+    lib.decode_launch_count.restype = ctypes.c_long
     return lib
+
+
+def cuda_launches() -> int:
+    """The CUDA kernels `csrc/flash_decode.cu` has launched in this process
+    (`flash_attn.cuda_launches` for K4)."""
+    return _lib().decode_launch_count()
 
 
 def flash_decode_update(
@@ -137,10 +150,14 @@ def flash_decode_update(
     s = k.shape[3]
     bk = _fit_block_k(block_k, s, kv_step(k.dtype))
     out = torch.empty((b, 1, h, d), dtype=torch.float32, device=q.device)
+    # the split route (attn_route at T = 1; the CUDA-core kernel only where a
+    # timing harness patches the route)
+    route = _fa.attn_route(1, kind)
     rc = _lib().flash_decode_launch(
         q.data_ptr(), kn.data_ptr(), vn.data_ptr(), k[layer_idx].data_ptr(),
         v[layer_idx].data_ptr(), ksp, vsp, out.data_ptr(), npv, nps, tab, maxlb, b, h, s, d, bk,
-        1.0 / math.sqrt(d), KV_CODES[kind], batch_offset or 0,
+        1.0 / math.sqrt(d), KV_CODES[kind], batch_offset or 0, ROUTE_CODES[route],
+        *split_args(route, q, s * (maxlb or 1), bk),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, "flash_decode_launch")

@@ -126,12 +126,14 @@ ROUTE_MODES = [("update", False, False, ""), ("update", True, False, ""),
 @pytest.mark.parametrize("kind", ["bf16", "int8", "f32"])
 @pytest.mark.parametrize("t", [1, 4, 15, 16, 32, 353])
 def test_attn_route(t, kind):
-    """`attn_route` takes the CUDA cores below T = 16 and for every f32
-    cache, the tensor cores otherwise; the key a wrapper call counts its
-    launch under (`call_launch`) follows T and the cache type alone,
-    whatever B and the mode, and every key is one of `launches`, with `_tc`
-    exactly on the tensor-core route."""
-    want = "tensor_core" if kind != "f32" and t >= 16 else "cuda_core"
+    """`attn_route` takes the split route at T = 1 over every cache type, the
+    CUDA cores from T = 2 to 15 and for every f32 cache past T = 1, the
+    tensor cores otherwise; the key a wrapper call counts its launch under
+    (`call_launch`) follows T and the cache type alone, whatever B and the
+    mode, and every key is one of `launches`, with `_tc` exactly on the
+    tensor-core route and `_split` exactly on the split route."""
+    want = ("split" if t == 1 else "tensor_core" if kind != "f32" and t >= 16
+            else "cuda_core")
     assert tfa.attn_route(t, kind) == want
     dtype = {"bf16": torch.bfloat16, "int8": torch.int8, "f32": torch.float32}[kind]
     for path, paged, straddle, mode in ROUTE_MODES:
@@ -145,3 +147,4 @@ def test_attn_route(t, kind):
             assert key == tfa.launch_name(path, kind, paged, straddle, mode, want)
             assert key in tfa.launches
             assert ("_tc" in key) == (want == "tensor_core")
+            assert ("_split" in key) == (want == "split")
