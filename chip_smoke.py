@@ -19,9 +19,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
               at row counts, group counts, ragged widths and head sizes off
               those shapes. K2 and K3 take the route `attn_route` picks
               (split-KV decode at T = 1 over every cache type, named with
-              `_split`, K4's kernel too; the tensor cores for bf16 and int8
-              caches at T >= 16, named with `_tc`; the CUDA cores for T 2-15
-              and f32 caches past T = 1); a split-route row (K4's too)
+              `_split`, K4's kernel too; the tensor cores at T >= 16 over
+              every cache type, named with `_tc`, f32 caches on three TF32
+              passes a product; the CUDA cores for T 2-15); a split-route
+              row (K4's too)
               carries its split count (`splits`, `split_rows`) and the
               CUDA kernels one call launches (the attention libraries'
               counters; must be 1: K2's row write is in the same launch),
@@ -206,8 +207,10 @@ from llamavk_tpu_torch.tools import bench_gemm
 from llamavk_tpu_torch.tools._common import BF16_OP_PER_S, INT8_OP_PER_S, Timer, bound
 
 ROOT = Path(__file__).resolve().parent
-# float32 outside the tensor cores (NVIDIA's H100 SXM data sheet, at 700 W)
+# float32 outside the tensor cores, and dense TF32 on them (NVIDIA's H100
+# SXM data sheet, at 700 W)
 F32_FLOP_PER_S = 67e12
+TF32_OP_PER_S = 494.7e12
 
 # 7B matmul shapes (K, N) of the main path
 K1_SHAPES = bench_gemm.SHAPES
@@ -307,8 +310,8 @@ KERNEL_META = {
                                  ("read", 474, ("ring", "paged", "prefix")))
        for mode in modes},
     "decode_paged_f32": (SPLIT_SOURCE, "llamavk_tpu/ops/flash_decode.py:67"),
-    # the tensor-core route of K2 and K3 (bf16 and int8 caches at T >= 16,
-    # ops/flash_attn.py::attn_route), in every mode, named as
+    # the tensor-core route of K2 and K3 (every cache type at T >= 16,
+    # ops/flash_attn.py::attn_route; f32 on 3xTF32), in every mode, named as
     # flash_attn.launch_name names it (`_tc` before the cache type)
     **{f"attn_{path}{mode}_tc{kind}": ("llamavk_tpu_torch/csrc/attn_mma.cuh",
                                        f"llamavk_tpu/ops/flash_attn.py:{line}")
@@ -316,7 +319,7 @@ KERNEL_META = {
            ("update", 120, ("", "_paged", "_paged_straddle", "_ring", "_prefix", "_boff",
                             "_nocommit")),
            ("read", 474, ("", "_paged", "_ring", "_prefix", "_boff")))
-       for mode in modes for kind in ("", "_i8")},
+       for mode in modes for kind in ("", "_i8", "_f32")},
     # the split route of K2 and K3 (T = 1, every cache type, ops/flash_attn.py::
     # attn_route), in every mode, named as flash_attn.launch_name names it
     # (`_split` before the cache type)
@@ -673,6 +676,22 @@ def _route_times(timer, run, row: dict, t: int, kind: str) -> None:
         row["ok"] = row["ok"] and n == 1
 
 
+def _attn_bound(n_bytes: float, ops: float, kind: str, t: int,
+                bf16_ops: float = 0.0) -> tuple[float, str]:
+    """`bound` of an attention call at T over a `kind` cache on its route:
+    bf16 tensor-core operations (an int8 cache's widened to bf16); over an
+    f32 cache on the tensor cores three TF32 passes a product, elsewhere
+    the CUDA cores' f32 rate. `bf16_ops` (a prefix pool's pass, bf16 over
+    any slot type) run at the bf16 rate beside them."""
+    from llamavk_tpu_torch.ops import flash_attn as fa
+
+    if kind != "f32":
+        return bound(n_bytes, ops + bf16_ops, BF16_OP_PER_S)
+    passes, peak = ((3.0, TF32_OP_PER_S) if fa.attn_route(t, kind) == "tensor_core"
+                    else (1.0, F32_FLOP_PER_S))
+    return bound(n_bytes, passes * ops + bf16_ops * peak / BF16_OP_PER_S, peak)
+
+
 def _attention_launches(run) -> int:
     """The CUDA kernels one call of `run` launches from the attention
     libraries (`cuda_launches` of ops/flash_attn.py and flash_decode.py)."""
@@ -737,7 +756,9 @@ ATTN_LIMIT_RULE = "2^-6 * attention(q, k, |v|) per element (v dequantized for in
 # order of the scores (at most D 2^-24 sum_d |q_d k_d|, ~6e-5 at unit scores
 # of D = 128), of l and of the PV sum (S 2^-24 each, ~3e-5 at S = 512), on
 # each side; 2^-12 (2.4e-4) covers twice their sum, 64 times tighter than
-# the bf16 limit
+# the bf16 limit. The tensor-core route (T >= 16) sums three TF32 passes a
+# product (each operand's hi and lo parts): ~2^-21 of |q_d k_d| and of
+# |p v| a product, well inside the same limit (F32_TC_MAX_ERR_OVER_LIMIT)
 F32_ATTN_REL = 2.0**-12
 F32_ATTN_LIMIT_RULE = "2^-12 * attention(q, k, |v|) per element (f32 cache)"
 
@@ -836,17 +857,18 @@ def kernel_attn(timer: Timer, gen, t: int, n_past, update: bool, main_path: bool
     _route_times(timer, run, row, t, kind)
     _splits(row, t, n_past, b, s, bk)
     row["library_ms"] = timer(_sdpa_call(q, k, v, npast, layer, *planes[2:]))
-    row["bound_ms"], row["bound_by"] = bound(*_attn_sizes(b, t, n_past, update, quant, f32, h),
-                                             F32_FLOP_PER_S if f32 else BF16_OP_PER_S)
+    row["bound_ms"], row["bound_by"] = _attn_bound(
+        *_attn_sizes(b, t, n_past, update, quant, f32, h), kind, t)
     return row
 
 
 def kernel_attn_pp(timer: Timer, gen, path: str, b: int, t: int, n_past, b_cache: int,
                    boff: int, quant: bool, main_path: bool, commit: int = 1,
-                   s: int = N_CTX, bk: int | None = None, h: int = H) -> dict:
+                   s: int = N_CTX, bk: int | None = None, h: int = H,
+                   f32: bool = False) -> dict:
     """K2 (`path` "update"), K3 ("read") or K4 ("decode") on B rows at
-    `batch_offset` boff of a random flat cache of B_cache rows (bf16 or
-    int8), or K2 with commit=0: against its plain version (the limit of
+    `batch_offset` boff of a random flat cache of B_cache rows (bf16, int8
+    or `f32`), or K2 with commit=0: against its plain version (the limit of
     `kernel_attn`); bit-equal, outputs and rows, to the same call on a copy
     of just the offset rows; every other cache row unchanged; with commit=0,
     every cache byte unchanged and the output bit-equal to K3 over the
@@ -855,7 +877,7 @@ def kernel_attn_pp(timer: Timer, gen, path: str, b: int, t: int, n_past, b_cache
     from llamavk_tpu_torch.ops import flash_decode as fd
 
     layer = 1
-    planes = _kv_cache(gen, (2, b_cache, h, s, D), quant)
+    planes = _kv_cache(gen, (2, b_cache, h, s, D), quant, f32)
     q, kn, vn = (torch.randn((b, t, h, D), device="cuda", generator=gen).to(torch.bfloat16)
                  for _ in range(3))
     npast = (torch.tensor(n_past, dtype=torch.int32, device="cuda")
@@ -899,16 +921,18 @@ def kernel_attn_pp(timer: Timer, gen, path: str, b: int, t: int, n_past, b_cache
             **_scales(planes)))
     view = [x[:, boff : boff + b] for x in planes]
     err, ratio = _attn_err(got, want, q, view[0], view[1], npast, layer, *view[2:])
-    kind = "int8" if quant else "bf16"
+    kind = "int8" if quant else "f32" if f32 else "bf16"
     mode = "boff" if commit else "nocommit"
     row = {
-        "kernel": ("decode_" + mode + ("_i8" if quant else "")) if path == "decode"
+        "kernel": ("decode_" + mode + {"bf16": "", "int8": "_i8", "f32": "_f32"}[kind])
+                  if path == "decode"
                   else "attn_" + fa.launch_name(path, kind, False, mode=mode,
                                                 route=fa.attn_route(t, kind)),
         "shape": f"B={b} of {b_cache} at batch_offset={boff} T={t} n_past={n_past} H={h} D={D} "
-                 f"S={s} block_k={bk}" + (" int8" if quant else "")
+                 f"S={s} block_k={bk}" + ("" if kind == "bf16" else f" {kind}")
                  + ("" if commit else " commit=0"),
-        "main_path": main_path, "max_abs_err": err, "limit": ATTN_LIMIT_RULE,
+        "main_path": main_path, "max_abs_err": err,
+        "limit": F32_ATTN_LIMIT_RULE if f32 else ATTN_LIMIT_RULE,
         "err_over_limit": ratio, **checks, "ok": ratio <= 1.0 and all(checks.values()),
         "ms": timer(lambda: call(planes, boff)),
         "plain_ms": timer(lambda: call(plain, boff, ref=True), reps=5),
@@ -916,8 +940,8 @@ def kernel_attn_pp(timer: Timer, gen, path: str, b: int, t: int, n_past, b_cache
     _route_times(timer, lambda: call(planes, boff), row, t, kind)
     _splits(row, t, n_past, b, s, bk)
     row["library_ms"] = timer(_sdpa_call(q, view[0], view[1], npast, layer, *view[2:]))
-    row["bound_ms"], row["bound_by"] = bound(
-        *_attn_sizes(b, t, n_past, path != "read" and bool(commit), quant, h=h))
+    row["bound_ms"], row["bound_by"] = _attn_bound(
+        *_attn_sizes(b, t, n_past, path != "read" and bool(commit), quant, f32, h), kind, t)
     return row
 
 
@@ -1130,8 +1154,8 @@ def kernel_attn_paged(timer, gen, gen_cpu, t: int, n_past, update: bool, b: int 
         _route_times(timer, run, row, t, kind)
         _splits(row, t, n_past, b, s, bk)
         row["library_ms"] = timer(_sdpa_call(q, flat[0], flat[1], npast, layer, *flat[2:]))
-        row["bound_ms"], row["bound_by"] = bound(*_attn_sizes(b, t, n_past, update, quant, f32),
-                                                 F32_FLOP_PER_S if f32 else BF16_OP_PER_S)
+        row["bound_ms"], row["bound_by"] = _attn_bound(
+            *_attn_sizes(b, t, n_past, update, quant, f32), kind, t)
     return row
 
 
@@ -1340,16 +1364,15 @@ def kernel_attn_ring(timer, gen, t: int, n_past: int, update: bool, quant: bool,
     # bytes: q read, out written, the plane read, the visible rows read once
     # (update: the earlier ones from the cache, the new ones read from
     # k_new/v_new and written); operations: QK and PV over each query's
-    # visible rows (f32 ones on the CUDA cores for an f32 cache, whose q and
-    # new rows arrive as f32)
+    # visible rows (an f32 cache's, whose q and new rows arrive as f32, at
+    # its route's rate: `_attn_bound`)
     nv = int(valid.sum())
     qb = 4 if f32 else 2
     n_bytes = t * h * d * (qb + 4) + s * 4 + 2 * nv * _row_bytes(quant, h, d, f32)
     if update:
         n_bytes += 2 * t * h * d * qb
     ops = 4.0 * h * d * sum(int(((pc >= 0) & (pc <= n_past + i)).sum()) for i in range(t))
-    row["bound_ms"], row["bound_by"] = bound(n_bytes, ops,
-                                             F32_FLOP_PER_S if f32 else BF16_OP_PER_S)
+    row["bound_ms"], row["bound_by"] = _attn_bound(n_bytes, ops, kind, t)
     return row
 
 
@@ -1456,10 +1479,43 @@ def kernel_attn_prefix(timer, gen, gen_cpu, b: int, t: int, npl: list[int], upda
     for i, pl in zip(pid.tolist(), plens.tolist()):
         used[i] = max(used.get(i, 0), pl)
     n_bytes += sum(used.values()) * 2 * h * d * 2
-    ops += 4.0 * h * d * t * int(plens.sum())
-    row["bound_ms"], row["bound_by"] = bound(n_bytes, ops, F32_FLOP_PER_S if f32
-                                             else BF16_OP_PER_S)
+    pool_ops = 4.0 * h * d * t * int(plens.sum())
+    row["bound_ms"], row["bound_by"] = _attn_bound(n_bytes, ops, kind, t, pool_ops)
     return row
+
+
+def _attn_edge(gen, b: int, t: int, n_past, update: bool, bk: int, h: int, d: int, s: int,
+               quant: bool = False, f32: bool = False) -> dict:
+    """K2 (update) or K3 (read) over a flat cache (bf16, int8 or `f32`) at a
+    small width, against its plain version (update: cache bytes equal),
+    correctness only; n_past an int or a list (an int32 vector)."""
+    from llamavk_tpu_torch.ops import flash_attn as fa
+
+    planes = _kv_cache(gen, (2, b, h, s, d), quant, f32)
+    q, kn, vn = (torch.randn((b, t, h, d), device="cuda", generator=gen).to(torch.bfloat16)
+                 for _ in range(3))
+    np_ = (torch.tensor(n_past, dtype=torch.int32, device="cuda") if isinstance(n_past, list)
+           else n_past)
+    k, v = planes[0], planes[1]
+    cache_equal = True
+    if update:
+        p2 = [x.clone() for x in planes]
+        got = fa.flash_attention_update(q, kn, vn, k, v, np_, 1, block_k=bk, **_scales(planes))[0]
+        want = fa.flash_attention_update_ref(q, kn, vn, p2[0], p2[1], np_, 1, **_scales(p2))[0]
+        cache_equal = all(torch.equal(x, y) for x, y in zip(planes, p2))
+    else:
+        fa.write_rows(kn, vn, k, v, np_, 1, *planes[2:])
+        got = fa.flash_attention(q, k, v, np_, layer_idx=1, block_k=bk, **_scales(planes))
+        want = fa.flash_attention_ref(q, k, v, np_, layer_idx=1, **_scales(planes))
+    err, ratio = _attn_err(got, want, q, k, v, np_, 1, *planes[2:])
+    kind = "int8" if quant else "f32" if f32 else "bf16"
+    return {"kernel": "attn_" + fa.launch_name("update" if update else "read", kind, False,
+                                               route=fa.attn_route(t, kind)),
+            "shape": f"B={b} T={t} n_past={n_past} H={h} D={d} S={s} block_k={bk}"
+                     + ("" if kind == "bf16" else f" {kind}"),
+            "max_abs_err": err, "limit": F32_ATTN_LIMIT_RULE if f32 else ATTN_LIMIT_RULE,
+            "err_over_limit": ratio, "cache_bytes_equal": cache_equal,
+            "ok": ratio <= 1.0 and cache_equal}
 
 
 def kernel_edges(gen, gen_cpu) -> dict:
@@ -1490,28 +1546,12 @@ def kernel_edges(gen, gen_cpu) -> dict:
         # sub-tiles), a vector n_past
         for b, t, n_past, update in ((1, 8, 13, True), (1, 5, 20, False), (2, 1, None, True),
                                      (1, 24, 13, True), (1, 40, 20, False), (2, 16, None, True)):
-            planes = _kv_cache(gen, (2, b, h, s, d), quant)
-            q, kn, vn = (torch.randn((b, t, h, d), device="cuda", generator=gen)
-                         .to(torch.bfloat16) for _ in range(3))
-            np_ = (torch.tensor([3, 40], dtype=torch.int32, device="cuda")
-                   if n_past is None else n_past)
-            k, v = planes[0], planes[1]
-            if update:
-                p2 = [x.clone() for x in planes]
-                got = fa.flash_attention_update(q, kn, vn, k, v, np_, 1, block_k=32,
-                                                **_scales(planes))[0]
-                want = fa.flash_attention_update_ref(q, kn, vn, p2[0], p2[1], np_, 1,
-                                                     **_scales(p2))[0]
-                if not all(torch.equal(x, y) for x, y in zip(planes, p2)):
-                    raise SystemExit(f"kernel edges: cache rows differ (B={b} T={t})")
-            else:
-                fa.write_rows(kn, vn, k, v, np_, 1, *planes[2:])
-                got = fa.flash_attention(q, k, v, np_, layer_idx=1, block_k=32, **_scales(planes))
-                want = fa.flash_attention_ref(q, k, v, np_, layer_idx=1, **_scales(planes))
-            name = (f"attn {'update' if update else 'read'} B={b} T={t} D={d} "
-                    f"n_past={n_past or [3, 40]}{' int8' if quant else ''}")
-            err, ratio = _attn_err(got, want, q, k, v, np_, 1, *planes[2:])
-            worst[name] = (err, ATTN_LIMIT_RULE, ratio)
+            r = _attn_edge(gen, b, t, [3, 40] if n_past is None else n_past, update, 32, h, d,
+                           s, quant)
+            if not r["cache_bytes_equal"]:
+                raise SystemExit(f"kernel edges: cache rows differ (B={b} T={t})")
+            worst[f"{r['kernel']} {r['shape']}"] = (r["max_abs_err"], ATTN_LIMIT_RULE,
+                                                   r["err_over_limit"])
         r = kernel_decode(None, gen, gen_cpu, 4, quant, False, h=h, d=d, s=s, bk=32)
         if not r["ok"]:
             raise SystemExit(f"kernel edges: batched decode at D={d} disagrees: {r}")
@@ -1557,14 +1597,35 @@ def kernel_edges(gen, gen_cpu) -> dict:
                 raise SystemExit(f"kernel edges: ring/prefix kernel at D={d} disagrees: {r}")
             worst[f"{r['kernel']} {r['shape']}"] = (r["max_abs_err"], ATTN_LIMIT_RULE,
                                                    r["err_over_limit"])
-    # an f32 page pool of 8-row pages and f32 slots under the prefix pool
+    # an f32 page pool of 8-row pages and f32 slots under the prefix pool;
+    # then the f32 tensor-core route: flat with KV blocks of 16 and 32 rows
+    # (16-row sub-tiles; a ragged last one) and rows past T in the last
+    # 64-row block, a vector n_past, 8-row pages (8-row sub-tiles), a wrapped ring, one
+    # before its wrap (bit-equal to flat), the pool pre-pass over f32 slots
     for r in (kernel_attn_paged(None, gen, gen_cpu, 8, [8, 16], True, 2, False, s, 8, 32, h, d,
                                 f32=True),
               kernel_attn_paged(None, gen, gen_cpu, 5, 20, False, 1, False, s, 8, 32, h, d,
                                 f32=True),
               kernel_decode_paged(None, gen, gen_cpu, 4, False, s, 8, 32, h, d, f32=True),
               kernel_attn_prefix(None, gen, gen_cpu, 3, 8, [3, 9, 40], True, False,
-                                 plen=[33, 0, 256], s=s, h=h, d=d, bk=32, f32=True)):
+                                 plen=[33, 0, 256], s=s, h=h, d=d, bk=32, f32=True),
+              _attn_edge(gen, 1, 24, 13, True, 16, h, d, s, f32=True),
+              _attn_edge(gen, 1, 40, 20, False, 32, h, d, s, f32=True),
+              _attn_edge(gen, 2, 16, [3, 40], True, 32, h, d, s, f32=True),
+              kernel_attn_paged(None, gen, gen_cpu, 16, [8, 16], True, 2, False, s, 8, 32, h, d,
+                                f32=True),
+              kernel_attn_paged(None, gen, gen_cpu, 21, 20, False, 1, False, s, 8, 32, h, d,
+                                f32=True),
+              kernel_attn_ring(None, gen, 16, 92, True, False, keep=4, s=s, h=h, d=d, bk=32,
+                               f32=True),
+              kernel_attn_ring(None, gen, 16, 8, True, False, keep=4, s=s, h=h, d=d, bk=32,
+                               f32=True),
+              kernel_attn_ring(None, gen, 21, 70, False, False, holes=range(20, 30), keep=4,
+                               s=s, h=h, d=d, bk=32, f32=True),
+              kernel_attn_prefix(None, gen, gen_cpu, 3, 16, [3, 9, 40], True, False,
+                                 plen=[33, 0, 256], s=s, h=h, d=d, bk=32, f32=True),
+              kernel_attn_prefix(None, gen, gen_cpu, 2, 20, [0, 20], False, False,
+                                 plen=[100, 7], s=s, h=h, d=d, bk=32, f32=True)):
         if not r["ok"]:
             raise SystemExit(f"kernel edges: f32 paged/prefix kernel at D={d} disagrees: {r}")
         worst[f"{r['kernel']} {r['shape']}"] = (r["max_abs_err"], r["limit"],
@@ -1687,6 +1748,12 @@ def phase_kernels(reps: int) -> list[dict]:
     return rows
 
 
+# the f32 tensor-core route's rows must use at most this share of the f32
+# limit (2^-12 of attention(q, k, |v|)): the three TF32 passes leave ~2^-21
+# of each product, far inside it; one pass alone would pass the limit
+F32_TC_MAX_ERR_OVER_LIMIT = 0.05
+
+
 def kernels_f32(timer: Timer, gen, gen_cpu) -> list[dict]:
     """The f32 modes at 7B shapes. K1's GEMV over an f32 scale plane (M = 1;
     no main path loads f32 scales and decodes; the GEMM's f32-scale rows are
@@ -1696,10 +1763,15 @@ def kernels_f32(timer: Timer, gen, gen_cpu) -> list[dict]:
     159) and K4 (BatchedEngine(kv_dtype="float32") at 32 slots, ragged
     n_past, bit-equal to K2 row by row). An f32 page pool (PS = 128, B = 32,
     n_past 0..511 seeded): K2 and K3 at T = 1, bit-equal to the flat kernels
-    on the gathered view, and K4, bit-equal to flat K4 and to the paged K2.
-    f32 slots under the bf16 prefix pool (200-row prefixes): K2 at the B = 32
+    on the gathered view, and K4, bit-equal to flat K4 and to the paged K2;
+    K2 at a B = 4, T = 64 admission (the tensor cores), bit-equal to flat
+    at block_k = PS. The f32 ring's prompt (K2 T = 32, bit-equal to flat).
+    2 of 4 rows at batch_offset 2, T = 32, bit-equal to the rows alone, and
+    the same call with commit = 0 (no byte written, bit-equal to K3). f32
+    slots under the bf16 prefix pool (200-row prefixes): K2 at the B = 32
     decode step and at a B = 4, T = 64 admission, K3 at T = 301, each
-    bit-equal to flat f32 at prefix_len 0."""
+    bit-equal to flat f32 at prefix_len 0. Every f32 row on the tensor
+    cores with the f32 limit stays within F32_TC_MAX_ERR_OVER_LIMIT of it."""
     rows = []
     for name in K1_SHAPES:
         rows.append(kernel_q4(timer, gen, name, 1, False, f32_scales=True))
@@ -1707,6 +1779,14 @@ def kernels_f32(timer: Timer, gen, gen_cpu) -> list[dict]:
     for t, n_past, update, main in ((1, 480, True, True), (32, 0, True, True),
                                     (512, 0, True, False), (353, 159, False, True)):
         rows.append(kernel_attn(timer, gen, t, n_past, update, main, f32=True))
+        emit({"phase": "kernel", **rows[-1]})
+    rows.append(kernel_attn_paged(timer, gen, gen_cpu, 64, 0, True, 4, f32=True))
+    emit({"phase": "kernel", **rows[-1]})
+    rows.append(kernel_attn_ring(timer, gen, 32, 0, True, False, f32=True))
+    emit({"phase": "kernel", **rows[-1]})
+    for commit in (1, 0):
+        rows.append(kernel_attn_pp(timer, gen, "update", 2, 32, 0, 4, 2, False, False,
+                                   commit=commit, f32=True))
         emit({"phase": "kernel", **rows[-1]})
     rows.append(kernel_decode(timer, gen, gen_cpu, 32, False, True, f32=True))
     emit({"phase": "kernel", **rows[-1]})
@@ -1720,6 +1800,9 @@ def kernels_f32(timer: Timer, gen, gen_cpu) -> list[dict]:
     for b, t, pasts, update in ((32, 1, npl, True), (4, 64, [0] * 4, True), (1, 301, [0], False)):
         rows.append(kernel_attn_prefix(timer, gen, gen_cpu, b, t, pasts, update, False, f32=True))
         emit({"phase": "kernel", **rows[-1]})
+    for r in rows:
+        if r.get("attn_route") == "tensor_core" and r["limit"] == F32_ATTN_LIMIT_RULE:
+            r["ok"] = r["ok"] and r["err_over_limit"] <= F32_TC_MAX_ERR_OVER_LIMIT
     return rows
 
 
@@ -3780,10 +3863,12 @@ def phase_eval_7b_f32(seed: int) -> tuple[dict, dict, dict]:
     shapes = _shapes()
     result["launches"] = counts
     result.update(_shape_report(shapes))
-    # the bf16 perplexity chunk (T 512) on the tensor cores, f32 caches on
-    # the CUDA cores past T = 1 and on the split route at T = 1
+    # the bf16 perplexity chunk (T 512) on the tensor cores; the f32 cache's
+    # prompt (T 32) and second turn (T 301) on the tensor cores, its decode
+    # steps on the split route
     _require("eval_7b_f32", counts, ("q4_gemv", "q4_gemm", "q4_gemm_f32", "attn_update_tc",
-                                     "attn_update_f32", "attn_update_split_f32", "attn_read_f32",
+                                     "attn_update_tc_f32", "attn_update_split_f32",
+                                     "attn_read_tc_f32",
                                      "decode_f32"))
     return result, counts, shapes
 

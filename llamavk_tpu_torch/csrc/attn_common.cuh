@@ -30,11 +30,14 @@
 // max and sum run in f32 over KV blocks of exactly `block_k` rows; the sum
 // l takes p before the v-scale; p is multiplied by the v-scale (int8) and
 // rounded to bf16 for the PV product; out = acc / l. An f32 cache has no
-// rounding point (the JAX kernel multiplies in the cache's own type,
-// flash_attn.py:749, :798 there): q * scale stays f32, a score is the f32
-// sum of f32 products, and p enters the PV product unrounded. The rounding
-// is chosen by the KV type alone (`op_round`), so the bf16 and int8 code is
-// the code it was.
+// bf16 rounding point (the JAX kernel multiplies in the cache's own type,
+// flash_attn.py:749, :798 there): q * scale stays f32 and p enters the PV
+// product unrounded. Here (T 2-15, `attend_block`) a score is the f32 sum of
+// f32 products; on the tensor-core route (attn_mma.cuh, T >= 16) each
+// product, of the scores and of PV, is instead the sum of three TF32 passes
+// over the operands' hi and lo parts (~2^-21 of the product), within the
+// same f32 limit. The rounding is chosen by the KV type alone (`op_round`),
+// so the bf16 and int8 code is the code it was.
 
 #pragma once
 

@@ -61,14 +61,17 @@
 //    update's row write is fused into the launch (the block whose split
 //    holds the row writes it, then reads it), so K2 at T = 1 is one launch;
 //  * the CUDA-core route, `attn::attend_block` of attn_common.cuh, for T
-//    from 2 to 15 (the lookup verify) and f32 caches at T >= 2. A block owns
-//    8 query rows of one (batch, head), one per warp; lane j scores key j of
+//    from 2 to 15 (the lookup verify) over every cache type. A block owns 8
+//    query rows of one (batch, head), one per warp; lane j scores key j of
 //    a 64-row shared tile, then the warp's 32 lanes own D/32 output dims each
 //    for the PV sum;
-//  * the tensor-core route, `attn::mma::attend_tc` of attn_mma.cuh: bf16 and
-//    int8 caches at T >= 16 (prefill, admission chunks). A block owns 64
-//    query rows (16 a warp); QK^T and PV run on `mma.sync` m16n8k16 with the
-//    scores in registers, over K/V sub-tiles double-buffered by `cp.async`.
+//  * the tensor-core route, `attn::mma::attend_tc` of attn_mma.cuh, for T >=
+//    16 (prefill, admission chunks) over every cache type. A block owns 64
+//    query rows (16 a warp); QK^T and PV run on `mma.sync` with the scores
+//    in registers, over K/V sub-tiles double-buffered by `cp.async`: bf16
+//    and int8 caches on m16n8k16 bf16 products, f32 caches on three m16n8k8
+//    TF32 passes a product (each f32 operand split into TF32 hi and lo
+//    parts), nothing rounded to bf16.
 // Every route gives a paged call equal to a flat one at block_k = PS bit for
 // bit, and keeps every mode's bit-equalities. Blocks past a row's last
 // visible column contribute exactly zero, so reading only up to the tile's
@@ -82,8 +85,9 @@
 // plus the new rows, and is bound by those bytes, which the split route
 // spreads over (split, head, row) blocks with every load in flight;
 // prefill is bound by its operations (4 * T * S_visible * D per head),
-// which the tensor-core route puts on the tensor cores. wgmma/TMA attention
-// is later work.
+// which the tensor-core route puts on the tensor cores (an f32 cache: three
+// TF32 passes, ~165 TFLOP/s of f32-accurate products at most, against 67 on
+// the CUDA cores). wgmma/TMA attention is later work.
 
 #include "attn_mma.cuh"
 #include "attn_split.cuh"
@@ -160,19 +164,50 @@ attn_kernel(const attn::QType<KV>* __restrict__ q, const KV* kc, const KV* vc, c
                                   T, H, map, block_k, scale, ring, pre);
 }
 
+// The task (row tile x, head, batch row) of a tensor-core block. bf16 and
+// int8 caches keep the grid's order (x fastest). Over an f32 cache a row
+// tile's work grows with x (the causal mask's visible columns), and the
+// blocks are long (two fit an SM), so they take their tasks heaviest x
+// first. Where the grid fits in two blocks an SM, the blocks past the first
+// `nsm` (the scheduler deals blocks out one an SM in index order) take the
+// rest in reverse, so an SM's second block is one of the lightest tiles
+// left; a larger grid keeps heaviest first throughout. The order moves no
+// result, only which SM computes it, and only the time (faster on the card
+// for the f32 prefills of chip_smoke.py's kernels phase).
+template <typename KV>
+__device__ __forceinline__ int3 tc_task(int nsm) {
+  if (!std::is_same<KV, float>::value) return make_int3(blockIdx.x, blockIdx.y, blockIdx.z);
+  const int hb = gridDim.y * gridDim.z, n = gridDim.x * hb;
+  int k = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+  if (k >= nsm && n <= 2 * nsm) k = n - 1 - (k - nsm);
+  return make_int3(gridDim.x - 1 - k / hb, (k % hb) % gridDim.y, (k % hb) / gridDim.y);
+}
+
 // The tensor-core route: 64 query rows a block (attn_mma.cuh)
 template <int D, typename KV, int MODE>
 __global__ void __launch_bounds__(attn::mma::THREADS)
-attn_tc_kernel(const __nv_bfloat16* __restrict__ q, const KV* kc, const KV* vc, const float* ks,
+attn_tc_kernel(const attn::QType<KV>* __restrict__ q, const KV* kc, const KV* vc, const float* ks,
                const float* vs, float* __restrict__ out, const int* __restrict__ npast_vec,
                int npast_scalar, KVMap map, int T, int H, int block_k, float scale,
-               attn::Ring ring, attn::Prefix pre) {
+               attn::Ring ring, attn::Prefix pre, int nsm) {
   extern __shared__ __align__(16) uint8_t tc_smem[];
-  const int b = blockIdx.z;
+  const int3 task = tc_task<KV>(nsm);
+  const int b = task.z;
   const int np = npast_vec ? npast_vec[b] : npast_scalar;
-  attn::mma::attend_tc<D, KV, MODE>(tc_smem, q, kc, vc, ks, vs, out, b, blockIdx.y,
-                                    blockIdx.x * attn::mma::QT, np, T, H, map, block_k, scale,
+  attn::mma::attend_tc<D, KV, MODE>(tc_smem, q, kc, vc, ks, vs, out, b, task.y,
+                                    task.x * attn::mma::QT, np, T, H, map, block_k, scale,
                                     ring, pre);
+}
+
+// the SMs of the current device (read once)
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
 }
 
 template <int D, typename KV, int MODE>
@@ -186,9 +221,9 @@ cudaError_t launch_tc(const void* q, const void* kc, const void* vc, const float
   if (e != cudaSuccess) return e;
   dim3 grid((T + attn::mma::QT - 1) / attn::mma::QT, H, B);
   attn_tc_kernel<D, KV, MODE><<<grid, attn::mma::THREADS, dyn, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(kc),
+      static_cast<const attn::QType<KV>*>(q), static_cast<const KV*>(kc),
       static_cast<const KV*>(vc), ks, vs, static_cast<float*>(out), npast_vec, npast_scalar,
-      map, T, H, block_k, scale, ring, pre);
+      map, T, H, block_k, scale, ring, pre, sm_count());
   ++attn::launch_count();
   return cudaGetLastError();
 }
@@ -212,9 +247,8 @@ cudaError_t launch_attn(const void* q, const void* kc, const void* vc, const flo
 }
 
 // The attention launches of the K2/K3 routes (`route`, checked by the
-// caller: the tensor-core route for a bf16 or int8 cache at T >= 16 only,
-// the split route at T = 1 only; the split route launches through
-// `split_route`)
+// caller: the tensor-core route at T >= 16 only, the split route at T = 1
+// only; the split route launches through `split_route`)
 enum { ROUTE_CUDA_CORE = 0, ROUTE_TENSOR_CORE = 1, ROUTE_SPLIT = 2 };
 
 template <int D, typename KV, int MODE>
@@ -223,11 +257,9 @@ cudaError_t launch_route(int route, const void* q, const void* kc, const void* v
                          int npast_scalar, KVMap map, int B, int T, int H, int block_k,
                          float scale, const attn::Ring& ring, const attn::Prefix& pre,
                          cudaStream_t st) {
-  if constexpr (!std::is_same<KV, float>::value) {
-    if (route == ROUTE_TENSOR_CORE)
-      return launch_tc<D, KV, MODE>(q, kc, vc, ks, vs, out, npast_vec, npast_scalar, map, B, T,
-                                    H, block_k, scale, ring, pre, st);
-  }
+  if (route == ROUTE_TENSOR_CORE)
+    return launch_tc<D, KV, MODE>(q, kc, vc, ks, vs, out, npast_vec, npast_scalar, map, B, T, H,
+                                  block_k, scale, ring, pre, st);
   return launch_attn<D, KV, MODE>(q, kc, vc, ks, vs, out, npast_vec, npast_scalar, map, B, T, H,
                                   block_k, scale, ring, pre, st);
 }
@@ -335,10 +367,10 @@ void offset_batch(P& kc, P& vc, SP& ks, SP& vs, int batch_offset, int kv_kind, i
 
 namespace {
 
-// a route the C interfaces take for a call at T over a kv_kind cache
-bool route_ok(int route, int T, int kv_kind) {
+// a route the C interfaces take for a call at T (every cache type)
+bool route_ok(int route, int T) {
   if (route == ROUTE_SPLIT) return T == 1;
-  if (route == ROUTE_TENSOR_CORE) return kv_kind != KV_F32 && T >= attn::mma::MIN_T;
+  if (route == ROUTE_TENSOR_CORE) return T >= attn::mma::MIN_T;
   return route == ROUTE_CUDA_CORE;
 }
 
@@ -392,8 +424,7 @@ int split_route(const void* q, const void* k_new, const void* v_new, const void*
 // batch_offset (flat, no ring or prefix) is the cache row of batch row 0:
 // the flat layer pointers address a [B_cache, ...] layer with
 // B_cache >= batch_offset + B. route: ROUTE_CUDA_CORE, ROUTE_TENSOR_CORE
-// for a bf16 or int8 cache at T >= 16, or ROUTE_SPLIT at T = 1 (refused
-// otherwise), with split_ws [B, H, split_nx, D + 2] f32 and split_cnt
+// at T >= 16, or ROUTE_SPLIT at T = 1 (refused otherwise), with split_ws [B, H, split_nx, D + 2] f32 and split_cnt
 // [B * H] int32 zeros (null on the other routes), split_nx the pool's and
 // the cache's splits a row can address (attn_split.cuh).
 extern "C" int attn_read_launch(const void* q, const void* k_cache, const void* v_cache,
@@ -405,7 +436,7 @@ extern "C" int attn_read_launch(const void* q, const void* k_cache, const void* 
                                 void* split_cnt, int split_nx, void* stream) {
   if (block_k < 1 || S % block_k != 0) return (int)cudaErrorInvalidValue;
   if (kv_kind < KV_BF16 || kv_kind > KV_F32) return (int)cudaErrorInvalidValue;
-  if (!route_ok(route, T, kv_kind)) return (int)cudaErrorInvalidValue;
+  if (!route_ok(route, T)) return (int)cudaErrorInvalidValue;
   if (page_table && maxlb < 1) return (int)cudaErrorInvalidValue;
   attn::Ring ring;
   attn::Prefix pre;
@@ -448,7 +479,7 @@ extern "C" int attn_update_launch(const void* q, const void* k_new, const void* 
                                   void* split_ws, void* split_cnt, int split_nx, void* stream) {
   if (block_k < 1 || S % block_k != 0 || (D != 64 && D != 128)) return (int)cudaErrorInvalidValue;
   if (kv_kind < KV_BF16 || kv_kind > KV_F32) return (int)cudaErrorInvalidValue;
-  if (!route_ok(route, T, kv_kind)) return (int)cudaErrorInvalidValue;
+  if (!route_ok(route, T)) return (int)cudaErrorInvalidValue;
   if (page_table && maxlb < 1) return (int)cudaErrorInvalidValue;
   if (batch_offset < 0 || (batch_offset && (page_table || (modes && (modes->pos || modes->pk)))))
     return (int)cudaErrorInvalidValue;

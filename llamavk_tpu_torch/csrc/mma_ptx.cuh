@@ -1,8 +1,9 @@
 // PTX helpers of the hand-written tensor-core kernels (sm_90a): the
 // tensor-core attention (attn_mma.cuh) and K1's GEMM (q4_gemm.cuh) share
 // them. `cp.async` copies from global to shared memory, `ldmatrix` loads of
-// 8x8 b16 tiles, and `mma.sync` m16n8k16 with bf16 operands and f32
-// accumulators.
+// 8x8 b16 tiles, `mma.sync` m16n8k16 with bf16 operands and f32
+// accumulators, and `mma.sync` m16n8k8 with TF32 operands (the f32-cache
+// attention's three passes, attn_mma.cuh).
 
 #pragma once
 
@@ -59,6 +60,36 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], 
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a (16 x 8, row) * b (8 x 8, col), TF32 in (each 32-bit register one
+// TF32 value: the low 13 bits of the significand zero), f32 accumulate.
+// Fragments: a0 (row g, col t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8,
+// t + 4); b0 (k t, n g), b1 (k t + 4, n g); c as m16n8k16's (g = lane / 4,
+// t = lane % 4)
+__device__ __forceinline__ void mma1688(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x rounded to TF32, to nearest with ties away from zero: 10 significand
+// bits kept, the low 13 zero. The rounding of `cvt.rna.tf32.f32`, done as
+// half an ulp added to the magnitude's bits and the low bits cleared: two
+// integer operations, which the f32 attention ran measurably faster on than
+// on `cvt.rna` (finite x)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo + O(2^-22 |x|): hi = tf32(x), lo = tf32(x - hi) (x - hi is
+// exact in f32)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(__fsub_rn(x, __uint_as_float(hi)));
 }
 
 // two floats rounded to bf16 (nearest even), lo in the low half

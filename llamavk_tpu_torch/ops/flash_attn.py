@@ -58,9 +58,9 @@ and batched engines route a given T alike): the split route
 (`csrc/attn_split.cuh`, split-KV decode, the kernel of
 `ops/flash_decode.py` too) at T = 1 over every cache type, the update's row
 write fused into its one launch; the tensor-core route (`csrc/attn_mma.cuh`,
-`mma.sync`) for bf16 and int8 caches at T >= 16; the CUDA-core route
-(`attend_block` of `csrc/attn_common.cuh`) for T from 2 to 15 and f32
-caches past T = 1. Each route has its own launch counters (`_split` or `_tc`
+`mma.sync`; an f32 cache on three TF32 passes a product) at T >= 16 over
+every cache type; the CUDA-core route (`attend_block` of
+`csrc/attn_common.cuh`) for T from 2 to 15. Each route has its own launch counters (`_split` or `_tc`
 in the name); no call falls back from one to another. The split route cuts
 each row's visible rows into splits of `split_rows(block_k)` rows
 (`split_schedule`), sizes its grid and workspace by `split_grid`, and
@@ -106,21 +106,18 @@ from .kv_quant import quantize_rows
 
 # launches of the CUDA kernels (one per wrapper call on CUDA tensors), by
 # path, cache mode, route (`_split`: the split route, `_tc`: the tensor-core
-# route) and cache type; the update path's page_straddle mode on its own; an
-# f32 cache in every mode, on the split and CUDA-core routes
+# route) and cache type; the update path's page_straddle mode on its own;
+# every cache type in every mode, on every route
 _MODES = (("update", ""), ("update", "_paged"), ("update", "_paged_straddle"), ("read", ""),
           ("read", "_paged"), ("update", "_ring"), ("read", "_ring"), ("update", "_prefix"),
           ("read", "_prefix"))
 launches = {f"{path}{mode}{route}{kind}": 0 for path, mode in _MODES
-            for route in ("", "_split", "_tc") for kind in ("", "_i8")}
-launches.update({f"{path}{mode}{route}_f32": 0 for path, mode in _MODES
-                 for route in ("", "_split")})
+            for route in ("", "_split", "_tc") for kind in ("", "_i8", "_f32")}
 # the pipeline-parallel modes: a batch slice of a wider flat cache (`boff`),
 # and the update with commit=0 (`nocommit`), every cache type
 launches.update({f"{path}_{mode}{route}{kind}": 0 for path, mode in (
     ("update", "boff"), ("read", "boff"), ("update", "nocommit"))
-    for route in ("", "_split", "_tc") for kind in ("", "_i8", "_f32")
-    if not (route == "_tc" and kind == "_f32")})
+    for route in ("", "_split", "_tc") for kind in ("", "_i8", "_f32")})
 # launches by shape (path, B, T, H, S, D, block_k, cache type: "bf16",
 # "int8" or "f32", n_past: the int, or None for a per-row vector, MAXLB: the
 # page table's width, or None for a flat cache, page_straddle, mode: None,
@@ -138,7 +135,7 @@ KV_CODES = {"bf16": 0, "int8": 1, "f32": 2}
 # (`route` of their C interfaces)
 ROUTE_CODES = {"cuda_core": 0, "tensor_core": 1, "split": 2}
 ROUTE_SUFFIX = {"cuda_core": "", "tensor_core": "_tc", "split": "_split"}
-TC_MIN_T = 16  # the least T of the tensor-core route (attn::mma::MIN_T)
+TC_MIN_T = 16  # the least T of the tensor-core route, every cache type (attn::mma::MIN_T)
 SPLIT_ROWS = 64  # a split's rows where they divide block_k (attn::split::split_rows)
 SPLIT_MAX_ROWS = 512  # attn::split::MAX_ROWS
 SPLIT_MAX_GRID = 256  # attn::split::MAX_SPLITS
@@ -147,12 +144,14 @@ SPLIT_MAX_GRID = 256  # attn::split::MAX_SPLITS
 def attn_route(t: int, kind: str) -> str:
     """The route of K2/K3's attention launch (and K4's, at T = 1) for T
     query rows over a cache of type `kind`: "split" (`csrc/attn_split.cuh`)
-    at T = 1 over every cache type, "tensor_core" (`csrc/attn_mma.cuh`) for
-    a bf16 or int8 cache at T >= 16, else "cuda_core" (`attend_block`). It
-    depends on T and the cache type alone."""
+    at T = 1, "tensor_core" (`csrc/attn_mma.cuh`; bf16 products over a bf16
+    or int8 cache, three TF32 passes a product over an f32 one) at T >= 16,
+    else "cuda_core" (`attend_block`), over every cache type. It depends on
+    T and the cache type alone (today every type takes every route)."""
+    del kind  # no route excludes a cache type
     if t == 1:
         return "split"
-    return "tensor_core" if kind != "f32" and t >= TC_MIN_T else "cuda_core"
+    return "tensor_core" if t >= TC_MIN_T else "cuda_core"
 
 
 def launch_name(path: str, kind: str, paged: bool, straddle: bool = False,
@@ -357,7 +356,10 @@ def attend_ref(q, k_l, v_l, visible, k_scale_l=None, v_scale_l=None, prefix=None
     before the PV product, and the sum is divided by l, the f32 sum of the
     unscaled probabilities, at the end (:783-808 there).
     An f32 cache rounds neither q nor the probabilities (the products are in
-    the cache's type there, :749, :798); the bf16 pool's rows take q and p
+    the cache's type there, :749, :798): a product here is exact f32, where
+    the kernels' tensor-core route (T >= 16) sums three TF32 passes a
+    product (each operand's TF32 hi and lo parts; within the f32 limit,
+    2^-12 of attention(q, k, |v|)); the bf16 pool's rows take q and p
     rounded to bf16 over any cache (:697-713). Returns f32 [B, T, H, D]."""
     d = q.shape[-1]
     rnd = torch.float32 if k_l.dtype == torch.float32 else torch.bfloat16

@@ -114,7 +114,7 @@ def test_vector_n_past_matches_scalar():
 
 
 # every launch-key mode of K2 (update) and K3 (read): (path, paged, straddle,
-# mode); an f32 cache is flat or a ring
+# mode), over every cache type
 ROUTE_MODES = [("update", False, False, ""), ("update", True, False, ""),
                ("update", True, True, ""), ("update", False, False, "ring"),
                ("update", False, False, "prefix"), ("update", False, False, "boff"),
@@ -126,19 +126,16 @@ ROUTE_MODES = [("update", False, False, ""), ("update", True, False, ""),
 @pytest.mark.parametrize("kind", ["bf16", "int8", "f32"])
 @pytest.mark.parametrize("t", [1, 4, 15, 16, 32, 353])
 def test_attn_route(t, kind):
-    """`attn_route` takes the split route at T = 1 over every cache type, the
-    CUDA cores from T = 2 to 15 and for every f32 cache past T = 1, the
-    tensor cores otherwise; the key a wrapper call counts its launch under
-    (`call_launch`) follows T and the cache type alone, whatever B and the
-    mode, and every key is one of `launches`, with `_tc` exactly on the
+    """`attn_route` takes the split route at T = 1, the CUDA cores from T = 2
+    to 15 and the tensor cores from T = 16 (an f32 cache on three TF32
+    passes), over every cache type; the key a wrapper call counts its launch
+    under (`call_launch`) follows T and the cache type alone, whatever B and
+    the mode, and every key is one of `launches`, with `_tc` exactly on the
     tensor-core route and `_split` exactly on the split route."""
-    want = ("split" if t == 1 else "tensor_core" if kind != "f32" and t >= 16
-            else "cuda_core")
+    want = "split" if t == 1 else "tensor_core" if t >= 16 else "cuda_core"
     assert tfa.attn_route(t, kind) == want
     dtype = {"bf16": torch.bfloat16, "int8": torch.int8, "f32": torch.float32}[kind]
     for path, paged, straddle, mode in ROUTE_MODES:
-        if kind == "f32" and (paged or mode == "prefix"):
-            continue
         for b in (1, 4, 32):
             q = torch.zeros((b, t, H, D), dtype=torch.bfloat16)
             k = torch.zeros((L, b, H, S, D), dtype=dtype)

@@ -355,11 +355,11 @@ def test_split_grid():
 @pytest.mark.parametrize("kind", ["bf16", "int8", "f32"])
 def test_attn_route_split(kind):
     """T = 1 takes the split route over every cache type, and its launch
-    keys carry `_split`; T from 2 to 15 stays on the CUDA cores, as f32
-    does at T >= 16."""
+    keys carry `_split`; T from 2 to 15 stays on the CUDA cores, and T >=
+    16 takes the tensor cores, f32 included."""
     assert tfa.attn_route(1, kind) == "split"
     assert all(tfa.attn_route(t, kind) == "cuda_core" for t in range(2, 16))
-    assert tfa.attn_route(16, kind) == ("cuda_core" if kind == "f32" else "tensor_core")
+    assert tfa.attn_route(16, kind) == "tensor_core"
     dtype = {"bf16": torch.bfloat16, "int8": torch.int8, "f32": torch.float32}[kind]
     for path in ("update", "read"):
         for paged, mode in ((False, ""), (True, ""), (False, "ring"), (False, "prefix"),
