@@ -18,17 +18,15 @@ Phases, each printing one JSON line (any failure exits non-zero):
               update kernel's at T = 1, row by row; then correctness alone
               at row counts, group counts, ragged widths and head sizes off
               those shapes. K2 and K3 take the route `attn_route` picks
-              (split-KV decode at T = 1 over every cache type, named with
-              `_split`, K4's kernel too; the tensor cores at T >= 16 over
-              every cache type, named with `_tc`, f32 caches on three TF32
-              passes a product; the CUDA cores for T 2-15); a split-route
-              row (K4's too)
-              carries its split count (`splits`, `split_rows`) and the
-              CUDA kernels one call launches (the attention libraries'
-              counters; must be 1: K2's row write is in the same launch),
-              and a
-              split-route or tensor-core row also times the same call on
-              the CUDA-core route (`cuda_core_ms`)
+              (split-KV attention at T 1-15 over every cache type, named
+              with `_split`, K4's kernel too; the tensor cores at T >= 16
+              over every cache type, named with `_tc`, f32 caches on three
+              TF32 passes a product); a split-route row (K4's too) carries
+              its split count (`splits`, `split_rows`) and the CUDA kernels
+              one call launches (the attention libraries' counters; must be
+              1: K2's row writes are in the same launch), and every row
+              also times the same call on the CUDA-core route the split
+              and tensor-core routes replaced (`cuda_core_ms`)
   probes      the Hopper probes of `llamavk_tpu_torch/tools/` (the TPU
               probes P1-P5 of `tools/`) through their entry points, at the
               TPU probes' shapes on seeded random bytes: every probe kernel
@@ -228,7 +226,7 @@ N_CTX = 512
 H, D = 32, 128
 PAGE = 128  # the serving page size (BatchConfig.page_size)
 
-# the split-KV decode kernel of K2/K3 at T = 1 and of K4
+# the split-KV kernel of K2/K3 at T 1-15 and of K4
 SPLIT_SOURCE = "llamavk_tpu_torch/csrc/attn_split.cuh"
 # K1's sources: the GEMV in q4_matmul.cu, the GEMM (M >= 2) in q4_gemm.cuh
 K1_SOURCES = {"gemv": "llamavk_tpu_torch/csrc/q4_matmul.cu",
@@ -320,7 +318,7 @@ KERNEL_META = {
                             "_nocommit")),
            ("read", 474, ("", "_paged", "_ring", "_prefix", "_boff")))
        for mode in modes for kind in ("", "_i8", "_f32")},
-    # the split route of K2 and K3 (T = 1, every cache type, ops/flash_attn.py::
+    # the split route of K2 and K3 (T 1-15, every cache type, ops/flash_attn.py::
     # attn_route), in every mode, named as flash_attn.launch_name names it
     # (`_split` before the cache type)
     **{f"attn_{key}": (SPLIT_SOURCE, "llamavk_tpu/ops/flash_attn.py:"
@@ -648,9 +646,9 @@ def _sdpa_call(q, k, v, n_past, layer: int, k_scale=None, v_scale=None):
 @contextlib.contextmanager
 def _cuda_core_route():
     """K2, K3 and K4 on the CUDA-core route at every T (the route every
-    prefill took before the tensor-core route, and every decode step before
-    the split route), to time it beside the other routes in the same call:
-    the wrappers read `attn_route` at each call."""
+    prefill took before the tensor-core route, and every decode step and
+    verify round before the split route), to time it beside the other routes
+    in the same call: the wrappers read `attn_route` at each call."""
     from llamavk_tpu_torch.ops import flash_attn as fa
 
     route = fa.attn_route
@@ -705,15 +703,16 @@ def _attention_launches(run) -> int:
 
 def _splits(row: dict, t: int, n_past, b: int, cap: int, bk: int, plens=None,
             pool_bk: int = 0, ring_rows: int | None = None) -> None:
-    """On the split route (T = 1), the row's `split_rows` and `splits`: the
-    split blocks that attend, per head, summed over the batch rows (the
-    pool's splits of `plens` included; an unbounded ring's `ring_rows`)."""
+    """On the split route (T 1-15), the row's `split_rows` and `splits`:
+    the split blocks that attend, per head, summed over the batch rows (a
+    row's rows [0, min(n_past + T, cap)); the pool's splits of `plens`
+    included; an unbounded ring's `ring_rows`)."""
     from llamavk_tpu_torch.ops import flash_attn as fa
 
-    if t != 1:
+    if fa.attn_route(t, "bf16") != "split":
         return
     pasts = n_past if isinstance(n_past, list) else [n_past] * b
-    n = sum(len(fa.split_schedule(ring_rows or min(p + 1, cap), bk)) for p in pasts)
+    n = sum(len(fa.split_schedule(ring_rows or min(p + t, cap), bk)) for p in pasts)
     if plens is not None:
         n += sum(len(fa.split_schedule(pl, pool_bk)) for pl in plens)
     row["split_rows"], row["splits"] = fa.split_rows(bk), n
@@ -1540,14 +1539,20 @@ def kernel_edges(gen, gen_cpu) -> dict:
         worst[f"q4 M={m} K={k} N={n}"] = (err, limit, err / limit)
     h, d, s = 2, 64, 64
     for quant in (False, True):
-        # T = 1 on the split route (splits of 32 rows), T 2-15 on the CUDA
-        # cores; T 16-40 on the tensor cores, with rows
-        # past T in the last 64-row block and a KV block of 32 (two ragged
-        # sub-tiles), a vector n_past
-        for b, t, n_past, update in ((1, 8, 13, True), (1, 5, 20, False), (2, 1, None, True),
-                                     (1, 24, 13, True), (1, 40, 20, False), (2, 16, None, True)):
-            r = _attn_edge(gen, b, t, [3, 40] if n_past is None else n_past, update, 32, h, d,
-                           s, quant)
+        # T 1-15 on the split route (splits of 32 rows; D = 64 at T = 4 with a
+        # vector n_past), T 16-40 on the tensor cores, with rows past T in the
+        # last 64-row block and a KV block of 32 (two ragged sub-tiles), a
+        # vector n_past; then the split route's edges: T = 4 rows crossing a
+        # 64-row split (S 128, rows 61-64), T = 15 at block_k 8 (splits of 8
+        # rows) and 24 (S 96)
+        for b, t, n_past, update, bk, s_e in (
+                (1, 8, 13, True, 32, s), (1, 5, 20, False, 32, s), (2, 1, None, True, 32, s),
+                (2, 4, None, True, 32, s), (1, 24, 13, True, 32, s), (1, 40, 20, False, 32, s),
+                (2, 16, None, True, 32, s), (2, 4, [61, 100], True, 64, 128),
+                (1, 15, 40, True, 8, s), (2, 15, [20, 70], True, 24, 96),
+                (1, 15, 30, False, 24, 96)):
+            r = _attn_edge(gen, b, t, [3, 40] if n_past is None else n_past, update, bk, h, d,
+                           s_e, quant)
             if not r["cache_bytes_equal"]:
                 raise SystemExit(f"kernel edges: cache rows differ (B={b} T={t})")
             worst[f"{r['kernel']} {r['shape']}"] = (r["max_abs_err"], ATTN_LIMIT_RULE,
@@ -1572,9 +1577,11 @@ def kernel_edges(gen, gen_cpu) -> dict:
             worst[f"{r['kernel']} {r['shape']}"] = (r["max_abs_err"], ATTN_LIMIT_RULE,
                                                    r["err_over_limit"])
         # ring and prefix modes at the tiny model's width: a wrapped 64-row
-        # ring (keep 4) at T = 8 and T = 1, the read over a plane with
-        # empty rows, and the pool pre-pass with a KV block of 32
+        # ring (keep 4) at T = 8 and T = 1, one at T = 4 before its wrap
+        # (bit-equal to flat), the read over a plane with empty rows, and the
+        # pool pre-pass with a KV block of 32
         for r in (kernel_attn_ring(None, gen, 8, 92, True, quant, keep=4, s=s, h=h, d=d, bk=32),
+                  kernel_attn_ring(None, gen, 4, 20, True, quant, keep=4, s=s, h=h, d=d, bk=32),
                   kernel_attn_ring(None, gen, 1, 40, True, quant, keep=4, s=s, h=h, d=d, bk=32),
                   kernel_attn_ring(None, gen, 5, 70, False, quant, holes=range(20, 30), keep=4,
                                    s=s, h=h, d=d, bk=32),
@@ -1709,6 +1716,21 @@ def phase_kernels(reps: int) -> list[dict]:
     for quant in (False, True):
         rows.append(kernel_attn_paged(timer, gen, gen_cpu, 4, [126, 253, 380, 507], True, 4,
                                       quant, straddle=True))
+        emit({"phase": "kernel", **rows[-1]})
+    # the verify rounds at T = 4 on the split route: generate_7b_lookup's
+    # bf16 B = 1 round at n_past 408, serve_7b_lookup's int8 B = 32 rounds,
+    # flat and paged with page_straddle (seeded n_past); and the largest
+    # instance (NQ = 16): T = 15, B = 1 bf16 at n_past 480 and B = 32 int8.
+    # A seed of their own, so the rows after them keep their n_past
+    gen_rows = torch.Generator().manual_seed(15)
+    npl = _decode_npast(32, N_CTX - 15, gen_rows)
+    for r in (lambda: kernel_attn(timer, gen, 4, [408], True, False, 1, False),
+              lambda: kernel_attn(timer, gen, 4, npl, True, False, 32, True),
+              lambda: kernel_attn_paged(timer, gen, gen_rows, 4, npl, True, 32, True,
+                                        straddle=True),
+              lambda: kernel_attn(timer, gen, 15, 480, True, False, 1, False),
+              lambda: kernel_attn(timer, gen, 15, npl, True, False, 32, True)):
+        rows.append(r())
         emit({"phase": "kernel", **rows[-1]})
     # history ring (32 pinned rows of a 512-row ring, generate_7b_ring's):
     # K2 before the wrap (bit-equal to flat K2), at n_past 700 (wrapped; the
@@ -2346,7 +2368,7 @@ def phase_generate_7b_lookup(seed: int) -> tuple[dict, dict]:
     here and under LLAMAVK_Q4_DOT=i8 in a process of its own (the variable
     is read at import). Returns (result, the lookup runs' launches)."""
     bf16, counts = _lookup_cli_runs(seed)
-    _require("generate_7b_lookup", counts, ("q4_gemm", "attn_update"))
+    _require("generate_7b_lookup", counts, ("q4_gemm", "attn_update_split"))
     i8 = _run_child("lookup_i8_child", seed, {"LLAMAVK_Q4_DOT": "i8"})
     counts = {key: n + i8["launches"][key] for key, n in counts.items()}
     return {"bf16": bf16, "i8": i8}, counts
@@ -2389,8 +2411,7 @@ def phase_spec_7b_self(seed: int, plain: list[int] | None) -> tuple[dict, dict]:
     rate = accepted / (rounds * (GAMMA - 1))
     if split is None and rate < 1.0:
         raise SystemExit(f"spec_7b_self: acceptance {rate:.3f} with the plain greedy stream")
-    _require("spec_7b_self", counts, ("q4_gemv", "q4_gemm", "attn_update",
-                                      "attn_update_split"))
+    _require("spec_7b_self", counts, ("q4_gemv", "q4_gemm", "attn_update_split"))
     return {"tokens": emitted, "rounds": rounds, "accepted": accepted, "acceptance_rate": rate,
             "ms_per_round": ms_round, "tok_per_s": emitted / (rounds * ms_round / 1e3),
             "equal_to_plain_greedy": split is None, "split_at_near_tie": split,
@@ -2525,10 +2546,9 @@ def phase_tiny_serve(work: Path) -> tuple[dict, dict]:
                 proc.terminate()
                 proc.wait(timeout=60)
     result.update(_tiny_shared(path, n_tokens, counts))
-    _require("tiny_serve", counts, ("decode", "decode_i8", "attn_update", "attn_update_i8",
-                                    "decode_paged", "decode_paged_i8", "attn_update_paged",
-                                    "attn_update_paged_i8", "attn_update_prefix",
-                                    "attn_update_prefix_i8", "attn_update_prefix_f32",
+    _require("tiny_serve", counts, ("decode", "decode_i8", "attn_update_split",
+                                    "attn_update_split_i8", "decode_paged", "decode_paged_i8",
+                                    "attn_update_paged_split", "attn_update_paged_split_i8",
                                     "attn_update_prefix_split", "attn_update_prefix_split_i8",
                                     "attn_update_prefix_split_f32"))
     return result, counts
@@ -3086,8 +3106,8 @@ def phase_serve_7b_lookup(seed: int) -> tuple[dict, dict, dict]:
     del srv
     gc.collect()
     torch.cuda.empty_cache()
-    _require("serve_7b_lookup", counts, ("q4_gemm", "attn_update_paged_straddle_i8",
-                                         "attn_update_i8"))
+    _require("serve_7b_lookup", counts, ("q4_gemm", "attn_update_paged_straddle_split_i8",
+                                         "attn_update_split_i8"))
     shapes = _shapes()
     rounds = stats["rounds"] - stats0["rounds"]
     load["ms_per_round"] = load.pop("decode_ms_per_step")
@@ -3611,9 +3631,8 @@ def phase_tiny_compat(work: Path) -> tuple[dict, dict]:
         raise SystemExit(f"tiny_compat: embedding CLI drift {emb_drift} ({vecs[0].shape})")
     result["perplexity_cli"] = ppl
     result["embedding_cli"] = {"n": 128, "max_abs_diff_to_cpu": emb_drift, "limit": 0.032}
-    _require("tiny_compat", counts, ("q4_gemv", "q4_gemm", "attn_update", "attn_update_f32",
-                                     "attn_update_split", "attn_update_split_f32",
-                                     "decode_f32"))
+    _require("tiny_compat", counts, ("q4_gemv", "q4_gemm", "attn_update_split",
+                                     "attn_update_split_f32", "decode_f32"))
     return result, counts
 
 

@@ -1,12 +1,15 @@
 // Shared attention code of the fused KV-write attention (flash_attn.cu, K2
-// and K3) and the batched decode attention (flash_decode.cu, K4).
+// and K3), the batched decode attention (flash_decode.cu, K4) and the
+// one-launch prefill probe (probe_prefill_direct.cu).
 //
-// Both sources call `attend_block` for the score, online-softmax and PV
-// arithmetic, and `quantize_row` for the int8 row write. Every float
-// operation whose order matters is an explicit intrinsic (`__fmul_rn`,
-// `fmaf`, ...), so the compiler cannot contract them differently in the two
-// translation units: K4 and K2 give bit-equal outputs at equal `block_k`,
-// as the JAX package's K4 and K2 do (flash_decode.py:23-26 there).
+// `quantize_row` is the int8 row write of every route. `attend_block` is
+// the first CUDA-core attention, which no production call takes any more (the
+// split route of attn_split.cuh takes T from 1 to 15, the tensor cores T >=
+// 16): it stays for K4's and K2/K3's route 0, by which chip_smoke.py times
+// the replaced design beside the others in the same call, and for the
+// probe. Every float operation whose order matters is an explicit intrinsic
+// (`__fmul_rn`, `fmaf`, ...), so the compiler cannot contract them
+// differently in two translation units.
 //
 // KV element types: `__nv_bfloat16` (bf16 cache, no scales), `int8_t`
 // (int8 cache with one f32 scale per (position, head) row, scale planes
@@ -32,12 +35,14 @@
 // rounded to bf16 for the PV product; out = acc / l. An f32 cache has no
 // bf16 rounding point (the JAX kernel multiplies in the cache's own type,
 // flash_attn.py:749, :798 there): q * scale stays f32 and p enters the PV
-// product unrounded. Here (T 2-15, `attend_block`) a score is the f32 sum of
-// f32 products; on the tensor-core route (attn_mma.cuh, T >= 16) each
-// product, of the scores and of PV, is instead the sum of three TF32 passes
-// over the operands' hi and lo parts (~2^-21 of the product), within the
-// same f32 limit. The rounding is chosen by the KV type alone (`op_round`),
-// so the bf16 and int8 code is the code it was.
+// product unrounded. On the split route (attn_split.cuh, T 1-15) and in
+// `attend_block` a score is the f32 sum of f32 products; on the tensor-core
+// route (attn_mma.cuh, T >= 16) each product, of the scores and of PV, is
+// instead the sum of three TF32 passes over the operands' hi and lo parts
+// (~2^-21 of the product), within the same f32 limit. The rounding is
+// chosen by the KV type alone (`op_round`), so the bf16 and int8 code is
+// the code it was. The split route rescales per split and merges in f32
+// (attn_split.cuh), one more order within the same limits.
 
 #pragma once
 

@@ -1,8 +1,8 @@
 // Tensor-core attention of the K2/K3 kernels (flash_attn.cu) for prefill and
 // admission chunks: bf16, int8 and f32 caches at T >= MIN_T, every cache
 // mode of `attend_block` (flat, paged, ring, prefix, and the flat pipeline
-// modes). The CUDA-core `attend_block` (attn_common.cuh) keeps T from 2 to
-// MIN_T - 1; T = 1 and K4 take the split route (attn_split.cuh).
+// modes). T from 1 to MIN_T - 1 and K4 take the split route
+// (attn_split.cuh).
 //
 // What it replaces: the CUDA-core walk of `attend_block`, which gives a block
 // 8 query rows (one a warp) and scores key by key with scalar fmaf, so each

@@ -13,12 +13,15 @@
 //    attend over a cache that already holds the rows.
 //
 // The TPU update kernel runs its t-blocks in order on one core, so a t-block
-// may read rows an earlier t-block just wrote. GPU blocks run in no order, so
-// here the write is its own launch (`kv_write_kernel`, or `kv_quant_kernel`
+// may read rows an earlier t-block just wrote. GPU blocks run in no order.
+// On the split route (T from 1 to 15) the block whose split holds a new row
+// writes it and then reads it, and no other block reads it (attn_split.cuh),
+// so the write is fused into the one launch. On the tensor-core route (T >=
+// 16) the write is its own launch (`kv_write_kernel`, or `kv_quant_kernel`
 // for int8: one warp per (b, t, h) row, amax by warp reduction) and the
 // attention a second launch on the same stream: every row the attention
-// reads is written before it starts, and int8 rows are attended as their
-// quantized values, read back from the cache.
+// reads is written before it starts. Either way int8 rows are attended as
+// their quantized values, read back from the cache.
 //
 // Page-table mode (`page_table` [B, MAXLB], the cache a pool layer
 // [NP, H, PS, D], int8 scales [NP, PS, H]; the JAX kernel's `page_table`
@@ -50,21 +53,18 @@
 // unchanged rows, as the JAX kernel's idle pipeline hop does. Both are flat
 // only (no page table, ring or prefix).
 //
-// The attention launch takes one of three routes, which the caller picks
+// The attention launch takes one of two routes, which the caller picks
 // from T and the cache type alone (`route`; ops/flash_attn.py::attn_route):
-//  * the split route, attn_split.cuh, for T = 1 over every cache type and
-//    mode (decode steps): the split-KV decode kernel shared with the batched
+//  * the split route, attn_split.cuh, for T from 1 to 15 over every cache
+//    type and mode (decode steps, lookup and speculative verify rounds,
+//    short admission chunks): the split-KV kernel shared with the batched
 //    decode kernel (flash_decode.cu), so K4 and K2 at T = 1 give bit-equal
 //    outputs and caches at equal block_k. A (batch row, head)'s visible rows
-//    are cut into splits of `split_rows(block_k)` rows, a block each, their
-//    partials merged in the same launch in ascending split order; the
-//    update's row write is fused into the launch (the block whose split
-//    holds the row writes it, then reads it), so K2 at T = 1 is one launch;
-//  * the CUDA-core route, `attn::attend_block` of attn_common.cuh, for T
-//    from 2 to 15 (the lookup verify) over every cache type. A block owns 8
-//    query rows of one (batch, head), one per warp; lane j scores key j of
-//    a 64-row shared tile, then the warp's 32 lanes own D/32 output dims each
-//    for the PV sum;
+//    are cut into splits of `split_rows(block_k)` rows, a block each for
+//    every query row of the call, their partials merged in the same launch
+//    in ascending split order; the update's row writes are fused into the
+//    launch (the block whose split holds a row writes it, then reads it), so
+//    K2 at T 1-15 is one launch;
 //  * the tensor-core route, `attn::mma::attend_tc` of attn_mma.cuh, for T >=
 //    16 (prefill, admission chunks) over every cache type. A block owns 64
 //    query rows (16 a warp); QK^T and PV run on `mma.sync` with the scores
@@ -72,6 +72,10 @@
 //    and int8 caches on m16n8k16 bf16 products, f32 caches on three m16n8k8
 //    TF32 passes a product (each f32 operand split into TF32 hi and lo
 //    parts), nothing rounded to bf16.
+// A third, the CUDA-core route (`attn::attend_block` of attn_common.cuh, a
+// block of 8 warps owning 8 query rows of one (batch, head)), is taken by
+// no production call: it stays for timing the replaced design beside the
+// others in the same call (chip_smoke.py's `cuda_core_ms`), at any T.
 // Every route gives a paged call equal to a flat one at block_k = PS bit for
 // bit, and keeps every mode's bit-equalities. Blocks past a row's last
 // visible column contribute exactly zero, so reading only up to the tile's
@@ -79,11 +83,12 @@
 // tensor-core routes write the rows of an update in a launch of their own
 // first (`kv_write_kernel`, `kv_quant_kernel`).
 //
-// What bounds it on an H100: decode (T = 1) reads the valid cache prefix of
-// one layer, paged or not (2 * H * n_past * D bytes of int8, twice that of
-// bf16, four times that of f32, plus 8 * n_past * H bytes of int8 scales),
-// plus the new rows, and is bound by those bytes, which the split route
-// spreads over (split, head, row) blocks with every load in flight;
+// What bounds it on an H100: decode and verify (T 1-15) read the valid
+// cache prefix of one layer, paged or not (2 * H * n_past * D bytes of int8,
+// twice that of bf16, four times that of f32, plus 8 * n_past * H bytes of
+// int8 scales), plus the new rows, and are bound by those bytes, which the
+// split route spreads over (split, head, row) blocks with every load in
+// flight, each block serving every query row;
 // prefill is bound by its operations (4 * T * S_visible * D per head),
 // which the tensor-core route puts on the tensor cores (an f32 cache: three
 // TF32 passes, ~165 TFLOP/s of f32-accurate products at most, against 67 on
@@ -247,7 +252,7 @@ cudaError_t launch_attn(const void* q, const void* kc, const void* vc, const flo
 }
 
 // The attention launches of the K2/K3 routes (`route`, checked by the
-// caller: the tensor-core route at T >= 16 only, the split route at T = 1
+// caller: the tensor-core route at T >= 16 only, the split route at T 1-15
 // only; the split route launches through `split_route`)
 enum { ROUTE_CUDA_CORE = 0, ROUTE_TENSOR_CORE = 1, ROUTE_SPLIT = 2 };
 
@@ -369,18 +374,19 @@ namespace {
 
 // a route the C interfaces take for a call at T (every cache type)
 bool route_ok(int route, int T) {
-  if (route == ROUTE_SPLIT) return T == 1;
+  if (route == ROUTE_SPLIT) return T >= 1 && T < attn::mma::MIN_T;
   if (route == ROUTE_TENSOR_CORE) return T >= attn::mma::MIN_T;
   return route == ROUTE_CUDA_CORE;
 }
 
-// The split route's one launch at T = 1 (attn_split.cuh): with `write`, the
-// new rows k_new/v_new go to rows wrv[b] (or wrs) first; split_ws/split_cnt
-// the partials and counters, split_nx the splits a row can address.
+// The split route's one launch at T from 1 to 15 (attn_split.cuh): with
+// `write`, new row t of k_new/v_new goes to row wrv[b] + t (or wrs + t)
+// first; split_ws/split_cnt the partials and counters, split_nx the splits a
+// row can address.
 int split_route(const void* q, const void* k_new, const void* v_new, const void* kc,
                 const void* vc, const void* ks, const void* vs, void* out, const int* npv,
-                int nps, const int* wrv, int wrs, int write, const KVMap& map, int B, int H,
-                int D, int block_k, float scale, int kv_kind, const attn::Ring& ring,
+                int nps, const int* wrv, int wrs, int write, const KVMap& map, int B, int T,
+                int H, int D, int block_k, float scale, int kv_kind, const attn::Ring& ring,
                 const attn::Prefix& pre, void* split_ws, void* split_cnt, int split_nx,
                 cudaStream_t st) {
   attn::split::Args a{};
@@ -398,6 +404,7 @@ int split_route(const void* q, const void* k_new, const void* v_new, const void*
   a.wrow_scalar = wrs;
   a.write = write;
   a.map = map;
+  a.T = T;
   a.H = H;
   a.block_k = block_k;
   a.scale = scale;
@@ -424,7 +431,7 @@ int split_route(const void* q, const void* k_new, const void* v_new, const void*
 // batch_offset (flat, no ring or prefix) is the cache row of batch row 0:
 // the flat layer pointers address a [B_cache, ...] layer with
 // B_cache >= batch_offset + B. route: ROUTE_CUDA_CORE, ROUTE_TENSOR_CORE
-// at T >= 16, or ROUTE_SPLIT at T = 1 (refused otherwise), with split_ws [B, H, split_nx, D + 2] f32 and split_cnt
+// at T >= 16, or ROUTE_SPLIT at T 1-15 (refused otherwise), with split_ws [B, H, T, split_nx, D + 2] f32 and split_cnt
 // [B * H] int32 zeros (null on the other routes), split_nx the pool's and
 // the cache's splits a row can address (attn_split.cuh).
 extern "C" int attn_read_launch(const void* q, const void* k_cache, const void* v_cache,
@@ -451,8 +458,8 @@ extern "C" int attn_read_launch(const void* q, const void* k_cache, const void* 
   const KVMap map{static_cast<const int*>(page_table), maxlb, S};
   if (route == ROUTE_SPLIT)
     return split_route(q, nullptr, nullptr, k_cache, v_cache, k_scale, v_scale, out, npv,
-                       npast_scalar, nullptr, 0, 0, map, B, H, D, block_k, scale, kv_kind, ring,
-                       pre, split_ws, split_cnt, split_nx, st);
+                       npast_scalar, nullptr, 0, 0, map, B, T, H, D, block_k, scale, kv_kind,
+                       ring, pre, split_ws, split_cnt, split_nx, st);
   if (kv_kind == KV_INT8)
     return (int)attend<int8_t>(route, q, k_cache, v_cache, k_scale, v_scale, out, npv,
                                npast_scalar, map, B, T, H, D, block_k, scale, ring, pre, st);
@@ -467,7 +474,7 @@ extern "C" int attn_read_launch(const void* q, const void* k_cache, const void* 
 // cache) into rows [n_past, n_past + T) of the cache layer (int8: quantized,
 // with their scales; paged: through the table; ring: rows [write_row,
 // write_row + T)), then attend by `route`, as the read path: one launch on
-// the split route (T = 1), two on the others. batch_offset as the read
+// the split route (T 1-15), two on the others. batch_offset as the read
 // path's; commit = 0 writes nothing and attends over the unchanged cache
 // (one launch).
 extern "C" int attn_update_launch(const void* q, const void* k_new, const void* v_new,
@@ -500,8 +507,9 @@ extern "C" int attn_update_launch(const void* q, const void* k_new, const void* 
     if (e != cudaSuccess) return (int)e;
     if (page_table && (ring.pos || pre.k)) return (int)cudaErrorInvalidValue;
     return split_route(q, k_new, v_new, k_cache, v_cache, k_scale, v_scale, out,
-                       static_cast<const int*>(npast_vec), npast_scalar, wrv, wrs, 1, map, B, H,
-                       D, block_k, scale, kv_kind, ring, pre, split_ws, split_cnt, split_nx, st);
+                       static_cast<const int*>(npast_vec), npast_scalar, wrv, wrs, 1, map, B, T,
+                       H, D, block_k, scale, kv_kind, ring, pre, split_ws, split_cnt, split_nx,
+                       st);
   }
   auto kn = static_cast<const __nv_bfloat16*>(k_new);
   auto vn = static_cast<const __nv_bfloat16*>(v_new);

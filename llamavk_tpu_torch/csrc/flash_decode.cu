@@ -165,6 +165,7 @@ extern "C" int flash_decode_launch(const void* q, const void* k_new, const void*
     a.npast_scalar = a.wrow_scalar = npast_scalar;
     a.write = 1;
     a.map = map;
+    a.T = 1;
     a.H = H;
     a.block_k = block_k;
     a.scale = scale;

@@ -16,9 +16,10 @@
 // q, knew, vnew bf16 [B, H, T, D] (the probe's head-major blocks), out f32
 // [B, H, T, D], the cache k, v bf16 [1, B, H, S, D] (layer 0), T <= S. Block
 // (b*H + h, t0 / 8): its 8 query rows' K and V rows are copied into the cache
-// (16-byte stores), then `attn::attend_block` (the K2/K3 attention: one warp
-// a query row, key tiles in shared memory, online softmax over KV blocks of
-// `block_k` rows, the probabilities rounded to bf16 for the PV sum) runs over
+// (16-byte stores), then `attn::attend_block` (the first K2/K3 attention:
+// one warp a query row, key tiles in shared memory, online softmax over KV
+// blocks of `block_k` rows, the probabilities rounded to bf16 for the PV
+// sum) runs over
 // the input's rows [0, t0 + 8) of (b, h), seen as a one-head cache of T rows.
 // What bounds it: bytes. At T = 512, h 32, d 128 it reads q, k and v (12.6
 // MB) and writes the f32 output and the cache rows (16.8 MB), 8.8 us at

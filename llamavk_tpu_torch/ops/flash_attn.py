@@ -52,19 +52,23 @@ prefix exclude each other and a page table, as the JAX asserts do.
   CUDA tensors it launches `attn_read_launch` (replaces `_read_kernel` /
   `_attend`).
 
-Both launch their attention by one of three routes, picked by `attn_route`
+Both launch their attention by one of two routes, picked by `attn_route`
 from T and the cache type alone (never B or the mode, so the single-stream
 and batched engines route a given T alike): the split route
-(`csrc/attn_split.cuh`, split-KV decode, the kernel of
-`ops/flash_decode.py` too) at T = 1 over every cache type, the update's row
-write fused into its one launch; the tensor-core route (`csrc/attn_mma.cuh`,
-`mma.sync`; an f32 cache on three TF32 passes a product) at T >= 16 over
-every cache type; the CUDA-core route (`attend_block` of
-`csrc/attn_common.cuh`) for T from 2 to 15. Each route has its own launch counters (`_split` or `_tc`
-in the name); no call falls back from one to another. The split route cuts
-each row's visible rows into splits of `split_rows(block_k)` rows
-(`split_schedule`), sizes its grid and workspace by `split_grid`, and
-merges the splits' partials in the launch, in ascending split order.
+(`csrc/attn_split.cuh`, split-KV attention, the kernel of
+`ops/flash_decode.py` too) for T from 1 to 15 (decode steps, lookup and
+speculative verify rounds, short chunks) over every cache type, one block a
+split serving every query row, the update's row writes fused into its one
+launch; the tensor-core route (`csrc/attn_mma.cuh`, `mma.sync`; an f32
+cache on three TF32 passes a product) at T >= 16 over every cache type.
+Each route has its own launch counters (`_split` or `_tc` in the name); no
+call falls back from one to another. The split route cuts each row's
+visible rows into splits of `split_rows(block_k)` rows (`split_schedule`),
+sizes its grid and workspace by `split_grid`, and merges each query row's
+partials in the launch, in ascending split order. The CUDA-core route
+(`attend_block` of `csrc/attn_common.cuh`, the design the two replaced) is
+taken by no call here; the C interfaces keep it for timing harnesses that
+patch `attn_route`.
 
 Pipeline-parallel modes (flash_attn.py:827, :1018-1023, :275-291 there):
 `batch_offset` is the first cache row of the call's B rows, so a microbatch
@@ -144,14 +148,12 @@ SPLIT_MAX_GRID = 256  # attn::split::MAX_SPLITS
 def attn_route(t: int, kind: str) -> str:
     """The route of K2/K3's attention launch (and K4's, at T = 1) for T
     query rows over a cache of type `kind`: "split" (`csrc/attn_split.cuh`)
-    at T = 1, "tensor_core" (`csrc/attn_mma.cuh`; bf16 products over a bf16
-    or int8 cache, three TF32 passes a product over an f32 one) at T >= 16,
-    else "cuda_core" (`attend_block`), over every cache type. It depends on
-    T and the cache type alone (today every type takes every route)."""
+    for T from 1 to TC_MIN_T - 1, "tensor_core" (`csrc/attn_mma.cuh`; bf16
+    products over a bf16 or int8 cache, three TF32 passes a product over an
+    f32 one) at T >= TC_MIN_T, over every cache type. It depends on T and
+    the cache type alone (today every type takes every route)."""
     del kind  # no route excludes a cache type
-    if t == 1:
-        return "split"
-    return "tensor_core" if t >= TC_MIN_T else "cuda_core"
+    return "tensor_core" if t >= TC_MIN_T else "split"
 
 
 def launch_name(path: str, kind: str, paged: bool, straddle: bool = False,
@@ -197,14 +199,16 @@ _split_counters: dict[str, torch.Tensor] = {}
 
 
 def split_workspace(q: torch.Tensor, nx: int):
-    """(partials, counters) for a split-route launch with queries q [B, 1,
-    H, D] over `nx` splits: partials [B, H, nx, D + 2] f32 (torch.empty),
-    the device's counters (at least B * H). Raises past the kernel's
-    limits."""
-    b, _, h, d = q.shape
+    """(partials, counters) for a split-route launch with queries q [B, T,
+    H, D] over `nx` splits: partials [B, H, T, nx, D + 2] f32 (torch.empty),
+    the device's counters (at least B * H: one a (b, h) for all T rows).
+    Raises past the kernel's limits."""
+    b, t, h, d = q.shape
     if nx > SPLIT_MAX_GRID:
-        raise ValueError(f"split decode: {nx} splits a row, more than {SPLIT_MAX_GRID}")
-    ws = torch.empty(b * h * nx * (d + 2), dtype=torch.float32, device=q.device)
+        raise ValueError(f"split route: {nx} splits a row, more than {SPLIT_MAX_GRID}")
+    if not 1 <= t < TC_MIN_T:
+        raise ValueError(f"split route: T = {t} query rows, not 1 to {TC_MIN_T - 1}")
+    ws = torch.empty(b * h * t * nx * (d + 2), dtype=torch.float32, device=q.device)
     cnt = _split_counters.get(str(q.device))
     if cnt is None or cnt.numel() < b * h:
         cnt = torch.zeros(max(b * h, 1024), dtype=torch.int32, device=q.device)
@@ -219,7 +223,7 @@ def split_args(route: str, q: torch.Tensor, cap: int, bk: int, mode=None) -> tup
     if route != "split":
         return None, None, 0
     if split_rows(bk) > SPLIT_MAX_ROWS:
-        raise ValueError(f"split decode: block_k {bk} makes splits of more than "
+        raise ValueError(f"split route: block_k {bk} makes splits of more than "
                          f"{SPLIT_MAX_ROWS} rows")
     pool = (mode[2], mode[3]) if mode is not None and mode[0] == "prefix" else (0, 0)
     nx = split_grid(cap, bk, *pool)

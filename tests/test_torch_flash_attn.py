@@ -126,13 +126,13 @@ ROUTE_MODES = [("update", False, False, ""), ("update", True, False, ""),
 @pytest.mark.parametrize("kind", ["bf16", "int8", "f32"])
 @pytest.mark.parametrize("t", [1, 4, 15, 16, 32, 353])
 def test_attn_route(t, kind):
-    """`attn_route` takes the split route at T = 1, the CUDA cores from T = 2
-    to 15 and the tensor cores from T = 16 (an f32 cache on three TF32
-    passes), over every cache type; the key a wrapper call counts its launch
-    under (`call_launch`) follows T and the cache type alone, whatever B and
-    the mode, and every key is one of `launches`, with `_tc` exactly on the
-    tensor-core route and `_split` exactly on the split route."""
-    want = "split" if t == 1 else "tensor_core" if t >= 16 else "cuda_core"
+    """`attn_route` takes the split route from T = 1 to 15 and the tensor
+    cores from T = 16 (an f32 cache on three TF32 passes), over every cache
+    type; the key a wrapper call counts its launch under (`call_launch`)
+    follows T and the cache type alone, whatever B and the mode, and every
+    key is one of `launches`, with `_tc` exactly on the tensor-core route and
+    `_split` exactly on the split route."""
+    want = "tensor_core" if t >= 16 else "split"
     assert tfa.attn_route(t, kind) == want
     dtype = {"bf16": torch.bfloat16, "int8": torch.int8, "f32": torch.float32}[kind]
     for path, paged, straddle, mode in ROUTE_MODES:

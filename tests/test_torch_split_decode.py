@@ -354,11 +354,11 @@ def test_split_grid():
 
 @pytest.mark.parametrize("kind", ["bf16", "int8", "f32"])
 def test_attn_route_split(kind):
-    """T = 1 takes the split route over every cache type, and its launch
-    keys carry `_split`; T from 2 to 15 stays on the CUDA cores, and T >=
-    16 takes the tensor cores, f32 included."""
+    """T from 1 to 15 takes the split route over every cache type, and its
+    launch keys carry `_split`; T >= 16 takes the tensor cores, f32
+    included."""
     assert tfa.attn_route(1, kind) == "split"
-    assert all(tfa.attn_route(t, kind) == "cuda_core" for t in range(2, 16))
+    assert all(tfa.attn_route(t, kind) == "split" for t in range(2, 16))
     assert tfa.attn_route(16, kind) == "tensor_core"
     dtype = {"bf16": torch.bfloat16, "int8": torch.int8, "f32": torch.float32}[kind]
     for path in ("update", "read"):
