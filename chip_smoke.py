@@ -9,7 +9,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
   env         versions, nvcc, triton, the card's name and power limit
   build       nvcc builds `llamavk_tpu_torch/csrc/*.cu` for sm_90a, g++ the
               native host library (the loader's repack: native or NumPy,
-              as printed)
+              as printed); the SASS of K5's kernels must hold IMMA, that of
+              K1's GEMV kernels HMMA and no I2F, F2F or F2FP
   kernels     each hand-written kernel against its plain PyTorch version on
               the card at the LLaMA-7B shapes of the main paths: error, time
               (CUDA events, median, L2 flushed between launches), bound, and
@@ -143,9 +144,12 @@ The kernels phase holds K1's GEMM (M >= 2) in every mode (ilv and lin,
 bf16 and f32 scales, LLAMAVK_Q4_DOT=f32, LLAMAVK_Q4_MUL=bf16) at the five
 7B shapes and M = 2, 4, 8, 16, 32, 64, 353, 512, 1024, each row beside the
 time of the WMMA GEMM it replaced on the same row (`wmma_ms`, from
-tools/bench_gemm_wmma.jsonl),
-and its dequantized weights bit for bit against `mode_weight`'s on both of
-its routes; the page-table modes of K2, K3 and K4 (bf16, int8 and f32,
+tools/bench_gemm_wmma.jsonl), and every GEMV row (M = 1) beside the time
+of the GEMV it replaced (`parent_ms`, from tools/bench_gemv_runs.jsonl),
+with the CUDA kernels its launch made (`cuda_launches`, which must be 1)
+and its K ranges (`splits`); the dequantized weights of the GEMM's two
+routes and of the GEMV bit for bit against `mode_weight`'s in every mode,
+and two GEMV launches bit-equal at each 7B shape in every mode; the page-table modes of K2, K3 and K4 (bf16, int8 and f32,
 scrambled tables of 128-row pages; K2 also in page_straddle mode) against
 their plain versions, with written pages byte-equal and the others
 unchanged, and bit for bit against the flat kernels on the gathered view at
@@ -214,13 +218,7 @@ TF32_OP_PER_S = 494.7e12
 K1_SHAPES = bench_gemm.SHAPES
 # the local shapes of the same matmuls on one rank of tp = 2: column-parallel
 # N halved, row-parallel K halved
-K1_SHAPES_TP2 = {
-    "wqkv/tp2": (4096, 6144),
-    "wo/tp2": (2048, 4096),
-    "w13/tp2": (4096, 11008),
-    "w2/tp2": (5504, 4096),
-    "output/tp2": (4096, 16000),
-}
+K1_SHAPES_TP2 = bench_gemm.SHAPES_TP2
 ALL_K1_SHAPES = {**K1_SHAPES, **K1_SHAPES_TP2}
 N_CTX = 512
 H, D = 32, 128
@@ -389,31 +387,62 @@ def phase_build() -> dict:
              if "registers" in ln or "spill" in ln or "Function properties" in ln]
     lib = native.get_lib()
     return {"seconds": round(secs, 2), "sources": sorted(logs), "ptxas": usage,
-            "k5_sass_imma": _k5_sass_imma(),
+            "k5_sass_imma": _k5_sass_imma(), "k1_gemv_sass": _k1_gemv_sass(),
             "host_repack": f"native ({lib._name})" if lib is not None else "numpy fallback"}
 
 
-def _k5_sass_imma() -> dict:
-    """The IMMA (int8 tensor-core) instructions in the SASS of each K5 group
-    dot kernel (`cuobjdump -sass` of the built library), keyed by the
-    kernel's mangled name; fails if a variant has none."""
+def _sass_ops(lib: str, match: str) -> dict:
+    """The SASS opcode counts (`cuobjdump -sass`) of each kernel of the
+    built library `lib` whose mangled name holds `match`, keyed by that
+    name."""
     from llamavk_tpu_torch.ops import _build
 
-    _build.load("q4_matmul_i8")
+    _build.load(lib)
     cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(_build._lib_path("q4_matmul_i8"))],
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build._lib_path(lib))],
                           capture_output=True, text=True, check=True).stdout
     counts, name = {}, None
     for ln in sass.splitlines():
         if "Function :" in ln:
             name = ln.split("Function :")[1].strip()
-            if "i8_mma_kernel" in name:
-                counts[name] = 0
-        elif name in counts and re.search(r"\bIMMA\b", ln):
-            counts[name] += 1
+            if match in name:
+                counts[name] = {}
+        elif name in counts:
+            m = re.search(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)", ln)
+            if m:
+                counts[name][m.group(1)] = counts[name].get(m.group(1), 0) + 1
+    return counts
+
+
+def _k5_sass_imma() -> dict:
+    """The IMMA (int8 tensor-core) instructions in the SASS of each K5 group
+    dot kernel, keyed by the kernel's mangled name; fails if a variant has
+    none."""
+    counts = {name: ops.get("IMMA", 0)
+              for name, ops in _sass_ops("q4_matmul_i8", "i8_mma_kernel").items()}
     if len(counts) != 8 or not all(counts.values()):
         raise SystemExit(f"build: K5's kernels must run on IMMA, SASS shows {counts}")
     return counts
+
+
+def _k1_gemv_sass() -> dict:
+    """The conversion and tensor-core instructions in the SASS of each K1
+    GEMV kernel, one a mode of K1_MODES, keyed by the kernel's mangled name:
+    I2F, F2F and F2FP (none may appear: the GEMV dequantizes with integer
+    and bf16x2 operations) and HMMA, which must appear in a kernel whose
+    template argument NP (bf16 parts a weight) is 1 or 2 and not in one
+    with NP = 3 (the f32 dot over f32 scales, fmaf on the CUDA cores); fails
+    otherwise."""
+    ops = {name: {op: c.get(op, 0) for op in ("I2F", "F2F", "F2FP", "HMMA")}
+           for name, c in _sass_ops("q4_matmul", "gemv").items()}
+    # q4_gemv_kernel<ST, LIN, RS, NP>: NP is the template's one int
+    parts = {name: int(re.search(r"q4_gemv_kernelI.*?Li(\d+)E", name).group(1)) for name in ops}
+    bad = {name: c for name, c in ops.items()
+           if c["I2F"] or c["F2F"] or c["F2FP"] or bool(c["HMMA"]) != (parts[name] != 3)}
+    if bad or len(ops) != len(K1_MODES):
+        raise SystemExit(f"build: K1's GEMV must run conversion-free on HMMA in each of its "
+                         f"{len(K1_MODES)} modes, SASS shows {bad or ops}")
+    return ops
 
 
 def _q4_case(gen, m: int, k: int, n: int, f32_scales: bool = False, layout: str = "ilv",
@@ -438,7 +467,12 @@ def kernel_q4(timer: Timer, gen, name: str, m: int, main_path: bool, reps: int |
     each, the partials summed in f32): within 2 K 2^-24 max_n sum_k
     |x_k w_kn| (w as the mode forms it; a chunked sum is two such sums and
     their f32 sum). The library call is torch.matmul on the mode's
-    dequantized weight: bf16, or f32 (TF32 off) for the f32 dot."""
+    dequantized weight: bf16, or f32 (TF32 off) for the f32 dot. A GEMV
+    row (M = 1) also carries the CUDA kernels each launch of the wrapper
+    made (`cuda_launches`, which must be 1: the K split is merged inside the
+    launch), its K ranges (`splits`) and the replaced GEMV's time of the
+    same row (`parent_ms`, from tools/bench_gemv_runs.jsonl; None where
+    that file has none)."""
     from llamavk_tpu_torch.ops import q4_matmul as q4
 
     k, n = ALL_K1_SHAPES[name]
@@ -447,7 +481,9 @@ def kernel_q4(timer: Timer, gen, name: str, m: int, main_path: bool, reps: int |
     def kernel():
         return q4.q4_matmul_cuda(x, qw.packed, qw.scales, layout, dot, mul, chunks)
 
+    c_before, w_before = q4.cuda_launches(), sum(q4.launches.values())
     got = kernel()
+    per_launch = (q4.cuda_launches() - c_before) / (sum(q4.launches.values()) - w_before)
     want = q4.q4_matmul_ref(x, qw, out_dtype=torch.float32, dot_mode=dot, mul_dtype=mul)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
@@ -468,17 +504,17 @@ def kernel_q4(timer: Timer, gen, name: str, m: int, main_path: bool, reps: int |
         w_bf16 = w.to(torch.bfloat16)
         library_ms = timer(lambda: torch.matmul(x, w_bf16), reps)
     n_bytes = m * k * 2 + k // 2 * n + k // 32 * n * qw.scales.element_size() + m * n * 4
-    if w_f32 and m == 1:  # the GEMV's f32 products, on the CUDA cores
+    if w_f32 and f32_scales and m == 1:  # the GEMV's fmaf products, on the CUDA cores
         b_ms, b_by = bound(n_bytes, 2.0 * m * k * n, F32_FLOP_PER_S)
-    else:  # the f32 dot's GEMM: one bf16 pass per part (two, three over f32 scales)
-        passes = (3 if f32_scales else 2) if w_f32 and m > 1 else 1
+    else:  # the tensor cores: the f32 dot one bf16 pass per part (three over f32 scales)
+        passes = (3 if f32_scales else 2) if w_f32 else 1
         b_ms, b_by = bound(n_bytes, 2.0 * m * k * n * passes)
     mode = " ".join(filter(None, [layout if layout != "ilv" else "",
                                   "f32 scales" if f32_scales else "",
                                   "dot f32" if dot == "f32" else "",
                                   "mul bf16" if mul == torch.bfloat16 else "",
                                   f"{chunks} chunks" if chunks > 1 else ""]))
-    return {
+    row = {
         "kernel": "q4_" + q4.launch_key(m, layout == "lin", f32_scales, round_s, w_f32,
                                         chunks > 1),
         "shape": f"{name} M={m} K={k} N={n}" + (f" {mode}" if mode else ""),
@@ -488,6 +524,33 @@ def kernel_q4(timer: Timer, gen, name: str, m: int, main_path: bool, reps: int |
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": library_ms,
     }
+    if m == 1:
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        row["cuda_launches"] = per_launch
+        row["splits"] = q4.gemv_splits(k // chunks, n, sms)
+        row["parent_ms"] = _gemv_parent().get((bench_gemm.mode_name(
+            layout, f32_scales, dot, "bf16" if mul == torch.bfloat16 else "f32")
+            + (f" {chunks} chunks" if chunks > 1 else ""), name, 1))
+        row["ok"] = row["ok"] and per_launch == 1
+    return row
+
+
+# the replaced GEMV's time of each M = 1 row: tools/bench_gemm.py --ms 1
+# --tp2 run on the parent commit 091761e and on this kernel, alternated in
+# one call (NVIDIA H100 80GB HBM3, 700.00 W), keyed (mode, shape, M)
+GEMV_RUNS = ROOT / "llamavk_tpu_torch" / "tools" / "bench_gemv_runs.jsonl"
+
+
+@functools.cache
+def _gemv_parent() -> dict:
+    """The median over the file's parent runs of each (mode, shape, M)."""
+    runs: dict = {}
+    if GEMV_RUNS.exists():
+        for line in GEMV_RUNS.read_text().splitlines():
+            r = json.loads(line)
+            if r["tree"] == "parent":
+                runs.setdefault((r["mode"], r["shape"], r["m"]), []).append(r["ms"])
+    return {key: statistics.median(v) for key, v in runs.items()}
 
 
 # K1's modes as (layout, f32 scales, dot, multiply type)
@@ -496,38 +559,56 @@ K1_MODES = [(layout, f32s, dot, torch.bfloat16 if mul == "bf16" else torch.float
 
 
 def kernel_q4_weight_bits(gen) -> dict:
-    """The GEMM's dequantized weights against `mode_weight`'s, bit for bit,
-    in every mode on both routes: x one-hot rows, so out[i] is row k_i of
-    the weight the kernel fed the tensor cores (one nonzero product a sum,
-    exact). M = 64 (the split-K route) takes every k of the first and the
-    last 32-k group (both lin halves); M = K = 4096 (the large route) every
-    k. The f32 dot over f32 scales feeds three bf16 parts (w to 2^-27 |w|),
-    whose f32 sum on the tensor cores rounds once more (2^-23 |w| if it
-    truncates): that mode is held to 2^-22 max |w|."""
+    """The GEMM's and the GEMV's dequantized weights against `mode_weight`'s,
+    bit for bit, in every mode on every route: x one-hot rows, so out[i] is
+    row k_i of the weight the kernel fed the tensor cores (one nonzero
+    product a sum, exact). M = 64 (the GEMM's split-K route) and the GEMV
+    (M = 1, one launch a k, its splits merged in the launch) take every k of
+    the first and the last 32-k group (both lin halves); M = K = 4096 (the
+    large route) every k. The GEMM's f32 dot over f32 scales feeds three
+    bf16 parts (w to 2^-27 |w|), whose f32 sum on the tensor cores rounds
+    once more (2^-23 |w| if it truncates): that mode is held to 2^-22 max
+    |w| (the GEMV multiplies the exact f32 w there: bit for bit). Then
+    the GEMV's determinism: at each 7B shape, in every mode, two launches on
+    the same inputs are bit-equal."""
     from llamavk_tpu_torch.ops import q4_matmul as q4
 
     k, n = K1_SHAPES["wo"]
     out = {}
+    edge = torch.cat([torch.arange(32), torch.arange(k - 32, k)]).cuda()
     for layout, f32s, dot, mul in K1_MODES:
         _, qw = _q4_case(gen, 1, k, n, f32s, layout)
         w = q4.mode_weight(qw, dot, mul)
-        exact = not (dot == "f32" and f32s and mul == torch.float32)
-        for m in (64, k):
-            rows = (torch.arange(k, device="cuda") if m == k else
-                    torch.cat([torch.arange(32), torch.arange(k - 32, k)]).cuda())
-            x = torch.zeros((m, k), device="cuda", dtype=torch.bfloat16)
-            x[torch.arange(m, device="cuda"), rows] = 1
-            got = q4.q4_matmul_cuda(x, qw.packed, qw.scales, layout, dot, mul)
+        three_parts = dot == "f32" and f32s and mul == torch.float32
+        for m in (1, 64, k):
+            rows = torch.arange(k, device="cuda") if m == k else edge
+            x = torch.zeros((len(rows), k), device="cuda", dtype=torch.bfloat16)
+            x[torch.arange(len(rows), device="cuda"), rows] = 1
+            if m == 1:
+                got = torch.cat([q4.q4_matmul_cuda(x[i : i + 1], qw.packed, qw.scales, layout,
+                                                   dot, mul) for i in range(len(rows))])
+            else:
+                got = q4.q4_matmul_cuda(x, qw.packed, qw.scales, layout, dot, mul)
             want = w[rows]
             diff = float((got - want).abs().max())
-            lim = 0.0 if exact else float(want.abs().max()) * 2.0**-22
+            lim = float(want.abs().max()) * 2.0**-22 if three_parts and m > 1 else 0.0
             name = f"{layout} {'f32' if f32s else 'bf16'} scales dot {dot} mul {mul} M={m}"
             out[name] = {"max_abs_diff": diff, "bit_equal": bool(torch.equal(got, want)),
                          "ok": diff <= lim}
+    for name, (k, n) in K1_SHAPES.items():
+        x, qw = _q4_case(gen, 1, k, n, True)
+        planes = {False: qw.scales.to(torch.bfloat16), True: qw.scales}
+        for layout, f32s, dot, mul in K1_MODES:
+            a, b = (q4.q4_matmul_cuda(x, qw.packed, planes[f32s], layout, dot, mul)
+                    for _ in range(2))
+            mode = f"{layout} {'f32' if f32s else 'bf16'} scales dot {dot} mul {mul}"
+            out[f"deterministic {name} {mode} M=1"] = {"bit_equal": bool(torch.equal(a, b)),
+                                                       "ok": bool(torch.equal(a, b))}
     torch.cuda.synchronize()
     bad = [name for name, r in out.items() if not r["ok"]]
     if bad:
-        raise SystemExit(f"K1's dequantized weights differ from mode_weight's: {bad}")
+        raise SystemExit(f"K1's dequantized weights differ from mode_weight's, or a GEMV "
+                         f"launch is not deterministic: {bad}")
     return out
 
 
@@ -1537,6 +1618,20 @@ def kernel_edges(gen, gen_cpu) -> dict:
         w = dequantize_qweight(qw).to(torch.bfloat16).float()
         limit = 2 * k * 2.0**-24 * float((x.float().abs() @ w.abs()).max())
         worst[f"q4 M={m} K={k} N={n}"] = (err, limit, err / limit)
+    # the GEMV's edge tiles over several K splits: a ragged last tile and
+    # packed rows only 8-byte aligned (N % 16 = 8), ilv and lin, every scale
+    # and dot mode
+    for layout, f32s, dot, mul in K1_MODES:
+        for k, n in ((4096, 136), (2048, 1224)):
+            x, qw = _q4_case(gen, 1, k, n, f32s, layout)
+            got = q4.q4_matmul_cuda(x, qw.packed, qw.scales, layout, dot, mul)
+            err = float((got - q4.q4_matmul_ref(x, qw, out_dtype=torch.float32, dot_mode=dot,
+                                                 mul_dtype=mul)).abs().max())
+            w = q4.mode_weight(qw, dot, mul)
+            limit = 2 * k * 2.0**-24 * float((x.float().abs() @ w.abs()).max())
+            mode = bench_gemm.mode_name(layout, f32s, dot, "bf16" if mul == torch.bfloat16
+                                        else "f32")
+            worst[f"q4 M=1 K={k} N={n} {mode}"] = (err, limit, err / limit)
     h, d, s = 2, 64, 64
     for quant in (False, True):
         # T 1-15 on the split route (splits of 32 rows; D = 64 at T = 4 with a

@@ -33,16 +33,14 @@
 //    A fragment's pair (k, k + 1) is the same nibble of two neighbouring
 //    packed rows, so x stays in its own k order and `ldmatrix` reads it as
 //    the `.col` B operand.
-//  * Dequantization straight into A fragments in registers: one
-//    `__byte_perm` puts column c's bytes of two rows into one word; a mask
-//    and an xor make each nibble the bf16 136 + q (0x4300 | (q ^ 8)), an
-//    exact bf16 subtract gives q. A bf16 scale plane (and LLAMAVK_Q4_MUL=
-//    bf16's rounded f32 scale) multiplies with `__hmul2`: the product of
-//    the exact q by a bf16 scale is exact in f32, so the one rounding of the
-//    bf16 multiply is bf16(f32(q) * s). An f32 scale multiplies in f32 and
-//    rounds once to bf16; LLAMAVK_Q4_DOT=f32 splits the f32 q * s into
-//    bf16 parts w0 + w1 (+ w2), one MMA pass each into the same
-//    accumulators. No bf16 weight tile is written to shared memory.
+//  * Dequantization straight into A fragments in registers
+//    (q4_dequant.cuh, shared with the decode GEMV): a byte permute, a mask
+//    and an xor to the bf16 136 + q, an exact bf16 subtract, `__hmul2` by a
+//    bf16 scale (an f32 scale in f32, rounded once by F2FP);
+//    LLAMAVK_Q4_DOT=f32 feeds bf16 parts w0 + w1 (+ w2) of the f32 q * s
+//    (over a bf16 scale w1 by an exact `__hfma2`), one MMA pass each into
+//    the same accumulators. No bf16 weight tile is written to shared
+//    memory.
 //  * A ring of `cp.async` stages (16 B copies; 8 B for packed rows when
 //    N % 16 != 0) carries x, the packed bytes and the scales of 2 units
 //    (64 k) a stage, so the next stages' loads fly while a stage is
@@ -75,9 +73,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-#include <string.h>
+
+#include <atomic>
 
 #include "mma_ptx.cuh"
+#include "q4_dequant.cuh"
 #include "split_sum.cuh"
 
 namespace q4gemm {
@@ -86,6 +86,16 @@ using ptx::cp16;
 using ptx::smem_addr;
 
 constexpr int SMALL_M = 64;  // M <= SMALL_M: the split-K route
+
+// The kernel launches of K1's library (q4_matmul.cu, the one source that
+// includes this header): every `<<<>>>` of the GEMM, its split sum and the
+// decode GEMV adds one, so a caller can count a call's launches.
+namespace {
+inline std::atomic<long>& launch_count() {
+  static std::atomic<long> n{0};
+  return n;
+}
+}  // namespace
 
 // A route's tiling: WN warps along N (32 output columns each), UPS units
 // (16 packed rows, 32 k) a stage, NTMAX n8 token tiles a block, STAGES
@@ -115,52 +125,10 @@ struct Cfg {
 using Small = Cfg<8, 2, 4, 4>;
 using Large = Cfg<4, 2, 16, 3>;
 
-__device__ __forceinline__ __nv_bfloat162 as_bf2(uint32_t u) {
-  __nv_bfloat162 v;
-  memcpy(&v, &u, 4);
-  return v;
-}
+using q4dq::Scale;
 
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
-  uint32_t u;
-  memcpy(&u, &v, 4);
-  return u;
-}
-
-// bf16 part p of w: the p-th term of w = w0 + w1 (+ w2), each the bf16
-// rounding of what the earlier ones leave
-__device__ __forceinline__ float part(float w, int p) {
-  float h = __bfloat162float(__float2bfloat16(w));
-  for (int i = 0; i < p; ++i) {
-    w = __fsub_rn(w, h);
-    h = __bfloat162float(__float2bfloat16(w));
-  }
-  return h;
-}
-
-// A column's scale as the weights take it: the pair (s, s) of bf16 for the
-// bf16 multiply, else the f32 value (exact for a bf16 plane)
-struct Scale {
-  uint32_t s2;
-  float f;
-};
-
-// The A register of two weights from `magic` (two bf16 136 + q) and their
-// column's scale: bf16(q * s), or bf16 part p of the f32 q * s under the
-// f32 dot (NP > 1).
-template <typename ST, bool RS, int NP>
-__device__ __forceinline__ uint32_t weight_pair(uint32_t magic, const Scale& s, int p) {
-  const __nv_bfloat162 q = __hsub2(as_bf2(magic), as_bf2(0x43084308u));  // exact
-  if constexpr (NP == 1 && (sizeof(ST) == 2 || RS)) {  // a bf16 (or RS-rounded) scale
-    return as_u32(__hmul2(q, as_bf2(s.s2)));
-  } else {
-    const uint32_t qb = as_u32(q);
-    const float a = __fmul_rn(__uint_as_float(qb << 16), s.f);
-    const float b = __fmul_rn(__uint_as_float(qb & 0xffff0000u), s.f);
-    if constexpr (NP == 1) return ptx::pack_bf16(a, b);
-    return ptx::pack_bf16(part(a, p), part(b, p));
-  }
-}
+// two nibbles of a packed word as the bf16 pair 136 + q
+__device__ __forceinline__ uint32_t magic(uint32_t v) { return q4dq::nibbles_to_magic<true>(v); }
 
 // A fragments [k step: low, high nibbles][row tile][4] of one unit from the
 // lane's packed words w[0..3] (rows 2t, 2t + 1, 2t + 8, 2t + 9 of the unit,
@@ -171,15 +139,13 @@ __device__ __forceinline__ void dequant(uint32_t (&a)[2][2][4], const uint32_t (
                                         const Scale (&s_lo)[4], const Scale (&s_hi)[4], int p) {
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    const uint32_t sel = c | (c << 4) | ((c + 4) << 8) | ((c + 4) << 12);
-    const uint32_t v01 = __byte_perm(w[0], w[1], sel);  // bytes c of rows 2t, 2t + 1
-    const uint32_t v89 = __byte_perm(w[2], w[3], sel);
+    const uint32_t v01 = __byte_perm(w[0], w[1], q4dq::pair_sel(c));  // rows 2t, 2t + 1
+    const uint32_t v89 = __byte_perm(w[2], w[3], q4dq::pair_sel(c));
     const int i = c >> 1, hh = c & 1;
-    a[0][i][hh] = weight_pair<ST, RS, NP>((v01 & 0x000f000fu) ^ 0x43084308u, s_lo[c], p);
-    a[0][i][hh + 2] = weight_pair<ST, RS, NP>((v89 & 0x000f000fu) ^ 0x43084308u, s_lo[c], p);
-    a[1][i][hh] = weight_pair<ST, RS, NP>(((v01 >> 4) & 0x000f000fu) ^ 0x43084308u, s_hi[c], p);
-    a[1][i][hh + 2] =
-        weight_pair<ST, RS, NP>(((v89 >> 4) & 0x000f000fu) ^ 0x43084308u, s_hi[c], p);
+    a[0][i][hh] = q4dq::weight_pair<ST, RS, NP, true>(magic(v01), s_lo[c], p);
+    a[0][i][hh + 2] = q4dq::weight_pair<ST, RS, NP, true>(magic(v89), s_lo[c], p);
+    a[1][i][hh] = q4dq::weight_pair<ST, RS, NP, true>(magic(v01 >> 4), s_hi[c], p);
+    a[1][i][hh + 2] = q4dq::weight_pair<ST, RS, NP, true>(magic(v89 >> 4), s_hi[c], p);
   }
 }
 
@@ -189,11 +155,7 @@ template <bool RS>
 __device__ __forceinline__ void scales4(const __nv_bfloat16* p, Scale (&s)[4]) {
   const uint2 v = *reinterpret_cast<const uint2*>(p);
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const uint32_t word = c < 2 ? v.x : v.y;
-    s[c].s2 = __byte_perm(word, 0, c & 1 ? 0x3232 : 0x1010);
-    s[c].f = __uint_as_float(c & 1 ? word & 0xffff0000u : word << 16);
-  }
+  for (int c = 0; c < 4; ++c) s[c] = q4dq::scale_bf16(c < 2 ? v.x : v.y, c & 1);
 }
 
 template <bool RS>
@@ -201,10 +163,7 @@ __device__ __forceinline__ void scales4(const float* p, Scale (&s)[4]) {
   const float4 v = *reinterpret_cast<const float4*>(p);
   const float f[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    s[c].f = f[c];
-    if (RS) s[c].s2 = as_u32(__float2bfloat162_rn(f[c]));
-  }
+  for (int c = 0; c < 4; ++c) s[c] = q4dq::scale_f32<RS, true>(f[c]);
 }
 
 // One stage's copies: units [u0, u0 + UPS) (those < u_end) of the block's
@@ -406,6 +365,7 @@ cudaError_t run(const __nv_bfloat16* x, const int8_t* packed, const ST* scales, 
   }
   dim3 grid((N + C::BN - 1) / C::BN, (M + 8 * C::NTMAX - 1) / (8 * C::NTMAX), splits);
   kernel<<<grid, C::THREADS, smem, st>>>(x, packed, scales, dst, M, K, N, ups);
+  ++launch_count();
   return cudaGetLastError();
 }
 
@@ -424,6 +384,7 @@ cudaError_t launch_gemm(const __nv_bfloat16* x, const int8_t* packed, const ST* 
                    : run<Large, ST, LIN, RS, NP>(x, packed, scales, dst, M, K, N, ups, splits, st);
   if (e != cudaSuccess || splits == 1) return e;
   launch_split_sum<float, float>(partial, out, splits, M * N, st);
+  ++launch_count();
   return cudaGetLastError();
 }
 

@@ -10,8 +10,9 @@ there reads it):
   unpack of the same bytes with the same numerics as the shift unpack,
   q4_matmul.py:648-651 there, so here it is the same kernel; and `f32`). On
   a CUDA tensor `q4_matmul` launches the kernel of `csrc/q4_matmul.cu` (the
-  GEMV at M = 1; the GEMM of `csrc/q4_gemm.cuh` above; they replace
-  `_kernel_q4`, q4_matmul.py:96 there), for the ilv and the lin layout; on
+  GEMV at M = 1, one launch a call with its K split merged inside; the GEMM
+  of `csrc/q4_gemm.cuh` above; they replace `_kernel_q4`, q4_matmul.py:96
+  there), for the ilv and the lin layout; on
   a CPU tensor it computes the plain version, `q4_matmul_ref`: x cast to
   bf16, w = f32(q) * f32(scale) rounded to bf16 (the `f32` dot keeps
   it f32), products summed in f32, out f32 then `out_dtype`. `mul_dtype`
@@ -225,10 +226,20 @@ def q4_matmul_ref(
 def _lib():
     lib = _build.load("q4_matmul")
     p = ctypes.c_void_p
-    lib.q4_matmul_launch.argtypes = [p, p, p, p, p, ctypes.c_int, ctypes.c_int,
+    lib.q4_matmul_launch.argtypes = [p, p, p, p, p, p, ctypes.c_int, ctypes.c_int,
                                      ctypes.c_int, ctypes.c_int, ctypes.c_int, p]
     lib.q4_matmul_launch.restype = ctypes.c_int
+    lib.q4_launch_count.argtypes = []
+    lib.q4_launch_count.restype = ctypes.c_long
     return lib
+
+
+def cuda_launches() -> int:
+    """The CUDA kernels `csrc/q4_matmul.cu` has launched in this process
+    (the GEMV, the GEMM and the GEMM's split sums), where `launches` counts
+    wrapper calls: the difference over one call is that call's kernel
+    launches (one for a GEMV call)."""
+    return _lib().q4_launch_count()
 
 
 @functools.cache
@@ -236,17 +247,51 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+# the decode GEMV's block (csrc/q4_matmul.cu, namespace gemv): 128 output
+# columns and 4 warps, 4 blocks resident an SM (128 registers a thread),
+# at most 256 units (32 k each) a split
+GEMV_BN = 128
+GEMV_WARPS = 4
+GEMV_BLOCKS_PER_SM = 4
+GEMV_MAX_UPS = 256
+
+
 def gemv_ksplit(k: int, n: int, sms: int) -> int:
-    """Decode (M = 1) K split: enough blocks for two per SM, at least 16
-    groups per split, and an x slice that fits the kernel's 40 KB stage (a
-    lin split takes whole 32-row units, two groups each, and stages the same
-    bytes)."""
-    g = k // QK
-    nblk = -(-n // 128)
-    want = -(-2 * sms // nblk)
-    want = max(1, min(want, g // 16))
-    gps_max = 40960 // (QK * 2)
-    return max(want, -(-g // gps_max))
+    """Decode (M = 1) K split into ranges of whole 32-k units: the most
+    splits whose blocks (one per 128-column tile and split) all fit on the
+    card at once (4 an SM), so every block starts at once and the card has
+    no last partial wave; at least a unit per warp, at most 256 units a
+    split (the kernel's x stage). A function of (K, N) and the SM count
+    alone."""
+    units = k // QK
+    tiles = -(-n // GEMV_BN)
+    split = max(1, min(GEMV_BLOCKS_PER_SM * sms // tiles, units // GEMV_WARPS))
+    return max(split, -(-units // GEMV_MAX_UPS))
+
+
+def gemv_splits(k: int, n: int, sms: int) -> int:
+    """The K ranges the GEMV's launch makes of `gemv_ksplit` (whole units,
+    all but the last of one size)."""
+    units = k // QK
+    ups = -(-units // gemv_ksplit(k, n, sms))
+    return -(-units // ups)
+
+
+# the GEMV's arrival counters, one zeroed int32 tensor per device, one per
+# 128-column tile, grown when a call needs more; the last block of a tile
+# sets its counter back to 0 (the launches of a device share them in stream
+# order)
+_gemv_counters: dict[str, torch.Tensor] = {}
+
+
+def gemv_counters(device: torch.device, n: int) -> torch.Tensor:
+    """The device's GEMV counters, at least one per 128-column tile of N."""
+    tiles = -(-n // GEMV_BN)
+    cnt = _gemv_counters.get(str(device))
+    if cnt is None or cnt.numel() < tiles:
+        cnt = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=device)
+        _gemv_counters[str(device)] = cnt
+    return cnt
 
 
 # the GEMM's route threshold and its routes' block columns and token tile
@@ -276,9 +321,10 @@ def gemm_ksplit(m: int, k: int, n: int, sms: int) -> int:
 
 def scratch_shape(m: int, k: int, n: int, sms: int) -> tuple[int, ...] | None:
     """The partial sums' scratch of a K1 launch on a card of `sms` SMs:
-    [splits, N] for the GEMV, [splits, M, N] for the GEMM, None for one
-    split (the kernel writes the output)."""
-    split = gemv_ksplit(k, n, sms) if m == 1 else gemm_ksplit(m, k, n, sms)
+    [splits, N] for the GEMV (its K ranges, merged inside its launch),
+    [splits, M, N] for the GEMM, None for one split (the kernel writes the
+    output)."""
+    split = gemv_splits(k, n, sms) if m == 1 else gemm_ksplit(m, k, n, sms)
     if split == 1:
         return None
     return (split, n) if m == 1 else (split, m, n)
@@ -331,14 +377,16 @@ def _q4_launch(xf, packed, scales, layout, dot_mode, mul_dtype, chunked_k: int =
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("q4_matmul_cuda: operands must be contiguous and 16-byte aligned")
     dev = xf.device.index if xf.device.index is not None else torch.cuda.current_device()
+    sms = _sm_count(dev)
     out = torch.empty((m, n), dtype=torch.float32, device=xf.device)
-    scratch = scratch_shape(m, k, n, _sm_count(dev))
-    ksplit = 1 if scratch is None else scratch[0]
+    scratch = scratch_shape(m, k, n, sms)
+    ksplit = gemv_ksplit(k, n, sms) if m == 1 else 1 if scratch is None else scratch[0]
     partial = out if scratch is None else torch.empty(scratch, dtype=torch.float32,
                                                       device=xf.device)
+    counters = gemv_counters(xf.device, n).data_ptr() if m == 1 and scratch else None
     rc = _lib().q4_matmul_launch(
         xf.data_ptr(), packed.data_ptr(), scales.data_ptr(), out.data_ptr(),
-        partial.data_ptr(), m, k, n, ksplit, bits,
+        partial.data_ptr(), counters, m, k, n, ksplit, bits,
         torch.cuda.current_stream(xf.device).cuda_stream,
     )
     _build.check(rc, "q4_matmul_launch")

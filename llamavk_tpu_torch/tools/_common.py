@@ -58,19 +58,30 @@ class Timer:
     path does (each layer's weights and cache rows are read once per step).
     A spin of ~1 ms on the device before the first event keeps the device
     busy while the host enqueues the call, so the time is the device's, not
-    the host's launch latency. `chip_smoke.py` times every kernel with it."""
+    the host's launch latency. `chip_smoke.py` times every kernel with it.
+
+    `clean=True` empties the L2 by reading the 100 MB instead: the call
+    still finds its inputs in device memory, but the lines it evicts are
+    clean, as on the main path (the weights of the layers before), where
+    the write leaves up to 50 MB of dirty lines that the call's reads must
+    first write back."""
 
     SPIN_CYCLES = 2_000_000  # ~1 ms at the H100's 1.98 GHz boost clock
 
-    def __init__(self, reps: int = 20):
+    def __init__(self, reps: int = 20, clean: bool = False):
         self.reps = reps
-        self.flush = torch.empty(100 * 2**20, dtype=torch.uint8, device="cuda")
+        self.clean = clean
+        self.flush = torch.ones(100 * 2**20, dtype=torch.uint8, device="cuda")
+        self.sink = torch.empty((), dtype=torch.int64, device="cuda")
 
     def __call__(self, fn, reps: int | None = None) -> float:
         fn()  # warm-up
         times = []
         for _ in range(reps or self.reps):
-            self.flush.zero_()
+            if self.clean:
+                torch.sum(self.flush, dim=0, out=self.sink)
+            else:
+                self.flush.zero_()
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             torch.cuda._sleep(self.SPIN_CYCLES)

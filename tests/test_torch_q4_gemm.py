@@ -50,11 +50,15 @@ def test_gemm_split_large_m(m, k, n, want):
     assert q4.scratch_shape(m, k, n, 132) == (None if want == 1 else (want, m, n))
 
 
-def test_gemv_split_unchanged():
-    """The decode GEMV's split (M = 1): two blocks an SM of 128 columns, at
-    least 16 groups a split, scratch [splits, N]."""
-    assert [q4.gemv_ksplit(k, n, 132) for k, n in SHAPES[:5]] == [3, 8, 2, 9, 2]
-    assert q4.scratch_shape(1, 4096, 4096, 132) == (8, 4096)
+def test_gemv_split_one_wave_at_7b_shapes():
+    """The decode GEMV's split (M = 1) at the 7B shapes on 132 SMs: the
+    most splits whose blocks (128 columns each) all fit on the card at once
+    (4 an SM), whole units a split, scratch [splits, N] for the merge inside
+    the launch; and the GEMM's split rule is unchanged by it."""
+    assert [q4.gemv_ksplit(k, n, 132) for k, n in SHAPES[:5]] == [5, 16, 3, 16, 2]
+    assert [q4.gemv_splits(k, n, 132) for k, n in SHAPES[:5]] == [5, 16, 3, 16, 2]
+    assert q4.scratch_shape(1, 4096, 4096, 132) == (16, 4096)
+    assert q4.scratch_shape(2, 4096, 4096, 132) == (8, 2, 4096)
 
 
 def test_bench_gemm_refuses_without_cuda(monkeypatch):
