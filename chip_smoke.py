@@ -38,13 +38,21 @@ Phases, each printing one JSON line (any failure exits non-zero):
   tiny_cli    the generate CLI on a tiny GGJT file, greedy, bf16 and int8
               KV, on the card and on the CPU: the token streams must be
               equal; also an interactive session (-i -r, two scripted
-              turns of stdin) with equal text
+              turns of stdin) with equal text; the re-evaluating context
+              swap through the decode graph and the uncaptured step, equal
   generate_7b synthetic LLaMA-7B Q4_0 weights, n_ctx 512, bf16 KV: kernel and
               plain forward passes agree on the main path's routes and
-              shapes; then the main path (a 32-token prompt generating 128
+              shapes, and 4 decode steps at an int32 [1] n_past give the
+              host int's bits; then the main path (a 32-token prompt generating 128
               tokens, and a 300-token follow-up turn that reaches the
-              read-only attention) with launch counts and the device's idle
-              share
+              read-only attention) with launch counts (K1 4 x 32 + 1 a
+              forward, graph replays counted); decode blocks through the
+              graph and through the uncaptured step alternated: ms a token,
+              device busy ms a token, activities a step, idle share; the
+              graphs' capture seconds and pool bytes; the graph's streams
+              equal to the uncaptured step's token for token (bf16 greedy
+              128 and seeded sampled 64 tokens, int8 and f32 engines 32
+              tokens each, greedy and sampled)
   tiny_serve  the HTTP server on the tiny GGJT file on the card, bf16 and
               int8 KV, 4 concurrent greedy requests to a LlamaServer here and
               to the serve CLI in its own process, without and with
@@ -55,16 +63,19 @@ Phases, each printing one JSON line (any failure exits non-zero):
               ragged n_past through the kernels and the plain versions (int8
               and bf16); then 32 of the 64 smoke requests over HTTP and one that
               continues a registered prefix, with throughput, time to first
-              token, launch counts and the idle share; then every kernel
-              against its plain version at every shape that phase launched
-              it at (K1, K2/K3 int8 admission and prefix shapes, K4)
+              token, launch counts and the idle share; 32 requests (greedy
+              and seeded sampled) through a BatchedEngine's graph and its
+              uncaptured step, streams equal token for token; then every
+              kernel against its plain version at every shape that phase
+              launched it at (K1, K2/K3 int8 admission and prefix shapes, K4)
   serve_7b_paged
               the same with --paged (page_size 128, the default pool of 129
               pages): 8 greedy requests through a paged and a flat engine at
               kv_block 128 with equal streams; the 64 requests; a registered
               300-token prefix (2 shared pages) continued by 4 concurrent
               suffixes; the 64 requests again on a quarter pool (33 pages),
-              which preempts; then every kernel at every shape it launched
+              which preempts; serve_7b's graph against uncaptured check,
+              paged; then every kernel at every shape it launched
   generate_7b_lookup
               the generate CLI with --draft-lookup --draft-n 4 on synthetic
               7B at 16 of its 32 layers (a 16-token pattern repeated 3
@@ -89,7 +100,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
   generate_7b_ring
               the generate CLI with --ctx-swap ring --n-keep 32 on synthetic
               7B (16 of its 32 layers), n_ctx 512, bf16 KV: a 32-token prompt
-              and 700 tokens (one wrap and 220 more), the first 480 against
+              and 700 tokens (one wrap and 220 more), equal to the same run
+              through the uncaptured step, the first 480 against
               the plain greedy CLI's (equal, or parting only at a near tie),
               ms per token before and after the wrap, a post-wrap forward
               through the kernels against the plain versions, the idle share
@@ -139,6 +151,15 @@ Phases, each printing one JSON line (any failure exits non-zero):
               a 512-token perplexity --f32 chunk under LLAMAVK_Q4_MUL=bf16 in
               another, NLL against plain; --mtest -b 32 on the lin weights;
               then, in each process, every kernel at every shape it launched
+
+Decoding runs through CUDA graphs (`runtime/graphs.py`) wherever an
+`Engine` or a one-device `BatchedEngine` decodes a plain block: tiny_cli,
+generate_7b, the plain runs of generate_7b_lookup, generate_7b_ring,
+generate_7b_modes, tiny_serve and tiny_compat without lookup, serve_7b,
+serve_7b_paged, serve_7b_shared and eval_7b_f32's batched requests. Lookup
+and speculative rounds, the tp and pp ranks and every prefill run eagerly.
+The uncaptured step (the graphs' plain version) is reached only through the
+engines' private `_run_uncaptured` (`_uncaptured()` here).
 
 The kernels phase holds K1's GEMM (M >= 2) in every mode (ilv and lin,
 bf16 and f32 scales, LLAMAVK_Q4_DOT=f32, LLAMAVK_Q4_MUL=bf16) at the five
@@ -2072,6 +2093,25 @@ def phase_tiny_cli(work: Path) -> dict:
             raise SystemExit(f"tiny_cli (ring, {kv}): card and CPU streams differ:\n"
                              f"{outs['cuda']!r}\n{outs['cpu']!r}")
         result[f"ring {kv}"] = {"tokens_text": outs["cuda"].strip(), "equal_to_cpu": True}
+    # the re-evaluating context swap (-c 24: a 14-token prompt and 24 tokens
+    # swap twice) on the card, through the decode graph and through the
+    # uncaptured step: equal text
+    outs = {}
+    for mode in ("graph", "uncaptured"):
+        args = cli.build_argparser().parse_args(
+            ["-m", path, "-p", "<t148><t159>", "-n", "24", "-c", "24", "--n-keep", "4",
+             "--temp", "0", "-s", "42", "--ignore-eos", "--device", "cuda"])
+        buf = io.StringIO()
+        with contextlib.redirect_stderr(io.StringIO()), \
+                _uncaptured() if mode == "uncaptured" else contextlib.nullcontext():
+            if cli.run(args, stdout=buf) != 0:
+                raise SystemExit(f"tiny_cli: reeval swap run ({mode}) failed")
+        outs[mode] = buf.getvalue()
+    if outs["graph"] != outs["uncaptured"]:
+        raise SystemExit(f"tiny_cli (reeval swap): graph and uncaptured streams differ:\n"
+                         f"{outs['graph']!r}\n{outs['uncaptured']!r}")
+    result["reeval swap"] = {"tokens_text": outs["graph"].strip(),
+                             "graph_equal_to_uncaptured": True}
     # an interactive session: -i -r J with two scripted turns of stdin, then
     # EOF, on a tiny file (seed 5) whose session keeps every top-2 logit gap
     # above 0.105 on the CPU
@@ -2196,6 +2236,90 @@ def _device_busy(fn, keep: int | None = 8) -> tuple[float, float | None, int, di
     return wall, (busy if busy > 0 else None), sum(e.count for e in dev), top
 
 
+@contextlib.contextmanager
+def _uncaptured():
+    """Decode through the uncaptured step, the CUDA graphs' plain version,
+    in every Engine and BatchedEngine while inside (their private
+    `_run_uncaptured` in place of `_run_block`)."""
+    from llamavk_tpu_torch.runtime.batching import BatchedEngine
+    from llamavk_tpu_torch.runtime.engine import Engine
+
+    saved = [(cls, cls._run_block) for cls in (Engine, BatchedEngine)]
+    for cls, _ in saved:
+        cls._run_block = cls._run_uncaptured
+    try:
+        yield
+    finally:
+        for cls, run in saved:
+            cls._run_block = run
+
+
+def _same_streams(what: str, graph: list, plain: list) -> int:
+    """Fail unless the graph's token streams equal the uncaptured step's,
+    token for token; returns the tokens compared."""
+    for i, (a, b) in enumerate(zip(graph, plain)):
+        if a != b:
+            at = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+            raise SystemExit(f"{what}: stream {i} through the graph parts from the uncaptured "
+                             f"step at token {at}")
+    if len(graph) != len(plain):
+        raise SystemExit(f"{what}: {len(graph)} graph streams, {len(plain)} uncaptured")
+    return sum(len(a) for a in graph)
+
+
+def _engine_graph_check(eng, prompt: list[int], n: int, sp, seed: int, what: str) -> dict:
+    """One Engine's stream of n tokens through its decode graph and through
+    the uncaptured step, each from a reset engine seeded alike: equal token
+    for token."""
+    runs = []
+    for plain in (False, True):
+        eng.reset()
+        eng.set_seed(seed)
+        with _uncaptured() if plain else contextlib.nullcontext():
+            runs.append(eng.generate(prompt, n, sp, ignore_eos=True))
+    return {"tokens_equal": _same_streams(what, runs[:1], runs[1:]), "sampled": sp.temp > 0}
+
+
+def _decode_timing(eng, sp, n_blocks: int = 4, reps: int = 2) -> dict:
+    """Decode blocks alone (`Engine._decode_block` of ecfg.decode_block
+    steps and the block's host read, from the engine's position, which does
+    not advance), through the graph and through the uncaptured step,
+    alternated `reps` times on the host clock, then once each under the
+    profiler: wall ms a token, device busy ms a token, device activities a
+    step, idle share (busy over the unprofiled wall time)."""
+    n = eng.ecfg.decode_block
+    last = torch.full((sp.repeat_last_n,), -1, dtype=torch.int64, device="cuda")
+    tok = torch.tensor(7, device="cuda")
+
+    def run():
+        for _ in range(n_blocks):
+            eng._decode_block(tok, last, sp, n)[0].tolist()
+
+    out: dict = {}
+    walls: dict = {"graph": [], "uncaptured": []}
+    for _ in range(reps):
+        for mode in walls:
+            with _uncaptured() if mode == "uncaptured" else contextlib.nullcontext():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                walls[mode].append((time.perf_counter() - t0) * 1e3 / (n_blocks * n))
+    for mode, ms in walls.items():
+        with _uncaptured() if mode == "uncaptured" else contextlib.nullcontext():
+            wall, busy, n_dev, top = _device_busy(run)
+        wall_ms = statistics.median(ms)
+        out[mode] = {
+            "wall_ms_per_token": wall_ms, "wall_ms_runs": ms,
+            "profiled_wall_ms_per_token": wall / (n_blocks * n),
+            "device_busy_ms_per_token": None if busy is None else busy / (n_blocks * n),
+            "device_activities_per_step": n_dev / (n_blocks * n),
+            "device_idle_share": None if busy is None else 1 - busy / (n_blocks * n) / wall_ms,
+            "device_ms_per_token_by_name": {k: v / (n_blocks * n) for k, v in top.items()},
+        }
+    return out
+
+
 def _k5_device_ms(fn) -> dict:
     """The device ms of one call of fn in K5's launches by kernel (the
     quantization, the group dot; the split sums, which K1's launches
@@ -2233,9 +2357,26 @@ def phase_generate_7b(seed: int) -> tuple[dict, dict]:
                                      last_idx=last_idx, use_ref=ref)
             logits[ref].append(lg)
 
-    both(torch.randint(3, cfg.n_vocab, (1, 32), generator=gen).cuda(), 0)
+    prompt0 = torch.randint(3, cfg.n_vocab, (1, 32), generator=gen).cuda()
+    both(prompt0, 0)
+    steps = []
     for i in range(4):
-        both(logits[True][-1][0, -1].argmax().view(1, 1), 32 + i)  # the plain stream's token
+        steps.append(logits[True][-1][0, -1].argmax().view(1, 1))  # the plain stream's token
+        both(steps[-1], 32 + i)
+    # the decode graphs' position, an int32 [1] device tensor, against the
+    # host int through the kernels: the same logits and cache rows, bit for bit
+    vec = init_kv_cache(cfg, 1, N_CTX, device="cuda")
+    llama_forward(params, prompt0, vec, 0, cfg)
+    for i, tok in enumerate(steps):
+        lg, _, _ = llama_forward(params, tok, vec, torch.tensor([32 + i], dtype=torch.int32,
+                                                                device="cuda"), cfg)
+        if not torch.equal(lg, logits[False][1 + i]):
+            raise SystemExit(f"generate_7b: decode step {i} at an int32 [1] n_past differs "
+                             "from the host int's")
+    if not all(torch.equal(a[:, :, :, :36], b[:, :, :, :36])
+               for a, b in zip(vec.planes(), caches[False].planes())):
+        raise SystemExit("generate_7b: cache rows at an int32 [1] n_past differ from the host int's")
+    del vec
     both(torch.randint(3, cfg.n_vocab, (1, 123), generator=gen).cuda(), 36)
     turn2 = torch.randint(3, cfg.n_vocab, (1, 353), generator=gen)
     turn2[:, 301:] = 0  # the engine's bucket padding
@@ -2280,17 +2421,12 @@ def phase_generate_7b(seed: int) -> tuple[dict, dict]:
     counts = _counts()
     turn2_prefill_ms = eng.timings.t_prompt_us / 1e3 - prefill_ms
     peak = torch.cuda.max_memory_allocated()
-    # where a decode step's time goes: 8 forward passes timed on the host
-    # clock, then 8 more under the profiler for the device's busy time. The
-    # profiler slows the host, so the idle share divides the busy time by
-    # the unprofiled wall time.
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    eng.generate([], 8, greedy, ignore_eos=True)
-    torch.cuda.synchronize()
-    plain_wall_ms = (time.perf_counter() - t0) * 1e3
-    wall_ms, busy_ms, n_dev, _ = _device_busy(
-        lambda: eng.generate([], 8, greedy, ignore_eos=True))
+    # where a decode step's time goes: decode blocks through the graph and
+    # through the uncaptured step, alternated on the host clock, then under
+    # the profiler for the device's busy time. The profiler slows the host,
+    # so the idle share divides the busy time by the unprofiled wall time.
+    timing = _decode_timing(eng, greedy)
+    graph_stats = eng.graph_stats()
     if len(out1) != 128 or len(out2) != 16:
         raise SystemExit("generate_7b: short generation")
     # K1: 4 matmuls per layer + the output matmul, per forward pass
@@ -2304,17 +2440,41 @@ def phase_generate_7b(seed: int) -> tuple[dict, dict]:
                                       "attn_update_tc"))
     _require("generate_7b (turn 2)", {k: n - counts1[k] for k, n in counts.items()},
              ("q4_gemm", "attn_read_tc"))
+    # the graphs' streams against the uncaptured step's on the card: greedy
+    # and seeded sampled bf16, then int8 and f32 engines
+    streams = {
+        "bf16_greedy": _engine_graph_check(eng, prompt1, 128, greedy, seed,
+                                           "generate_7b (bf16 greedy)"),
+        "bf16_sampled": _engine_graph_check(eng, prompt1, 64, SamplerParams(), seed + 1,
+                                            "generate_7b (bf16 sampled)"),
+    }
+    del eng
+    torch.cuda.empty_cache()
+    for kv in ("int8", "float32"):
+        other = Engine(cfg, params, EngineConfig(n_ctx=N_CTX, kv_dtype=kv, seed=seed),
+                       device="cuda")
+        for name, sp in (("greedy", greedy), ("sampled", SamplerParams())):
+            streams[f"{kv}_{name}"] = _engine_graph_check(other, prompt1, 32, sp, seed + 2,
+                                                          f"generate_7b ({kv} {name})")
+        graph_stats[f"{kv}_capture_s"] = other.graph_stats()["capture_s"]
+        del other
+        torch.cuda.empty_cache()
+    g = timing["graph"]
     result = {
         "params_s": round(t_params, 3), "kernel_vs_plain": cmp, "limit_rel": LOGIT_REL_LIMIT,
+        "vector_n_past_bit_equal_to_int": {"steps": len(steps), "cache_rows": 36},
         "prefill_tokens": len(prompt1), "prefill_ms": prefill_ms,
         "decode_tokens": n_decode, "decode_ms_per_token": decode_ms,
         "tok_per_s": 1e3 / decode_ms, "k1_launches_per_token": k1_1 / forwards1,
         "turn2_prompt": len(prompt2), "turn2_prefill_ms": turn2_prefill_ms,
         "turn2_tokens": len(out2), "peak_mem_bytes": peak, "launches": counts,
-        "wall_ms_per_step": plain_wall_ms / 8, "profiled_wall_ms_per_step": wall_ms / 8,
-        "device_busy_ms_per_step": None if busy_ms is None else busy_ms / 8,
-        "device_activities_per_step": n_dev / 8,
-        "device_idle_share": None if busy_ms is None else 1 - busy_ms / plain_wall_ms,
+        "wall_ms_per_step": g["wall_ms_per_token"],
+        "profiled_wall_ms_per_step": g["profiled_wall_ms_per_token"],
+        "device_busy_ms_per_step": g["device_busy_ms_per_token"],
+        "device_activities_per_step": g["device_activities_per_step"],
+        "device_idle_share": g["device_idle_share"], "decode_timing": timing,
+        "graph_capture_s": graph_stats["capture_s"], "graph_pool_bytes": graph_stats["pool_bytes"],
+        "graphs": graph_stats, "graph_vs_uncaptured_streams": streams,
     }
     return result, counts
 
@@ -2905,6 +3065,37 @@ def _idle_window(eng, n_vocab: int, gen, prefix: int = -1) -> dict:
     }
 
 
+def _batched_graph_check(cfg, params, bcfg, gen, phase: str, n_tokens: int = 32) -> dict:
+    """32 requests (16-64 prompt tokens, n_tokens out, greedy and seeded
+    sampled alternating) through a BatchedEngine that decodes by its graph
+    and through one on the uncaptured step, at the same seeds: every stream
+    equal token for token. Also the graph's capture time and pool bytes."""
+    from llamavk_tpu_torch.runtime.batching import BatchedEngine
+    from llamavk_tpu_torch.runtime.sampling import SamplerParams
+
+    prompts = [torch.randint(3, cfg.n_vocab, (int(torch.randint(16, 65, (1,), generator=gen)),),
+                             generator=gen).tolist() for _ in range(32)]
+    streams, out = [], {}
+    for plain in (False, True):
+        be = BatchedEngine(cfg, params, bcfg, device="cuda")
+        reqs = [be.submit(p, n_tokens, SamplerParams(temp=0.8 if i % 2 else 0.0), seed=i,
+                          ignore_eos=True) for i, p in enumerate(prompts)]
+        t0 = time.perf_counter()
+        with _uncaptured() if plain else contextlib.nullcontext():
+            be.run()
+        torch.cuda.synchronize()
+        mode = "uncaptured" if plain else "graph"
+        out[f"{mode}_wall_s"] = time.perf_counter() - t0
+        out[f"{mode}_decode_ms_per_step"] = 1e3 * be.stats["t_decode"] / be.stats["steps"]
+        if not plain:
+            out["graph"] = be.graph_stats()
+        streams.append([r.generated for r in reqs])
+        del be, reqs
+        torch.cuda.empty_cache()
+    out["tokens_equal"] = _same_streams(phase, streams[0], streams[1])
+    return out
+
+
 def _shape_report(shapes: dict) -> dict:
     return {
         "k1_shapes": {f"M={m} K={k} N={n}": c for (m, k, n), c in sorted(shapes["q4"].items())},
@@ -2965,9 +3156,15 @@ def phase_serve_7b(seed: int) -> tuple[dict, dict, dict]:
     _require("serve_7b", counts, ("q4_gemm", "attn_update_tc_i8", "attn_read_tc_i8", "decode_i8"))
     idle = _idle_window(srv.engine, cfg.n_vocab, gen)
     shapes = _shapes()
+    graph = srv.engine.graph_stats()
+    del srv
+    gc.collect()  # the server holds reference cycles
+    torch.cuda.empty_cache()
+    streams = _batched_graph_check(cfg, params, bcfg, gen, "serve_7b")
     load["requests"] += 1  # the prefixed one
     result = {"kernel_vs_plain_decode_step": check, "max_tokens": SMOKE_TOKENS, **load,
-              "peak_mem_bytes": peak, "launches": counts, **_shape_report(shapes), **idle}
+              "peak_mem_bytes": peak, "launches": counts, **_shape_report(shapes), **idle,
+              "graph": graph, "graph_vs_uncaptured": streams}
     return result, counts, shapes
 
 
@@ -3124,6 +3321,11 @@ def phase_serve_7b_paged(seed: int) -> tuple[dict, dict, dict]:
     ties = [t for t in ties if t is not None]
     _require("serve_7b_paged", counts, ("q4_gemm", "attn_update_paged_tc_i8", "decode_paged_i8"))
     shapes = _shapes()
+    graph = srv.engine.graph_stats()
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    streams = _batched_graph_check(cfg, params, bcfg, gen, "serve_7b_paged")
     result = {
         "paged_equal_to_flat_kv_block_128": {"requests": len(prompts), "tokens": 32},
         "max_tokens": SMOKE_TOKENS, **load, "pages_total": stats["pages_total"],
@@ -3132,7 +3334,8 @@ def phase_serve_7b_paged(seed: int) -> tuple[dict, dict, dict]:
         "quarter_pool": {"pages_total": qstats["pages_total"], "pages_peak": qstats["pages_peak"],
                          "greedy_streams": len(greedy), "greedy_split_at_near_tie": ties,
                          **quarter},
-        "launches": counts, **_shape_report(shapes), **idle,
+        "launches": counts, **_shape_report(shapes), **idle, "graph": graph,
+        "graph_vs_uncaptured": streams,
     }
     return result, counts, shapes
 
@@ -3264,6 +3467,10 @@ def phase_generate_7b_ring(seed: int) -> tuple[dict, dict]:
     counts = _counts()
     peak = torch.cuda.max_memory_allocated()
     got = _ids(out)[len(prompt):]
+    # the same CLI run through the uncaptured step: equal across the wrap
+    with _uncaptured():
+        uout, _ = _cli_7b(ring + ["-n", str(RING_TOKENS)], cfg, params)
+    graph_equal = _same_streams("generate_7b_ring", [got], [_ids(uout)[len(prompt):]])
     n_plain = N_CTX - len(prompt)  # 480: the plain stream fills the context
     pout, _ = _cli_7b(argv + ["-n", str(n_plain)], cfg, params)
     plain = _ids(pout)[len(prompt):]
@@ -3312,6 +3519,7 @@ def phase_generate_7b_ring(seed: int) -> tuple[dict, dict]:
     result = {
         "prompt_tokens": len(prompt), "tokens": len(got), "ring_keep": RING_KEEP,
         "wrapped_at_token": N_CTX - len(prompt),
+        "graph_vs_uncaptured_tokens_equal": graph_equal,
         "first_tokens_equal_to_plain_greedy": n_plain if split is None else split["token"],
         "split_at_near_tie": split,
         "ms_per_token_before_wrap": before, "ms_per_token_after_wrap": after,

@@ -13,6 +13,7 @@ Nothing is built at import: the first kernel launch, or `build_all`, builds.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -20,6 +21,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "llamavk_tpu_torch"
@@ -36,6 +39,11 @@ SOURCES = ("q4_matmul", "q4_matmul_i8", "flash_attn", "flash_decode", "probe_q4_
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+# CUDA kernels launched by replays of captured CUDA graphs, by library: a
+# replay calls no C launcher, so a library's own counter (one per `<<<>>>`
+# its launchers ran) misses them; `runtime/graphs.py` adds each replay's
+# share here, and each module's `cuda_launches()` adds it to its counter
+replayed: collections.Counter = collections.Counter()
 
 
 def nvcc_path() -> str:
@@ -107,6 +115,17 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_lib_path(name)))
             _libs[name] = lib
         return lib
+
+
+def refuse_while_capturing(device, what: str) -> None:
+    """Raise where per-device state (`what`) would be made or grown while
+    the device's current stream captures a CUDA graph: allocated there, it
+    would come from the graph's private pool, its zeroing would not run
+    until a replay, and eager launches would share it. A step run once
+    uncaptured before the capture makes it."""
+    if torch.device(device).type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{what} must exist before a CUDA graph capture: run the step "
+                           "once uncaptured first")
 
 
 def check(rc: int, what: str) -> None:

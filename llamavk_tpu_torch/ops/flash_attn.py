@@ -193,7 +193,8 @@ def split_grid(cap: int, block_k: int, pool_rows: int = 0, pool_block_k: int = 0
 
 
 # the split route's arrival counters, one zeroed int32 tensor per device,
-# grown when a call needs more; each merge sets its counters back to 0 (the
+# grown when a call needs more (never while a CUDA graph captures: the
+# captured launches and eager ones share them); each merge sets its counters back to 0 (the
 # launches of a device share them in stream order)
 _split_counters: dict[str, torch.Tensor] = {}
 
@@ -211,6 +212,7 @@ def split_workspace(q: torch.Tensor, nx: int):
     ws = torch.empty(b * h * t * nx * (d + 2), dtype=torch.float32, device=q.device)
     cnt = _split_counters.get(str(q.device))
     if cnt is None or cnt.numel() < b * h:
+        _build.refuse_while_capturing(q.device, "the split route's counters")
         cnt = torch.zeros(max(b * h, 1024), dtype=torch.int32, device=q.device)
         _split_counters[str(q.device)] = cnt
     return ws, cnt
@@ -577,8 +579,9 @@ def _lib():
 def cuda_launches() -> int:
     """The CUDA kernels `csrc/flash_attn.cu` has launched in this process
     (every attention kernel and row write), where `launches` counts wrapper
-    calls: the difference over one call is that call's kernel launches."""
-    return _lib().attn_launch_count()
+    calls: the difference over one call is that call's kernel launches.
+    Kernels that CUDA graph replays launched count too (`_build.replayed`)."""
+    return _lib().attn_launch_count() + _build.replayed["flash_attn"]
 
 
 def _on_device(x, q, what: str, dtype=torch.int32, shape=None) -> None:

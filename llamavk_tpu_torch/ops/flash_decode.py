@@ -110,8 +110,8 @@ def _lib():
 
 def cuda_launches() -> int:
     """The CUDA kernels `csrc/flash_decode.cu` has launched in this process
-    (`flash_attn.cuda_launches` for K4)."""
-    return _lib().decode_launch_count()
+    (`flash_attn.cuda_launches` for K4), graph replays' included."""
+    return _lib().decode_launch_count() + _build.replayed["flash_decode"]
 
 
 def flash_decode_update(

@@ -238,8 +238,9 @@ def cuda_launches() -> int:
     """The CUDA kernels `csrc/q4_matmul.cu` has launched in this process
     (the GEMV, the GEMM and the GEMM's split sums), where `launches` counts
     wrapper calls: the difference over one call is that call's kernel
-    launches (one for a GEMV call)."""
-    return _lib().q4_launch_count()
+    launches (one for a GEMV call). Kernels that CUDA graph replays
+    launched count too (`_build.replayed`)."""
+    return _lib().q4_launch_count() + _build.replayed["q4_matmul"]
 
 
 @functools.cache
@@ -278,9 +279,9 @@ def gemv_splits(k: int, n: int, sms: int) -> int:
 
 
 # the GEMV's arrival counters, one zeroed int32 tensor per device, one per
-# 128-column tile, grown when a call needs more; the last block of a tile
-# sets its counter back to 0 (the launches of a device share them in stream
-# order)
+# 128-column tile, grown when a call needs more (never while a CUDA graph
+# captures); the last block of a tile sets its counter back to 0 (the
+# launches of a device share them in stream order)
 _gemv_counters: dict[str, torch.Tensor] = {}
 
 
@@ -289,6 +290,7 @@ def gemv_counters(device: torch.device, n: int) -> torch.Tensor:
     tiles = -(-n // GEMV_BN)
     cnt = _gemv_counters.get(str(device))
     if cnt is None or cnt.numel() < tiles:
+        _build.refuse_while_capturing(device, "the GEMV's counters")
         cnt = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=device)
         _gemv_counters[str(device)] = cnt
     return cnt

@@ -14,14 +14,24 @@ the port keeps this exact graph shape for every path.
 
 from __future__ import annotations
 
+import functools
+
 import torch
+
+
+@functools.cache
+def _inv_freq(head_dim: int, theta_base: float, device: torch.device) -> torch.Tensor:
+    """theta_base^(-i0/d) for the pair indices, computed on the CPU and kept
+    on `device` (made once, so no decode step copies it from the host: a
+    CUDA graph's capture refuses that copy)."""
+    i0 = torch.arange(0, head_dim, 2, dtype=torch.float32)
+    return torch.pow(torch.tensor(theta_base, dtype=torch.float32), -i0 / head_dim).to(device)
 
 
 def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta_base: float = 10000.0):
     """cos/sin tables for given positions. positions: [...] int → [..., d/2] f32."""
-    i0 = torch.arange(0, head_dim, 2, dtype=torch.float32)
-    inv_freq = torch.pow(torch.tensor(theta_base, dtype=torch.float32), -i0 / head_dim)
-    ang = positions.to(torch.float32)[..., None] * inv_freq.to(positions.device)
+    ang = positions.to(torch.float32)[..., None] * _inv_freq(head_dim, theta_base,
+                                                             positions.device)
     return torch.cos(ang), torch.sin(ang)
 
 

@@ -5,9 +5,16 @@ tensor-parallel mesh).
 B request slots decode in lockstep through one batched forward pass per
 step; requests join and leave between decode blocks, and each slot owns a
 region of the KV cache addressed by its own n_past (a per-row position
-vector). A decode block of `block` steps is a Python loop of `llama_forward`
-and `sample_tokens_batched` whose sampled tokens stay on the device; the
-host receives one [B, n_steps] tensor per block. Admission prefills the
+vector). A decode block of `block` steps repeats one step of `llama_forward`
+and `sample_tokens_batched` over static buffers (`_BatchDecode`: the tokens,
+positions and windows of every slot, the block's per-slot sampler
+parameters, the token rows, the page table and prefix operands); its sampled
+tokens stay on the device and the host receives one [B, n_steps] tensor per
+block. On CUDA the step is captured once in a CUDA graph
+(`runtime/graphs.py`; the counterpart of the jitted blocks of
+batching.py:331-410 there) and each step of a block is a replay; the graph
+is the decode path there, and a failed capture or replay raises. The CPU,
+a mesh and the lookup rounds run their steps uncaptured. Admission prefills the
 queued prompts in power-of-two chunks of one bucket length into a scratch
 cache, copies each row into its slot (in place), and samples the first
 tokens on the device; those stay device tensors until the decode block that
@@ -15,9 +22,12 @@ consumes them is queued (`_block_inputs`), and reach the host after it
 (`_finish_admits`). Finished slots keep computing garbage until the block
 ends.
 
-Each slot keeps its own `torch.Generator`, seeded from the request's `seed`
-at admission, and draws one row of noise per sampled token: a request's
-draws depend on its seed and its step, never on its slot or its neighbours.
+Each slot keeps its own `torch.Generator` for the engine's life, reseeded in
+place from the request's `seed` at admission, and draws one row of noise per
+decode step (the rows of greedy and free slots are drawn and unused; the
+admission sample and the lookup rounds draw for sampled slots only): a
+request's draws depend on its seed and its step, never on its slot or its
+neighbours.
 
 Paged KV (`BatchConfig.paged`, batching.py:89-114 and 1039-1557 there): K/V
 live in one pool of pages (`runtime/paged.py`), so KV memory is the pages in
@@ -83,6 +93,7 @@ from ..models.llama import (
 )
 from ..parallel.comm import same_on_every_rank
 from .engine import kv_dtype
+from .graphs import StepGraph
 from .paged import PageAllocator, SlotPages
 from .sampling import SamplerParams, probs_batched_dyn, sample_tokens_batched
 from .speculative import assemble_emitted, first_reject, lookup_draft_batched
@@ -131,6 +142,23 @@ class BatchConfig:
     shared_prefix: bool = False
     prefix_pool: int = 4  # shared-prefix pool entries
     prefix_ctx: int = 256  # pool entry rows (positions; a multiple of 256)
+
+
+@dataclass
+class _BatchDecode:
+    """The static buffers of the batched decode step, and its captured
+    graph once there is one."""
+
+    cur: torch.Tensor  # int64 [B]: each slot's token to evaluate
+    last: torch.Tensor  # int64 [B, W]: the repeat windows
+    npast: torch.Tensor  # int32 [B]: the positions
+    out: torch.Tensor  # int64 [B, block]: the block's sampled tokens
+    step: torch.Tensor  # int64 [1]: the column of `out` the step writes
+    noise: torch.Tensor  # f32 [B, k]: the step's Exp(1) draws, a row per slot
+    top_p: torch.Tensor  # f32 [B] each: the block's per-slot sampler parameters
+    temp: torch.Tensor
+    penalty: torch.Tensor
+    graph: StepGraph | None = None
 
 
 def _rows(plane: torch.Tensor, batch, n: int) -> torch.Tensor:
@@ -202,6 +230,10 @@ class BatchedEngine:
         self.top_p = np.ones(b, np.float32)
         self.temp = np.zeros(b, np.float32)
         self.penalty = np.ones(b, np.float32)
+        # one generator per slot for the engine's life (the decode graph
+        # draws from each), reseeded in place at admission; `gens` names a
+        # sampled slot's, for the admission sample and the lookup rounds
+        self._slot_gens = [torch.Generator(device=self.device) for _ in range(b)]
         self.gens: list[torch.Generator | None] = [None] * b  # sampled slots only
         self.slots: list[Request | None] = [None] * b
         self.queue: list[Request] = []
@@ -227,6 +259,9 @@ class BatchedEngine:
             self.pfx_v = torch.zeros(pool, dtype=torch.bfloat16, device=self.device)
             self.pfx_len = np.zeros(b, np.int32)  # each slot's pool rows
             self.pfx_id = np.zeros(b, np.int32)  # and their entry
+            # their device copies, the decode operands, loaded once a block
+            self._pfx_len_dev = torch.zeros(b, dtype=torch.int32, device=self.device)
+            self._pfx_id_dev = torch.zeros(b, dtype=torch.int32, device=self.device)
         # the lookup history spans logical positions: prefix + suffix when
         # the prefix lives in the pool
         self._ctx_len = bcfg.n_ctx + (bcfg.prefix_ctx if self.shared else 0)
@@ -237,6 +272,7 @@ class BatchedEngine:
             self.stats.update(rounds=0, accepted=0)
             if self.pager is not None:
                 self.stats["straddled"] = 0  # verify writes that crossed a page
+        self._decode: _BatchDecode | None = None
 
     def _mesh_params(self, cfg, params, bcfg, mesh) -> LlamaParams:
         """The checks of a mesh engine (batching.py:186-205 there) and this
@@ -278,8 +314,9 @@ class BatchedEngine:
         without the pool."""
         if not self.shared:
             return {}
-        ids = self.pfx_id if ids is None else ids
-        lens = self.pfx_len if lens is None else lens
+        if ids is None:  # the block's operands (`_load_block`)
+            return dict(prefix_kv=(self.pfx_k, self.pfx_v), prefix_id=self._pfx_id_dev,
+                        prefix_len=self._pfx_len_dev)
         return dict(prefix_kv=(self.pfx_k, self.pfx_v), prefix_id=self._dev(ids, torch.int32),
                     prefix_len=self._dev(lens, torch.int32))
 
@@ -325,10 +362,8 @@ class BatchedEngine:
         self.temp[slot] = req.sp.temp
         self.penalty[slot] = req.sp.repeat_penalty
         self.n_past[slot] = n_past
-        self.gens[slot] = (
-            torch.Generator(device=self.device).manual_seed(req.seed)
-            if req.sp.temp > 0 else None
-        )
+        gen = self._slot_gens[slot].manual_seed(req.seed)  # in place: the graph holds it
+        self.gens[slot] = gen if req.sp.temp > 0 else None
 
     def register_prefix(self, tokens: list[int]) -> int:
         """Prefill a shared prompt prefix (e.g. a system prompt) ONCE and
@@ -612,22 +647,32 @@ class BatchedEngine:
                 self.last_window[slot] = np.roll(self.last_window[slot], -1)
                 self.last_window[slot, -1] = tok
 
-    def _block_inputs(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """(cur_tok [B], last_window [B, W]) decode-block operands on the
-        device: the host arrays with the pending admission chunks' first
-        tokens scattered in on the device (no host sync; _admit_merge of
-        batching.py:649-660 there). A request preempted since its admission
-        (slot -1) is left out: index -1 would land on the last slot."""
-        cur = self._dev(self.cur_tok)
-        last = self._dev(self.last_window)
+    def _block_inputs(self) -> _BatchDecode:
+        """The block's operands loaded into the static buffers
+        (`_decode_state`), one host-to-device copy each: the tokens and
+        windows (the host arrays with the pending admission chunks' first
+        tokens scattered in on the device, no host sync; _admit_merge of
+        batching.py:649-660 there), the positions, the per-slot sampler
+        parameters, the prefix operands, the step index 0. A request
+        preempted since its admission (slot -1) is left out: index -1 would
+        land on the last slot."""
+        st = self._decode_state()
+        if self.shared:
+            self._pfx_id_dev.copy_(torch.from_numpy(self.pfx_id))
+            self._pfx_len_dev.copy_(torch.from_numpy(self.pfx_len))
+        for dst, src in ((st.cur, self.cur_tok), (st.last, self.last_window),
+                         (st.npast, self.n_past), (st.top_p, self.top_p), (st.temp, self.temp),
+                         (st.penalty, self.penalty)):
+            dst.copy_(torch.from_numpy(src))
+        st.step.zero_()
         for chunk, ids in self._pending_admits:
             keep = [j for j, r in enumerate(chunk) if r.slot >= 0]
             if len(keep) < len(chunk):
                 ids = ids[self._dev(keep, torch.int64)]
             rows = self._dev([chunk[j].slot for j in keep], torch.int64)
-            cur[rows] = ids
-            last[rows] = torch.cat([last[rows, 1:], ids[:, None]], dim=1)
-        return cur, last
+            st.cur[rows] = ids
+            st.last[rows] = torch.cat([st.last[rows, 1:], ids[:, None]], dim=1)
+        return st
 
     def _emit(self, req: Request, tok: int) -> None:
         req.generated.append(tok)
@@ -636,22 +681,71 @@ class BatchedEngine:
         if len(req.generated) >= req.n_predict or (not req.ignore_eos and tok == 2):
             req.done = True
 
-    def _decode_block(self, cur, last, n_steps: int):
-        """n_steps batched forward + sample steps; tokens stay on the device.
-        Returns ([B, n_steps] tokens, the final [B, W] windows)."""
-        b = self.bcfg.max_batch
-        slots = list(range(b))
-        npast = self._dev(self.n_past, torch.int32)
+    def _decode_state(self) -> _BatchDecode:
+        """The decode step's static buffers, made at first use."""
+        if self._decode is None:
+            b, w = self.bcfg.max_batch, self.bcfg.repeat_last_n
+            k = min(self.bcfg.top_k, self.cfg.n_vocab) if self.bcfg.top_k > 0 else self.cfg.n_vocab
+
+            def buf(*shape, dtype=torch.int64):
+                return torch.zeros(shape, dtype=dtype, device=self.device)
+
+            f32 = torch.float32
+            self._decode = _BatchDecode(buf(b), buf(b, w), buf(b, dtype=torch.int32),
+                                        buf(b, self.bcfg.block), buf(1), buf(b, k, dtype=f32),
+                                        buf(b, dtype=f32), buf(b, dtype=f32), buf(b, dtype=f32))
+        return self._decode
+
+    def _step(self, st: _BatchDecode, gens) -> None:
+        """One batched decode step on the static buffers: the forward of
+        st.cur at st.npast, one row of noise from each slot's generator in
+        `gens`, the sample, and every buffer advanced in place."""
         kw = {} if self.pager is None else dict(page_table=self._table_dev)
-        kw.update(self._pfx_kw())
-        toks = torch.empty((b, n_steps), dtype=torch.int64, device=self.device)
-        for i in range(n_steps):
-            logits, _, _ = self._fwd(cur[:, None], self.cache, npast, **kw)
-            cur = self._sample(logits[:, -1, :], last, slots)
-            last = torch.cat([last[:, 1:], cur[:, None]], dim=1)
-            toks[:, i] = cur
-            npast = npast + 1
-        return toks, last
+        logits, _, _ = self._fwd(st.cur[:, None], self.cache, st.npast, **kw, **self._pfx_kw())
+        for s, gen in enumerate(gens):
+            st.noise[s].exponential_(generator=gen)
+        tok = sample_tokens_batched(logits[:, -1, :], st.last, st.noise, self.bcfg.top_k,
+                                    st.top_p, st.temp, st.penalty)
+        st.last.copy_(torch.cat([st.last[:, 1:], tok[:, None]], dim=1))
+        st.out.index_copy_(1, st.step, tok[:, None])
+        st.cur.copy_(tok)
+        st.npast.add_(1)
+        st.step.add_(1)
+
+    def _run_uncaptured(self, st: _BatchDecode, n_steps: int) -> None:
+        """The block's steps run one by one: the CPU's and a mesh's decode
+        path, and the plain version a graph's replays are held against on
+        the card."""
+        for _ in range(n_steps):
+            self._step(st, self._slot_gens)
+
+    def _run_block(self, st: _BatchDecode, n_steps: int) -> None:
+        """The block's steps: replays of the step's CUDA graph on one CUDA
+        device (captured at first use), uncaptured on the CPU and under a
+        mesh."""
+        if self.device.type != "cuda" or self.mesh is not None:
+            return self._run_uncaptured(st, n_steps)
+        if st.graph is None:
+            st.graph = StepGraph(lambda gens: self._step(st, gens),
+                                 [st.cur, st.last, st.npast, st.step], self._slot_gens,
+                                 self.device)
+        for _ in range(n_steps):
+            st.graph.replay()
+
+    def _decode_block(self, n_steps: int):
+        """n_steps batched forward + sample steps from the block's inputs
+        (`_block_inputs`); tokens stay on the device. Returns ([B, n_steps]
+        tokens, the final [B, W] windows), views of the static buffers."""
+        st = self._block_inputs()
+        self._run_block(st, n_steps)
+        return st.out[:, :n_steps], st.last
+
+    def graph_stats(self) -> dict:
+        """The captured decode graph: its capture seconds, the bytes its
+        private pool reserved, its replays (zeros before a capture)."""
+        g = self._decode.graph if self._decode is not None else None
+        return {"graphs": int(g is not None), "capture_s": g.capture_s if g else 0.0,
+                "pool_bytes": g.pool_bytes if g else 0, "replays": g.replays if g else 0}
 
     def _check_ranks(self, toks: np.ndarray) -> None:
         """Under a mesh, every rank's step ids (the block's tokens and the
@@ -700,8 +794,8 @@ class BatchedEngine:
                     self._preempt(max(victims, key=lambda s: self.slots[s].rid))
         alloc = self.pager.alloc
         self.stats["pages_peak"] = max(self.stats["pages_peak"], alloc.n_pages - alloc.n_free)
-        if self.pager.dirty:
-            self._table_dev = self._dev(self.pager.table)
+        if self.pager.dirty:  # into the one table the decode graph reads
+            self._table_dev.copy_(torch.from_numpy(self.pager.table))
             self.pager.dirty = False
 
     def step(self) -> list[Request]:
@@ -724,8 +818,7 @@ class BatchedEngine:
         if self.pager is not None:
             self._ensure_block_pages(n_steps)
         t0 = time.perf_counter()
-        cur, last = self._block_inputs()
-        toks, last = self._decode_block(cur, last, n_steps)
+        toks, last = self._decode_block(n_steps)
         self._finish_admits()  # the block is queued on the device already
         toks = toks.cpu().numpy()  # [B, n_steps]: the block's one host read
         self._check_ranks(toks)
@@ -824,9 +917,9 @@ class BatchedEngine:
             self._ensure_block_pages(n_steps, g)
         sampled = any(req is not None and req.sp.temp > 0 for req in self.slots)
         t0 = time.perf_counter()
-        cur, last = self._block_inputs()
-        npast = self._dev(self.n_past, torch.int32)
-        params = [self._dev(a) for a in (self.top_p, self.temp, self.penalty)] if sampled else None
+        st = self._block_inputs()
+        cur, last, npast = st.cur, st.last, st.npast
+        params = (st.top_p, st.temp, st.penalty) if sampled else None
         ems, cnts = [], []
         for _ in range(n_steps):
             emitted, count, cur, npast, last = self._lookup_round(cur, last, npast, g, params)

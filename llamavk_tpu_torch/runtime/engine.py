@@ -6,13 +6,24 @@ tensor; the host receives one [n_steps] tensor of token ids per decode block,
 never a per-step `.item()`. The KV cache is updated in place. The API mirrors
 llama.h: eval / sample / get-set-kv-cache / timings.
 
+A decode step is one forward and one sample over static buffers (`_Decode`:
+the position as an int32 [1] device tensor, the current token, the repeat
+window, the block's token row and the step index), all advanced in place.
+On CUDA it is captured once in a CUDA graph (`runtime/graphs.py`) per
+`SamplerParams`, the static arguments of JAX's jitted block
+(`make_decode_block`, engine.py:93-125 there), and a block of n tokens is n
+replays: the budget stays exact, never snapped to a power of two. The graph
+is the decode path on CUDA; a failed capture or replay raises. The CPU runs
+the same step uncaptured. The graphs hold the cache's addresses and the
+generator: `reset`, `restore_session` and `set_seed` write into the live
+cache and generator, never replace them.
+
 The KV cache is bf16, int8 or f32 (`EngineConfig.kv_dtype`; f32 is the
 llama.h API's `f16_kv = false`). With `ctx_ring` (any of the three)
 it is a history ring (engine.py:149-185 there): the first `ring_keep` rows
 stay pinned and the rest recycle, so generation runs past n_ctx with no
-swap and no re-evaluation; each eval chunk stops at the ring's end.
-Capturing the decode step in a CUDA graph is later work; the ggml numerics
-oracle is not ported yet. Activations are bf16.
+swap and no re-evaluation; each eval chunk stops at the ring's end. The
+ggml numerics oracle is not ported yet. Activations are bf16.
 """
 
 from __future__ import annotations
@@ -34,6 +45,7 @@ from ..models.llama import (
     ring_phys,
 )
 from ..ops.flash_attn import kv_step
+from .graphs import StepGraph
 from .sampling import SamplerParams, sample_token
 
 
@@ -103,6 +115,19 @@ def kv_dtype(name: str, n_ctx: int) -> torch.dtype:
     return types[name]
 
 
+@dataclass
+class _Decode:
+    """The static buffers of one decode step (one per SamplerParams), and
+    its captured graph once there is one."""
+
+    n_past: torch.Tensor  # int32 [1]: the step's position
+    tok: torch.Tensor  # int64 [1]: the token the step evaluates
+    last: torch.Tensor  # int64 [W]: the repeat window
+    out: torch.Tensor  # int64 [decode_block]: the block's sampled tokens
+    step: torch.Tensor  # int64 [1]: the row of `out` the step writes
+    graph: StepGraph | None = None
+
+
 class Engine:
     def __init__(
         self,
@@ -119,26 +144,42 @@ class Engine:
         self.params = params
         self.ecfg = ecfg
         self.timings = Timings()
+        self.cache = init_kv_cache(cfg, 1, ecfg.n_ctx, self.kv_dtype, self.device,
+                                   ring=ecfg.ctx_ring)
+        self.generator = torch.Generator(device=self.device)
+        self._decodes: dict[SamplerParams, _Decode] = {}
+        self._cache_ptrs = self._addresses()
         self.reset()
 
     # --- state ---------------------------------------------------------
 
     def reset(self) -> None:
-        self.cache = init_kv_cache(self.cfg, 1, self.ecfg.n_ctx, self.kv_dtype, self.device,
-                                   ring=self.ecfg.ctx_ring)
+        """An empty context: the live cache zeroed in place (a ring's
+        positions emptied), the generator reseeded with ecfg.seed."""
+        for plane in self.cache.planes():
+            plane.zero_()
+        if self.cache.ring:
+            self.cache.pos.fill_(-1)
         self.n_past = 0
         self.tokens: list[int] = []
         self._last_emb: torch.Tensor | None = None
         self.set_seed(self.ecfg.seed)
 
+    def _addresses(self) -> list[int]:
+        """The cache's tensor addresses, which the captured graphs hold."""
+        return [t.data_ptr() for t in self.cache.planes() + [self.cache.pos]
+                if t is not None]
+
     def set_seed(self, seed: int) -> None:
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        """Reseed the engine's generator in place (the captured graphs draw
+        from it)."""
+        self.generator.manual_seed(seed)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _forward(self, tokens: torch.Tensor, n_past: int, **kw):
+    def _forward(self, tokens: torch.Tensor, n_past: int | torch.Tensor, **kw):
         return llama_forward(self.params, tokens, self.cache, n_past, self.cfg,
                              ring_keep=self.ecfg.ring_keep, **kw)
 
@@ -219,17 +260,70 @@ class Engine:
 
     # --- generation ------------------------------------------------------
 
+    def _decode_state(self, sp: SamplerParams, w: int) -> _Decode:
+        """The static buffers of `sp`'s decode step (a window of w tokens)."""
+        st = self._decodes.get(sp)
+        if st is None:
+            def buf(n, dtype=torch.int64):
+                return torch.zeros(n, dtype=dtype, device=self.device)
+
+            st = _Decode(buf(1, torch.int32), buf(1), buf(w), buf(self.ecfg.decode_block), buf(1))
+            self._decodes[sp] = st
+        return st
+
+    def _step(self, st: _Decode, sp: SamplerParams, generator: torch.Generator) -> None:
+        """One decode step on the static buffers: the forward of st.tok at
+        st.n_past, a sample, and every buffer advanced in place. No host
+        value changes from step to step."""
+        logits, _, _ = self._forward(st.tok.view(1, 1), st.n_past)
+        tok = sample_token(logits[0, -1], st.last, generator, sp).view(1)
+        st.last.copy_(torch.cat([st.last[1:], tok]))
+        st.out.index_copy_(0, st.step, tok)
+        st.tok.copy_(tok)
+        st.n_past.add_(1)
+        st.step.add_(1)
+
+    def _run_uncaptured(self, st: _Decode, sp: SamplerParams, n_steps: int) -> None:
+        """The block's steps run one by one: the CPU's decode path, and the
+        plain version a graph's replays are held against on the card."""
+        for _ in range(n_steps):
+            self._step(st, sp, self.generator)
+
+    def _run_block(self, st: _Decode, sp: SamplerParams, n_steps: int) -> None:
+        """The block's steps: replays of the step's CUDA graph on CUDA
+        (captured at first use), uncaptured on the CPU."""
+        if self.device.type != "cuda":
+            return self._run_uncaptured(st, sp, n_steps)
+        if self._addresses() != self._cache_ptrs:
+            raise RuntimeError("Engine: the KV cache was replaced; the decode graphs hold the "
+                               "first cache's addresses (write into it instead)")
+        if st.graph is None:
+            st.graph = StepGraph(lambda gens: self._step(st, sp, gens[0]),
+                                 [st.n_past, st.tok, st.last, st.step], [self.generator],
+                                 self.device)
+        for _ in range(n_steps):
+            st.graph.replay()
+
     def _decode_block(self, tok: torch.Tensor, last: torch.Tensor, sp: SamplerParams,
                       n_steps: int):
-        """n_steps forward + sample steps; the token never leaves the device."""
-        toks = torch.empty(n_steps, dtype=torch.int64, device=self.device)
-        for i in range(n_steps):
-            logits, self.cache, _ = self._forward(tok.view(1, 1), self.n_past + i)
-            tok = sample_token(logits[0, -1], last, self.generator, sp)
-            last = torch.roll(last, -1)
-            last[-1] = tok
-            toks[i] = tok
-        return toks, last
+        """n_steps forward + sample steps from `tok` at self.n_past; the
+        token never leaves the device. Returns ([n_steps] tokens, the final
+        window), views of the static buffers."""
+        st = self._decode_state(sp, last.shape[0])
+        st.n_past.fill_(self.n_past)
+        st.tok.copy_(tok.view(1))
+        st.last.copy_(last)
+        st.step.zero_()
+        self._run_block(st, sp, n_steps)
+        return st.out[:n_steps], st.last
+
+    def graph_stats(self) -> dict:
+        """The captured decode graphs: how many, their capture seconds and
+        the bytes their private pools reserved, summed."""
+        graphs = [st.graph for st in self._decodes.values() if st.graph is not None]
+        return {"graphs": len(graphs), "capture_s": sum(g.capture_s for g in graphs),
+                "pool_bytes": sum(g.pool_bytes for g in graphs),
+                "replays": sum(g.replays for g in graphs)}
 
     def generate(
         self,
@@ -310,6 +404,16 @@ class Engine:
                             k_scale=c.k_scale, v_scale=c.v_scale, pos=c.pos)
 
     def restore_session(self, s: SessionState) -> None:
-        self.cache = KVCache(s.k, s.v, s.k_scale, s.v_scale, s.pos).clone()
+        """Copy the snapshot into the live cache (same shapes and types; any
+        device): its tensors stay where the captured graphs hold them."""
+        saved = KVCache(s.k, s.v, s.k_scale, s.v_scale, s.pos)
+        if (saved.quantized != self.cache.quantized or saved.ring != self.cache.ring
+                or any(a.shape != b.shape or a.dtype != b.dtype
+                       for a, b in zip(saved.planes(), self.cache.planes()))):
+            raise ValueError("restore_session: the snapshot does not fit this engine's cache")
+        for dst, src in zip(self.cache.planes(), saved.planes()):
+            dst.copy_(src)
+        if self.cache.ring:
+            self.cache.pos.copy_(s.pos)
         self.n_past = s.n_past
         self.tokens = list(s.tokens)

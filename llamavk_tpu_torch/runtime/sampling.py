@@ -44,7 +44,7 @@ def _apply_repeat_penalty(
     # padding (-1) scatters into a spare slot V that is cut off
     idx = torch.where(last_tokens >= 0, last_tokens, v).to(torch.int64)
     seen = torch.zeros(v + 1, dtype=torch.bool, device=logits.device)
-    seen[idx] = True
+    seen.scatter_(0, idx, True)  # no host value: a CUDA graph captures it
     seen = seen[:v]
     scaled = logits * scale
     penalized = torch.where(logits < 0.0, scaled * repeat_penalty, scaled / repeat_penalty)
@@ -78,7 +78,8 @@ def sample_token(
     # exponential race: argmax p_i / E_i with E_i ~ Exp(1) draws i with
     # probability p_i / sum(p) — a categorical draw that never syncs the host
     e = torch.empty_like(probs).exponential_(generator=generator).clamp_min(1e-30)
-    return top_idx[torch.argmax(probs / e)]
+    # a gather, not an index by a 0-dim tensor (which reads it on the host)
+    return top_idx.gather(0, torch.argmax(probs / e).view(1)).view(())
 
 
 def probs_from_logits(
